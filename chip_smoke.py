@@ -7,18 +7,22 @@ Phases (any failure raises, and the script exits non-zero with no result):
 
 1. card: name and power limit as nvidia-smi reports them;
 2. build: nvcc compiles every kernel of ``expecto_tpu_torch/csrc`` for
-   sm_90a, one process per source, all at once;
+   sm_90a, one process per source, all at once; the tensor-core kernel's
+   SASS must hold HGMMA instructions (``cuobjdump -sass``);
 3. kernels: ``conv8_relu`` at every shape it runs in one substitution chunk
    of the main path (227 variants; maxshift 800: the six Beluga layers over
-   the 3,600-bp span and over the alt allele's patch sub-span) in fp32 and
-   bf16, held against its plain PyTorch version on the same inputs, and
-   timed beside the plain version and cuDNN's ``F.conv1d`` (a yardstick
-   only: the port never calls it);
+   the 3,600-bp span and over the alt allele's patch sub-span), fp32 on the
+   SIMT kernel, bf16 on the tensor-core kernel (conv1-conv5) and on the SIMT
+   kernel, each held against the plain PyTorch version on the same inputs
+   and timed beside it and cuDNN's ``F.conv1d`` (a yardstick only: the port
+   never calls it);
 4. main path: ``python -m expecto_tpu_torch.cli.score`` (its ``main``) at
    Beluga's published widths with seeded random weights, 218 seeded tissue
    models, maxshift 800, default bf16 compute and fp16 wire, on ~1,024
    substitutions, ~128 indels and 4 contig-edge rows of a seeded genome;
-   launch counts are zeroed just before and read just after; then warm
+   launch counts are zeroed just before and read just after (both kernels
+   launched, every bf16 SIMT launch a conv0, the route counts adding up to
+   the total); then warm
    repeats of the same serving call give the throughput;
 5. parity: a few of those variants scored with ``--fp32`` on the card and on
    the CPU (plain path), REF/ALT/SED compared.
@@ -133,12 +137,23 @@ def chunk_launches() -> Counter:
     return tally
 
 
+def _bound(n: int, l_out: int, cin: int, cout: int, nbytes: int, tag: str) -> dict:
+    flops = 2.0 * n * l_out * cin * cout * 8
+    bytes_ms, ops_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_FLOPS[tag]
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
+
+
 def kernel_phase(report: dict) -> None:
+    """Every shape of a substitution chunk: fp32 on the SIMT kernel; bf16 on
+    the route the main path takes (tc for Cin % 16 == 0, else SIMT) and on
+    the SIMT kernel too, so the redesign shows shape by shape. Each launch
+    is held against the fp32 plain version on the same inputs."""
     import torch
     import torch.nn.functional as F
 
     from expecto_tpu_torch.models.beluga import CONV_SPECS
-    from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain
+    from expecto_tpu_torch.ops.conv8 import _route, conv8_relu, conv8_relu_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -154,42 +169,46 @@ def kernel_phase(report: dict) -> None:
         w32 = torch.randn((8, cin, cout), generator=gen, device=dev) / (8 * cin) ** 0.5
         b32 = torch.randn((cout,), generator=gen, device=dev) * 0.1
         l_out = length - 7
-        flops = 2.0 * n * l_out * cin * cout * 8
         row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             x, w, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
-            y = conv8_relu(x, w, b)
-            torch.cuda.synchronize()
             want = conv8_relu_plain(x.float(), w.float(), b.float())
-            err = (y.float() - want).abs()
             atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
-            ok = bool((err <= atol + rtol * want.abs()).all())
-            max_err = float(err.max())
-            if not ok:
-                raise AssertionError(f"conv8_relu {tag} {name} disagrees with the plain version: max |err| {max_err}")
-            del y, want, err
+            main_route = _route("cuda", dtype, cin, x.data_ptr())
+            routes = [main_route] + (["simt"] if main_route != "simt" else [])
             xt = x.transpose(1, 2).contiguous()
             wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
-            size = x.element_size()
-            nbytes = (x.numel() + w.numel() + b.numel() + n * l_out * cout) * size
-            row[tag] = {
-                "max_abs_err": max_err,
-                "ms": cuda_ms(lambda: conv8_relu(x, w, b)),
-                "plain_ms": cuda_ms(lambda: conv8_relu_plain(x, w, b)),
-                "library_ms": cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b))),
-                "bytes_ms": 1e3 * nbytes / PEAK_BYTES,
-                "ops_ms": 1e3 * flops / PEAK_FLOPS[tag],
-                "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[tag]),
-                "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FLOPS[tag] else "operations",
-            }
-            del x, w, b, xt, wt
-        log(f"kernel conv8_relu {name} N={n} L={length} {cin}->{cout} x{per_chunk} per chunk: "
-            + "; ".join(f"{t} err {row[t]['max_abs_err']:.3g} kernel {row[t]['ms']:.3f} ms plain {row[t]['plain_ms']:.3f} ms "
-                        f"conv1d {row[t]['library_ms']:.3f} ms bound {row[t]['bound_ms']:.3f} ms ({row[t]['bound_by']})"
-                        for t in ("fp32", "bf16")))
+            nbytes = (x.numel() + w.numel() + b.numel() + n * l_out * cout) * x.element_size()
+            cell = {"route": main_route, **_bound(n, l_out, cin, cout, nbytes, tag),
+                    "plain_ms": cuda_ms(lambda: conv8_relu_plain(x, w, b)),
+                    "library_ms": cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b)))}
+            for route in routes:
+                y = conv8_relu(x, w, b, route=route)
+                torch.cuda.synchronize()
+                err = (y.float() - want).abs()
+                max_err = float(err.max())
+                if not bool((err <= atol + rtol * want.abs()).all()):
+                    raise AssertionError(f"conv8_relu {route} {tag} {name} L={length} disagrees with the plain "
+                                         f"version: max |err| {max_err}")
+                cell[route] = {"ms": cuda_ms(lambda r=route: conv8_relu(x, w, b, route=r)), "max_abs_err": max_err}
+                del y, err
+            cell["ms"], cell["max_abs_err"] = cell[main_route]["ms"], cell[main_route]["max_abs_err"]
+            row[tag] = cell
+            del x, w, b, xt, wt, want
+        bf = row["bf16"]
+        log(f"kernel conv8_relu {name} N={n} L={length} {cin}->{cout} x{per_chunk} per chunk: bf16 "
+            + (f"tc {bf['tc']['ms']:.3f} ms (err {bf['tc']['max_abs_err']:.3g}) " if "tc" in bf else "")
+            + f"simt {bf['simt']['ms']:.3f} ms (err {bf['simt']['max_abs_err']:.3g}) plain {bf['plain_ms']:.3f} ms "
+            f"conv1d {bf['library_ms']:.3f} ms bound {bf['bound_ms']:.3f} ms ({bf['bound_by']}); fp32 simt "
+            f"{row['fp32']['ms']:.3f} ms (err {row['fp32']['max_abs_err']:.3g}) bound {row['fp32']['bound_ms']:.3f} ms")
         rows.append(row)
         torch.cuda.empty_cache()
     report["conv8_layers"] = rows
+    chunk = {k: sum(r["bf16"][k] * r["launches_per_chunk"] for r in rows) for k in ("ms", "library_ms", "bound_ms")}
+    chunk["simt_ms"] = sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in rows)
+    report["conv8_chunk_bf16"] = chunk
+    log(f"bf16 chunk ({sum(r['launches_per_chunk'] for r in rows)} launches): main-path routes {chunk['ms']:.3f} ms, "
+        f"all on simt {chunk['simt_ms']:.3f} ms, F.conv1d {chunk['library_ms']:.3f} ms, bound {chunk['bound_ms']:.3f} ms")
 
 
 def make_inputs(seed: int) -> dict:
@@ -300,30 +319,37 @@ def main_path_phase(report: dict, inputs: dict, card: str) -> None:
     import torch
 
     from expecto_tpu_torch.cli.score import main as score_main
-    from expecto_tpu_torch.ops.conv8 import conv8_relu
+    from expecto_tpu_torch.ops.conv8 import conv8_relu, reset_launch_counts
 
     out_csv = WORK / "output.csv"
     torch.cuda.reset_peak_memory_stats()
-    conv8_relu.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     rc = score_main(score_args(WORK / "variants.vcf", WORK / "genes.tsv", "--output", str(out_csv)))
     wall = time.perf_counter() - t0
-    launches = conv8_relu.launches
+    launches, by_route = conv8_relu.launches, dict(conv8_relu.launches_by_route)
+    by_kind = {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in sorted(conv8_relu.launches_by_kind.items())}
     if rc != 0:
         raise AssertionError(f"score CLI returned {rc}")
-    if launches <= 0:
-        raise AssertionError("the main path launched no conv8_relu kernel")
+    if by_route["tc"] <= 0 or by_route["simt"] <= 0:
+        raise AssertionError(f"the main path left a conv8_relu kernel unlaunched: {by_route}")
+    if sum(by_route.values()) != launches:
+        raise AssertionError(f"route counts {by_route} do not add up to {launches} launches")
+    stray = [k for k in conv8_relu.launches_by_kind if k[0] == "simt" and k[1] == "bfloat16" and k[2] != 4]
+    if stray:
+        raise AssertionError(f"bf16 convs other than conv0 ran on the simt kernel: {stray}")
     _df, ref, _alt, sed = check_output(out_csv, inputs["n_rows"])
     n_var = len(inputs["variants"])
     report["main_path"] = {
         "variants": n_var, "rows": inputs["n_rows"], "models": N_MODELS, "maxshift": MAXSHIFT,
-        "cli_wall_s": wall, "conv8_relu_launches": launches,
+        "cli_wall_s": wall, "conv8_relu_launches": launches, "conv8_relu_launches_by_route": by_route,
+        "conv8_relu_launches_by_kind": by_kind,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
         "sed_abs_max": float(np.abs(sed).max()), "ref_abs_max": float(np.abs(ref).max()),
     }
     log(f"main path: {n_var} variants, {inputs['n_rows']} (variant, gene) rows x {N_MODELS} models in {wall:.2f} s "
         f"(CLI incl. weight load) = {inputs['n_rows'] / wall:.1f} rows/s, {n_var / wall:.1f} variants/s; "
-        f"conv8_relu launches {launches} [{card}]")
+        f"conv8_relu launches {launches} {by_route} {by_kind} [{card}]")
     report["main_path"]["serve_wall_s"] = serve_repeats(inputs, card)
 
 
@@ -403,34 +429,46 @@ def parity_phase(report: dict, inputs: dict) -> None:
 
 
 def kernel_table(report: dict) -> dict:
-    """The kernel line: conv8_relu over every launch of one substitution
-    chunk (each shape weighted by its launches there), bf16 as the main path
-    runs it; per-shape numbers in ``layers``."""
+    """The kernel line: one entry per hand-written kernel, over the launches
+    of one substitution chunk that the main path gives it in bf16 (each
+    shape weighted by its launches there): the tc kernel at conv1-conv5, the
+    SIMT kernel at conv0. ``launches`` is the main path's count by route;
+    per-shape numbers in ``layers``."""
     layers = report["conv8_layers"]
+    by_route = report["main_path"]["conv8_relu_launches_by_route"]
 
-    def total(key, tag="bf16"):
-        return sum(r[tag][key] * r["launches_per_chunk"] for r in layers)
+    def entry(name, route, source, rows, **extra):
+        def total(key):
+            return sum(r["bf16"][key] * r["launches_per_chunk"] for r in rows)
 
-    return {"kernels": [{
-        "name": "conv8_relu",
-        "route": "cuda",
-        "source": "expecto_tpu_torch/csrc/conv8_relu.cu",
-        "replaces": "expecto_tpu/ops/pallas_conv.py:49",
-        "launches": report["main_path"]["conv8_relu_launches"],
-        "max_abs_err": max(r["bf16"]["max_abs_err"] for r in layers),
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
-        "library_ms": total("library_ms"),
-        "max_err_fp32": max(r["fp32"]["max_abs_err"] for r in layers),
-        "max_err_bf16": max(r["bf16"]["max_abs_err"] for r in layers),
-        "layers": [{"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
-                    "launches_per_chunk": r["launches_per_chunk"],
-                    **{f"{t}_{k}": r[t][k] for t in ("fp32", "bf16")
-                       for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}}
-                   for r in layers],
-    }]}
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "expecto_tpu/ops/pallas_conv.py:49",
+            "launches": by_route[route],
+            "max_abs_err": max(r["bf16"][route]["max_abs_err"] for r in rows),
+            "ms": sum(r["bf16"][route]["ms"] * r["launches_per_chunk"] for r in rows),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
+            "library_ms": total("library_ms"), **extra,
+        }
+
+    tc_rows = [r for r in layers if r["bf16"]["route"] == "tc"]
+    simt_rows = [r for r in layers if r["bf16"]["route"] == "simt"]
+    return {"kernels": [
+        entry("conv8_relu_tc", "tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", tc_rows,
+              sass_hgmma=report["sass_hgmma"]),
+        entry("conv8_relu", "simt", "expecto_tpu_torch/csrc/conv8_relu.cu", simt_rows,
+              max_err_fp32=max(r["fp32"]["max_abs_err"] for r in layers),
+              fp32_chunk_ms=sum(r["fp32"]["ms"] * r["launches_per_chunk"] for r in layers),
+              bf16_all_shapes_ms=report["conv8_chunk_bf16"]["simt_ms"]),
+    ], "layers": [
+        {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
+         "launches_per_chunk": r["launches_per_chunk"], "bf16_route": r["bf16"]["route"],
+         "bf16_tc_ms": r["bf16"]["tc"]["ms"] if "tc" in r["bf16"] else None,
+         "bf16_simt_ms": r["bf16"]["simt"]["ms"],
+         **{f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+         "fp32_simt_ms": r["fp32"]["ms"]}
+        for r in layers]}
 
 
 def main(argv=None) -> int:
@@ -459,6 +497,10 @@ def main(argv=None) -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
+    report["sass_hgmma"] = cuda_build.sass_count("conv8_relu_tc", "HGMMA")
+    log(f"csrc/conv8_relu_tc.cu SASS: {report['sass_hgmma']} HGMMA instructions")
+    if report["sass_hgmma"] == 0:
+        raise AssertionError("the tc kernel's SASS holds no HGMMA (tensor-core) instruction")
     log(f"build phase {report['build_s']:.1f} s")
 
     t0 = time.perf_counter()
@@ -478,7 +520,7 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         (Path(args.out) / "chip_smoke.json").write_text(json.dumps({**report, **table}, indent=1))
-    print(json.dumps(table), flush=True)
+    print(json.dumps({"kernels": table["kernels"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

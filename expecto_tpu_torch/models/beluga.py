@@ -12,7 +12,7 @@ Architecture (reference Beluga.py:18-51): six valid 1-D convolutions of width
 Layouts are the JAX package's: channels-last (N, L, C) activations, WIO
 ``(8, in, out)`` conv kernels and a length-major flatten, so the npz weights
 of models/convert.py load unchanged. Every conv goes through
-:func:`expecto_tpu_torch.ops.conv8.conv8_relu`, the hand-written CUDA kernel
+:func:`expecto_tpu_torch.ops.conv8.conv8_relu`, a hand-written CUDA kernel
 on the card. Parameters are a plain dict
 ``{"conv{i}": {"w", "b"}, "fc1": {"w", "b"}, "fc2": {"w", "b"}}`` of tensors.
 """

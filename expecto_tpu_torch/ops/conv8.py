@@ -3,23 +3,39 @@
     y[:, l, :] = relu( sum_k  x[:, l+k, :] @ W[k]  + b ),   k < 8
 
 x (N, L, Cin), W (8, Cin, Cout), b (Cout) -> (N, L-7, Cout), channels last
-as in the JAX package. :func:`conv8_relu` launches the hand-written CUDA
-kernel ``csrc/conv8_relu.cu`` for CUDA tensors (the port of the TPU kernel
-``expecto_tpu/ops/pallas_conv.py::conv8_relu``) and runs
-:func:`conv8_relu_plain` only for tensors on the CPU.
+as in the JAX package. Two hand-written CUDA kernels port the TPU kernel
+``expecto_tpu/ops/pallas_conv.py::conv8_relu``; :func:`conv8_relu` picks one
+by :func:`_route`, a pure function of device, dtype, Cin and alignment:
+
+- ``"tc"``: ``csrc/conv8_relu_tc.cu``, bf16 on the tensor cores (wgmma, TMA),
+  for bf16 x with Cin % 16 == 0 and a 16-byte-aligned data pointer (TMA's
+  rule): Beluga's conv1-conv5 on the main path;
+- ``"simt"``: ``csrc/conv8_relu.cu``, fp32 FMA on the CUDA cores, for fp32
+  (parity mode) and every other bf16 input, conv0 (Cin = 4) among them;
+- ``"cpu"``: :func:`conv8_relu_plain`, only for tensors on the CPU.
+
+A CUDA tensor launches its route's kernel or raises: no route falls back to
+another on a failure.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
+from collections import Counter
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
 
 KERNEL_W = 8
+ROUTES = ("simt", "tc")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BATCH = 65535  # the launcher puts the batch on grid.z
+_SIMT_MAX_BATCH = 65535  # the SIMT launcher puts the batch on grid.z
+_TC_KC = 16  # input channels per stage of the tc kernel
+_TC_BN = 160  # output channels per tile of the tc kernel
+_TC_MAX_ROWS = 2**31 - 1  # N * L, the tc kernel's flat row index is an int
 
 
 def conv8_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,13 +51,62 @@ def conv8_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
     return torch.relu(y + b)
 
 
-def _lib():
-    lib = cuda_build.load("conv8_relu")
-    if lib.conv8_relu_launch.argtypes is None:
+def conv8_relu_flat_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The tc kernel's indexing in plain PyTorch: the conv over x as one
+    (N*L, Cin) sequence, of which flat row n*L + l is kept for l < L-7 (the
+    7 rows a span that straddle two spans are dropped)."""
+    n, l, _cin = x.shape
+    y = conv8_relu_plain(x.reshape(1, n * l, -1), w, b)[0]
+    y = F.pad(y, (0, 0, 0, KERNEL_W - 1))  # back to N*L rows
+    return y.reshape(n, l, -1)[:, : l - KERNEL_W + 1]
+
+
+def pack_weights_tc(w: torch.Tensor) -> torch.Tensor:
+    """W (8, Cin, Cout) in the tc kernel's layout: (Cout/160, Cin/16, 8 taps,
+    2, 160, 8), one contiguous shared-memory stage per (Cout tile, Cin
+    chunk), each tap two K-major 8-channel columns of 160 output channels;
+    Cout is zero-padded to a multiple of 160."""
+    kw, cin, cout = w.shape
+    if kw != KERNEL_W or cin % _TC_KC:
+        raise ValueError(f"the tc kernel packs W (8, Cin % {_TC_KC} == 0, Cout), got {tuple(w.shape)}")
+    tiles = -(-cout // _TC_BN)
+    wp = F.pad(w, (0, tiles * _TC_BN - cout))
+    wp = wp.reshape(KERNEL_W, cin // _TC_KC, 2, 8, tiles, _TC_BN)  # tap, chunk, group, e, tile, n
+    return wp.permute(4, 1, 0, 2, 5, 3).contiguous()
+
+
+_PACKED: dict[int, tuple] = {}  # id(W) -> (weakref to W, W._version, packed W)
+
+
+def _packed(w: torch.Tensor) -> torch.Tensor:
+    """pack_weights_tc(w), kept while w lives and is not written to: the
+    weights of a runner are packed once, not at every launch."""
+    hit = _PACKED.get(id(w))
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    key = id(w)
+    _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, pack_weights_tc(w))
+    return _PACKED[key][2]
+
+
+def _route(device_type: str, dtype: torch.dtype, cin: int, data_ptr: int) -> str:
+    """Which implementation runs x of this device type, dtype, channel count
+    and data pointer: "cpu", "simt" or "tc" (module docstring)."""
+    if device_type == "cpu":
+        return "cpu"
+    if dtype == torch.bfloat16 and cin % _TC_KC == 0 and data_ptr % 16 == 0:
+        return "tc"
+    return "simt"
+
+
+def _lib(name: str, nargs: int):
+    lib = cuda_build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv8_relu_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
-        lib.conv8_relu_launch.restype = ctypes.c_int
-    return lib
+        fn.argtypes = [vp] * 4 + [i] * nargs + [vp]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
@@ -59,34 +124,63 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"conv8_relu shape mismatch: x {tuple(x.shape)}, W {tuple(w.shape)}, b {tuple(b.shape)}")
     if l < KERNEL_W:
         raise ValueError(f"input length {l} is shorter than the kernel width {KERNEL_W}")
-    if not 0 < n <= _MAX_BATCH:
-        raise ValueError(f"conv8_relu takes 1..{_MAX_BATCH} rows, got {n}")
+    if n <= 0:
+        raise ValueError("conv8_relu takes at least one row")
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("conv8_relu needs contiguous x, W and b")
 
 
-def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """relu(conv_valid_w8(x, W) + b): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Raises on anything the kernel does not
-    take (dtype, device, shape, contiguity) and if its launch fails."""
+def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str | None = None) -> torch.Tensor:
+    """relu(conv_valid_w8(x, W) + b): a CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. ``route`` ("simt" or "tc") overrides
+    :func:`_route` for CUDA tensors, for timing one kernel against the other;
+    a route that does not take the input raises. Raises on anything the
+    kernels do not take (dtype, device, shape, contiguity) and if a launch
+    fails."""
     if x.device.type == "cpu":
+        if route not in (None, "cpu"):
+            raise ValueError(f"route {route!r} needs CUDA tensors")
         return conv8_relu_plain(x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"conv8_relu runs on CUDA or CPU tensors, got {x.device}")
     _check(x, w, b)
     n, l, cin = x.shape
     cout = w.shape[2]
+    auto = _route(x.device.type, x.dtype, cin, x.data_ptr())
+    route = auto if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"unknown conv8_relu route {route!r}")
+    if route == "tc" and auto != "tc":
+        raise ValueError(f"the tc kernel takes 16-byte-aligned bf16 x with Cin % {_TC_KC} == 0, got {x.dtype}, "
+                         f"Cin {cin}, data pointer {x.data_ptr():#x}")
+    if route == "simt" and n > _SIMT_MAX_BATCH:
+        raise ValueError(f"the simt kernel takes 1..{_SIMT_MAX_BATCH} rows, got {n}")
+    if route == "tc" and n * l > _TC_MAX_ROWS:
+        raise ValueError(f"the tc kernel takes N * L <= {_TC_MAX_ROWS}, got {n * l}")
     y = torch.empty((n, l - KERNEL_W + 1, cout), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
-        err = _lib().conv8_relu_launch(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            n, l, cin, cout, _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "tc":
+            err = _lib("conv8_relu_tc", 4)(x.data_ptr(), _packed(w).data_ptr(), b.data_ptr(), y.data_ptr(),
+                                           n, l, cin, cout, stream)
+        else:
+            err = _lib("conv8_relu", 5)(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                        n, l, cin, cout, _DTYPE_CODES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"conv8_relu kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv8_relu {route} kernel launch failed: error {err}")
     conv8_relu.launches += 1
+    conv8_relu.launches_by_route[route] += 1
+    conv8_relu.launches_by_kind[(route, str(x.dtype).removeprefix("torch."), cin)] += 1
     return y
 
 
-#: kernel launches since the last reset (CPU calls do not count)
-conv8_relu.launches = 0
+def reset_launch_counts() -> None:
+    """Zero every launch count of :func:`conv8_relu`."""
+    conv8_relu.launches = 0
+    conv8_relu.launches_by_route = dict.fromkeys(ROUTES, 0)
+    conv8_relu.launches_by_kind = Counter()
+
+
+#: kernel launches since the last reset (CPU calls do not count): all of
+#: them, by route, and by (route, dtype, Cin)
+reset_launch_counts()

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,11 +41,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def _tool(name: str) -> str:
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and Path(cand).exists():
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    raise RuntimeError(f"{name} not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
 def build(names=None, *, ptxas_info: bool = False) -> dict[str, tuple[float, str]]:
@@ -54,7 +55,7 @@ def build(names=None, *, ptxas_info: bool = False) -> dict[str, tuple[float, str
     ``ptxas_info`` adds ``-Xptxas -v`` (registers, shared memory, spills)."""
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = _tool("nvcc")
     procs = {}
     try:
         for name in names:
@@ -80,6 +81,14 @@ def build(names=None, *, ptxas_info: bool = False) -> dict[str, tuple[float, str
                 proc.kill()
                 proc.wait()
             tmp.unlink(missing_ok=True)
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` (e.g. ``HGMMA``) the built
+    library of ``csrc/<name>.cu`` holds, from ``cuobjdump -sass``."""
+    out = subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))], capture_output=True, text=True,
+                         timeout=NVCC_TIMEOUT_S, check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", out))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,7 +22,7 @@ short 16-aligned sub-span and splices them into the reference allele's
 buffers; :func:`fc1_delta_from_phases` then adds the fc1 change of only
 those frames.
 
-Every conv goes through ops/conv8.py (the CUDA kernel on the card). All
+Every conv goes through ops/conv8.py (a CUDA kernel on the card). All
 indices are Python ints: the serving path centres every variant at the same
 ``mutpos``.
 """

@@ -5,7 +5,7 @@ expecto_tpu/parallel/runner.py).
   sparse (row, col) sideband, or 4 bits per base for N-dense batches; the
   device unpacks and one-hots them;
 - the conv stack runs once per span and pool-2 phase (ops/spans.py), every
-  conv on the hand-written CUDA kernel (ops/conv8.py);
+  conv on a hand-written CUDA kernel (ops/conv8.py);
 - reverse complement is a flip of the one-hot tensor on the device, and
   forward/RC predictions are averaged there;
 - the decay-basis projection and all stacked tissue models run on the device

@@ -1,6 +1,8 @@
-"""The port's CUDA kernel and runner on the card: conv8_relu against its plain
-PyTorch version at ragged shapes, the wrapper's checks on CUDA tensors, and
-the serving runner in fp32 on the card against the same runner on the CPU.
+"""The port's CUDA kernels and runner on the card: conv8_relu (both routes,
+the SIMT kernel and the bf16 tensor-core kernel) against its plain PyTorch
+version at ragged and short shapes, the route counts, the wrapper's checks
+on CUDA tensors, and the serving runner in fp32 on the card against the same
+runner on the CPU.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from expecto_tpu_torch.genome.windows import variant_shifts
-from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain
+from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
 from expecto_tpu_torch.parallel.runner import BelugaRunner
 from torch_port_common import narrow_params, random_codes, sed_atol
 
@@ -60,6 +62,64 @@ def test_conv8_kernel_matches_plain(cuda, n, l, cin, cout, dtype):
     assert got.shape == (n, l - 7, cout) and got.dtype == dtype and got.device.type == "cuda"
     want = conv8_relu_plain(x.float(), w.float(), b.float())
     torch.testing.assert_close(got.float(), want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# the tc kernel at Beluga's widths on short rows (patch sub-span lengths, one
+# to five spans a 128-row tile), at a serving chunk's 227 spans, and at
+# Cout that is not a multiple of its 160-channel tile
+TC_SHAPES = ([(5, l, cin, cout) for l in (8, 9, 26, 34) for cin in (320, 480, 640) for cout in (320, 480, 640)]
+             + [(227, 34, 640, 640), (227, 26, 480, 640), (227, 120, 320, 480), (3, 40, 32, 40), (2, 19, 16, 1),
+                (4, 50, 64, 161), (1, 300, 320, 330)])
+
+
+@pytest.mark.parametrize("n,l,cin,cout", TC_SHAPES)
+def test_conv8_tc_kernel_matches_plain(cuda, n, l, cin, cout):
+    x, w, b = _inputs(n, l, cin, cout, n + l + cin + cout, cuda, torch.bfloat16)
+    before = dict(conv8_relu.launches_by_route)
+    got = conv8_relu(x, w, b)
+    torch.cuda.synchronize()
+    assert conv8_relu.launches_by_route["tc"] == before["tc"] + 1
+    assert conv8_relu.launches_by_route["simt"] == before["simt"]
+    assert got.shape == (n, l - 7, cout) and got.dtype == torch.bfloat16
+    want = conv8_relu_plain(x.float(), w.float(), b.float())
+    torch.testing.assert_close(got.float(), want, rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+
+
+def test_conv8_route_counts_follow_the_dispatch(cuda):
+    reset_launch_counts()
+    for dtype, cin in ((torch.bfloat16, 320), (torch.bfloat16, 4), (torch.float32, 320), (torch.bfloat16, 480)):
+        conv8_relu(*_inputs(2, 40, cin, 32, cin, cuda, dtype))
+    torch.cuda.synchronize()
+    assert conv8_relu.launches == 4
+    assert conv8_relu.launches_by_route == {"simt": 2, "tc": 2}
+    assert conv8_relu.launches_by_kind == {("tc", "bfloat16", 320): 1, ("tc", "bfloat16", 480): 1,
+                                           ("simt", "bfloat16", 4): 1, ("simt", "float32", 320): 1}
+
+
+def test_conv8_misaligned_bf16_goes_to_simt_and_tc_refuses_it(cuda):
+    x, w, b = _inputs(2, 30, 320, 320, 9, cuda, torch.bfloat16)
+    buf = torch.empty(x.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    view = buf[1 : 1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    before = dict(conv8_relu.launches_by_route)
+    got = conv8_relu(view, w, b)
+    torch.cuda.synchronize()
+    assert conv8_relu.launches_by_route == {"simt": before["simt"] + 1, "tc": before["tc"]}
+    torch.testing.assert_close(got, conv8_relu(x, w, b), rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="tc kernel takes"):
+        conv8_relu(view, w, b, route="tc")
+    with pytest.raises(ValueError, match="tc kernel takes"):
+        conv8_relu(x.float(), w.float(), b.float(), route="tc")
+
+
+def test_conv8_tc_weights_repacked_after_an_in_place_write(cuda):
+    x, w, b = _inputs(2, 30, 32, 160, 4, cuda, torch.bfloat16)
+    first = conv8_relu(x, w, b)
+    w.mul_(-1)
+    torch.testing.assert_close(conv8_relu(x, w, b).float(), conv8_relu_plain(x.float(), w.float(), b.float()),
+                               rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    assert not torch.equal(first, conv8_relu(x, w, b))
 
 
 def test_conv8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
