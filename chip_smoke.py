@@ -9,23 +9,27 @@ Phases (any failure raises, and the script exits non-zero with no result):
 2. build: nvcc compiles every kernel of ``expecto_tpu_torch/csrc`` for
    sm_90a, one process per source, all at once; the tensor-core kernel's
    SASS must hold HGMMA instructions (``cuobjdump -sass``);
-3. kernels: ``conv8_relu`` at every shape it runs in one substitution chunk
-   of the main path (227 variants; maxshift 800: the six Beluga layers over
-   the 3,600-bp span and over the alt allele's patch sub-span), fp32 on the
-   SIMT kernel, bf16 on the tensor-core kernel (conv1-conv5) and on the SIMT
-   kernel, each held against the plain PyTorch version on the same inputs
-   and timed beside it and cuDNN's ``F.conv1d`` (a yardstick only: the port
-   never calls it);
+3. kernels, at every shape they run in one substitution chunk of the main
+   path (227 variants; maxshift 800: the six Beluga layers over the 3,600-bp
+   span and over the alt allele's patch sub-span), each held against its
+   plain PyTorch version on the same inputs and timed beside it and cuDNN's
+   ``F.conv1d`` (a yardstick only: the port never calls it):
+   ``conv8_relu`` at conv1-conv5, fp32 on the SIMT kernel and bf16 on the
+   tensor-core kernel and on the SIMT kernel; ``conv0_codes_relu`` at conv0,
+   fp32 and bf16 on the code-gather kernel, beside the SIMT kernel on the
+   float one-hot;
 4. main path: ``python -m expecto_tpu_torch.cli.score`` (its ``main``) at
    Beluga's published widths with seeded random weights, 218 seeded tissue
    models, maxshift 800, default bf16 compute and fp16 wire, on ~1,024
    substitutions, ~128 indels and 4 contig-edge rows of a seeded genome;
-   launch counts are zeroed just before and read just after (both kernels
-   launched, every bf16 SIMT launch a conv0, the route counts adding up to
-   the total); then warm
-   repeats of the same serving call give the throughput;
+   launch counts are zeroed just before and read just after (every conv0 on
+   the code-gather kernel, conv1-conv5 on the tensor-core kernel, no SIMT
+   launch and no conv8_relu launch at Cin 4, the counts adding up); then
+   warm repeats of the same serving call give the throughput;
 5. parity: a few of those variants scored with ``--fp32`` on the card and on
-   the CPU (plain path), REF/ALT/SED compared.
+   the CPU (plain path), REF/ALT/SED compared; the card run's counts are
+   zeroed just before it and read just after (conv1-conv5 on the SIMT
+   kernel, conv0 on the code-gather kernel in fp32).
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -65,8 +69,10 @@ DEVICE = "cuda"
 #  bf16: the kernel reads the same bf16 values and sums in fp32, then rounds
 #        its output to bf16 (relative step 2^-8); the plain reference is the
 #        fp32 plain version on those bf16 values upcast
+#  conv0 over codes, fp32: 8 table entries and the bias in another order
 FP32_ATOL, FP32_RTOL = 1e-4, 1e-4
 BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
+CONV0_FP32_TOL = 1e-5
 
 # fp32 end-to-end parity, card vs CPU: REF/ALT rtol 1e-4; SED differences two
 # separately rounded 20,020-term fp32 products, so its absolute noise scales
@@ -137,18 +143,31 @@ def chunk_launches() -> Counter:
     return tally
 
 
-def _bound(n: int, l_out: int, cin: int, cout: int, nbytes: int, tag: str) -> dict:
-    flops = 2.0 * n * l_out * cin * cout * 8
-    bytes_ms, ops_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_FLOPS[tag]
+def _bound(nbytes: float, ops: float, tag: str) -> dict:
+    """The least time for moving ``nbytes`` and doing ``ops`` operations of
+    type ``tag`` on the card: the larger of the two at its peak rates."""
+    bytes_ms, ops_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_FLOPS[tag]
     return {"bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
 
 
+def _check_close(got, want, atol: float, rtol: float, what: str) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs()
+    max_err = float(err.max())
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"{what} disagrees with the plain version: max |err| {max_err}")
+    return max_err
+
+
 def kernel_phase(report: dict) -> None:
-    """Every shape of a substitution chunk: fp32 on the SIMT kernel; bf16 on
-    the route the main path takes (tc for Cin % 16 == 0, else SIMT) and on
-    the SIMT kernel too, so the redesign shows shape by shape. Each launch
-    is held against the fp32 plain version on the same inputs."""
+    """conv1-conv5 at every shape of a substitution chunk: fp32 on the SIMT
+    kernel (the fp32 main path's route); bf16 on the tensor-core kernel (the
+    bf16 main path's route) and on the SIMT kernel too, so the redesign
+    shows shape by shape. Each launch is held against the fp32 plain version
+    on the same inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -157,15 +176,15 @@ def kernel_phase(report: dict) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
     specs = {f"conv{i}": (cin, cout) for i, (_w, cin, cout) in enumerate(CONV_SPECS)}
     rows, n = [], CHUNK
     for (name, length), per_chunk in sorted(chunk_launches().items(), key=lambda kv: (kv[0][0], -kv[0][1])):
+        if name == "conv0":  # on the code-gather kernel: conv0_phase
+            continue
         cin, cout = specs[name]
         x32 = torch.randn((n, length, cin), generator=gen, device=dev)
-        if cin == 4:  # conv0 reads one-hot bases
-            x32 = torch.eye(5, 4, device=dev)[torch.randint(0, 5, (n, length), generator=gen, device=dev)]
         w32 = torch.randn((8, cin, cout), generator=gen, device=dev) / (8 * cin) ** 0.5
         b32 = torch.randn((cout,), generator=gen, device=dev) * 0.1
         l_out = length - 7
@@ -179,36 +198,114 @@ def kernel_phase(report: dict) -> None:
             xt = x.transpose(1, 2).contiguous()
             wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
             nbytes = (x.numel() + w.numel() + b.numel() + n * l_out * cout) * x.element_size()
-            cell = {"route": main_route, **_bound(n, l_out, cin, cout, nbytes, tag),
+            cell = {"route": main_route, **_bound(nbytes, 2.0 * n * l_out * cin * cout * 8, tag),
                     "plain_ms": cuda_ms(lambda: conv8_relu_plain(x, w, b)),
                     "library_ms": cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b)))}
             for route in routes:
                 y = conv8_relu(x, w, b, route=route)
-                torch.cuda.synchronize()
-                err = (y.float() - want).abs()
-                max_err = float(err.max())
-                if not bool((err <= atol + rtol * want.abs()).all()):
-                    raise AssertionError(f"conv8_relu {route} {tag} {name} L={length} disagrees with the plain "
-                                         f"version: max |err| {max_err}")
+                max_err = _check_close(y, want, atol, rtol, f"conv8_relu {route} {tag} {name} L={length}")
                 cell[route] = {"ms": cuda_ms(lambda r=route: conv8_relu(x, w, b, route=r)), "max_abs_err": max_err}
-                del y, err
+                del y
             cell["ms"], cell["max_abs_err"] = cell[main_route]["ms"], cell[main_route]["max_abs_err"]
             row[tag] = cell
             del x, w, b, xt, wt, want
         bf = row["bf16"]
         log(f"kernel conv8_relu {name} N={n} L={length} {cin}->{cout} x{per_chunk} per chunk: bf16 "
-            + (f"tc {bf['tc']['ms']:.3f} ms (err {bf['tc']['max_abs_err']:.3g}) " if "tc" in bf else "")
-            + f"simt {bf['simt']['ms']:.3f} ms (err {bf['simt']['max_abs_err']:.3g}) plain {bf['plain_ms']:.3f} ms "
+            f"tc {bf['tc']['ms']:.3f} ms (err {bf['tc']['max_abs_err']:.3g}) "
+            f"simt {bf['simt']['ms']:.3f} ms (err {bf['simt']['max_abs_err']:.3g}) plain {bf['plain_ms']:.3f} ms "
             f"conv1d {bf['library_ms']:.3f} ms bound {bf['bound_ms']:.3f} ms ({bf['bound_by']}); fp32 simt "
-            f"{row['fp32']['ms']:.3f} ms (err {row['fp32']['max_abs_err']:.3g}) bound {row['fp32']['bound_ms']:.3f} ms")
+            f"{row['fp32']['ms']:.3f} ms (err {row['fp32']['max_abs_err']:.3g}) plain {row['fp32']['plain_ms']:.3f} ms "
+            f"conv1d {row['fp32']['library_ms']:.3f} ms bound {row['fp32']['bound_ms']:.3f} ms")
         rows.append(row)
         torch.cuda.empty_cache()
     report["conv8_layers"] = rows
-    chunk = {k: sum(r["bf16"][k] * r["launches_per_chunk"] for r in rows) for k in ("ms", "library_ms", "bound_ms")}
-    chunk["simt_ms"] = sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in rows)
-    report["conv8_chunk_bf16"] = chunk
-    log(f"bf16 chunk ({sum(r['launches_per_chunk'] for r in rows)} launches): main-path routes {chunk['ms']:.3f} ms, "
-        f"all on simt {chunk['simt_ms']:.3f} ms, F.conv1d {chunk['library_ms']:.3f} ms, bound {chunk['bound_ms']:.3f} ms")
+
+
+def _conv0_codes(n: int, length: int, gen):
+    """(n, length) int8 codes: bases 0..3, ~2 % N (code 4), an N run, and
+    ~0.2 % codes outside 0..4, which add nothing as N does."""
+    import torch
+
+    dev = gen.device
+    codes = torch.randint(0, 4, (n, length), generator=gen, device=dev, dtype=torch.int8)
+    codes[torch.rand((n, length), generator=gen, device=dev) < 0.02] = 4
+    codes[:, length // 2 : length // 2 + 50] = 4
+    codes[torch.rand((n, length), generator=gen, device=dev) < 0.002] = -1
+    return codes
+
+
+def conv0_phase(report: dict) -> None:
+    """conv0 at each of its shapes in a substitution chunk (the span and the
+    alt patch sub-span): the code-gather kernel in fp32 and bf16, held
+    against the fp32 plain version on the same codes and weights, timed
+    beside the plain version in the working dtype, PR 1's SIMT kernel on the
+    float one-hot and ``F.conv1d`` on it (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from expecto_tpu_torch.models.beluga import CONV_SPECS
+    from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain, onehot_from_codes
+    from expecto_tpu_torch.ops.conv8 import conv8_relu
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(1)
+    _kw, cin, cout = CONV_SPECS[0]
+    rows, n = [], CHUNK
+    for (name, length), per_chunk in sorted(chunk_launches().items(), key=lambda kv: -kv[0][1]):
+        if name != "conv0":
+            continue
+        codes = _conv0_codes(n, length, gen)
+        w32 = torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5
+        b32 = torch.randn((cout,), generator=gen, device=gen.device) * 0.1
+        l_out = length - 7
+        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            w, b = w32.to(dtype), b32.to(dtype)
+            want = conv0_codes_relu_plain(codes, w.float(), b.float())
+            atol = rtol = CONV0_FP32_TOL if tag == "fp32" else BF16_ATOL
+            max_err = _check_close(conv0_codes_relu(codes, w, b), want, atol, rtol,
+                                   f"conv0_codes_relu {tag} L={length}")
+            del want
+            x = onehot_from_codes(codes, dtype)
+            xt = x.transpose(1, 2).contiguous()
+            wt = w.permute(2, 1, 0).contiguous()  # (Cout, 4, 8)
+            # codes read once, W and b once, the output written once; 8 adds an output
+            nbytes = codes.numel() + (w.numel() + b.numel() + n * l_out * cout) * w.element_size()
+            row[tag] = {"route": "codes", **_bound(nbytes, 8.0 * n * l_out * cout, "fp32"),
+                        "ms": cuda_ms(lambda: conv0_codes_relu(codes, w, b)), "max_abs_err": max_err,
+                        "plain_ms": cuda_ms(lambda: conv0_codes_relu_plain(codes, w, b)),
+                        "library_ms": cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b))),
+                        "simt_onehot_ms": cuda_ms(lambda: conv8_relu(x, w, b, route="simt"))}
+            del x, xt, wt
+        log("kernel conv0_codes " + f"N={n} L={length} 4->{cout} x{per_chunk} per chunk: " + "; ".join(
+            f"{t} {c['ms']:.4f} ms (err {c['max_abs_err']:.3g}) bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+            f"{100 * c['bound_ms'] / c['ms']:.1f} %) plain {c['plain_ms']:.3f} ms conv1d {c['library_ms']:.4f} ms "
+            f"simt on the one-hot {c['simt_onehot_ms']:.4f} ms" for t, c in ((t, row[t]) for t in ("bf16", "fp32"))))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    report["conv0_layers"] = rows
+
+
+def _weighted(rows: list, tag: str, key: str) -> float:
+    """Sum of ``row[tag][key]`` over per-shape rows, each weighted by its
+    launches in one substitution chunk."""
+    return sum(r[tag][key] * r["launches_per_chunk"] for r in rows)
+
+
+def chunk_summary(report: dict) -> None:
+    """Launch-weighted kernel time of one substitution chunk (32 launches)
+    in each dtype, on the main path's routes, against F.conv1d and the
+    bound."""
+    conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
+    every = conv8 + conv0
+    for tag in ("bf16", "fp32"):
+        chunk = {"conv1_5_ms": _weighted(conv8, tag, "ms"), "conv0_ms": _weighted(conv0, tag, "ms"),
+                 "library_ms": _weighted(every, tag, "library_ms"), "bound_ms": _weighted(every, tag, "bound_ms")}
+        chunk["ms"] = chunk["conv1_5_ms"] + chunk["conv0_ms"]
+        report[f"conv_chunk_{tag}"] = chunk
+        log(f"{tag} chunk ({sum(r['launches_per_chunk'] for r in every)} launches): main-path kernels "
+            f"{chunk['ms']:.3f} ms (conv1-conv5 {chunk['conv1_5_ms']:.3f}, conv0 {chunk['conv0_ms']:.3f}), "
+            f"F.conv1d {chunk['library_ms']:.3f} ms, bound {chunk['bound_ms']:.3f} ms")
 
 
 def make_inputs(seed: int) -> dict:
@@ -314,42 +411,67 @@ def check_output(csv: Path, n_rows: int):
     return df, ref, alt, sed
 
 
+def _reset_counts() -> None:
+    from expecto_tpu_torch.ops import conv0, conv8
+
+    conv8.reset_launch_counts()
+    conv0.reset_launch_counts()
+
+
+def _read_counts(dtype: str) -> dict:
+    """Every kernel's launches since the last _reset_counts, checked: the
+    route counts add up, no float one-hot reached conv8_relu (no launch at
+    Cin 4), every conv0 ran on the code-gather kernel in ``dtype``, and each
+    conv stack ran its conv0 there (conv1 and conv2, the two Cin-320 convs
+    of a stack, launch twice as often as conv0)."""
+    from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
+    from expecto_tpu_torch.ops.conv8 import conv8_relu
+
+    by_route, kinds = dict(conv8_relu.launches_by_route), Counter(conv8_relu.launches_by_kind)
+    n0, kind0 = conv0_codes_relu.launches, dict(conv0_codes_relu.launches_by_kind)
+    counts = {"conv8_relu": conv8_relu.launches, "conv8_relu_by_route": by_route,
+              "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in sorted(kinds.items())},
+              "conv0_codes": n0, "conv0_codes_by_kind": kind0}
+    if sum(by_route.values()) != conv8_relu.launches:
+        raise AssertionError(f"route counts {by_route} do not add up to {conv8_relu.launches} launches")
+    if n0 <= 0 or kind0 != {dtype: n0}:
+        raise AssertionError(f"conv0 did not run on the code-gather kernel in {dtype} alone: {kind0}")
+    if any(cin == 4 for _r, _dt, cin in kinds):
+        raise AssertionError(f"a float one-hot reached conv8_relu: {counts['conv8_relu_by_kind']}")
+    if sum(k for (_r, _dt, cin), k in kinds.items() if cin == 320) != 2 * n0:
+        raise AssertionError(f"conv stacks without a conv0 launch: {n0} conv0, {counts['conv8_relu_by_kind']}")
+    return counts
+
+
 def main_path_phase(report: dict, inputs: dict, card: str) -> None:
     import numpy as np
     import torch
 
     from expecto_tpu_torch.cli.score import main as score_main
-    from expecto_tpu_torch.ops.conv8 import conv8_relu, reset_launch_counts
 
     out_csv = WORK / "output.csv"
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    _reset_counts()
     t0 = time.perf_counter()
     rc = score_main(score_args(WORK / "variants.vcf", WORK / "genes.tsv", "--output", str(out_csv)))
     wall = time.perf_counter() - t0
-    launches, by_route = conv8_relu.launches, dict(conv8_relu.launches_by_route)
-    by_kind = {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in sorted(conv8_relu.launches_by_kind.items())}
     if rc != 0:
         raise AssertionError(f"score CLI returned {rc}")
-    if by_route["tc"] <= 0 or by_route["simt"] <= 0:
-        raise AssertionError(f"the main path left a conv8_relu kernel unlaunched: {by_route}")
-    if sum(by_route.values()) != launches:
-        raise AssertionError(f"route counts {by_route} do not add up to {launches} launches")
-    stray = [k for k in conv8_relu.launches_by_kind if k[0] == "simt" and k[1] == "bfloat16" and k[2] != 4]
-    if stray:
-        raise AssertionError(f"bf16 convs other than conv0 ran on the simt kernel: {stray}")
+    counts = _read_counts("bfloat16")
+    by_route = counts["conv8_relu_by_route"]
+    if by_route["tc"] <= 0 or by_route["simt"] != 0:
+        raise AssertionError(f"bf16 conv1-conv5 did not all run on the tc kernel: {by_route}")
     _df, ref, _alt, sed = check_output(out_csv, inputs["n_rows"])
     n_var = len(inputs["variants"])
     report["main_path"] = {
         "variants": n_var, "rows": inputs["n_rows"], "models": N_MODELS, "maxshift": MAXSHIFT,
-        "cli_wall_s": wall, "conv8_relu_launches": launches, "conv8_relu_launches_by_route": by_route,
-        "conv8_relu_launches_by_kind": by_kind,
+        "cli_wall_s": wall, "launches": counts,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
         "sed_abs_max": float(np.abs(sed).max()), "ref_abs_max": float(np.abs(ref).max()),
     }
     log(f"main path: {n_var} variants, {inputs['n_rows']} (variant, gene) rows x {N_MODELS} models in {wall:.2f} s "
         f"(CLI incl. weight load) = {inputs['n_rows'] / wall:.1f} rows/s, {n_var / wall:.1f} variants/s; "
-        f"conv8_relu launches {launches} {by_route} {by_kind} [{card}]")
+        f"launches {counts} [{card}]")
     report["main_path"]["serve_wall_s"] = serve_repeats(inputs, card)
 
 
@@ -411,10 +533,15 @@ def parity_phase(report: dict, inputs: dict) -> None:
     frames = {}
     for tag, device in (("card", DEVICE), ("cpu", "cpu")):
         out = WORK / f"parity_{tag}.csv"
+        _reset_counts()
         rc = score_main(score_args(WORK / "parity.vcf", WORK / "parity_genes.tsv", "--fp32", "--device", device,
                                    "--output", str(out)))
         if rc != 0:
             raise AssertionError(f"fp32 score CLI on {device} returned {rc}")
+        if tag == "card":
+            counts = _read_counts("float32")
+            if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
+                raise AssertionError(f"fp32 conv1-conv5 did not all run on the simt kernel: {counts}")
         frames[tag] = check_output(out, len(genes))
     _dg, ref_g, alt_g, sed_g = frames["card"]
     _dc, ref_c, alt_c, sed_c = frames["cpu"]
@@ -424,51 +551,52 @@ def parity_phase(report: dict, inputs: dict) -> None:
     for name, g, c, atol in (("REF", ref_g, ref_c, PARITY_ATOL), ("ALT", alt_g, alt_c, PARITY_ATOL),
                              ("SED", sed_g, sed_c, sed_atol)):
         np.testing.assert_allclose(g, c, rtol=PARITY_RTOL, atol=atol, err_msg=f"card vs CPU fp32 {name}")
-    report["parity"] = {"rows": len(genes), "max_abs_err": errs, "sed_atol": sed_atol}
-    log(f"parity fp32 card vs CPU on {len(genes)} rows x {N_MODELS} models: max |err| {errs}")
+    report["parity"] = {"rows": len(genes), "max_abs_err": errs, "sed_atol": sed_atol, "launches": counts}
+    log(f"parity fp32 card vs CPU on {len(genes)} rows x {N_MODELS} models: max |err| {errs}; card launches {counts}")
 
 
 def kernel_table(report: dict) -> dict:
     """The kernel line: one entry per hand-written kernel, over the launches
-    of one substitution chunk that the main path gives it in bf16 (each
-    shape weighted by its launches there): the tc kernel at conv1-conv5, the
-    SIMT kernel at conv0. ``launches`` is the main path's count by route;
-    per-shape numbers in ``layers``."""
-    layers = report["conv8_layers"]
-    by_route = report["main_path"]["conv8_relu_launches_by_route"]
+    of one substitution chunk that its main path gives it (each shape
+    weighted by its launches there): the tc kernel at bf16 conv1-conv5 and
+    the code-gather kernel at bf16 conv0, whose ``launches`` are the bf16
+    serving run's; the SIMT kernel at fp32 conv1-conv5, whose ``launches``
+    are the fp32 parity run's on the card. Per-shape numbers in ``layers``."""
+    conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
+    serve, parity = report["main_path"]["launches"], report["parity"]["launches"]
 
-    def entry(name, route, source, rows, **extra):
-        def total(key):
-            return sum(r["bf16"][key] * r["launches_per_chunk"] for r in rows)
-
+    def entry(name, source, rows, tag, launches, **extra):
+        """``tag``'s numbers on the main path's route of each shape."""
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": "expecto_tpu/ops/pallas_conv.py:49",
-            "launches": by_route[route],
-            "max_abs_err": max(r["bf16"][route]["max_abs_err"] for r in rows),
-            "ms": sum(r["bf16"][route]["ms"] * r["launches_per_chunk"] for r in rows),
-            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
-            "library_ms": total("library_ms"), **extra,
+            "launches": launches,
+            "max_abs_err": max(r[tag]["max_abs_err"] for r in rows),
+            "ms": _weighted(rows, tag, "ms"),
+            "plain_ms": _weighted(rows, tag, "plain_ms"), "bound_ms": _weighted(rows, tag, "bound_ms"),
+            "bound_by": "operations" if _weighted(rows, tag, "ops_ms") >= _weighted(rows, tag, "bytes_ms") else "bytes",
+            "library_ms": _weighted(rows, tag, "library_ms"), "dtype": tag, **extra,
         }
 
-    tc_rows = [r for r in layers if r["bf16"]["route"] == "tc"]
-    simt_rows = [r for r in layers if r["bf16"]["route"] == "simt"]
     return {"kernels": [
-        entry("conv8_relu_tc", "tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", tc_rows,
-              sass_hgmma=report["sass_hgmma"]),
-        entry("conv8_relu", "simt", "expecto_tpu_torch/csrc/conv8_relu.cu", simt_rows,
-              max_err_fp32=max(r["fp32"]["max_abs_err"] for r in layers),
-              fp32_chunk_ms=sum(r["fp32"]["ms"] * r["launches_per_chunk"] for r in layers),
-              bf16_all_shapes_ms=report["conv8_chunk_bf16"]["simt_ms"]),
+        entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
+              serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"]),
+        entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
+              parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
+              bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8)),
+        entry("conv0_codes", "expecto_tpu_torch/csrc/conv0_codes.cu", conv0, "bf16", serve["conv0_codes"],
+              fp32_ms=_weighted(conv0, "fp32", "ms"), fp32_bound_ms=_weighted(conv0, "fp32", "bound_ms"),
+              max_err_fp32=max(r["fp32"]["max_abs_err"] for r in conv0), launches_fp32_parity=parity["conv0_codes"],
+              simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
-         "launches_per_chunk": r["launches_per_chunk"], "bf16_route": r["bf16"]["route"],
-         "bf16_tc_ms": r["bf16"]["tc"]["ms"] if "tc" in r["bf16"] else None,
-         "bf16_simt_ms": r["bf16"]["simt"]["ms"],
-         **{f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("plain_ms", "library_ms", "bound_ms", "max_abs_err")},
-         "fp32_simt_ms": r["fp32"]["ms"]}
-        for r in layers]}
+         "launches_per_chunk": r["launches_per_chunk"],
+         **{f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                                     "bound_by", "max_abs_err")},
+         **({"bf16_simt_ms": r["bf16"]["simt"]["ms"]} if "simt" in r["bf16"] else {}),
+         **({"bf16_simt_onehot_ms": r["bf16"]["simt_onehot_ms"], "fp32_simt_onehot_ms": r["fp32"]["simt_onehot_ms"]}
+            if "simt_onehot_ms" in r["bf16"] else {})}
+        for r in conv0 + conv8]}
 
 
 def main(argv=None) -> int:
@@ -505,6 +633,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     kernel_phase(report)
+    conv0_phase(report)
+    chunk_summary(report)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

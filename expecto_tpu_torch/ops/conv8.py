@@ -11,8 +11,11 @@ by :func:`_route`, a pure function of device, dtype, Cin and alignment:
   for bf16 x with Cin % 16 == 0 and a 16-byte-aligned data pointer (TMA's
   rule): Beluga's conv1-conv5 on the main path;
 - ``"simt"``: ``csrc/conv8_relu.cu``, fp32 FMA on the CUDA cores, for fp32
-  (parity mode) and every other bf16 input, conv0 (Cin = 4) among them;
+  (parity mode: conv1-conv5) and every other bf16 input, a float one-hot at
+  conv0 (Cin = 4) among them;
 - ``"cpu"``: :func:`conv8_relu_plain`, only for tensors on the CPU.
+
+The serving path's conv0 takes int8 base codes instead, on ops/conv0.py.
 
 A CUDA tensor launches its route's kernel or raises: no route falls back to
 another on a failure.
@@ -20,7 +23,6 @@ another on a failure.
 
 from __future__ import annotations
 
-import ctypes
 import weakref
 from collections import Counter
 
@@ -99,16 +101,6 @@ def _route(device_type: str, dtype: torch.dtype, cin: int, data_ptr: int) -> str
     return "simt"
 
 
-def _lib(name: str, nargs: int):
-    lib = cuda_build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 4 + [i] * nargs + [vp]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"conv8_relu takes float32 or bfloat16, got {x.dtype}")
@@ -161,11 +153,11 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "tc":
-            err = _lib("conv8_relu_tc", 4)(x.data_ptr(), _packed(w).data_ptr(), b.data_ptr(), y.data_ptr(),
-                                           n, l, cin, cout, stream)
+            err = cuda_build.launcher("conv8_relu_tc", 4)(x.data_ptr(), _packed(w).data_ptr(), b.data_ptr(),
+                                                          y.data_ptr(), n, l, cin, cout, stream)
         else:
-            err = _lib("conv8_relu", 5)(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                        n, l, cin, cout, _DTYPE_CODES[x.dtype], stream)
+            err = cuda_build.launcher("conv8_relu", 5)(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                                       n, l, cin, cout, _DTYPE_CODES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"conv8_relu {route} kernel launch failed: error {err}")
     conv8_relu.launches += 1

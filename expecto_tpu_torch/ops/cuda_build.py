@@ -101,3 +101,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def launcher(name: str, n_ints: int):
+    """``<name>_launch`` of ``csrc/<name>.cu``, whose C signature is four
+    pointers, ``n_ints`` ints and the stream, returning the CUDA error."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        vp = ctypes.c_void_p
+        fn.argtypes = [vp] * 4 + [ctypes.c_int] * n_ints + [vp]
+        fn.restype = ctypes.c_int
+    return fn

@@ -22,16 +22,18 @@ short 16-aligned sub-span and splices them into the reference allele's
 buffers; :func:`fc1_delta_from_phases` then adds the fc1 change of only
 those frames.
 
-Every conv goes through ops/conv8.py (a CUDA kernel on the card). All
-indices are Python ints: the serving path centres every variant at the same
-``mutpos``.
+Every conv runs on a CUDA kernel on the card: conv0 on ops/conv0.py when
+the spans are int8 base codes (the serving path), every other conv on
+ops/conv8.py. The span functions take (N, L, 4) one-hot spans, as the JAX
+package's do, or (N, L) int8 codes of them. All indices are Python ints:
+the serving path centres every variant at the same ``mutpos``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.beluga import BelugaParams, _conv_relu
+from ..models.beluga import BelugaParams, _conv0, _conv_relu
 
 #: conv6 frame f (phase ph) reads span inputs [16f + 4ph, 16f + 4ph + RF)
 CONV6_RF = 310
@@ -47,8 +49,9 @@ def _pool4_from(x: torch.Tensor, phase: int) -> torch.Tensor:
 
 
 def conv1_acts(params: BelugaParams, spans: torch.Tensor) -> torch.Tensor:
-    """conv0+conv1 activations of (N, L, 4) spans -> (N, L-14, 320)."""
-    h = _conv_relu(spans, params["conv0"])
+    """conv0+conv1 activations of (N, L, 4) one-hot spans, or of (N, L) int8
+    codes of them, -> (N, L-14, 320)."""
+    h = _conv0(spans, params["conv0"])
     return _conv_relu(h, params["conv1"])
 
 
@@ -66,7 +69,8 @@ def conv6_from_conv1(params: BelugaParams, h: torch.Tensor, phases) -> dict[int,
 
 
 def conv6_phases(params: BelugaParams, spans: torch.Tensor, phases) -> dict[int, torch.Tensor]:
-    """conv1..conv6 over full spans, once per pool2 phase.
+    """conv1..conv6 over full spans ((N, L, 4) one-hot or (N, L) int8
+    codes), once per pool2 phase.
 
     Returns {phase: (N, n_frames, 640)}; the window at span offset ``o``
     occupies frames [(o//4 - ph)//4 : +106] of phase ``ph = (o//4) % 4``."""
@@ -113,8 +117,9 @@ def conv6_phases_patch(
 
     A 16-aligned sub-span covering those frames' receptive fields runs
     through the conv stack; its pool phases align with the full span's, so
-    sub-frame ``f'`` is span frame ``f' + s0/16``. The ref buffers are not
-    modified: each patched phase is a copy."""
+    sub-frame ``f'`` is span frame ``f' + s0/16``. ``alt_spans`` is (N, L, 4)
+    one-hot or (N, L) int8 codes. The ref buffers are not modified: each
+    patched phase is a copy."""
     phases = sorted(set(int(p) for p in phases))
     ranges = conv6_patch_ranges(mutpos, mut_len, phases, {ph: ref_phases[ph].shape[1] for ph in phases})
     s0, s1 = conv6_patch_subspan(ranges, alt_spans.shape[1])
@@ -228,7 +233,8 @@ def fc_from_phases(params: BelugaParams, phase_conv6: dict[int, torch.Tensor], o
 def beluga_forward_spans(params: BelugaParams, spans: torch.Tensor, offsets) -> torch.Tensor:
     """Forward over 2,000-bp windows ``spans[:, o : o+2000, :]`` per offset.
 
-    ``spans``: (N, span_len, 4) one-hot; ``offsets``: window starts, each a
+    ``spans``: (N, span_len, 4) one-hot or (N, span_len) int8 codes;
+    ``offsets``: window starts, each a
     multiple of 4. Returns (N, n_offsets, 2002) track probabilities matching
     ``beluga_forward`` applied per window."""
     offsets = [int(o) for o in offsets]

@@ -3,11 +3,12 @@ expecto_tpu/parallel/runner.py).
 
 - the host ships compact base codes: 2 bits per base with N bases in a
   sparse (row, col) sideband, or 4 bits per base for N-dense batches; the
-  device unpacks and one-hots them;
+  device unpacks them to int8 codes, and conv0 gathers its weights by code
+  (ops/conv0.py): no float one-hot tensor is built on any serving route;
 - the conv stack runs once per span and pool-2 phase (ops/spans.py), every
-  conv on a hand-written CUDA kernel (ops/conv8.py);
-- reverse complement is a flip of the one-hot tensor on the device, and
-  forward/RC predictions are averaged there;
+  conv on a hand-written CUDA kernel (ops/conv0.py, ops/conv8.py);
+- reverse complement is taken in code space on the device (flip, c -> 3 - c:
+  ``rc_codes``), and forward/RC predictions are averaged there;
 - the decay-basis projection and all stacked tissue models run on the device
   as one matmul, and only per-model scalars come back, as (REF, SED): SED =
   ALT - REF is taken in fp32 on the device before the cast to the fetch
@@ -24,6 +25,7 @@ import torch
 
 from ..models.beluga import beluga_forward
 from ..models.convert import params_from_jax
+from ..ops.conv0 import onehot_from_codes, rc_codes  # noqa: F401 (onehot_from_codes: public, as in the JAX runner)
 from ..ops.spans import (
     beluga_forward_spans,
     conv6_patch_ranges,
@@ -33,11 +35,6 @@ from ..ops.spans import (
     fc1_pre_from_phases,
     fc_head,
 )
-
-
-def onehot_from_codes(codes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """(N, L) int codes -> (N, L, 4); code 4 (N) one-hots to zeros."""
-    return torch.eye(5, 4, dtype=dtype, device=codes.device)[codes.long()]
 
 
 def pack_codes(codes: np.ndarray) -> np.ndarray:
@@ -85,7 +82,8 @@ def unpack_codes2(packed: torch.Tensor, length: int, n_rows: torch.Tensor, n_col
 
 def rc_onehot(x: torch.Tensor) -> torch.Tensor:
     """Reverse complement of a one-hot batch: flip positions and channels
-    (valid under AGCT channel order)."""
+    (valid under AGCT channel order). The serving routes take it in code
+    space instead (``rc_codes``)."""
     return torch.flip(x, (1, 2))
 
 
@@ -137,7 +135,6 @@ class BelugaRunner:
                  out_dtype=np.float32):
         self.device = resolve_device(device)
         self.batch_size = max(int(batch_size), 1)
-        self.compute_dtype = compute_dtype
         self.out_dtype = np.dtype(out_dtype)
         if compute_dtype == torch.float32:
             # parity mode: full fp32 products everywhere, never TF32
@@ -219,19 +216,18 @@ class BelugaRunner:
     # ---- device functions --------------------------------------------------
 
     def _forward(self, codes: torch.Tensor, with_rc: bool, out: torch.dtype) -> torch.Tensor:
-        x = onehot_from_codes(codes, dtype=self.compute_dtype)
-        y = beluga_forward(self.params, x).float()
+        y = beluga_forward(self.params, codes).float()
         if with_rc:
-            y = (y + beluga_forward(self.params, rc_onehot(x)).float()) * 0.5
+            y = (y + beluga_forward(self.params, rc_codes(codes)).float()) * 0.5
         return y.to(out)
 
     def _pair_span_preds(self, spans: torch.Tensor, offsets) -> torch.Tensor:
-        """fwd/RC-averaged (N, S, M) fp32 track predictions of a span batch."""
-        x = onehot_from_codes(spans, dtype=self.compute_dtype)
-        y = beluga_forward_spans(self.params, x, offsets).float()
+        """fwd/RC-averaged (N, S, M) fp32 track predictions of an (N, L)
+        int8 span batch."""
+        y = beluga_forward_spans(self.params, spans, offsets).float()
         extra = spans.shape[1] - 2000
         rc_off = tuple(extra - o for o in offsets)
-        y_rc = beluga_forward_spans(self.params, rc_onehot(x), rc_off).float()
+        y_rc = beluga_forward_spans(self.params, rc_codes(spans), rc_off).float()
         return (y + y_rc) * 0.5
 
     def _preds_from_ref(self, ref: torch.Tensor, alt_allele: torch.Tensor, offsets, span_len: int, mutpos: int):
@@ -245,18 +241,16 @@ class BelugaRunner:
         alt = ref.clone()
         alt[:, mutpos : mutpos + a_len] = torch.where(alt_allele >= 0, alt_allele, patch)
 
-        x_ref = onehot_from_codes(ref, dtype=self.compute_dtype)
-        x_alt = onehot_from_codes(alt, dtype=self.compute_dtype)
         extra = span_len - 2000
         rc_offsets = tuple(extra - o for o in offsets)
         phases_f = {(o // 4) % 4 for o in offsets}
         phases_r = {(o // 4) % 4 for o in rc_offsets}
         mut_rc = span_len - mutpos - a_len
 
-        ph_ref_f = conv6_phases(self.params, x_ref, phases_f)
-        ph_ref_r = conv6_phases(self.params, rc_onehot(x_ref), phases_r)
-        ph_alt_f = conv6_phases_patch(self.params, ph_ref_f, x_alt, mutpos, a_len, phases_f)
-        ph_alt_r = conv6_phases_patch(self.params, ph_ref_r, rc_onehot(x_alt), mut_rc, a_len, phases_r)
+        ph_ref_f = conv6_phases(self.params, ref, phases_f)
+        ph_ref_r = conv6_phases(self.params, rc_codes(ref), phases_r)
+        ph_alt_f = conv6_phases_patch(self.params, ph_ref_f, alt, mutpos, a_len, phases_f)
+        ph_alt_r = conv6_phases_patch(self.params, ph_ref_r, rc_codes(alt), mut_rc, a_len, phases_r)
 
         ranges_f = conv6_patch_ranges(mutpos, a_len, phases_f, {p: b.shape[1] for p, b in ph_ref_f.items()})
         ranges_r = conv6_patch_ranges(mut_rc, a_len, phases_r, {p: b.shape[1] for p, b in ph_ref_r.items()})

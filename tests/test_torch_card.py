@@ -1,8 +1,9 @@
 """The port's CUDA kernels and runner on the card: conv8_relu (both routes,
-the SIMT kernel and the bf16 tensor-core kernel) against its plain PyTorch
-version at ragged and short shapes, the route counts, the wrapper's checks
-on CUDA tensors, and the serving runner in fp32 on the card against the same
-runner on the CPU.
+the SIMT kernel and the bf16 tensor-core kernel) and conv0_codes_relu (the
+code-gather conv0 kernel) against their plain PyTorch versions at ragged and
+short shapes, the route and launch counts, the wrappers' checks on CUDA
+tensors, and the serving runner in fp32 on the card against the same runner
+on the CPU.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -16,6 +17,8 @@ import pytest
 import torch
 
 from expecto_tpu_torch.genome.windows import variant_shifts
+from expecto_tpu_torch.ops import conv0
+from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
 from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
 from expecto_tpu_torch.parallel.runner import BelugaRunner
 from torch_port_common import narrow_params, random_codes, sed_atol
@@ -154,10 +157,124 @@ def test_runner_fp32_on_card_matches_cpu(cuda):
     args = (spans, mutpos, alt, offsets, basis, row_uidx, W, bias)
     params = narrow_params(2)
 
-    before = conv8_relu.launches
+    before, before0 = conv8_relu.launches, conv0_codes_relu.launches_by_kind["float32"]
     got = BelugaRunner(params, batch_size=16, device="cuda").score_variant_spans_packed_rows(*args)
     assert conv8_relu.launches > before
+    assert conv0_codes_relu.launches_by_kind["float32"] > before0
     want = BelugaRunner(params, batch_size=16, device="cpu").score_variant_spans_packed_rows(*args)
     for name, g, w_ in zip(("REF", "ALT", "SED"), got, want):
         atol = sed_atol(want[0]) if name == "SED" else 1e-5
         np.testing.assert_allclose(g, w_, rtol=1e-4, atol=atol, err_msg=name)
+
+
+# ---- conv0 over int8 codes -------------------------------------------------
+
+# kernel vs plain on the same inputs. fp32: 8 table entries and the bias
+# summed in another order. bf16: one rounding of the output (relative step
+# 2^-8); the reference is the fp32 plain version on the same bf16 weights.
+CONV0_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+
+# the shortest inputs (L 8, 9), a ragged L, the patch sub-span (614, 622) and
+# the serving span (3,600); Beluga's Cout 320, Cout 48 (6 channel groups, a
+# wider block of positions) and Cout 1 (a partial group: scalar stores); and
+# a serving chunk's 227 spans
+CONV0_SHAPES = ([(3, l, cout) for l in (8, 9, 13, 614, 622, 3600) for cout in (320, 48, 1)]
+                + [(1, 8, 320), (1, 9, 48), (227, 614, 320), (227, 622, 320), (227, 3600, 320)])
+
+
+def _conv0_inputs(n, l, cout, seed, device, dtype):
+    """Codes 0..4 with N runs and codes outside 0..4; He-scaled W0 and b."""
+    rng = np.random.default_rng(seed)
+    codes = random_codes(rng, n, l, n_frac=0.03)
+    codes[:, l // 2 : l // 2 + 6] = 4
+    odd = rng.random((n, l)) < 0.02
+    codes[odd] = rng.choice(np.array([-128, -2, -1, 5, 17, 127], np.int8), odd.sum())
+    w = (rng.standard_normal((8, 4, cout)) / np.sqrt(32)).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    return (torch.from_numpy(codes).to(device),
+            torch.from_numpy(w).to(device=device, dtype=dtype), torch.from_numpy(b).to(device=device, dtype=dtype))
+
+
+def _assert_conv0_matches_plain(got, codes, w, b):
+    n, l = codes.shape
+    assert got.shape == (n, l - 7, w.shape[2]) and got.dtype == w.dtype and got.device.type == "cuda"
+    atol, rtol = CONV0_TOL[w.dtype]
+    torch.testing.assert_close(got.float(), conv0_codes_relu_plain(codes, w.float(), b.float()), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,l,cout", CONV0_SHAPES)
+def test_conv0_kernel_matches_plain(cuda, n, l, cout, dtype):
+    codes, w, b = _conv0_inputs(n, l, cout, n + l + cout, cuda, dtype)
+    before = conv0_codes_relu.launches
+    got = conv0_codes_relu(codes, w, b)
+    torch.cuda.synchronize()
+    assert conv0_codes_relu.launches == before + 1
+    _assert_conv0_matches_plain(got, codes, w, b)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 15])
+def test_conv0_kernel_on_misaligned_and_strided_codes(cuda, offset):
+    """A contiguous view whose data pointer is off a 16-byte boundary (byte
+    loads at each tile's head), and a strided view (copied by the wrapper)."""
+    codes, w, b = _conv0_inputs(5, 622, 320, offset, cuda, torch.bfloat16)
+    buf = torch.full((codes.numel() + 64,), 4, dtype=torch.int8, device=cuda)
+    view = buf[offset : offset + codes.numel()].view(codes.shape)
+    view.copy_(codes)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    want = conv0_codes_relu(codes, w, b)
+    torch.testing.assert_close(conv0_codes_relu(view, w, b), want, rtol=0, atol=0)
+    pairs = torch.stack([codes, conv0.rc_codes(codes)], dim=1)  # the runner's (ref, alt) interleave
+    torch.testing.assert_close(conv0_codes_relu(pairs[:, 0], w, b), want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    _assert_conv0_matches_plain(want, codes, w, b)
+
+
+def test_conv0_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    codes, w, b = _conv0_inputs(2, 32, 16, 0, cuda, torch.float32)
+    before = conv0_codes_relu.launches
+    with pytest.raises(TypeError):
+        conv0_codes_relu(codes.long(), w, b)
+    with pytest.raises(TypeError):
+        conv0_codes_relu(codes.float(), w, b)
+    with pytest.raises(TypeError):
+        conv0_codes_relu(codes, w.half(), b.half())
+    with pytest.raises(TypeError):
+        conv0_codes_relu(codes, w, b.bfloat16())
+    with pytest.raises(ValueError, match="one device"):
+        conv0_codes_relu(codes, w.cpu(), b)
+    with pytest.raises(ValueError):
+        conv0_codes_relu(codes, torch.zeros((8, 5, 16), device=cuda), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv0_codes_relu(codes, torch.zeros((8, 4, 32), device=cuda)[:, :, ::2], b)
+    with pytest.raises(ValueError, match="shorter"):
+        conv0_codes_relu(codes[:, :7], w, b)
+    with pytest.raises(ValueError, match="Cout"):
+        conv0_codes_relu(codes, torch.zeros((8, 4, 520), device=cuda), torch.zeros(520, device=cuda))
+    assert conv0_codes_relu.launches == before
+
+
+def test_bf16_runner_launches_conv0_on_codes_and_no_conv8_at_cin_4(cuda):
+    """A bf16 serving call: every conv0 on the code-gather kernel, and no
+    conv8_relu launch at Cin 4 (no float one-hot reached the card)."""
+    maxshift = 400
+    offsets = tuple(s + maxshift for s in variant_shifts(maxshift))
+    mutpos = maxshift + 999
+    rng = np.random.default_rng(6)
+    spans = random_codes(rng, 3, 2 * maxshift + 2000)
+    alt = ((spans[:, mutpos : mutpos + 1] + 1) % 4).astype(np.int8)
+    basis = rng.random((len(offsets), 3, 10)).astype(np.float32)
+    W = (rng.standard_normal((10 * 2002, 2)) * 0.05).astype(np.float32)
+    runner = BelugaRunner(narrow_params(3), batch_size=16, device="cuda", compute_dtype=torch.bfloat16,
+                          out_dtype=np.float16)
+    reset_launch_counts()
+    conv0.reset_launch_counts()
+    runner.score_variant_spans_packed(spans, mutpos, alt, offsets, basis, W, np.zeros(2, np.float32))
+    runner.predict_codes(spans[:, :2000], average_rc=True)
+    torch.cuda.synchronize()
+    # the packed route runs 4 conv stacks (ref and alt patch, each forward
+    # and reverse complement) per chunk; predict_codes 2
+    assert conv0_codes_relu.launches == 6
+    assert conv0_codes_relu.launches_by_kind == {"bfloat16": 6}
+    assert conv8_relu.launches > 0
+    assert not [k for k in conv8_relu.launches_by_kind if k[2] == 4]
