@@ -7,17 +7,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
 
 1. card: name and power limit as nvidia-smi reports them;
 2. build: nvcc compiles every kernel of ``expecto_tpu_torch/csrc`` for
-   sm_90a, one process per source, all at once; the tensor-core kernel's
-   SASS must hold HGMMA instructions (``cuobjdump -sass``);
+   sm_90a, one process per source, all at once (ptxas registers and spills
+   printed); the tensor-core kernel's SASS must hold HGMMA instructions, and
+   the SIMT kernel's FFMA and no HMMA or HGMMA (``cuobjdump -sass``; its
+   FFMA-to-LDS ratio is printed);
 3. kernels, at every shape they run in one substitution chunk of the main
    path (227 variants; maxshift 800: the six Beluga layers over the 3,600-bp
    span and over the alt allele's patch sub-span), each held against its
    plain PyTorch version on the same inputs and timed beside it and cuDNN's
    ``F.conv1d`` (a yardstick only: the port never calls it):
-   ``conv8_relu`` at conv1-conv5, fp32 on the SIMT kernel and bf16 on the
-   tensor-core kernel and on the SIMT kernel; ``conv0_codes_relu`` at conv0,
-   fp32 and bf16 on the code-gather kernel, beside the SIMT kernel on the
-   float one-hot;
+   ``conv8_relu`` at conv1-conv5, fp32 on the SIMT kernel (with each
+   shape's share of its fp32 bound) and bf16 on the tensor-core kernel and
+   on the SIMT kernel; ``conv0_codes_relu`` at conv0, fp32 and bf16 on the
+   code-gather kernel, beside the SIMT kernel on the float one-hot; then
+   each dtype's chunk total beside ``F.conv1d`` (TF32 off) and the bound;
 4. main path: ``python -m expecto_tpu_torch.cli.score`` (its ``main``) at
    Beluga's published widths with seeded random weights, 218 seeded tissue
    models, maxshift 800, default bf16 compute and fp16 wire, on ~1,024
@@ -26,7 +29,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the code-gather kernel, conv1-conv5 on the tensor-core kernel, no SIMT
    launch and no conv8_relu launch at Cin 4, the counts adding up); then
    warm repeats of the same serving call give the throughput;
-5. parity: a few of those variants scored with ``--fp32`` on the card and on
+5. fp32 serve: the same serving call with ``--fp32``'s settings on the first
+   256 substitutions and their genes, warm (one call first), its launch
+   counts checked (conv1-conv5 on the SIMT kernel, conv0 on the code-gather
+   kernel in fp32): the end-to-end throughput of parity mode;
+6. parity: a few of those variants scored with ``--fp32`` on the card and on
    the CPU (plain path), REF/ALT/SED compared; the card run's counts are
    zeroed just before it and read just after (conv1-conv5 on the SIMT
    kernel, conv0 on the code-gather kernel in fp32).
@@ -61,6 +68,7 @@ BATCH = 2048  # the score CLI's default --batchsize
 CHUNK = BATCH // 9  # spans per substitution chunk at 9 shift offsets
 N_MODELS = 218
 N_SUBS, N_INDELS = 1024, 128
+N_FP32_SERVE = 256  # substitutions in the fp32 serve
 CONTIG_LEN = 300_000
 DEVICE = "cuda"
 
@@ -215,7 +223,8 @@ def kernel_phase(report: dict) -> None:
             f"simt {bf['simt']['ms']:.3f} ms (err {bf['simt']['max_abs_err']:.3g}) plain {bf['plain_ms']:.3f} ms "
             f"conv1d {bf['library_ms']:.3f} ms bound {bf['bound_ms']:.3f} ms ({bf['bound_by']}); fp32 simt "
             f"{row['fp32']['ms']:.3f} ms (err {row['fp32']['max_abs_err']:.3g}) plain {row['fp32']['plain_ms']:.3f} ms "
-            f"conv1d {row['fp32']['library_ms']:.3f} ms bound {row['fp32']['bound_ms']:.3f} ms")
+            f"conv1d {row['fp32']['library_ms']:.3f} ms bound {row['fp32']['bound_ms']:.3f} ms "
+            f"({100 * row['fp32']['bound_ms'] / row['fp32']['ms']:.1f} % of it)")
         rows.append(row)
         torch.cuda.empty_cache()
     report["conv8_layers"] = rows
@@ -306,6 +315,14 @@ def chunk_summary(report: dict) -> None:
         log(f"{tag} chunk ({sum(r['launches_per_chunk'] for r in every)} launches): main-path kernels "
             f"{chunk['ms']:.3f} ms (conv1-conv5 {chunk['conv1_5_ms']:.3f}, conv0 {chunk['conv0_ms']:.3f}), "
             f"F.conv1d {chunk['library_ms']:.3f} ms, bound {chunk['bound_ms']:.3f} ms")
+    simt = {"ms": _weighted(conv8, "fp32", "ms"), "library_ms": _weighted(conv8, "fp32", "library_ms"),
+            "bound_ms": _weighted(conv8, "fp32", "bound_ms"),
+            "min_shape_share": min(r["fp32"]["bound_ms"] / r["fp32"]["ms"] for r in conv8)}
+    report["simt_fp32_chunk"] = simt
+    log(f"simt fp32 conv1-conv5 chunk: {simt['ms']:.3f} ms, {100 * simt['bound_ms'] / simt['ms']:.1f} % of its "
+        f"bound {simt['bound_ms']:.3f} ms; F.conv1d (TF32 off) {simt['library_ms']:.3f} ms, "
+        f"{simt['library_ms'] / simt['ms']:.2f}x the kernel's time; lowest share of a shape's bound "
+        f"{100 * simt['min_shape_share']:.1f} %")
 
 
 def make_inputs(seed: int) -> dict:
@@ -472,12 +489,18 @@ def main_path_phase(report: dict, inputs: dict, card: str) -> None:
     log(f"main path: {n_var} variants, {inputs['n_rows']} (variant, gene) rows x {N_MODELS} models in {wall:.2f} s "
         f"(CLI incl. weight load) = {inputs['n_rows'] / wall:.1f} rows/s, {n_var / wall:.1f} variants/s; "
         f"launches {counts} [{card}]")
-    report["main_path"]["serve_wall_s"] = serve_repeats(inputs, card)
+    walls = serve(WORK / "variants.vcf", WORK / "genes.tsv", inputs["n_rows"], fp32=False, warmup=0, repeats=3)
+    med = statistics.median(walls)
+    log(f"warm serving ({len(walls)} runs): median {med:.3f} s = {inputs['n_rows'] / med:.1f} rows/s, "
+        f"{n_var / med:.1f} variants/s; runs {[round(w, 3) for w in walls]} [{card}]")
+    report["main_path"]["serve_wall_s"] = walls
 
 
-def serve_repeats(inputs: dict, card: str, repeats: int = 3) -> list[float]:
-    """Warm repeats of the serving call itself (runner and models built,
-    kernel loaded): the end-to-end throughput without CLI start-up."""
+def serve(vcf: Path, genes: Path, n_rows: int, *, fp32: bool, warmup: int, repeats: int) -> list[float]:
+    """Wall times of repeats of the serving call itself on the card, with
+    the CLI's settings (bf16 compute and fp16 wire, or ``--fp32``'s fp32 and
+    fp32): one runner and its models built once, ``warmup`` calls first,
+    launch counts zeroed just before the timed calls."""
     import numpy as np
     import pandas as pd
     import torch
@@ -490,28 +513,60 @@ def serve_repeats(inputs: dict, card: str, repeats: int = 3) -> list[float]:
     from expecto_tpu_torch.pipeline.sed import score_sed_serving
 
     runner = BelugaRunner(load_params_npz(WORK / "beluga.npz"), batch_size=BATCH, device=DEVICE,
-                          compute_dtype=torch.bfloat16, out_dtype=np.float16)
+                          compute_dtype=torch.float32 if fp32 else torch.bfloat16,
+                          out_dtype=np.float32 if fp32 else np.float16)
     genome = FastaIndex(WORK / "genome.fa")
-    vcf = standardize_chroms(read_vcf(WORK / "variants.vcf"))
-    gene = load_closest_genes(WORK / "genes.tsv")
+    vcf_df = standardize_chroms(read_vcf(vcf))
+    gene = load_closest_genes(genes)
     ml = load_modellist(WORK / "modellist")
     walls = []
     try:
-        for _ in range(repeats):
+        for i in range(warmup + repeats):
+            if i == warmup:
+                _reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            df = score_sed_serving(vcf, gene, genome, runner, ml.iloc[:, 0].tolist(), maxshift=MAXSHIFT,
+            df = score_sed_serving(vcf_df, gene, genome, runner, ml.iloc[:, 0].tolist(), maxshift=MAXSHIFT,
                                    model_names=ml.iloc[:, 1].tolist())
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+            if i >= warmup:
+                walls.append(time.perf_counter() - t0)
     finally:
         genome.close()
-    if not isinstance(df, pd.DataFrame) or len(df) != inputs["n_rows"]:
+    if not isinstance(df, pd.DataFrame) or len(df) != n_rows:
         raise AssertionError("warm serving returned the wrong number of rows")
-    med = statistics.median(walls)
-    log(f"warm serving ({repeats} runs): median {med:.3f} s = {inputs['n_rows'] / med:.1f} rows/s, "
-        f"{len(inputs['variants']) / med:.1f} variants/s; runs {[round(w, 3) for w in walls]} [{card}]")
     return walls
+
+
+def subset(inputs: dict, picks, tag: str) -> tuple[Path, Path, int]:
+    """``tag``.vcf and ``tag``_genes.tsv under build/chip_smoke: the variants
+    ``picks`` (indices into ``inputs["variants"]``) and all their gene rows;
+    returns both paths and the number of rows."""
+    variants = inputs["variants"]
+    vcf_lines = (WORK / "variants.vcf").read_text().splitlines()
+    gene_lines = (WORK / "genes.tsv").read_text().splitlines()
+    keep = {f"{variants[i][0][3:]}\t{variants[i][1] - 1}\t{variants[i][1]}\t{variants[i][2]}\t{variants[i][3]}"
+            for i in picks}
+    vcf, genes = WORK / f"{tag}.vcf", WORK / f"{tag}_genes.tsv"
+    vcf.write_text("\n".join(vcf_lines[i] for i in picks) + "\n")
+    rows = [g for g in gene_lines if "\t".join(g.split("\t")[:5]) in keep]
+    genes.write_text("\n".join(rows) + "\n")
+    return vcf, genes, len(rows)
+
+
+def fp32_serve_phase(report: dict, inputs: dict, card: str) -> None:
+    """One warm fp32 serving call on the first N_FP32_SERVE substitutions
+    and their genes: parity mode's end-to-end throughput, its conv1-conv5 on
+    the SIMT kernel."""
+    vcf, genes, n_rows = subset(inputs, range(N_FP32_SERVE), "fp32_serve")
+    wall = serve(vcf, genes, n_rows, fp32=True, warmup=1, repeats=1)[0]
+    counts = _read_counts("float32")
+    if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
+        raise AssertionError(f"fp32 serve: conv1-conv5 did not all run on the simt kernel: {counts}")
+    report["fp32_serve"] = {"variants": N_FP32_SERVE, "rows": n_rows, "models": N_MODELS, "wall_s": wall,
+                            "rows_per_s": n_rows / wall, "launches": counts}
+    log(f"warm fp32 serve: {N_FP32_SERVE} substitutions, {n_rows} (variant, gene) rows x {N_MODELS} models in "
+        f"{wall:.3f} s = {n_rows / wall:.1f} rows/s, {N_FP32_SERVE / wall:.1f} variants/s; launches {counts} [{card}]")
 
 
 def parity_phase(report: dict, inputs: dict) -> None:
@@ -521,28 +576,19 @@ def parity_phase(report: dict, inputs: dict) -> None:
 
     from expecto_tpu_torch.cli.score import main as score_main
 
-    variants = inputs["variants"]
-    picks = [0, 1, N_SUBS, len(variants) - 1]
-    vcf_lines = (WORK / "variants.vcf").read_text().splitlines()
-    gene_lines = (WORK / "genes.tsv").read_text().splitlines()
-    keep = {f"{variants[i][0][3:]}\t{variants[i][1] - 1}\t{variants[i][1]}\t{variants[i][2]}\t{variants[i][3]}"
-            for i in picks}
-    (WORK / "parity.vcf").write_text("\n".join(vcf_lines[i] for i in picks) + "\n")
-    genes = [g for g in gene_lines if "\t".join(g.split("\t")[:5]) in keep]
-    (WORK / "parity_genes.tsv").write_text("\n".join(genes) + "\n")
+    vcf, genes, n_rows = subset(inputs, [0, 1, N_SUBS, len(inputs["variants"]) - 1], "parity")
     frames = {}
     for tag, device in (("card", DEVICE), ("cpu", "cpu")):
         out = WORK / f"parity_{tag}.csv"
         _reset_counts()
-        rc = score_main(score_args(WORK / "parity.vcf", WORK / "parity_genes.tsv", "--fp32", "--device", device,
-                                   "--output", str(out)))
+        rc = score_main(score_args(vcf, genes, "--fp32", "--device", device, "--output", str(out)))
         if rc != 0:
             raise AssertionError(f"fp32 score CLI on {device} returned {rc}")
         if tag == "card":
             counts = _read_counts("float32")
             if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
                 raise AssertionError(f"fp32 conv1-conv5 did not all run on the simt kernel: {counts}")
-        frames[tag] = check_output(out, len(genes))
+        frames[tag] = check_output(out, n_rows)
     _dg, ref_g, alt_g, sed_g = frames["card"]
     _dc, ref_c, alt_c, sed_c = frames["cpu"]
     sed_atol = 1e-5 * max(1.0, float(np.abs(ref_c).max()))
@@ -551,8 +597,8 @@ def parity_phase(report: dict, inputs: dict) -> None:
     for name, g, c, atol in (("REF", ref_g, ref_c, PARITY_ATOL), ("ALT", alt_g, alt_c, PARITY_ATOL),
                              ("SED", sed_g, sed_c, sed_atol)):
         np.testing.assert_allclose(g, c, rtol=PARITY_RTOL, atol=atol, err_msg=f"card vs CPU fp32 {name}")
-    report["parity"] = {"rows": len(genes), "max_abs_err": errs, "sed_atol": sed_atol, "launches": counts}
-    log(f"parity fp32 card vs CPU on {len(genes)} rows x {N_MODELS} models: max |err| {errs}; card launches {counts}")
+    report["parity"] = {"rows": n_rows, "max_abs_err": errs, "sed_atol": sed_atol, "launches": counts}
+    log(f"parity fp32 card vs CPU on {n_rows} rows x {N_MODELS} models: max |err| {errs}; card launches {counts}")
 
 
 def kernel_table(report: dict) -> dict:
@@ -583,7 +629,10 @@ def kernel_table(report: dict) -> dict:
               serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"]),
         entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
               parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
-              bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8)),
+              bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
+              min_shape_bound_share=report["simt_fp32_chunk"]["min_shape_share"],
+              sass_ffma=report["sass_simt"]["FFMA"], sass_lds=report["sass_simt"]["LDS"],
+              sass_hmma=report["sass_simt"]["HMMA"], sass_hgmma=report["sass_simt"]["HGMMA"]),
         entry("conv0_codes", "expecto_tpu_torch/csrc/conv0_codes.cu", conv0, "bf16", serve["conv0_codes"],
               fp32_ms=_weighted(conv0, "fp32", "ms"), fp32_bound_ms=_weighted(conv0, "fp32", "bound_ms"),
               max_err_fp32=max(r["fp32"]["max_abs_err"] for r in conv0), launches_fp32_parity=parity["conv0_codes"],
@@ -629,6 +678,12 @@ def main(argv=None) -> int:
     log(f"csrc/conv8_relu_tc.cu SASS: {report['sass_hgmma']} HGMMA instructions")
     if report["sass_hgmma"] == 0:
         raise AssertionError("the tc kernel's SASS holds no HGMMA (tensor-core) instruction")
+    sass = {op: cuda_build.sass_count("conv8_relu", op) for op in ("FFMA", "LDS", "HMMA", "HGMMA")}
+    report["sass_simt"] = sass
+    log(f"csrc/conv8_relu.cu SASS: {sass['FFMA']} FFMA, {sass['LDS']} LDS ({sass['FFMA'] / max(1, sass['LDS']):.1f} "
+        f"FFMA per LDS), {sass['HMMA']} HMMA, {sass['HGMMA']} HGMMA")
+    if sass["FFMA"] == 0 or sass["HMMA"] or sass["HGMMA"]:
+        raise AssertionError(f"the SIMT kernel's SASS must hold FFMA and no tensor-core instruction: {sass}")
     log(f"build phase {report['build_s']:.1f} s")
 
     t0 = time.perf_counter()
@@ -642,6 +697,9 @@ def main(argv=None) -> int:
     log(f"inputs: {len(inputs['variants'])} variants, {inputs['n_rows']} rows ({time.perf_counter() - t0:.1f} s)")
 
     main_path_phase(report, inputs, card)
+    t0 = time.perf_counter()
+    fp32_serve_phase(report, inputs, card)
+    log(f"fp32 serve phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     parity_phase(report, inputs)
     log(f"parity phase {time.perf_counter() - t0:.1f} s")

@@ -10,10 +10,15 @@ by :func:`_route`, a pure function of device, dtype, Cin and alignment:
 - ``"tc"``: ``csrc/conv8_relu_tc.cu``, bf16 on the tensor cores (wgmma, TMA),
   for bf16 x with Cin % 16 == 0 and a 16-byte-aligned data pointer (TMA's
   rule): Beluga's conv1-conv5 on the main path;
-- ``"simt"``: ``csrc/conv8_relu.cu``, fp32 FMA on the CUDA cores, for fp32
+- ``"simt"``: ``csrc/conv8_relu.cu``, fp32 FFMA on the CUDA cores, for fp32
   (parity mode: conv1-conv5) and every other bf16 input, a float one-hot at
   conv0 (Cin = 4) among them;
 - ``"cpu"``: :func:`conv8_relu_plain`, only for tensors on the CPU.
+
+Both kernels tile the conv over the N*L input rows as one sequence
+(:func:`conv8_relu_flat_plain` is that indexing in plain PyTorch), in tiles
+of 160 output channels, and read W packed once per weight tensor into their
+own layout (:func:`pack_weights_tc`, :func:`pack_weights_simt`).
 
 The serving path's conv0 takes int8 base codes instead, on ops/conv0.py.
 
@@ -34,10 +39,10 @@ from . import cuda_build
 KERNEL_W = 8
 ROUTES = ("simt", "tc")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SIMT_MAX_BATCH = 65535  # the SIMT launcher puts the batch on grid.z
 _TC_KC = 16  # input channels per stage of the tc kernel
-_TC_BN = 160  # output channels per tile of the tc kernel
-_TC_MAX_ROWS = 2**31 - 1  # N * L, the tc kernel's flat row index is an int
+_SIMT_KC = 4  # input channels per stage of the simt kernel
+_BN = 160  # output channels per tile of both kernels
+_MAX_ROWS = 2**31 - 1  # N * L: both kernels index the flat rows with an int
 
 
 def conv8_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,7 +59,7 @@ def conv8_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
 
 
 def conv8_relu_flat_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The tc kernel's indexing in plain PyTorch: the conv over x as one
+    """Both kernels' indexing in plain PyTorch: the conv over x as one
     (N*L, Cin) sequence, of which flat row n*L + l is kept for l < L-7 (the
     7 rows a span that straddle two spans are dropped)."""
     n, l, _cin = x.shape
@@ -71,23 +76,39 @@ def pack_weights_tc(w: torch.Tensor) -> torch.Tensor:
     kw, cin, cout = w.shape
     if kw != KERNEL_W or cin % _TC_KC:
         raise ValueError(f"the tc kernel packs W (8, Cin % {_TC_KC} == 0, Cout), got {tuple(w.shape)}")
-    tiles = -(-cout // _TC_BN)
-    wp = F.pad(w, (0, tiles * _TC_BN - cout))
-    wp = wp.reshape(KERNEL_W, cin // _TC_KC, 2, 8, tiles, _TC_BN)  # tap, chunk, group, e, tile, n
+    tiles = -(-cout // _BN)
+    wp = F.pad(w, (0, tiles * _BN - cout))
+    wp = wp.reshape(KERNEL_W, cin // _TC_KC, 2, 8, tiles, _BN)  # tap, chunk, group, e, tile, n
     return wp.permute(4, 1, 0, 2, 5, 3).contiguous()
 
 
-_PACKED: dict[int, tuple] = {}  # id(W) -> (weakref to W, W._version, packed W)
+def pack_weights_simt(w: torch.Tensor) -> torch.Tensor:
+    """W (8, Cin, Cout) in the simt kernel's layout: fp32 (Cout/160, Cin/4,
+    8 taps, 4, 160), one contiguous shared-memory stage per (Cout tile,
+    4-channel chunk), each row the 160 output channels of one (tap, input
+    channel); Cin is zero-padded to a multiple of 4 and Cout to one of 160.
+    bf16 weights are widened to fp32 here, once, not in the kernel."""
+    kw, cin, cout = w.shape
+    if kw != KERNEL_W:
+        raise ValueError(f"the simt kernel packs W (8, Cin, Cout), got {tuple(w.shape)}")
+    chunks, tiles = -(-cin // _SIMT_KC), -(-cout // _BN)
+    wp = F.pad(w.float(), (0, tiles * _BN - cout, 0, chunks * _SIMT_KC - cin))
+    wp = wp.reshape(KERNEL_W, chunks, _SIMT_KC, tiles, _BN)  # tap, chunk, c, tile, n
+    return wp.permute(3, 1, 0, 2, 4).contiguous()
 
 
-def _packed(w: torch.Tensor) -> torch.Tensor:
-    """pack_weights_tc(w), kept while w lives and is not written to: the
-    weights of a runner are packed once, not at every launch."""
-    hit = _PACKED.get(id(w))
+_PACKERS = {"tc": pack_weights_tc, "simt": pack_weights_simt}
+_PACKED: dict[tuple, tuple] = {}  # (id(W), route) -> (weakref to W, W._version, packed W)
+
+
+def _packed(w: torch.Tensor, route: str) -> torch.Tensor:
+    """W packed for ``route``'s kernel, kept while w lives and is not written
+    to: the weights of a runner are packed once, not at every launch."""
+    key = (id(w), route)
+    hit = _PACKED.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    key = id(w)
-    _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, pack_weights_tc(w))
+    _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, _PACKERS[route](w))
     return _PACKED[key][2]
 
 
@@ -126,9 +147,11 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
     """relu(conv_valid_w8(x, W) + b): a CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. ``route`` ("simt" or "tc") overrides
     :func:`_route` for CUDA tensors, for timing one kernel against the other;
-    a route that does not take the input raises. Raises on anything the
-    kernels do not take (dtype, device, shape, contiguity) and if a launch
-    fails."""
+    a route that does not take the input raises. Either kernel reads W packed
+    for it, once per weight tensor while the tensor lives unwritten, and
+    takes up to 2**31 - 1 flat rows N * L (any N). Raises on anything the
+    kernels do not take (dtype, device, shape, contiguity, rows) and if a
+    launch fails."""
     if x.device.type == "cpu":
         if route not in (None, "cpu"):
             raise ValueError(f"route {route!r} needs CUDA tensors")
@@ -145,19 +168,18 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
     if route == "tc" and auto != "tc":
         raise ValueError(f"the tc kernel takes 16-byte-aligned bf16 x with Cin % {_TC_KC} == 0, got {x.dtype}, "
                          f"Cin {cin}, data pointer {x.data_ptr():#x}")
-    if route == "simt" and n > _SIMT_MAX_BATCH:
-        raise ValueError(f"the simt kernel takes 1..{_SIMT_MAX_BATCH} rows, got {n}")
-    if route == "tc" and n * l > _TC_MAX_ROWS:
-        raise ValueError(f"the tc kernel takes N * L <= {_TC_MAX_ROWS}, got {n * l}")
+    if n * l > _MAX_ROWS:
+        raise ValueError(f"the {route} kernel takes N * L <= {_MAX_ROWS}, got {n * l}")
     y = torch.empty((n, l - KERNEL_W + 1, cout), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        wp = _packed(w, route).data_ptr()
         if route == "tc":
-            err = cuda_build.launcher("conv8_relu_tc", 4)(x.data_ptr(), _packed(w).data_ptr(), b.data_ptr(),
-                                                          y.data_ptr(), n, l, cin, cout, stream)
+            err = cuda_build.launcher("conv8_relu_tc", 4)(x.data_ptr(), wp, b.data_ptr(), y.data_ptr(), n, l, cin,
+                                                          cout, stream)
         else:
-            err = cuda_build.launcher("conv8_relu", 5)(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                                       n, l, cin, cout, _DTYPE_CODES[x.dtype], stream)
+            err = cuda_build.launcher("conv8_relu", 5)(x.data_ptr(), wp, b.data_ptr(), y.data_ptr(), n, l, cin, cout,
+                                                       _DTYPE_CODES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"conv8_relu {route} kernel launch failed: error {err}")
     conv8_relu.launches += 1

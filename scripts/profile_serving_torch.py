@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving call goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_serving_torch.py [--out DIR] [--seed N]
+    python3 scripts/profile_serving_torch.py [--out DIR] [--seed N] [--fp32]
 
 Builds chip_smoke.py's seeded main-path inputs (full Beluga widths, 218
 models, maxshift 800, ~1,156 variants), runs ``score_sed_serving`` once to
@@ -9,7 +9,9 @@ warm up, then once more under ``torch.profiler`` with a span around each
 runner route (substitution rows, indel pair rows, per-window fallback).
 Prints the wall time (unprofiled and profiled), the device's busy and idle shares, device time per
 kernel name and host time per route; ``--out DIR`` writes them to
-``DIR/profile_serving.json``.
+``DIR/profile_serving.json`` (``profile_serving_fp32.json`` with ``--fp32``).
+The default is the CLI's bf16 compute with an fp16 wire; ``--fp32`` is
+parity mode (the CLI's ``--fp32``: fp32 compute and wire, TF32 off).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fp32", action="store_true", help="profile parity mode instead of the bf16 default")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -49,7 +52,8 @@ def main(argv=None) -> int:
     card = cs.card_line()
     inputs = cs.make_inputs(args.seed)
     runner = BelugaRunner(load_params_npz(cs.WORK / "beluga.npz"), batch_size=cs.BATCH, device="cuda",
-                          compute_dtype=torch.bfloat16, out_dtype=np.float16)
+                          compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
+                          out_dtype=np.float32 if args.fp32 else np.float16)
     for name in ROUTES:
         orig = getattr(runner, name)
 
@@ -106,11 +110,11 @@ def main(argv=None) -> int:
         if e.device_type == cpu and e.name in spans:
             routes[e.name] = routes.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     result = {
-        "card": card, "wall_s": wall, "wall_unprofiled_s": wall_off, "rows": inputs["n_rows"], "variants": len(inputs["variants"]),
+        "card": card, "dtype": "fp32" if args.fp32 else "bf16", "wall_s": wall, "wall_unprofiled_s": wall_off, "rows": inputs["n_rows"], "variants": len(inputs["variants"]),
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / (wall * 1e3),
         "host_ms_by_span": routes, "kernels": kernels[:25],
     }
-    print(f"card: {card}")
+    print(f"card: {card}; {result['dtype']} compute")
     print(f"serving call: {wall_off:.3f} s unprofiled, {wall:.3f} s profiled, for {inputs['n_rows']} rows; device busy {busy_ms:.1f} ms "
           f"({100 * result['device_busy_share']:.1f}% of wall), idle {100 * (1 - result['device_busy_share']):.1f}%")
     for name, ms in sorted(routes.items(), key=lambda kv: -kv[1]):
@@ -120,7 +124,8 @@ def main(argv=None) -> int:
               f"x{k['calls']:<5d} {k['name'][:110]}")
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
-        (Path(args.out) / "profile_serving.json").write_text(json.dumps(result, indent=1))
+        name = "profile_serving_fp32.json" if args.fp32 else "profile_serving.json"
+        (Path(args.out) / name).write_text(json.dumps(result, indent=1))
     return 0
 
 

@@ -1,9 +1,9 @@
 """The port's CUDA kernels and runner on the card: conv8_relu (both routes,
-the SIMT kernel and the bf16 tensor-core kernel) and conv0_codes_relu (the
-code-gather conv0 kernel) against their plain PyTorch versions at ragged and
-short shapes, the route and launch counts, the wrappers' checks on CUDA
-tensors, and the serving runner in fp32 on the card against the same runner
-on the CPU.
+the fp32 SIMT kernel and the bf16 tensor-core kernel) and conv0_codes_relu
+(the code-gather conv0 kernel) against their plain PyTorch versions at
+ragged and short shapes, batches past 65,535 spans and misaligned views, the
+route and launch counts, the wrappers' checks on CUDA tensors, and the
+serving runner in fp32 on the card against the same runner on the CPU.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -32,7 +32,7 @@ pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 # conv0 (Cin 4), the shortest input (L 8), ragged L - 7 and Cout that is not
-# a multiple of the kernel's 64-channel tile, and the wide Beluga layers
+# a multiple of the kernels' 160-channel tile, and the wide Beluga layers
 SHAPES = [(2, 64, 4, 32), (3, 13, 4, 48), (2, 8, 20, 40), (1, 37, 48, 96), (2, 300, 320, 480),
           (1, 150, 640, 640), (4, 200, 17, 1)]
 
@@ -67,25 +67,66 @@ def test_conv8_kernel_matches_plain(cuda, n, l, cin, cout, dtype):
     torch.testing.assert_close(got.float(), want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
-# the tc kernel at Beluga's widths on short rows (patch sub-span lengths, one
-# to five spans a 128-row tile), at a serving chunk's 227 spans, and at
-# Cout that is not a multiple of its 160-channel tile
+# both flat-row kernels at Beluga's widths on short rows (patch sub-span
+# lengths, one to five spans a tile), at a serving chunk's 227 spans (64-
+# and 128-row tiles of the SIMT kernel), and at Cout that is not a multiple
+# of their 160-channel tile
 TC_SHAPES = ([(5, l, cin, cout) for l in (8, 9, 26, 34) for cin in (320, 480, 640) for cout in (320, 480, 640)]
              + [(227, 34, 640, 640), (227, 26, 480, 640), (227, 120, 320, 480), (3, 40, 32, 40), (2, 19, 16, 1),
                 (4, 50, 64, 161), (1, 300, 320, 330)])
+# the tc kernel on the bf16 main path; the SIMT kernel forced, in fp32 (the
+# fp32 main path) and in bf16
+FLAT_ROUTES = [("tc", torch.bfloat16), ("simt", torch.float32), ("simt", torch.bfloat16)]
 
 
-@pytest.mark.parametrize("n,l,cin,cout", TC_SHAPES)
-def test_conv8_tc_kernel_matches_plain(cuda, n, l, cin, cout):
-    x, w, b = _inputs(n, l, cin, cout, n + l + cin + cout, cuda, torch.bfloat16)
+def _assert_route_matches_plain(x, w, b, route):
+    """One launch of ``route`` (and of no other kernel), held against the
+    fp32 plain version on the same inputs."""
     before = dict(conv8_relu.launches_by_route)
-    got = conv8_relu(x, w, b)
+    got = conv8_relu(x, w, b, route=route)
     torch.cuda.synchronize()
-    assert conv8_relu.launches_by_route["tc"] == before["tc"] + 1
-    assert conv8_relu.launches_by_route["simt"] == before["simt"]
-    assert got.shape == (n, l - 7, cout) and got.dtype == torch.bfloat16
+    assert conv8_relu.launches_by_route == {r: k + (r == route) for r, k in before.items()}
+    n, l, _cin = x.shape
+    assert got.shape == (n, l - 7, w.shape[2]) and got.dtype == x.dtype and got.device.type == "cuda"
     want = conv8_relu_plain(x.float(), w.float(), b.float())
-    torch.testing.assert_close(got.float(), want, rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    torch.testing.assert_close(got.float(), want, rtol=TOL[x.dtype], atol=TOL[x.dtype])
+    return got
+
+
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES, ids=["tc-bf16", "simt-fp32", "simt-bf16"])
+@pytest.mark.parametrize("n,l,cin,cout", TC_SHAPES)
+def test_conv8_tc_kernel_matches_plain(cuda, n, l, cin, cout, route, dtype):
+    x, w, b = _inputs(n, l, cin, cout, n + l + cin + cout, cuda, dtype)
+    _assert_route_matches_plain(x, w, b, route)
+
+
+# Cin off the SIMT kernel's 4-channel stage (zero-filled) and Cout off its
+# 160-channel tile and off its 4- and 2-channel vector stores
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cin,cout", [(cin, cout) for cin in (4, 17, 20) for cout in (1, 7, 161)])
+def test_conv8_simt_kernel_at_ragged_channels(cuda, cin, cout, dtype):
+    x, w, b = _inputs(3, 45, cin, cout, cin + cout, cuda, dtype)
+    _assert_route_matches_plain(x, w, b, "simt")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_conv8_simt_kernel_past_65535_spans(cuda, dtype):
+    """Flat rows: N is not a grid dimension, so N = 70,000 launches once."""
+    x, w, b = _inputs(70_000, 8, 4, 32, 70, cuda, dtype)
+    _assert_route_matches_plain(x, w, b, "simt")
+
+
+@pytest.mark.parametrize("cin", [320, 17])
+def test_conv8_simt_kernel_on_a_misaligned_fp32_view(cuda, cin):
+    """A contiguous fp32 view 4 bytes past a 16-byte boundary stages through
+    the same 4-byte copies and gives the aligned result."""
+    x, w, b = _inputs(3, 30, cin, 320, cin, cuda, torch.float32)
+    buf = torch.empty(x.numel() + 8, device=cuda)
+    view = buf[1 : 1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    got = _assert_route_matches_plain(view, w, b, "simt")
+    torch.testing.assert_close(got, conv8_relu(x, w, b), rtol=0, atol=0)
 
 
 def test_conv8_route_counts_follow_the_dispatch(cuda):

@@ -1,9 +1,10 @@
 """conv8_relu of the port vs the JAX package's Pallas kernel (interpret mode)
 and its XLA reference, fp32 on the CPU, where the port's wrapper takes the
-plain PyTorch version; the route rule, the tc kernel's flat-row indexing
-(conv8_relu_flat_plain) and its packed weight layout. The CUDA kernels
-themselves run only on the card (chip_smoke.py and tests/test_torch_card.py
-hold them against the plain version there)."""
+plain PyTorch version; the route rule, the kernels' flat-row indexing
+(conv8_relu_flat_plain), their packed weight layouts and the SIMT kernel's
+stage-by-stage sum over its packed weights. The CUDA kernels themselves run
+only on the card (chip_smoke.py and tests/test_torch_card.py hold them
+against the plain version there)."""
 
 import numpy as np
 import pytest
@@ -14,10 +15,12 @@ import jax.numpy as jnp
 from expecto_tpu.ops.pallas_conv import conv8_relu as jax_conv8_relu
 from expecto_tpu.ops.pallas_conv import conv8_relu_reference
 from expecto_tpu_torch.ops.conv8 import (
+    _packed,
     _route,
     conv8_relu,
     conv8_relu_flat_plain,
     conv8_relu_plain,
+    pack_weights_simt,
     pack_weights_tc,
     reset_launch_counts,
 )
@@ -152,6 +155,60 @@ def test_packed_weights_hold_each_stage_where_the_tc_kernel_reads_it(cin, cout):
                 for g in range(2):
                     block = wide[k, 16 * c + 8 * g : 16 * c + 8 * g + 8, 160 * t : 160 * t + 160].T
                     assert torch.equal(packed[t, c, k, g], block)
+
+
+@pytest.mark.parametrize("cin,cout,dtype", [(4, 32, torch.float32), (17, 161, torch.float32), (20, 7, torch.bfloat16),
+                                             (48, 1, torch.float32)])
+def test_packed_weights_hold_each_stage_where_the_simt_kernel_reads_it(cin, cout, dtype):
+    """Stage (tile t, chunk q), tap k, channel c is the fp32 row
+    W[k, 4q + c, 160t : +160], zero past Cin and past Cout."""
+    w = torch.from_numpy(_inputs(1, 8, cin, cout, seed=cin + 1)[1]).to(dtype)
+    packed = pack_weights_simt(w)
+    tiles, chunks = -(-cout // 160), -(-cin // 4)
+    assert packed.shape == (tiles, chunks, 8, 4, 160) and packed.dtype == torch.float32 and packed.is_contiguous()
+    wide = torch.zeros((8, 4 * chunks, 160 * tiles))
+    wide[:, :cin, :cout] = w.float()
+    for t in range(tiles):
+        for q in range(chunks):
+            for k in range(8):
+                for c in range(4):
+                    assert torch.equal(packed[t, q, k, c], wide[k, 4 * q + c, 160 * t : 160 * t + 160])
+
+
+def _simt_stage_sums(x, w, b):
+    """The SIMT kernel's sum in plain PyTorch: over the flat rows, 4-channel
+    stages of zero-padded x against the packed W, tap k a shift of k rows;
+    then bias, ReLU and the rows that straddle two spans dropped."""
+    n, l, cin = x.shape
+    packed = pack_weights_simt(w)
+    tiles, chunks = packed.shape[:2]
+    flat = torch.zeros((n * l + 7, 4 * chunks))
+    flat[: n * l, :cin] = x.reshape(n * l, cin)
+    y = torch.zeros((n * l, 160 * tiles))
+    for t in range(tiles):
+        for q in range(chunks):
+            for k in range(8):
+                y[:, 160 * t : 160 * t + 160] += flat[k : k + n * l, 4 * q : 4 * q + 4] @ packed[t, q, k]
+    y = torch.relu(y[:, : w.shape[2]] + b)
+    return y.reshape(n, l, -1)[:, : l - 7]
+
+
+@pytest.mark.parametrize("n,l,cin,cout", FLAT_SHAPES + [(3, 13, 17, 161), (2, 9, 20, 1)])
+def test_simt_stage_sums_match_pallas_interpret(n, l, cin, cout):
+    x, w, b = _inputs(n, l, cin, cout, seed=7 * l + cin + n)
+    want = np.asarray(jax_conv8_relu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True))
+    got = _simt_stage_sums(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)).numpy()
+    assert got.shape == (n, l - 7, cout)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+def test_packed_weights_are_cached_per_route_until_written():
+    w = torch.from_numpy(_inputs(1, 8, 16, 32, seed=3)[1]).bfloat16()
+    simt, tc = _packed(w, "simt"), _packed(w, "tc")
+    assert _packed(w, "simt") is simt and _packed(w, "tc") is tc
+    assert torch.equal(simt, pack_weights_simt(w)) and torch.equal(tc, pack_weights_tc(w))
+    w.mul_(-1)
+    assert torch.equal(_packed(w, "simt"), pack_weights_simt(w)) and not torch.equal(_packed(w, "simt"), simt)
 
 
 def test_pack_rejects_cin_off_the_stage_width():
