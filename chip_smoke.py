@@ -21,6 +21,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    on the SIMT kernel; ``conv0_codes_relu`` at conv0, fp32 and bf16 on the
    code-gather kernel, beside the SIMT kernel on the float one-hot; then
    each dtype's chunk total beside ``F.conv1d`` (TF32 off) and the bound;
+   then every conv of the h5 path's pair chunks (112 spans, and the 64 of
+   the last chunk: conv0-conv5 over the span, both strands) on each dtype's
+   route, held against the plain version and timed;
 4. main path: ``python -m expecto_tpu_torch.cli.score`` (its ``main``) at
    Beluga's published widths with seeded random weights, 218 seeded tissue
    models, maxshift 800, default bf16 compute and fp16 wire, on ~1,024
@@ -36,7 +39,28 @@ Phases (any failure raises, and the script exits non-zero with no result):
 6. parity: a few of those variants scored with ``--fp32`` on the card and on
    the CPU (plain path), REF/ALT/SED compared; the card run's counts are
    zeroed just before it and read just after (conv1-conv5 on the SIMT
-   kernel, conv0 on the code-gather kernel in fp32).
+   kernel, conv0 on the code-gather kernel in fp32);
+7. h5 contract (``expecto-chromatin`` -> ``expecto-predict``) on all the
+   main path's variants with the chromatin CLI's settings (batch 1,024; fp32
+   compute and wire by default, then ``--bf16``'s bf16 compute and fp16
+   wire): per dtype one in-memory call (``keep_arrays``, also the warm-up),
+   then one timed call of the CLI's streaming path (the runner's sink
+   writing each pair chunk into numpy arrays that stand in for the h5
+   datasets, then the window rows), launch counts zeroed just before it and
+   read just after (fp32: conv1-conv5 on the SIMT kernel; bf16: on the tc
+   kernel, no SIMT launch; totals equal to the chunk arithmetic); the
+   streamed arrays equal to the in-memory ones bit for bit, alt = ref + diff
+   exactly, the bf16 effects within a stated limit of the fp32 ones (which
+   the same comparison with the strands swapped or the rows shifted
+   exceeds); the fp32 effects scored by ``score_sed`` (model 0) and
+   ``score_sed_multimodel`` (218 models); fp32 card vs CPU effects on a
+   substitution, an insertion, a deletion and a contig-edge row;
+   ``sed.tsv``'s REF/ALT/SED against ``expecto-score --fp32``'s
+   ``output.csv`` row by row, and each ``--modelList`` column against minus
+   its SED column. The effects are averaged as ``load_shift_effects``
+   averages a file's halves, so this script needs no h5py; the h5 files
+   themselves are written and read by the CPU tests
+   (tests/test_torch_chromatin.py, tests/test_torch_predict.py).
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -86,6 +110,29 @@ CONV0_FP32_TOL = 1e-5
 # separately rounded 20,020-term fp32 products, so its absolute noise scales
 # with |REF| (tests/torch_port_common.sed_atol)
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
+
+# h5 contract: the chromatin CLI's default batch, its pair chunks (variants
+# a chunk, as runner._pair_rows at 9 offsets) and the spans a chunk's conv
+# batch holds (ref and alt of each pair), full and last: every variant but
+# the 4 contig-edge rows takes the span path
+H5_BATCH = 1024
+H5_PAIRS = H5_BATCH // 9 // 2
+H5_SPAN_VARIANTS = N_SUBS + N_INDELS
+H5_CHUNK_N = tuple(n for n in (2 * H5_PAIRS, 2 * (H5_SPAN_VARIANTS % H5_PAIRS)) if n)
+# fp32 effects card vs CPU (track probabilities: REF/ALT rtol 1e-4 atol 1e-5,
+# diff atol 1e-5); sed.tsv against the fused scorer: the JAX package's own
+# tolerances (tests/test_spans.py: SED rtol 1e-3, REF rtol 1e-4 atol 1e-4),
+# SED's atol raised from 1e-5 to 1e-5 * max|REF| because the noise of the two
+# separately rounded 20,020-term products scales with |REF| at full width
+H5_RTOL, H5_ATOL, H5_DIFF_ATOL = 1e-4, 1e-5, 1e-5
+SED_RTOL, REF_RTOL, REF_ATOL = 1e-3, 1e-4, 1e-4
+# bf16 vs fp32 h5 effects, per strand and shift: bf16 activations carry about
+# 3 significant digits, so sound runs differ by about 1e-2 at most (the
+# fwd/RC-averaged maxima at full width were 8.85e-3 and 1.05e-2; one strand's
+# may be up to twice that); the same comparison with the bf16 strand halves
+# swapped, or its variant rows shifted by one, must exceed the limit, so the
+# limit separates a sound run from one whose rows landed in the wrong place
+H5_BF16_GAP = 5e-2
 
 
 def log(msg: str) -> None:
@@ -148,6 +195,19 @@ def chunk_launches() -> Counter:
         frames = dict(zip(phases, (length - 7 for name, length in full if name == "conv5")))
         s0, s1 = conv6_patch_subspan(conv6_patch_ranges(mut, 1, phases, frames), SPAN_LEN)
         tally.update(full + conv_stack(s1 - s0, phases))
+    return tally
+
+
+def h5_chunk_launches() -> Counter:
+    """{(layer, L): launches} of one pair chunk of the h5 path
+    (parallel/runner._span_preds_fwd_rc over ref and alt as one batch): the
+    full conv stack over the span, forward and reverse complement."""
+    from expecto_tpu_torch.genome.windows import variant_shifts
+
+    offsets = [s + MAXSHIFT for s in variant_shifts(MAXSHIFT)]
+    tally = Counter()
+    for offs in (offsets, [2 * MAXSHIFT - o for o in offsets]):
+        tally.update(conv_stack(SPAN_LEN, sorted({(o // 4) % 4 for o in offs})))
     return tally
 
 
@@ -293,6 +353,61 @@ def conv0_phase(report: dict) -> None:
         rows.append(row)
         torch.cuda.empty_cache()
     report["conv0_layers"] = rows
+
+
+def h5_kernel_phase(report: dict) -> None:
+    """Every conv of the h5 path's pair chunks, the full chunk and the
+    smaller last one (H5_CHUNK_N spans: conv0-conv5 over the full span,
+    forward and reverse complement), on each dtype's route of the h5 runs
+    (conv0 on the code-gather kernel; conv1-conv5 on the SIMT kernel in fp32
+    and the tc kernel in bf16), held against the fp32 plain version on the
+    same inputs and timed."""
+    import torch
+
+    from expecto_tpu_torch.models.beluga import CONV_SPECS
+    from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
+    from expecto_tpu_torch.ops.conv8 import _route, conv8_relu, conv8_relu_plain
+
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(2)
+    rows, chunk_ms = [], {}
+    for n in H5_CHUNK_N:
+        for (name, length), per_chunk in sorted(h5_chunk_launches().items(), key=lambda kv: (kv[0][0], -kv[0][1])):
+            _kw, cin, cout = CONV_SPECS[int(name[4:])]
+            if name == "conv0":
+                x32 = _conv0_codes(n, length, gen)
+            else:
+                x32 = torch.randn((n, length, cin), generator=gen, device=gen.device)
+            w32 = torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5
+            b32 = torch.randn((cout,), generator=gen, device=gen.device) * 0.1
+            row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
+            for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                w, b = w32.to(dtype), b32.to(dtype)
+                if name == "conv0":
+                    x, route = x32, "codes"
+                    want = conv0_codes_relu_plain(x, w.float(), b.float())
+                    atol = rtol = CONV0_FP32_TOL if tag == "fp32" else BF16_ATOL
+                    launch = lambda: conv0_codes_relu(x, w, b)  # noqa: E731
+                else:
+                    x = x32.to(dtype)
+                    route = _route("cuda", dtype, cin, x.data_ptr())
+                    if route != ("simt" if tag == "fp32" else "tc"):
+                        raise AssertionError(f"h5 {name} {tag} N={n} L={length} would take the {route} route")
+                    want = conv8_relu_plain(x.float(), w.float(), b.float())
+                    atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
+                    launch = lambda: conv8_relu(x, w, b, route=route)  # noqa: E731
+                err = _check_close(launch(), want, atol, rtol, f"h5 chunk {name} {route} {tag} N={n} L={length}")
+                del want
+                row[tag] = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch)}
+                chunk_ms[(n, tag)] = chunk_ms.get((n, tag), 0.0) + per_chunk * row[tag]["ms"]
+                del x
+            rows.append(row)
+            torch.cuda.empty_cache()
+        log(f"h5 pair chunk of {n} spans ({sum(h5_chunk_launches().values())} launches): kernels fp32 "
+            f"{chunk_ms[(n, 'fp32')]:.3f} ms, bf16 {chunk_ms[(n, 'bf16')]:.3f} ms; max |err| fp32 "
+            f"{max(r['fp32']['max_abs_err'] for r in rows if r['N'] == n):.3g}, bf16 "
+            f"{max(r['bf16']['max_abs_err'] for r in rows if r['N'] == n):.3g}")
+    report["h5_layers"] = rows
+    report["h5_chunk_kernel_ms"] = {f"N={n} {tag}": ms for (n, tag), ms in chunk_ms.items()}
 
 
 def _weighted(rows: list, tag: str, key: str) -> float:
@@ -601,41 +716,273 @@ def parity_phase(report: dict, inputs: dict) -> None:
     log(f"parity fp32 card vs CPU on {n_rows} rows x {N_MODELS} models: max |err| {errs}; card launches {counts}")
 
 
+def _h5_effects(res) -> dict:
+    """``ChromatinResult.arrays`` ({shift: (diff, ref, alt)}, (2N, M) each)
+    as ``load_shift_effects`` returns the files: {key: (S, N, M)} with the
+    forward and reverse-complement halves averaged."""
+    import numpy as np
+
+    from expecto_tpu_torch.io.h5 import avg_fwd_rc
+
+    return {k: np.stack([avg_fwd_rc(res.arrays[s][i]) for s in res.shifts])
+            for i, k in ((0, "diff"), (1, "ref"), (2, "alt"))}
+
+
+def _chromatin(runner, vcf, genome):
+    """The chromatin step in memory (``keep_arrays``): the span rows through
+    ``predict_span_pairs_diff`` whole, merged with the window rows."""
+    from expecto_tpu_torch.pipeline.chromatin import compute_variant_chromatin_effects
+
+    return compute_variant_chromatin_effects(vcf, genome, runner, None, maxshift=MAXSHIFT, keep_arrays=True,
+                                             verbose=False)
+
+
+def _chromatin_streaming(runner, vcf, genome) -> list[dict]:
+    """The chromatin CLI's step as ``compute_variant_chromatin_effects`` runs
+    it with an output directory: validation, diagnostics and eligibility,
+    then ``stream_span_rows`` (the pair chunks through the runner's sink,
+    then the window rows), with numpy arrays in place of the h5 datasets,
+    since this script needs no h5py. Returns per shift {"diff", "ref",
+    "alt"}: (2N, 2002) float32 arrays, rows [fwd; rc]."""
+    import numpy as np
+
+    from expecto_tpu_torch.genome.windows import variant_shifts
+    from expecto_tpu_torch.pipeline import chromatin as ch
+
+    n = len(vcf)
+    chroms, positions = vcf.iloc[:, 0].astype(str).values, vcf.iloc[:, 1].astype(int).values
+    refs, alts = vcf.iloc[:, 3].astype(str).values, vcf.iloc[:, 4].astype(str).values
+    ch._require_known_chromosomes(genome, chroms)
+    ch._diagnostics(genome, chroms, positions, refs, alts, 2000, False)
+    span_ok = ch._span_eligible(genome, chroms, positions, refs, alts, MAXSHIFT, 2000)
+    shifts = variant_shifts(MAXSHIFT)
+    dsets = [{k: np.empty((2 * n, 2002), np.float32) for k in ("diff", "ref", "alt")} for _ in shifts]
+    ch.stream_span_rows(genome, runner, chroms, positions, refs, alts, shifts, MAXSHIFT, 2000, span_ok, dsets)
+    return dsets
+
+
+def _bf16_gap(res16, res32, n: int) -> dict:
+    """max |bf16 - fp32| of each h5 dataset over every shift, strand and
+    row; and the same with a fault planted in the bf16 arrays: the strand
+    halves swapped, or the variant rows shifted by one."""
+    import numpy as np
+
+    def shifted(a):
+        return np.concatenate([np.roll(a[:n], 1, axis=0), np.roll(a[n:], 1, axis=0)])
+
+    gap = {"sound": {}, "strands_swapped": {}, "rows_shifted": {}}
+    for s in res32.shifts:
+        for i, k in ((0, "diff"), (1, "ref"), (2, "alt")):
+            a16, a32 = res16.arrays[s][i], res32.arrays[s][i]
+            for case, a in (("sound", a16), ("strands_swapped", np.roll(a16, n, axis=0)),
+                            ("rows_shifted", shifted(a16))):
+                gap[case][k] = max(gap[case].get(k, 0.0), float(np.abs(a - a32).max()))
+    return gap
+
+
+def h5_contract_phase(report: dict, inputs: dict, card: str) -> None:
+    """The h5 contract on every main-path variant, fp32 then bf16, with the
+    chromatin CLI's settings; the fp32 effects scored as the predict CLI
+    scores them and checked against the CPU and the fused scorer."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.cli.score import main as score_main
+    from expecto_tpu_torch.genome.fasta import FastaIndex
+    from expecto_tpu_torch.genome.vcf import read_vcf, standardize_chroms
+    from expecto_tpu_torch.io.tables import load_closest_genes, load_modellist
+    from expecto_tpu_torch.io.xgb import load_expression_model
+    from expecto_tpu_torch.models.convert import load_params_npz
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+    from expecto_tpu_torch.pipeline.chromatin import _span_eligible
+    from expecto_tpu_torch.pipeline.sed import score_sed, score_sed_multimodel
+
+    params = load_params_npz(WORK / "beluga.npz")
+    genome = FastaIndex(WORK / "genome.fa")
+    vcf = standardize_chroms(read_vcf(WORK / "variants.vcf"))
+    gene = load_closest_genes(WORK / "genes.tsv")
+    ml = load_modellist(WORK / "modellist")
+    paths, names = ml.iloc[:, 0].tolist(), ml.iloc[:, 1].tolist()
+    n = len(vcf)
+    eligible = _span_eligible(genome, vcf.iloc[:, 0].astype(str).values, vcf.iloc[:, 1].astype(int).values,
+                              vcf.iloc[:, 3].astype(str).values, vcf.iloc[:, 4].astype(str).values, MAXSHIFT, 2000)
+    n_win = int((~eligible).sum())
+    out = {"variants": n, "span_rows": n - n_win, "window_rows": n_win, "batch": H5_BATCH}
+    if n - n_win != H5_SPAN_VARIANTS:
+        raise AssertionError(f"{n - n_win} span rows, but the kernel phase checked chunks of {H5_SPAN_VARIANTS}")
+    span_rows = np.nonzero(eligible)[0]
+    span_rows = np.concatenate([span_rows, n + span_rows])
+    results = {}
+    try:
+        for tag, dtype, wire in (("fp32", torch.float32, np.float32), ("bf16", torch.bfloat16, np.float16)):
+            runner = BelugaRunner(params, batch_size=H5_BATCH, device=DEVICE, compute_dtype=dtype, out_dtype=wire)
+            if runner._pair_rows(9) != H5_PAIRS:
+                raise AssertionError(f"pair chunks of {runner._pair_rows(9)} variants, kernels checked {H5_PAIRS}")
+            res = _chromatin(runner, vcf, genome)  # also the warm-up
+            torch.cuda.synchronize()
+            # the timed step: the CLI's streaming path
+            _reset_counts()
+            t0 = time.perf_counter()
+            streamed = _chromatin_streaming(runner, vcf, genome)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts(str(dtype).removeprefix("torch."))
+            # per pair chunk, both alleles in one batch: 2 orientations x (1
+            # conv0 + conv1-conv3 + conv4/conv5 at pool-2 phases 0 and 2);
+            # per shift, the window rows' 4 windows each (ref, alt, both
+            # orientations) in batches of H5_BATCH: 1 conv0 + 5 conv8 a batch
+            chunks = -(-H5_SPAN_VARIANTS // H5_PAIRS)
+            win_calls = 9 * -(-4 * n_win // H5_BATCH) if n_win else 0
+            want0, want8 = 2 * chunks + win_calls, 14 * chunks + 5 * win_calls
+            route, other = ("simt", "tc") if tag == "fp32" else ("tc", "simt")
+            by_route = counts["conv8_relu_by_route"]
+            if (counts["conv0_codes"], by_route[route], by_route[other]) != (want0, want8, 0):
+                raise AssertionError(f"h5 {tag}: launches {counts}, expected {want0} conv0 and {want8} {route}")
+            # the streamed rows land where the in-memory path puts them, bit
+            # for bit; on the span rows alt = ref + diff exactly (rebuilt on
+            # the host in fp32), and with an fp16 wire ref and diff are fp16
+            # values (diff taken on the card before the cast)
+            for si, s in enumerate(res.shifts):
+                diff, ref, alt = res.arrays[s]
+                for k, a in (("diff", diff), ("ref", ref), ("alt", alt)):
+                    if not np.array_equal(streamed[si][k], a):
+                        raise AssertionError(f"h5 {tag}: streamed {k} of shift {s} differs from the in-memory path "
+                                             f"(max |diff| {float(np.abs(streamed[si][k] - a).max())})")
+                    if not np.isfinite(a).all() or a.shape != (2 * n, 2002):
+                        raise AssertionError(f"h5 {tag}: {k} of shift {s} has shape {a.shape}, or is not finite")
+                if not np.array_equal(alt[span_rows], ref[span_rows] + diff[span_rows]):
+                    raise AssertionError(f"h5 {tag}: alt != ref + diff on the span rows of shift {s}")
+                if wire == np.float16 and not all(np.array_equal(a[span_rows], a[span_rows].astype(wire))
+                                                  for a in (ref, diff)):
+                    raise AssertionError(f"h5 {tag}: ref or diff of shift {s} is not what an fp16 wire carries")
+            del streamed
+            nbytes = sum(a.nbytes for s in res.shifts for a in res.arrays[s])
+            out[tag] = {"wall_s": wall, "variants_per_s": n / wall, "launches": counts, "pair_chunks": chunks,
+                        "window_batches": win_calls, "h5_bytes": nbytes}
+            log(f"h5 contract {tag}: chromatin (streaming) on {n} variants ({n - n_win} span, {n_win} window) in "
+                f"{wall:.3f} s warm = {n / wall:.1f} variants/s; {chunks} pair chunks, {win_calls} window batches; "
+                f"the fork-schema files would hold {nbytes / 1e9:.3f} GB; launches {counts}; streamed = in-memory "
+                f"bit for bit [{card}]")
+            results[tag] = res
+            del runner
+            torch.cuda.empty_cache()
+
+        res32 = results["fp32"]
+        gap = _bf16_gap(results.pop("bf16"), res32, n)
+        out["bf16_vs_fp32_max_abs"] = gap
+        log(f"h5 contract bf16 vs fp32 effects, per strand: max |diff| {gap['sound']} (limit {H5_BF16_GAP}); with "
+            f"the strands swapped {gap['strands_swapped']}, with the rows shifted by one {gap['rows_shifted']}")
+        if max(gap["sound"].values()) > H5_BF16_GAP:
+            raise AssertionError(f"h5 bf16 effects differ from fp32 by more than {H5_BF16_GAP}: {gap['sound']}")
+        if min(min(gap[c].values()) for c in ("strands_swapped", "rows_shifted")) <= H5_BF16_GAP:
+            raise AssertionError(f"the bf16 gap limit {H5_BF16_GAP} does not catch a planted fault: {gap}")
+        eff32 = _h5_effects(res32)
+
+        # the predict step on the fp32 effects: sed.tsv for model 0 and the
+        # --modelList table for all 218 models
+        t0 = time.perf_counter()
+        sed = score_sed(eff32, vcf, gene, load_expression_model(paths[0]), maxshift=MAXSHIFT,
+                        out_dir=WORK / "h5_predict").table
+        t_sed = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        multi = score_sed_multimodel(eff32, vcf, gene, paths, maxshift=MAXSHIFT, model_names=names,
+                                     output_csv=WORK / "h5_output.csv")
+        t_multi = time.perf_counter() - t0
+        out.update(score_sed_s=t_sed, score_sed_multimodel_s=t_multi)
+        log(f"h5 contract predict: score_sed (1 model) {t_sed:.3f} s, score_sed_multimodel ({N_MODELS} models) "
+            f"{t_multi:.3f} s on {len(sed)} rows")
+
+        # card vs CPU on a substitution, an insertion, a deletion, an edge row
+        variants = inputs["variants"]
+        indels = range(N_SUBS, N_SUBS + N_INDELS)
+        picks = [0, next(i for i in indels if len(variants[i][3]) > 1),
+                 next(i for i in indels if len(variants[i][2]) > 1), len(variants) - 1]
+        cpu = _chromatin(BelugaRunner(params, batch_size=H5_BATCH, device="cpu"), vcf.iloc[picks], genome)
+        rows = np.array(picks + [n + i for i in picks])
+        errs = {}
+        for s in cpu.shifts:
+            for name, got, want, rtol, atol in zip(("diff", "ref", "alt"), res32.arrays[s], cpu.arrays[s],
+                                                   (0, H5_RTOL, H5_RTOL), (H5_DIFF_ATOL, H5_ATOL, H5_ATOL)):
+                np.testing.assert_allclose(got[rows], want, rtol=rtol, atol=atol, err_msg=f"h5 card vs CPU {name} {s}")
+                errs[name] = max(errs.get(name, 0.0), float(np.abs(got[rows] - want).max()))
+        out["card_vs_cpu_max_abs"] = errs
+        log(f"h5 contract fp32 card vs CPU on {len(picks)} variants x 9 shifts x 2 strands: max |err| {errs}")
+    finally:
+        genome.close()
+
+    # expecto-score --fp32 on the same variants: sed.tsv against its model-0
+    # columns, and every --modelList column against minus its SED column
+    serve_csv = WORK / "h5_serve_fp32.csv"
+    if score_main(score_args(WORK / "variants.vcf", WORK / "genes.tsv", "--fp32", "--output", str(serve_csv))) != 0:
+        raise AssertionError("fp32 score CLI returned non-zero")
+    _df, ref_s, alt_s, sed_s = check_output(serve_csv, inputs["n_rows"])
+    if len(sed) != inputs["n_rows"] or len(multi) != inputs["n_rows"]:
+        raise AssertionError(f"h5 scorers returned {len(sed)} and {len(multi)} rows, expected {inputs['n_rows']}")
+    sed_atol = 1e-5 * max(1.0, float(np.abs(ref_s[:, 0]).max()))
+    np.testing.assert_allclose(sed["REF"], ref_s[:, 0], rtol=REF_RTOL, atol=REF_ATOL, err_msg="sed.tsv REF")
+    np.testing.assert_allclose(sed["ALT"], alt_s[:, 0], rtol=REF_RTOL, atol=REF_ATOL, err_msg="sed.tsv ALT")
+    np.testing.assert_allclose(sed["SED"], sed_s[:, 0], rtol=SED_RTOL, atol=sed_atol, err_msg="sed.tsv SED")
+    multi_v = multi[names].to_numpy(np.float64)
+    col_atol = 1e-5 * np.maximum(1.0, np.abs(ref_s).max(axis=0))
+    err = np.abs(multi_v + sed_s)
+    if not (err <= col_atol + SED_RTOL * np.abs(sed_s)).all():
+        raise AssertionError(f"--modelList output != -SED of expecto-score --fp32: max |err| {err.max()}")
+    out["vs_score_fp32"] = {
+        "REF": float(np.abs(sed["REF"] - ref_s[:, 0]).max()), "ALT": float(np.abs(sed["ALT"] - alt_s[:, 0]).max()),
+        "SED": float(np.abs(sed["SED"] - sed_s[:, 0]).max()), "SED_atol": sed_atol,
+        "multimodel_plus_SED": float(err.max()), "multimodel_atol_max": float(col_atol.max()),
+    }
+    report["h5_contract"] = out
+    log(f"h5 contract vs expecto-score --fp32 on {inputs['n_rows']} rows: max |err| {out['vs_score_fp32']}")
+
+
 def kernel_table(report: dict) -> dict:
     """The kernel line: one entry per hand-written kernel, over the launches
     of one substitution chunk that its main path gives it (each shape
     weighted by its launches there): the tc kernel at bf16 conv1-conv5 and
     the code-gather kernel at bf16 conv0, whose ``launches`` are the bf16
     serving run's; the SIMT kernel at fp32 conv1-conv5, whose ``launches``
-    are the fp32 parity run's on the card. Per-shape numbers in ``layers``."""
+    are the fp32 parity run's on the card. ``launches_h5_*`` are the timed
+    h5-contract chromatin runs', ``h5_chunk_ms`` the kernel's time in one
+    full pair chunk of them; ``max_abs_err`` covers both paths' shapes.
+    Per-shape numbers in ``layers`` and ``h5_layers``."""
     conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
+    h5_full = [r for r in report["h5_layers"] if r["N"] == H5_CHUNK_N[0]]
     serve, parity = report["main_path"]["launches"], report["parity"]["launches"]
+    h5 = {t: report["h5_contract"][t]["launches"] for t in ("fp32", "bf16")}
 
     def entry(name, source, rows, tag, launches, **extra):
         """``tag``'s numbers on the main path's route of each shape."""
+        h5_rows = [r for r in report["h5_layers"] if (r["layer"] == "conv0") == (name == "conv0_codes")]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": "expecto_tpu/ops/pallas_conv.py:49",
             "launches": launches,
-            "max_abs_err": max(r[tag]["max_abs_err"] for r in rows),
+            "max_abs_err": max(r[tag]["max_abs_err"] for r in rows + h5_rows),
             "ms": _weighted(rows, tag, "ms"),
             "plain_ms": _weighted(rows, tag, "plain_ms"), "bound_ms": _weighted(rows, tag, "bound_ms"),
             "bound_by": "operations" if _weighted(rows, tag, "ops_ms") >= _weighted(rows, tag, "bytes_ms") else "bytes",
-            "library_ms": _weighted(rows, tag, "library_ms"), "dtype": tag, **extra,
+            "library_ms": _weighted(rows, tag, "library_ms"), "dtype": tag,
+            "h5_chunk_ms": _weighted([r for r in h5_full if r in h5_rows], tag, "ms"), **extra,
         }
 
     return {"kernels": [
         entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
-              serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"]),
+              serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"],
+              launches_h5_bf16=h5["bf16"]["conv8_relu_by_route"]["tc"]),
         entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
               parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
+              launches_h5_fp32=h5["fp32"]["conv8_relu_by_route"]["simt"],
               bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
               min_shape_bound_share=report["simt_fp32_chunk"]["min_shape_share"],
               sass_ffma=report["sass_simt"]["FFMA"], sass_lds=report["sass_simt"]["LDS"],
               sass_hmma=report["sass_simt"]["HMMA"], sass_hgmma=report["sass_simt"]["HGMMA"]),
         entry("conv0_codes", "expecto_tpu_torch/csrc/conv0_codes.cu", conv0, "bf16", serve["conv0_codes"],
               fp32_ms=_weighted(conv0, "fp32", "ms"), fp32_bound_ms=_weighted(conv0, "fp32", "bound_ms"),
-              max_err_fp32=max(r["fp32"]["max_abs_err"] for r in conv0), launches_fp32_parity=parity["conv0_codes"],
+              max_err_fp32=max(r["fp32"]["max_abs_err"] for r in conv0 + report["h5_layers"] if r["layer"] == "conv0"),
+              h5_chunk_fp32_ms=_weighted([r for r in h5_full if r["layer"] == "conv0"], "fp32", "ms"),
+              launches_fp32_parity=parity["conv0_codes"],
+              launches_h5_bf16=h5["bf16"]["conv0_codes"], launches_h5_fp32=h5["fp32"]["conv0_codes"],
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
@@ -645,7 +992,10 @@ def kernel_table(report: dict) -> dict:
          **({"bf16_simt_ms": r["bf16"]["simt"]["ms"]} if "simt" in r["bf16"] else {}),
          **({"bf16_simt_onehot_ms": r["bf16"]["simt_onehot_ms"], "fp32_simt_onehot_ms": r["fp32"]["simt_onehot_ms"]}
             if "simt_onehot_ms" in r["bf16"] else {})}
-        for r in conv0 + conv8]}
+        for r in conv0 + conv8],
+        "h5_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
+                      | {f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("route", "ms", "max_abs_err")}
+                      for r in report["h5_layers"]]}
 
 
 def main(argv=None) -> int:
@@ -690,6 +1040,7 @@ def main(argv=None) -> int:
     kernel_phase(report)
     conv0_phase(report)
     chunk_summary(report)
+    h5_kernel_phase(report)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -703,6 +1054,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parity_phase(report, inputs)
     log(f"parity phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    h5_contract_phase(report, inputs, card)
+    log(f"h5 contract phase {time.perf_counter() - t0:.1f} s")
 
     table = kernel_table(report)
     if args.out:

@@ -192,6 +192,20 @@ class FastaIndex:
                 out[i, lo - int(s) : lo - int(s) + (hi - lo)] = _BYTE_LUT[raw]
         return out
 
+    def window_bytes(self, chrom: str, starts_1based, window_len: int) -> "np.ndarray":
+        """(n, window_len) raw sequence bytes for fixed-length windows, in one
+        vectorized gather; positions outside the contig are 0 (no base ever
+        compares equal to it). Batched replacement for per-row
+        :meth:`sequence` calls on hot diagnostic paths."""
+        off, length = self._index[chrom]
+        starts0 = np.asarray(starts_1based, dtype=np.int64) - 1
+        if length == 0 or starts0.size == 0:
+            return np.zeros((starts0.shape[0], window_len), np.uint8)
+        contig = np.frombuffer(self._mmap, dtype=np.uint8, count=length, offset=off)
+        idx = starts0[:, None] + np.arange(window_len, dtype=np.int64)[None, :]
+        valid = (idx >= 0) & (idx < length)
+        return np.where(valid, contig[np.clip(idx, 0, length - 1)], np.uint8(0))
+
     def close(self) -> None:
         if isinstance(self._mmap, mmap.mmap):
             self._mmap.close()

@@ -9,6 +9,10 @@ expecto_tpu/parallel/runner.py).
   conv on a hand-written CUDA kernel (ops/conv0.py, ops/conv8.py);
 - reverse complement is taken in code space on the device (flip, c -> 3 - c:
   ``rc_codes``), and forward/RC predictions are averaged there;
+- the h5 contract (``predict_span_pairs_diff``, ``predict_span_pair_diffs_only``)
+  runs a chunk's ref and alt spans through the conv stack as one batch and
+  fetches (ref, diff) per orientation: diff = alt - ref is taken in fp32 on
+  the device, and the host rebuilds alt = ref + diff in fp32;
 - the decay-basis projection and all stacked tissue models run on the device
   as one matmul, and only per-model scalars come back, as (REF, SED): SED =
   ALT - REF is taken in fp32 on the device before the cast to the fetch
@@ -194,6 +198,51 @@ class BelugaRunner:
             yield (start, end - start, self._dev(packed[start:end]),
                    self._dev(n_rows[i0:i1] - start), self._dev(n_cols[i0:i1]))
 
+    def _code_chunks(self, span_codes: np.ndarray, rows: int):
+        """Yield (start, (real, L) int8 device codes) per chunk of ``rows``
+        spans: 2-bit packed with the N sideband, or 4-bit for N-dense
+        batches."""
+        n, span_len = span_codes.shape
+        plan = self._pack2_plan(span_codes, rows)
+        if plan is not None:
+            for start, _real, p, rl, cl in self._pack2_chunks(plan, rows, n):
+                yield start, unpack_codes2(p, span_len, rl, cl)
+        else:
+            packed = pack_codes(span_codes)
+            for start in range(0, n, rows):
+                yield start, unpack_codes(self._dev(packed[start : start + rows]), span_len)
+
+    def _pair_chunks(self, ref_spans: np.ndarray, alt_spans: np.ndarray, rows: int):
+        """Yield (start, (2 * real, L) device codes interleaved per pair,
+        [r0, a0, r1, a1, ...]) per chunk of ``rows`` pairs: both alleles run
+        through the conv stack as one batch."""
+        n, span_len = ref_spans.shape
+        inter = np.empty((2 * n, span_len), dtype=np.int8)
+        inter[0::2] = ref_spans
+        inter[1::2] = alt_spans
+        for start2, codes in self._code_chunks(inter, 2 * rows):
+            yield start2 // 2, codes
+
+    def _pair_diff_chunks(self, ref_spans, alt_spans, offsets, with_ref: bool):
+        """Yield (start, :meth:`_pair_diff_wire` on the host) per chunk of
+        (ref, alt) span pairs."""
+        offsets = tuple(int(o) for o in offsets)
+        ref_spans = np.asarray(ref_spans, dtype=np.int8)
+        alt_spans = np.asarray(alt_spans, dtype=np.int8)
+        for start, codes in self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets))):
+            yield start, self._pair_diff_wire(codes, offsets, with_ref)
+
+    def _pair_diff_wire(self, codes: torch.Tensor, offsets, with_ref: bool) -> np.ndarray:
+        """h5-contract wire of one interleaved pair chunk: ``(ref, diff)``
+        stacked as (P, 2, 2[fwd|rc], S, M), or ``diff`` alone as
+        (P, 2[fwd|rc], S, M), at the fetch dtype. ``diff = alt - ref`` is
+        taken in fp32 on the device before the cast, so an fp16 wire keeps
+        diff's relative precision."""
+        p = self._span_preds_fwd_rc(codes, offsets)
+        ref, diff = p[0::2], p[1::2] - p[0::2]
+        y = torch.stack([ref, diff], dim=1) if with_ref else diff
+        return y.to(self._wire).cpu().numpy()
+
     @staticmethod
     def _row_chunk_plan(row_uidx: np.ndarray, n_u: int, rows: int):
         """Chunks of ``rows`` unique variants for (variant, gene) rows whose
@@ -221,14 +270,21 @@ class BelugaRunner:
             y = (y + beluga_forward(self.params, rc_codes(codes)).float()) * 0.5
         return y.to(out)
 
-    def _pair_span_preds(self, spans: torch.Tensor, offsets) -> torch.Tensor:
-        """fwd/RC-averaged (N, S, M) fp32 track predictions of an (N, L)
-        int8 span batch."""
+    def _span_preds_fwd_rc(self, spans: torch.Tensor, offsets) -> torch.Tensor:
+        """(N, 2, S, M) fp32 track predictions of an (N, L) int8 span batch,
+        forward at [:, 0] and reverse complement at [:, 1]; the RC window of
+        offset ``o`` sits at the mirrored offset of the RC span."""
         y = beluga_forward_spans(self.params, spans, offsets).float()
         extra = spans.shape[1] - 2000
         rc_off = tuple(extra - o for o in offsets)
         y_rc = beluga_forward_spans(self.params, rc_codes(spans), rc_off).float()
-        return (y + y_rc) * 0.5
+        return torch.stack([y, y_rc], dim=1)
+
+    def _pair_span_preds(self, spans: torch.Tensor, offsets) -> torch.Tensor:
+        """fwd/RC-averaged (N, S, M) fp32 track predictions of an (N, L)
+        int8 span batch."""
+        p = self._span_preds_fwd_rc(spans, offsets)
+        return (p[:, 0] + p[:, 1]) * 0.5
 
     def _preds_from_ref(self, ref: torch.Tensor, alt_allele: torch.Tensor, offsets, span_len: int, mutpos: int):
         """fwd/RC-averaged (N, S, 2002) predictions for ref and alt from one
@@ -297,35 +353,102 @@ class BelugaRunner:
         return out
 
     @torch.inference_mode()
+    def predict_span_codes(self, span_codes: np.ndarray, offsets, *, rc_mode: str = "none") -> np.ndarray:
+        """Span-amortized forward: (N, span_len) int8 codes -> per-window
+        predictions for windows span[o : o+2000] at each offset, at the
+        fetch dtype.
+
+        rc_mode: 'none' -> (N, O, 2002); 'average' -> fwd/RC averaged
+        (N, O, 2002); 'concat' -> (N, 2, O, 2002) with fwd at [:, 0], RC at
+        [:, 1]."""
+        if rc_mode not in ("none", "average", "concat"):
+            raise ValueError(rc_mode)
+        span_codes = np.asarray(span_codes, dtype=np.int8)
+        offsets = tuple(int(o) for o in offsets)
+        n = span_codes.shape[0]
+        shape = (n, 2, len(offsets), 2002) if rc_mode == "concat" else (n, len(offsets), 2002)
+        out = np.empty(shape, dtype=self.out_dtype)
+        for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
+            if rc_mode == "none":
+                y = beluga_forward_spans(self.params, codes, offsets).float()
+            else:
+                y = self._span_preds_fwd_rc(codes, offsets)
+                if rc_mode == "average":
+                    y = (y[:, 0] + y[:, 1]) * 0.5
+            out[start : start + codes.shape[0]] = y.to(self._wire).cpu().numpy()
+        return out
+
+    @torch.inference_mode()
+    def predict_span_pairs_diff(self, ref_spans, alt_spans, offsets, *, sink=None):
+        """h5-contract pair forward: (N, span_len) ref/alt spans ->
+        (REF, ALT, DIFF), each (2N, n_offsets, 2002) float32 in the
+        reference h5 row layout, rows [0:N] forward and [N:2N] reverse
+        complement, so a shift's h5 arrays are the slices ``x[:, si]``.
+
+        ``diff = alt - ref`` is computed in fp32 on the device and fetched at
+        the runner's wire dtype with ref; the host rebuilds ``alt = ref +
+        diff`` in fp32. Ref and alt spans ship 2-bit packed, interleaved per
+        variant, and run through the conv stack as one batch.
+
+        With ``sink``, chunks stream instead of filling the three arrays:
+        ``sink(start, real, ref, alt, diff)`` receives fp32 arrays of shape
+        (real, 2[fwd|rc], S, M) for variant rows [start, start + real), and
+        the method returns None. The sink is called synchronously, in chunk
+        order, from the calling thread, while the card waits."""
+        n = len(ref_spans)
+        if sink is None:
+            REF, ALT, DIFF = (np.empty((2 * n, len(offsets), 2002), dtype=np.float32) for _ in range(3))
+        for start, y in self._pair_diff_chunks(ref_spans, alt_spans, offsets, with_ref=True):
+            r = y.shape[0]  # y: (r, 2[ref|diff], 2[fwd|rc], S, M) at the wire dtype
+            if sink is not None:
+                ref = y[:, 0].astype(np.float32)
+                diff = y[:, 1].astype(np.float32)
+                sink(start, r, ref, ref + diff, diff)
+                continue
+            for orient, s0 in ((0, start), (1, n + start)):  # fwd rows, then rc rows
+                ref, diff = REF[s0 : s0 + r], DIFF[s0 : s0 + r]
+                ref[...] = y[:, 0, orient]  # an fp16 wire converts in place
+                diff[...] = y[:, 1, orient]
+                np.add(ref, diff, out=ALT[s0 : s0 + r])
+        return None if sink is not None else (REF, ALT, DIFF)
+
+    @torch.inference_mode()
+    def predict_span_pair_diffs_only(self, ref_spans, alt_spans, offsets, *, sink=None):
+        """Legacy-contract pair forward: only ``diff = alt - ref`` leaves the
+        device, half the wire of :meth:`predict_span_pairs_diff`, for the
+        original-ExPecto h5 format whose single ``pred`` dataset is the diff.
+
+        Returns (2N, n_offsets, 2002) float32 in the [fwd; rc] row layout,
+        or streams ``sink(start, real, diff)`` chunks of shape
+        (real, 2[fwd|rc], S, M) fp32 and returns None (called as
+        :meth:`predict_span_pairs_diff` calls its sink)."""
+        n = len(ref_spans)
+        if sink is None:
+            DIFF = np.empty((2 * n, len(offsets), 2002), dtype=np.float32)
+        for start, y in self._pair_diff_chunks(ref_spans, alt_spans, offsets, with_ref=False):
+            r = y.shape[0]  # y: (r, 2[fwd|rc], S, M) at the wire dtype
+            if sink is not None:
+                sink(start, r, y.astype(np.float32))
+                continue
+            DIFF[start : start + r] = y[:, 0]
+            DIFF[n + start : n + start + r] = y[:, 1]
+        return None if sink is not None else DIFF
+
+    @torch.inference_mode()
     def score_variant_spans(self, ref_spans, alt_spans, offsets, basis, W, bias):
         """Fused SED serving of explicit (ref, alt) span pairs: (N, span_len)
         spans + (S, N, B) decay basis + stacked model weights (F, K) ->
         (REF, ALT, SED), each (N, K). Both spans ship 2-bit packed,
-        interleaved per variant, or unpacked for N-dense batches."""
+        interleaved per variant, or 4-bit for N-dense batches."""
         ref_spans = np.asarray(ref_spans, dtype=np.int8)
         alt_spans = np.asarray(alt_spans, dtype=np.int8)
         offsets = tuple(int(o) for o in offsets)
         n, span_len = ref_spans.shape
-        rows = self._pair_rows(len(offsets))
         W_dev, bias_dev = self._model_tensors(W, bias)
         REF, ALT, SED = self._outputs(n, W.shape[1])
         basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
-
-        inter = np.empty((2 * n, span_len), dtype=np.int8)
-        inter[0::2] = ref_spans
-        inter[1::2] = alt_spans
-        plan = self._pack2_plan(inter, 2 * rows)
-        if plan is not None:
-            chunks = (
-                (s2 // 2, unpack_codes2(p, span_len, rl, cl).reshape(-1, 2, span_len))
-                for s2, _r2, p, rl, cl in self._pack2_chunks(plan, 2 * rows, 2 * n)
-            )
-        else:
-            chunks = (
-                (s, torch.stack([self._dev(ref_spans[s : s + rows]), self._dev(alt_spans[s : s + rows])], dim=1))
-                for s in range(0, n, rows)
-            )
-        for start, pair in chunks:
+        for start, codes in self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets))):
+            pair = codes.reshape(-1, 2, span_len)
             p_ref = self._pair_span_preds(pair[:, 0], offsets)
             p_alt = self._pair_span_preds(pair[:, 1], offsets)
             basis_t = self._dev(basis_wire[:, start : start + pair.shape[0]])
@@ -342,20 +465,10 @@ class BelugaRunner:
         alt_alleles = np.asarray(alt_alleles, dtype=np.int8)
         offsets = tuple(int(o) for o in offsets)
         n, span_len = ref_spans.shape
-        rows = self._span_rows(len(offsets))
         W_dev, bias_dev = self._model_tensors(W, bias)
         REF, ALT, SED = self._outputs(n, W.shape[1])
         basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
-
-        plan = self._pack2_plan(ref_spans, rows)
-        if plan is not None:
-            chunks = (
-                (s, unpack_codes2(p, span_len, rl, cl)) for s, _r, p, rl, cl in self._pack2_chunks(plan, rows, n)
-            )
-        else:
-            packed = pack_codes(ref_spans)
-            chunks = ((s, unpack_codes(self._dev(packed[s : s + rows]), span_len)) for s in range(0, n, rows))
-        for start, ref in chunks:
+        for start, ref in self._code_chunks(ref_spans, self._span_rows(len(offsets))):
             stop = start + ref.shape[0]
             p_ref, p_alt = self._preds_from_ref(ref, self._dev(alt_alleles[start:stop]), offsets, span_len, int(mutpos))
             basis_t = self._dev(basis_wire[:, start:stop])

@@ -1,26 +1,39 @@
-"""Fused SED serving: VCF rows -> per-(variant, gene, tissue model)
-expression effects (port of the serving path of expecto_tpu/pipeline/sed.py).
+"""SED scoring: per-(variant, gene, tissue model) expression effects (port
+of expecto_tpu/pipeline/sed.py).
 
-SED is ``pred(ALT) - pred(REF)`` of every tissue model, where ``pred`` is a
-gblinear model over decay-basis projected chromatin predictions (reference
-predict.py:70-280). One device pass replaces the reference's two-script
-chromatin.py -> predict.py flow: no per-shift h5 intermediates, only
-per-model scalars leave the device.
+Two contracts:
+
+- **fused serving** (``score_sed_serving``, the ``expecto-score`` CLI):
+  ``SED = pred(ALT) - pred(REF)`` of every tissue model, where ``pred`` is a
+  gblinear model over decay-basis projected chromatin predictions (reference
+  predict.py:70-280). One device pass replaces the two-script flow: no
+  per-shift h5 intermediates, only per-model scalars leave the device.
+- **h5 scorers** (``score_sed``, ``score_sed_multimodel``, the
+  ``expecto-predict`` CLI), host numpy over the per-shift effects that
+  ``expecto-chromatin`` writes: read the h5s averaging forward/RC halves,
+  align variants with the closest-gene table, project per-shift effects
+  into 20,020 decay features, apply the track keep-mask and predict.
+  ``sed.tsv`` holds ``SED = pred(alt) - pred(ref)``; the ``--modelList``
+  output holds the original ExPecto effect ``pred(0) - pred(diff)``, the
+  opposite sign of the fused scorer's SED.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import pandas as pd
 
 from ..genome.encode import alleles_to_flat_codes, reverse_complement_codes, seqs_to_codes
 from ..genome.windows import fetch_variant_window, variant_shifts
+from ..io.h5 import read_shift_h5_averaged
 from ..io.xgb import load_expression_model
-from ..ops.decay import N_BASIS, project_features, variant_basis
+from ..models.gblinear import GBLinearModel
+from ..ops.decay import N_BASIS, pad_legacy_20030, project_features, variant_basis
 from ..parallel.runner import fp32_wire_kw
+from ..utils.keep_mask import subset_features_by_mask
 from .chromatin import (
     _gather_spans,
     _require_known_chromosomes,
@@ -28,6 +41,17 @@ from .chromatin import (
     _span_eligible,
     assemble_variant_spans,
 )
+
+
+def load_shift_effects(pattern: str, maxshift: int = 800) -> dict[str, np.ndarray]:
+    """Load per-shift h5s by substituting SHIFT in ``pattern``
+    (predict.py:173-194). Returns {'diff': (S,N,M), 'ref': ..., 'alt': ...};
+    legacy files yield only 'diff'."""
+    per_key: dict[str, list] = {}
+    for shift in variant_shifts(maxshift):
+        for k, v in read_shift_h5_averaged(pattern.replace("SHIFT", str(shift))).items():
+            per_key.setdefault(k, []).append(v)
+    return {k: np.stack(v, axis=0) for k, v in per_key.items()}
 
 
 def get_num_repeats(genes_df: pd.DataFrame) -> list[int]:
@@ -87,6 +111,148 @@ def align_variants_with_genes(
         genename=np.asarray(gene.iloc[:, -2]),
         effects=effects,
     )
+
+
+def _project(inputs: SedInputs, maxshift: int, keep_mask: np.ndarray | None, n_tracks: int, keys=None):
+    basis = variant_basis(inputs.dist, inputs.strand, variant_shifts(maxshift))  # (S, M, 10)
+    use = inputs.effects if keys is None else {k: inputs.effects[k] for k in keys}
+    feats = {k: project_features(basis, v) for k, v in use.items()}
+    if keep_mask is not None:
+        feats = {k: subset_features_by_mask(v, keep_mask, N_BASIS, n_tracks) for k, v in feats.items()}
+    return feats
+
+
+def _match_model_features(X: np.ndarray, model: GBLinearModel, n_tracks: int) -> np.ndarray:
+    """Pad 20,020-dim features to the legacy 20,030 layout when the model was
+    trained on 2,003-track predictions (original FunctionLab models;
+    geuvadis_predict_consensus.py:122-124)."""
+    if model.n_features == X.shape[1]:
+        return X
+    legacy = pad_legacy_20030(X, n_tracks)
+    if model.n_features == legacy.shape[1]:
+        return legacy
+    raise ValueError(f"model expects {model.n_features} features, computed {X.shape[1]}")
+
+
+@dataclass
+class SedResult:
+    table: pd.DataFrame
+    sorted_by_magnitude: pd.DataFrame = field(default=None)
+    sorted_by_proportion: pd.DataFrame = field(default=None)
+
+
+def score_sed(
+    effects: dict[str, np.ndarray],
+    coor: pd.DataFrame,
+    gene: pd.DataFrame,
+    model: GBLinearModel,
+    *,
+    maxshift: int = 800,
+    n_tracks: int = 2002,
+    keep_mask: np.ndarray | None = None,
+    fixeddist: int = 0,
+    out_dir: str | os.PathLike | None = None,
+) -> SedResult:
+    """Single-model SED scoring -> sed.tsv and the two sorted tables (fork
+    contract, predict.py:249-280)."""
+    inputs = align_variants_with_genes(coor, gene, effects, fixeddist)
+    have_refalt = "ref" in inputs.effects and "alt" in inputs.effects
+    # fork-schema inputs (diff/ref/alt) report SED = ALT - REF only
+    # (predict.py:264; the diff-based effect is dead code there), so the
+    # diff tensor is not projected
+    keys = ("ref", "alt") if have_refalt else ("diff",)
+    feats = _project(inputs, maxshift, keep_mask, n_tracks, keys=keys)
+
+    def predict(X):
+        return model.predict(_match_model_features(X, model, n_tracks))
+
+    if have_refalt:
+        ref = predict(feats["ref"])
+        alt = predict(feats["alt"])
+        sed = alt - ref
+    else:
+        # legacy single-'pred' inputs carry no ref/alt tracks; SED falls back
+        # to the diff-based effect (original ExPecto semantics). predict of
+        # zero features is exactly base_score + bias
+        base = np.full(feats["diff"].shape[0], model.base_score + model.bias, dtype=np.float32)
+        effect = base - predict(feats["diff"])
+        ref = np.zeros_like(effect)
+        alt = np.zeros_like(effect)
+        sed = -effect
+
+    df = inputs.coor.copy()
+    df["dist"] = inputs.dist
+    df["gene"] = inputs.genename
+    df["strand"] = inputs.strand
+    df = pd.concat(
+        [df.reset_index(), pd.DataFrame(ref, columns=["REF"]), pd.DataFrame(alt, columns=["ALT"]),
+         pd.DataFrame(sed, columns=["SED"])],
+        axis=1,
+        ignore_index=False,
+    )
+
+    by_mag = df.copy()
+    by_mag["SED_MAGNITUDES"] = np.abs(by_mag["SED"])
+    by_mag = by_mag.sort_values(by="SED_MAGNITUDES", ascending=False)
+    by_prop = df.copy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        prop = np.abs(by_prop["SED"] / ((by_prop["REF"] + by_prop["ALT"]) / 2))
+    if not have_refalt:
+        # legacy inputs carry REF=ALT=0: the proportion is undefined for every
+        # row, so write NaN (sorted last) instead of an all-inf column
+        prop = np.full_like(np.asarray(prop, dtype=np.float64), np.nan)
+    by_prop["SED_PROPORTION"] = prop
+    by_prop = by_prop.sort_values(by="SED_PROPORTION", ascending=False)
+
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        df.to_csv(os.path.join(out_dir, "sed.tsv"), header=True, sep="\t", index=False)
+        by_mag.to_csv(os.path.join(out_dir, "sed_sorted_by_magnitude.tsv"), header=True, sep="\t", index=False)
+        by_prop.to_csv(os.path.join(out_dir, "sed_sorted_by_proportion.tsv"), header=True, sep="\t", index=False)
+    return SedResult(table=df, sorted_by_magnitude=by_mag, sorted_by_proportion=by_prop)
+
+
+def score_sed_multimodel(
+    effects: dict[str, np.ndarray],
+    coor: pd.DataFrame,
+    gene: pd.DataFrame,
+    model_paths: list[str],
+    *,
+    maxshift: int = 800,
+    n_tracks: int = 2002,
+    keep_mask: np.ndarray | None = None,
+    fixeddist: int = 0,
+    output_csv: str | os.PathLike | None = None,
+    model_names: list[str] | None = None,
+) -> pd.DataFrame:
+    """Original-ExPecto multi-model contract: one log-fold-change column per
+    tissue model, appended to the vcf columns (README.md:25-30). All model
+    weight vectors are stacked into one (F, n_models) matrix, so the model
+    list scores as one matmul.
+
+    Each column is the reference's effect ``pred(0) - pred(diff) =
+    -(X_diff @ w)`` (predict.py:156-157): minus the fused scorer's SED."""
+    inputs = align_variants_with_genes(coor, gene, effects, fixeddist)
+    feats = _project(inputs, maxshift, keep_mask, n_tracks, keys=("diff",))
+
+    models = [load_expression_model(p) for p in model_paths]
+    n_feats = {m.n_features for m in models}
+    if len(n_feats) != 1:
+        raise ValueError(f"models disagree on feature count: {sorted(n_feats)}")
+    X_diff = _match_model_features(feats["diff"], models[0], n_tracks)
+    W = np.stack([m.weight for m in models], axis=1)  # (F, n_models)
+    sed_all = -(X_diff @ W)  # (M_rows, n_models); the bias cancels in pred(0) - pred(diff)
+
+    df = inputs.coor.copy()
+    df["dist"] = inputs.dist
+    df["gene"] = inputs.genename
+    df["strand"] = inputs.strand
+    names = model_names or [os.path.basename(p) for p in model_paths]
+    for j, name in enumerate(names):
+        df[name] = sed_all[:, j]
+    if output_csv is not None:
+        df.to_csv(output_csv, header=True, index=False)
+    return df
 
 
 def _factorize_variant_rows(chroms, positions, refs, alts):

@@ -26,6 +26,34 @@ REPO = Path(__file__).resolve().parents[1]
 ROUTES = ("score_variant_spans_packed_rows", "score_variant_span_pairs_rows", "predict_codes")
 
 
+def device_summary(prof, spans) -> tuple[list, float, dict]:
+    """(device time per kernel name, device busy ms, host ms per span) of a
+    ``torch.profiler`` run. CUPTI records the ctypes-launched kernels too;
+    the script's own spans (``spans``) also appear as device-side annotation
+    ranges and are kept apart. Busy time is the union of the kernel and copy
+    intervals."""
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    dev = [e for e in prof.events() if e.device_type == cuda and e.name not in spans]
+    by_name: dict[str, dict] = {}
+    for e in dev:
+        k = by_name.setdefault(e.name, {"name": e.name, "calls": 0, "device_ms": 0.0})
+        k["calls"] += 1
+        k["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    kernels = sorted(by_name.values(), key=lambda k: -k["device_ms"])
+    busy_us, last_end = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if end > last_end:
+            busy_us += end - max(start, last_end)
+            last_end = end
+    routes = {}
+    for e in prof.events():
+        if e.device_type == cpu and e.name in spans:
+            routes[e.name] = routes.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return kernels, busy_us / 1e3, routes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -86,29 +114,7 @@ def main(argv=None) -> int:
     finally:
         genome.close()
 
-    # device work (CUPTI records the ctypes-launched CUDA kernel too),
-    # grouped by name; this script's own spans also appear as device-side
-    # annotation ranges and are kept apart. Busy time is the union of the
-    # kernel and copy intervals.
-    spans = {"score_sed_serving", *(f"route::{r}" for r in ROUTES)}
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    dev = [e for e in prof.events() if e.device_type == cuda and e.name not in spans]
-    by_name: dict[str, dict] = {}
-    for e in dev:
-        k = by_name.setdefault(e.name, {"name": e.name, "calls": 0, "device_ms": 0.0})
-        k["calls"] += 1
-        k["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
-    kernels = sorted(by_name.values(), key=lambda k: -k["device_ms"])
-    busy_us, last_end = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end) for e in dev):
-        if end > last_end:
-            busy_us += end - max(start, last_end)
-            last_end = end
-    busy_ms = busy_us / 1e3
-    routes = {}
-    for e in prof.events():
-        if e.device_type == cpu and e.name in spans:
-            routes[e.name] = routes.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    kernels, busy_ms, routes = device_summary(prof, {"score_sed_serving", *(f"route::{r}" for r in ROUTES)})
     result = {
         "card": card, "dtype": "fp32" if args.fp32 else "bf16", "wall_s": wall, "wall_unprofiled_s": wall_off, "rows": inputs["n_rows"], "variants": len(inputs["variants"]),
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / (wall * 1e3),

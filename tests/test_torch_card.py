@@ -3,7 +3,11 @@ the fp32 SIMT kernel and the bf16 tensor-core kernel) and conv0_codes_relu
 (the code-gather conv0 kernel) against their plain PyTorch versions at
 ragged and short shapes, batches past 65,535 spans and misaligned views, the
 route and launch counts, the wrappers' checks on CUDA tensors, and the
-serving runner in fp32 on the card against the same runner on the CPU.
+serving runner in fp32 on the card against the same runner on the CPU, and
+the h5-contract runner methods (``predict_span_codes``,
+``predict_span_pairs_diff``, ``predict_span_pair_diffs_only``) on the card
+against the CPU, with their sinks, an N-dense chunk and the launch counts of
+each dtype's routes.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -319,3 +323,108 @@ def test_bf16_runner_launches_conv0_on_codes_and_no_conv8_at_cin_4(cuda):
     assert conv0_codes_relu.launches_by_kind == {"bfloat16": 6}
     assert conv8_relu.launches > 0
     assert not [k for k in conv8_relu.launches_by_kind if k[2] == 4]
+
+
+# ---- h5-contract runner methods ---------------------------------------------
+
+H5_MAXSHIFT = 400
+H5_OFFSETS = tuple(s + H5_MAXSHIFT for s in variant_shifts(H5_MAXSHIFT))
+H5_SPAN = 2 * H5_MAXSHIFT + 2000
+# every Cin of conv1-conv5 a multiple of 16, so bf16 takes the tc kernel at
+# each of them, as at Beluga's widths
+TC_WIDTHS = [(4, 16), (16, 16), (16, 32), (32, 32), (32, 48), (48, 48)]
+
+
+def _h5_pairs(n, seed):
+    rng = np.random.default_rng(seed)
+    ref = random_codes(rng, n, H5_SPAN)
+    alt = ref.copy()
+    mut = H5_MAXSHIFT + 999
+    alt[:, mut:] = np.roll(ref[:, mut:], 2, axis=1)  # an insertion-like shifted tail
+    alt[:, mut : mut + 2] = rng.integers(0, 4, (n, 2))
+    return ref, alt
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["pack2", "dense"])
+def test_h5_runner_methods_fp32_on_card_match_cpu(cuda, budget):
+    """fp32 on the card against fp32 on the CPU, rtol 1e-4 atol 1e-5 (as the
+    serving runner); budget 0 sends every chunk down the N-dense route."""
+    params = narrow_params(7)
+    card = BelugaRunner(params, batch_size=16, device="cuda")
+    cpu = BelugaRunner(params, batch_size=16, device="cpu")
+    if budget is not None:
+        card.PACK2_SIDE_BUDGET = cpu.PACK2_SIDE_BUDGET = budget
+    ref, alt = _h5_pairs(3, seed=8)
+    for rc_mode in ("none", "average", "concat"):
+        np.testing.assert_allclose(card.predict_span_codes(ref, H5_OFFSETS, rc_mode=rc_mode),
+                                   cpu.predict_span_codes(ref, H5_OFFSETS, rc_mode=rc_mode), rtol=1e-4, atol=1e-5)
+    got, want = card.predict_span_pairs_diff(ref, alt, H5_OFFSETS), cpu.predict_span_pairs_diff(ref, alt, H5_OFFSETS)
+    for name, g, w_ in zip(("ref", "alt", "diff"), got, want):
+        np.testing.assert_allclose(g, w_, rtol=1e-4, atol=1e-5, err_msg=name)
+    np.testing.assert_array_equal(got[1], got[0] + got[2])
+    diff = card.predict_span_pair_diffs_only(ref, alt, H5_OFFSETS)
+    np.testing.assert_allclose(diff, want[2], rtol=1e-4, atol=1e-5)
+
+
+def test_h5_runner_sinks_on_card(cuda):
+    """The sinks get every chunk in order, fp32 (real, 2, S, M), and rebuild
+    the arrays the sink-less calls return."""
+    runner = BelugaRunner(narrow_params(9), batch_size=16, device="cuda")
+    ref, alt = _h5_pairs(3, seed=10)
+    calls, parts, diffs = [], [], []
+
+    def sink(start, real, r, a, d):
+        calls.append((start, real))
+        assert r.dtype == a.dtype == d.dtype == np.float32 and r.shape == (real, 2, len(H5_OFFSETS), 2002)
+        parts.append((r, a, d))
+
+    assert runner.predict_span_pairs_diff(ref, alt, H5_OFFSETS, sink=sink) is None
+    assert runner.predict_span_pair_diffs_only(ref, alt, H5_OFFSETS, sink=lambda s, n, d: diffs.append(d)) is None
+    assert calls == [(0, 1), (1, 1), (2, 1)]
+    whole = runner.predict_span_pairs_diff(ref, alt, H5_OFFSETS)
+    for k in range(3):
+        a = np.concatenate([p[k] for p in parts])
+        np.testing.assert_array_equal(np.concatenate([a[:, 0], a[:, 1]]), whole[k])
+    d = np.concatenate(diffs)
+    np.testing.assert_array_equal(np.concatenate([d[:, 0], d[:, 1]]), whole[2])
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["pack2", "dense"])
+def test_h5_runner_bf16_fp16_wire_on_card(cuda, budget):
+    """bf16 compute, fp16 wire: finite, alt = ref + diff exactly on the
+    host, diff as the device differenced it in fp32 (the diff-only wire
+    carries the same values), and close to fp32 on the CPU (bf16
+    activations: about 3 significant digits)."""
+    params = narrow_params(11, convs=TC_WIDTHS)
+    runner = BelugaRunner(params, batch_size=16, device="cuda", compute_dtype=torch.bfloat16, out_dtype=np.float16)
+    if budget is not None:
+        runner.PACK2_SIDE_BUDGET = budget
+    ref, alt = _h5_pairs(3, seed=12)
+    R, A, D = runner.predict_span_pairs_diff(ref, alt, H5_OFFSETS)
+    assert np.isfinite(R).all() and np.isfinite(D).all()
+    np.testing.assert_array_equal(A, R + D)
+    np.testing.assert_array_equal(D, runner.predict_span_pair_diffs_only(ref, alt, H5_OFFSETS))
+    R32, _A32, D32 = BelugaRunner(params, batch_size=16, device="cpu").predict_span_pairs_diff(ref, alt, H5_OFFSETS)
+    np.testing.assert_allclose(R, R32, rtol=0, atol=3e-2)
+    np.testing.assert_allclose(D, D32, rtol=0, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_h5_runner_launch_counts(cuda, dtype):
+    """Per pair chunk: ref and alt in one batch, 2 orientations x (1 conv0 +
+    conv1-conv3 once + conv4/conv5 per pool-2 phase {0, 2}). fp32 runs
+    conv1-conv5 on the SIMT kernel, bf16 on the tc kernel; conv0 on the
+    code-gather kernel in the compute dtype."""
+    runner = BelugaRunner(narrow_params(13, convs=TC_WIDTHS), batch_size=16, device="cuda", compute_dtype=dtype,
+                          out_dtype=np.float32 if dtype == torch.float32 else np.float16)
+    ref, alt = _h5_pairs(3, seed=14)
+    reset_launch_counts()
+    conv0.reset_launch_counts()
+    runner.predict_span_pairs_diff(ref, alt, H5_OFFSETS)
+    torch.cuda.synchronize()
+    chunks = 3  # one pair a chunk at batch_size 16 and 5 offsets
+    kind = "float32" if dtype == torch.float32 else "bfloat16"
+    assert conv0_codes_relu.launches_by_kind == {kind: 2 * chunks}
+    assert conv8_relu.launches == 2 * 7 * chunks
+    route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
+    assert conv8_relu.launches_by_route[route] == 2 * 7 * chunks and conv8_relu.launches_by_route[other] == 0

@@ -37,9 +37,10 @@ def sed_atol(ref) -> float:
     return 1e-5 * max(1.0, float(np.abs(np.asarray(ref, dtype=np.float64)).max()))
 
 
-def narrow_params(seed: int = 0) -> dict:
-    """He-scaled random Beluga weights at test widths, as the numpy pytree
-    of expecto_tpu.models.beluga (WIO conv kernels, length-major fc1)."""
+def narrow_params(seed: int = 0, convs=NARROW_CONVS) -> dict:
+    """He-scaled random Beluga weights at test widths (``convs``: the six
+    (in, out) conv widths), as the numpy pytree of expecto_tpu.models.beluga
+    (WIO conv kernels, length-major fc1)."""
     rng = np.random.default_rng(seed)
 
     def layer(shape, fan_in):
@@ -47,8 +48,8 @@ def narrow_params(seed: int = 0) -> dict:
         b = rng.standard_normal(shape[-1]) * 0.05
         return {"w": w.astype(np.float32), "b": b.astype(np.float32)}
 
-    params = {f"conv{i}": layer((8, cin, cout), 8 * cin) for i, (cin, cout) in enumerate(NARROW_CONVS)}
-    c6 = NARROW_CONVS[-1][1]
+    params = {f"conv{i}": layer((8, cin, cout), 8 * cin) for i, (cin, cout) in enumerate(convs)}
+    c6 = convs[-1][1]
     params["fc1"] = layer((106 * c6, NARROW_FC1_OUT), 106 * c6)
     params["fc2"] = layer((NARROW_FC1_OUT, N_TRACKS), NARROW_FC1_OUT)
     return params
