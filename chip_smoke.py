@@ -60,7 +60,26 @@ Phases (any failure raises, and the script exits non-zero with no result):
    its SED column. The effects are averaged as ``load_shift_effects``
    averages a file's halves, so this script needs no h5py; the h5 files
    themselves are written and read by the CPU tests
-   (tests/test_torch_chromatin.py, tests/test_torch_predict.py).
+   (tests/test_torch_chromatin.py, tests/test_torch_predict.py);
+8. gene features (``expecto-compute-features``) on 96 seeded genes, 48 a
+   strand, three near a contig end (N-padded spans; the plus strand's
+   group ships 4 bits a base, the minus strand's 2 bits and an N sideband):
+   first every conv of one gene chunk (16 spans of 41,800 bp, both
+   orientations, 16 launches) on each dtype's route, held against the plain
+   version and timed beside it, ``F.conv1d`` and the bound (in the kernel
+   phase); then ``python -m expecto_tpu_torch.cli.compute_features`` (its
+   ``main``, weights loaded) in fp32 and with ``--bf16``, and three warm
+   timed ``compute_gene_features`` calls with the CLI's settings in each
+   dtype, launch counts zeroed just before each and checked just after (fp32: SIMT
+   only; bf16: tc only; 16 launches a chunk, every conv0 on the code-gather
+   kernel); fp32 card vs CPU features on one gene a strand, the span path
+   vs the per-window path (``predict_and_project``) and ``--replicate_raw``'s
+   matrices projected on the host vs the features, within 1e-5 of
+   max|feature|; the bf16 features per feature within fp16's step of the
+   bf16 predictions projected in fp64 on the host, a limit that a projection
+   contracted in bf16 and the forward half alone both exceed; bf16 vs fp32
+   features per gene within a stated limit that the same comparison with
+   the gene rows shifted by one exceeds.
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -133,6 +152,40 @@ SED_RTOL, REF_RTOL, REF_ATOL = 1e-3, 1e-4, 1e-4
 # swapped, or its variant rows shifted by one, must exceed the limit, so the
 # limit separates a sound run from one whose rows landed in the wrong place
 H5_BF16_GAP = 5e-2
+
+# gene features (cli.compute_features): the CLI's batch 3,200 at 200 shifts
+# is a chunk of 16 gene spans of 41,800 bp; 48 genes a strand, so each
+# strand group is 3 full chunks
+GENE_BATCH = 3200
+GENE_SHIFTS = 200
+GENE_ROWS = GENE_BATCH // GENE_SHIFTS
+GENE_SPAN = 41_800
+N_GENES_PER_STRAND = 48
+GENE_REPEATS = 3  # timed calls a dtype, each launch-checked; the median is reported
+# fp32 features card vs CPU, span path vs per-window path, replicate's raw
+# matrices projected on the host vs the features: sums of up to 200 weighted
+# fp32 track probabilities (sums of 2,003-term products), summed in other
+# orders, so the limit scales with the features as sed_atol does with |REF|:
+# 1e-5 * max|feature|
+GENE_FEAT_RTOL = 1e-5
+# bf16 compute (fp16 wire) vs fp32 features, per gene row, over max|fp32
+# feature|: bf16 activations carry about 3 significant digits, and the
+# features sum 200 windows' fwd/RC averages, so sound runs differ by about
+# 5e-3 (5.2e-3 at full width on these genes, NVIDIA H100 80GB HBM3, 700 W);
+# the same comparison with the bf16 gene rows shifted by one exceeds the
+# limit on every row (it measured 1.17e-2 at least), so the limit separates
+# a sound run from one whose rows landed on the wrong gene
+GENE_BF16_GAP = 8e-3
+# the bf16 path's projection and wire, per feature, against the same bf16
+# network's fwd and RC predictions (fetched in fp32) averaged and projected
+# in fp64 on the host: |feature - want| / max(|want|, 2^-14). The fp16 wire
+# rounds a feature to within 2^-11 = 4.88e-4 of itself (and to within 2^-25
+# below fp16's smallest normal 2^-14, hence the floor), and fp32 sums of 200
+# positive terms are within 200 * 2^-24 = 1.2e-5 of fp64's, so a sound run
+# reads at most 5.0e-4. Two faults that only the bf16 path can have must
+# exceed the limit: the projection contracted in bf16 (weights, predictions
+# and sums rounded at 2^-9), and the fwd/RC average dropped to the forward half
+GENE_WIRE_RTOL = 6e-4
 
 
 def log(msg: str) -> None:
@@ -355,6 +408,72 @@ def conv0_phase(report: dict) -> None:
     report["conv0_layers"] = rows
 
 
+def _chunk_conv_rows(n: int, launches: Counter, gen, what: str, yardsticks: bool) -> tuple[list, dict]:
+    """Every conv of one chunk of ``n`` spans (``launches``: {(layer, L):
+    launches a chunk}) on each dtype's route of the main path (conv0 on the
+    code-gather kernel; conv1-conv5 on the SIMT kernel in fp32 and on the tc
+    kernel in bf16), held against the fp32 plain version on the same inputs
+    and timed; with ``yardsticks`` also the plain version in the working
+    dtype, ``F.conv1d`` (TF32 off) and the bound. Returns the per-shape rows
+    and {dtype: the chunk's launch-weighted kernel ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from expecto_tpu_torch.models.beluga import CONV_SPECS
+    from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain, onehot_from_codes
+    from expecto_tpu_torch.ops.conv8 import _route, conv8_relu, conv8_relu_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    rows, chunk_ms = [], {"fp32": 0.0, "bf16": 0.0}
+    for (name, length), per_chunk in sorted(launches.items(), key=lambda kv: (kv[0][0], -kv[0][1])):
+        _kw, cin, cout = CONV_SPECS[int(name[4:])]
+        if name == "conv0":
+            x32 = _conv0_codes(n, length, gen)
+        else:
+            x32 = torch.randn((n, length, cin), generator=gen, device=gen.device)
+        w32 = torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5
+        b32 = torch.randn((cout,), generator=gen, device=gen.device) * 0.1
+        l_out = length - 7
+        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            w, b = w32.to(dtype), b32.to(dtype)
+            if name == "conv0":
+                x, route = x32, "codes"
+                want = conv0_codes_relu_plain(x, w.float(), b.float())
+                atol = rtol = CONV0_FP32_TOL if tag == "fp32" else BF16_ATOL
+                launch = lambda: conv0_codes_relu(x, w, b)  # noqa: E731
+                plain = lambda: conv0_codes_relu_plain(x, w, b)  # noqa: E731
+                # codes read once, W and b once, the output written once; 8 adds an output
+                nbytes = x.numel() + (w.numel() + b.numel() + n * l_out * cout) * w.element_size()
+                bound = _bound(nbytes, 8.0 * n * l_out * cout, "fp32")
+            else:
+                x = x32.to(dtype)
+                route = _route("cuda", dtype, cin, x.data_ptr())
+                if route != ("simt" if tag == "fp32" else "tc"):
+                    raise AssertionError(f"{what} {name} {tag} N={n} L={length} would take the {route} route")
+                want = conv8_relu_plain(x.float(), w.float(), b.float())
+                atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
+                launch = lambda: conv8_relu(x, w, b, route=route)  # noqa: E731
+                plain = lambda: conv8_relu_plain(x, w, b)  # noqa: E731
+                nbytes = (x.numel() + w.numel() + b.numel() + n * l_out * cout) * x.element_size()
+                bound = _bound(nbytes, 2.0 * n * l_out * cin * cout * 8, tag)
+            err = _check_close(launch(), want, atol, rtol, f"{what} {name} {route} {tag} N={n} L={length}")
+            del want
+            cell = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch)}
+            if yardsticks:
+                xf = onehot_from_codes(x, dtype) if name == "conv0" else x
+                xt = xf.transpose(1, 2).contiguous()
+                wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
+                cell.update(bound, plain_ms=cuda_ms(plain), library_ms=cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b))))
+                del xf, xt, wt
+            row[tag] = cell
+            chunk_ms[tag] += per_chunk * cell["ms"]
+            del x
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows, chunk_ms
+
+
 def h5_kernel_phase(report: dict) -> None:
     """Every conv of the h5 path's pair chunks, the full chunk and the
     smaller last one (H5_CHUNK_N spans: conv0-conv5 over the full span,
@@ -364,50 +483,57 @@ def h5_kernel_phase(report: dict) -> None:
     same inputs and timed."""
     import torch
 
-    from expecto_tpu_torch.models.beluga import CONV_SPECS
-    from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
-    from expecto_tpu_torch.ops.conv8 import _route, conv8_relu, conv8_relu_plain
-
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(2)
     rows, chunk_ms = [], {}
     for n in H5_CHUNK_N:
-        for (name, length), per_chunk in sorted(h5_chunk_launches().items(), key=lambda kv: (kv[0][0], -kv[0][1])):
-            _kw, cin, cout = CONV_SPECS[int(name[4:])]
-            if name == "conv0":
-                x32 = _conv0_codes(n, length, gen)
-            else:
-                x32 = torch.randn((n, length, cin), generator=gen, device=gen.device)
-            w32 = torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5
-            b32 = torch.randn((cout,), generator=gen, device=gen.device) * 0.1
-            row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
-            for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-                w, b = w32.to(dtype), b32.to(dtype)
-                if name == "conv0":
-                    x, route = x32, "codes"
-                    want = conv0_codes_relu_plain(x, w.float(), b.float())
-                    atol = rtol = CONV0_FP32_TOL if tag == "fp32" else BF16_ATOL
-                    launch = lambda: conv0_codes_relu(x, w, b)  # noqa: E731
-                else:
-                    x = x32.to(dtype)
-                    route = _route("cuda", dtype, cin, x.data_ptr())
-                    if route != ("simt" if tag == "fp32" else "tc"):
-                        raise AssertionError(f"h5 {name} {tag} N={n} L={length} would take the {route} route")
-                    want = conv8_relu_plain(x.float(), w.float(), b.float())
-                    atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
-                    launch = lambda: conv8_relu(x, w, b, route=route)  # noqa: E731
-                err = _check_close(launch(), want, atol, rtol, f"h5 chunk {name} {route} {tag} N={n} L={length}")
-                del want
-                row[tag] = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch)}
-                chunk_ms[(n, tag)] = chunk_ms.get((n, tag), 0.0) + per_chunk * row[tag]["ms"]
-                del x
-            rows.append(row)
-            torch.cuda.empty_cache()
+        n_rows, ms = _chunk_conv_rows(n, h5_chunk_launches(), gen, "h5 chunk", yardsticks=False)
+        rows += n_rows
+        chunk_ms.update({(n, tag): t for tag, t in ms.items()})
         log(f"h5 pair chunk of {n} spans ({sum(h5_chunk_launches().values())} launches): kernels fp32 "
             f"{chunk_ms[(n, 'fp32')]:.3f} ms, bf16 {chunk_ms[(n, 'bf16')]:.3f} ms; max |err| fp32 "
-            f"{max(r['fp32']['max_abs_err'] for r in rows if r['N'] == n):.3g}, bf16 "
-            f"{max(r['bf16']['max_abs_err'] for r in rows if r['N'] == n):.3g}")
+            f"{max(r['fp32']['max_abs_err'] for r in n_rows):.3g}, bf16 "
+            f"{max(r['bf16']['max_abs_err'] for r in n_rows):.3g}")
     report["h5_layers"] = rows
     report["h5_chunk_kernel_ms"] = {f"N={n} {tag}": ms for (n, tag), ms in chunk_ms.items()}
+
+
+def gene_chunk_launches() -> Counter:
+    """{(layer, L): launches} of one gene chunk (parallel/runner.
+    predict_spans_project: the full conv stack over each 41,800-bp span,
+    forward and reverse complement; the 200 window offsets of either strand
+    fall on pool-2 phases 0 and 2, and so do their mirrors)."""
+    tally = Counter()
+    for _orientation in range(2):
+        tally.update(conv_stack(GENE_SPAN, (0, 2)))
+    return tally
+
+
+def gene_kernel_phase(report: dict) -> None:
+    """Every conv of one gene chunk (GENE_ROWS spans of 41,800 bp, both
+    orientations: 16 launches) on each dtype's route, held against the fp32
+    plain version and timed beside the plain version, ``F.conv1d`` and the
+    bound."""
+    import torch
+
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(3)
+    launches = gene_chunk_launches()
+    rows, chunk_ms = _chunk_conv_rows(GENE_ROWS, launches, gen, "gene chunk", yardsticks=True)
+    for r in rows:
+        log(f"gene chunk {r['layer']} N={r['N']} L={r['L']} {r['Cin']}->{r['Cout']} x{r['launches_per_chunk']}: "
+            + "; ".join(f"{t} {c['route']} {c['ms']:.3f} ms (err {c['max_abs_err']:.3g}) bound {c['bound_ms']:.3f} "
+                        f"ms ({c['bound_by']}, {100 * c['bound_ms'] / c['ms']:.1f} %) plain {c['plain_ms']:.3f} ms "
+                        f"conv1d {c['library_ms']:.3f} ms" for t, c in ((t, r[t]) for t in ("fp32", "bf16"))))
+    summary = {}
+    for tag in ("fp32", "bf16"):
+        summary[tag] = {"ms": chunk_ms[tag], "bound_ms": _weighted(rows, tag, "bound_ms"),
+                        "plain_ms": _weighted(rows, tag, "plain_ms"), "library_ms": _weighted(rows, tag, "library_ms"),
+                        "conv0_ms": _weighted([r for r in rows if r["layer"] == "conv0"], tag, "ms")}
+        c = summary[tag]
+        log(f"gene chunk {tag} ({sum(launches.values())} launches): kernels {c['ms']:.3f} ms (conv0 "
+            f"{c['conv0_ms']:.3f}), bound {c['bound_ms']:.3f} ms ({100 * c['bound_ms'] / c['ms']:.1f} %), plain "
+            f"{c['plain_ms']:.3f} ms, F.conv1d {c['library_ms']:.3f} ms")
+    report["gene_layers"] = rows
+    report["gene_chunk_kernel_ms"] = summary
 
 
 def _weighted(rows: list, tag: str, key: str) -> float:
@@ -515,6 +641,33 @@ def make_inputs(seed: int) -> dict:
     params["fc2"] = layer((FC1_OUT, FC2_OUT), FC1_OUT)
     save_params_npz(params, WORK / "beluga.npz")
     return {"variants": variants, "n_rows": len(gene_lines)}
+
+
+def make_gene_inputs(seed: int) -> list:
+    """``geneanno.csv`` under build/chip_smoke: N_GENES_PER_STRAND seeded
+    genes a strand on make_inputs' genome, plus-strand genes first. Three
+    TSSs lie within 20 kb of a contig end, so their 41,800-bp spans are
+    N-padded: the plus strand's 18,000 N at chr1's start passes the 2-bit
+    wire's N budget (that group ships 4 bits a base), the minus strand's
+    11,000 N at chr2's end does not (it rides the N sideband). Returns the
+    genes as (id, chrom, tss, strand) rows."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(seed + 1)  # apart from make_inputs' stream
+    edge = {1: [("chr1", 3000), ("chr2", 12000)], -1: [("chr2", CONTIG_LEN - 10000)]}
+    sites = []
+    for strand in (1, -1):
+        n = N_GENES_PER_STRAND - len(edge[strand])
+        sites += [(chrom, tss, strand) for chrom, tss in edge[strand]]
+        sites += [(("chr1", "chr2")[int(c)], int(t), strand)
+                  for c, t in zip(rng.integers(0, 2, n), rng.integers(21000, CONTIG_LEN - 21000, n))]
+    genes = [(f"ENSG{i:07d}", *site) for i, site in enumerate(sites)]
+    pd.DataFrame({"id": [g[0] for g in genes], "symbol": [f"S{i}" for i in range(len(genes))],
+                  "seqnames": [g[1] for g in genes], "strand": ["+" if g[3] == 1 else "-" for g in genes],
+                  "TSS": [g[2] for g in genes], "CAGE_representative_TSS": [g[2] for g in genes],
+                  "type": ["protein_coding"] * len(genes)}).to_csv(WORK / "geneanno.csv", index=False)
+    return genes
 
 
 def score_args(vcf: Path, genes: Path, *extra: str) -> list[str]:
@@ -936,6 +1089,222 @@ def h5_contract_phase(report: dict, inputs: dict, card: str) -> None:
     log(f"h5 contract vs expecto-score --fp32 on {inputs['n_rows']} rows: max |err| {out['vs_score_fp32']}")
 
 
+def _gene_route_plan(runner, genes, genome) -> list[dict]:
+    """How each strand group of compute_gene_features ships its chunks: the
+    2-bit wire with the N sideband, or 4 bits a base when a chunk of the
+    group passes the sideband's N budget (the runner decides per call, and
+    each group is one call); with each chunk's N count."""
+    import numpy as np
+
+    from expecto_tpu_torch.genome.windows import gene_shifts
+    from expecto_tpu_torch.pipeline.features import _offset_groups, gene_span_and_offsets
+
+    groups = []
+    for offsets, idxs in _offset_groups(genes, gene_shifts(), 2000).items():
+        spans = np.stack([gene_span_and_offsets(genome, genes[j].chrom, genes[j].tss, genes[j].strand)[0]
+                          for j in idxs])
+        n_per_chunk = [int((spans[i : i + GENE_ROWS] == 4).sum()) for i in range(0, len(idxs), GENE_ROWS)]
+        route = "2-bit" if runner._pack2_plan(spans, GENE_ROWS) is not None else "4-bit"
+        groups.append({"strand": "+" if offsets[0] == 0 else "-", "genes": len(idxs), "route": route,
+                       "n_bases_per_chunk": n_per_chunk})
+    return groups
+
+
+def _gene_counts_checked(dtype: str, chunks: int, what: str) -> dict:
+    """The launch counts since the last _reset_counts, checked for a gene
+    run of ``chunks`` chunks: 16 launches a chunk, 2 conv0 on the
+    code-gather kernel and 14 conv8_relu on the dtype's route only."""
+    counts = _read_counts(dtype)
+    route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
+    by_route = counts["conv8_relu_by_route"]
+    if (counts["conv0_codes"], by_route[route], by_route[other]) != (2 * chunks, 14 * chunks, 0):
+        raise AssertionError(f"{what}: launches {counts}, expected {2 * chunks} conv0 and {14 * chunks} {route} "
+                             f"for {chunks} gene chunks of 16 launches")
+    return counts
+
+
+def _row_gaps(a, b, scale: float):
+    """Per gene row, max |a - b| over its features, over ``scale``."""
+    import numpy as np
+
+    return np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max(axis=1) / scale
+
+
+def _gene_projection_gaps(params, genes, genome, bf16_feats) -> dict:
+    """The bf16 path's projection and wire (GENE_WIRE_RTOL): per strand
+    group, the bf16 network's fwd and RC predictions fetched in fp32 (the
+    same chunks, route and kernels as the timed call, so the same values),
+    averaged and projected in fp64 on the host; the timed bf16 features held
+    against that per feature, and so are two planted faults: the projection
+    contracted in bf16 on the card, and the forward half alone."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.genome.windows import gene_shifts
+    from expecto_tpu_torch.ops.decay import gene_pos_weights
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+    from expecto_tpu_torch.pipeline.features import _offset_groups, gene_span_and_offsets
+
+    runner = BelugaRunner(params, batch_size=GENE_BATCH, device=DEVICE, compute_dtype=torch.bfloat16,
+                          out_dtype=np.float32)
+    pw = gene_pos_weights(gene_shifts()).astype(np.float64)
+    pw_bf16 = torch.as_tensor(pw, device=DEVICE).bfloat16()
+    gaps = {"sound": 0.0, "projection_in_bf16": 0.0, "forward_half_only": 0.0}
+    for offsets, idxs in _offset_groups(genes, gene_shifts(), 2000).items():
+        spans = np.stack([gene_span_and_offsets(genome, genes[j].chrom, genes[j].tss, genes[j].strand)[0]
+                          for j in idxs])
+        y = runner.predict_span_codes(spans, offsets, rc_mode="concat")  # (n, 2[fwd|rc], 200, 2002) fp32
+        avg = (y[:, 0] + y[:, 1]) * 0.5  # fp32, as the runner averages on the card
+        want = np.matmul(pw, avg.astype(np.float64)).reshape(len(idxs), -1)
+        scale = np.maximum(np.abs(want), 2.0**-14)
+        in_bf16 = torch.einsum("bs,nsm->nbm", pw_bf16, torch.as_tensor(avg, device=DEVICE).bfloat16())
+        faults = {"sound": bf16_feats[idxs],
+                  "projection_in_bf16": in_bf16.half().float().cpu().numpy().reshape(len(idxs), -1),
+                  "forward_half_only": np.matmul(pw, y[:, 0].astype(np.float64)).astype(np.float16)
+                  .reshape(len(idxs), -1)}
+        for k, got in faults.items():
+            gaps[k] = max(gaps[k], float((np.abs(got - want) / scale).max()))
+    del runner
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def gene_phase(report: dict, card: str) -> None:
+    """Gene features (``expecto-compute-features``) at Beluga's widths on
+    N_GENES_PER_STRAND genes a strand: the CLI (fp32, then ``--bf16``), then
+    warm timed compute_gene_features calls with the CLI's settings, launch
+    counts zeroed just before each and checked just after; fp32 card vs CPU,
+    span path vs per-window path, replicate's raw matrices vs the features,
+    the bf16 path's projection and wire against fp64, and bf16 vs fp32."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from expecto_tpu_torch.cli.compute_features import main as cf_main
+    from expecto_tpu_torch.genome.fasta import FastaIndex
+    from expecto_tpu_torch.genome.windows import gene_shifts
+    from expecto_tpu_torch.models.convert import load_params_npz
+    from expecto_tpu_torch.ops.decay import gene_pos_weights, project_features
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+    from expecto_tpu_torch.pipeline.features import (
+        compute_gene_features,
+        gene_window_codes,
+        records_from_geneanno,
+        replicate_gene_features,
+    )
+
+    out = {"genes": 2 * N_GENES_PER_STRAND, "batch": GENE_BATCH, "chunk_spans": GENE_ROWS}
+    genes = records_from_geneanno(pd.read_csv(WORK / "geneanno.csv"))
+    chunks = 2 * -(-N_GENES_PER_STRAND // GENE_ROWS)
+    params = load_params_npz(WORK / "beluga.npz")
+    genome = FastaIndex(WORK / "genome.fa")
+    pw = gene_pos_weights(gene_shifts())
+    feats = {}
+    try:
+        for tag, dtype, wire, flags in (("fp32", torch.float32, np.float32, []),
+                                         ("bf16", torch.bfloat16, np.float16, ["--bf16"])):
+            kind = str(dtype).removeprefix("torch.")
+            # the CLI, weights loaded and the output written
+            _reset_counts()
+            t0 = time.perf_counter()
+            rc = cf_main([str(WORK / "geneanno.csv"), "--genome", str(WORK / "genome.fa"), "--beluga_weights",
+                          str(WORK / "beluga.npz"), "-o", str(WORK / f"features_{tag}"), "--device", DEVICE, *flags])
+            cli_wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"compute_features CLI ({tag}) returned {rc}")
+            cli_counts = _gene_counts_checked(kind, chunks, f"gene CLI {tag}")
+            cli_feats = np.load(WORK / f"features_{tag}" / "Xreducedall.2002.representative_tss_top.npy")
+            if cli_feats.shape != (len(genes), 20020) or not np.isfinite(cli_feats).all():
+                raise AssertionError(f"gene CLI {tag}: features of shape {cli_feats.shape}, or not finite")
+
+            # the timed call: compute_gene_features with the CLI's settings
+            runner = BelugaRunner(params, batch_size=GENE_BATCH, device=DEVICE, compute_dtype=dtype, out_dtype=wire)
+            if runner._span_rows(GENE_SHIFTS) != GENE_ROWS:
+                raise AssertionError(f"gene chunks of {runner._span_rows(GENE_SHIFTS)} spans, kernels checked {GENE_ROWS}")
+            compute_gene_features(genes[:GENE_ROWS], genome, runner)  # warm-up: one chunk
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            walls = []
+            for _ in range(GENE_REPEATS):
+                _reset_counts()
+                t0 = time.perf_counter()
+                f = compute_gene_features(genes, genome, runner)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                counts = _gene_counts_checked(kind, chunks, f"gene call {tag}")
+                if f.shape != (len(genes), 20020) or not np.isfinite(f).all():
+                    raise AssertionError(f"gene call {tag}: features of shape {f.shape}, or not finite")
+            wall = statistics.median(walls)
+            cli_gap = float(np.abs(f - cli_feats).max())
+            if cli_gap > GENE_FEAT_RTOL * float(np.abs(f).max()):
+                raise AssertionError(f"gene call {tag}: features differ from the CLI's by {cli_gap}")
+            out[tag] = {"wall_s": wall, "walls_s": walls, "genes_per_s": len(genes) / wall, "chunks": chunks,
+                        "launches": counts,
+                        "cli_wall_s": cli_wall, "cli_launches": cli_counts,
+                        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+                        "peak_over_resident_mib": (torch.cuda.max_memory_allocated() - resident) / 2**20,
+                        "feature_abs_max": float(np.abs(f).max()), "vs_cli_max_abs": cli_gap}
+            if tag == "fp32":
+                out["routes"] = _gene_route_plan(runner, genes, genome)
+            log(f"gene features {tag}: {len(genes)} genes in {wall:.3f} s warm (median of {[round(w, 3) for w in walls]}) "
+                f"= {len(genes) / wall:.2f} genes/s; "
+                f"CLI {cli_wall:.3f} s (weights loaded); {chunks} chunks of {GENE_ROWS} spans; peak device memory "
+                f"{out[tag]['peak_device_mib']:.0f} MiB, {out[tag]['peak_over_resident_mib']:.0f} MiB over what was "
+                f"resident before the call; launches {counts} [{card}]")
+            feats[tag] = f
+            if tag == "fp32":
+                runner32 = runner
+            else:
+                del runner
+            torch.cuda.empty_cache()
+        gaps = _gene_projection_gaps(params, genes, genome, feats["bf16"])
+        out["bf16_projection"] = {"limit": GENE_WIRE_RTOL, **gaps}
+        log(f"gene bf16 projection and wire vs fp64 on the bf16 predictions, per feature over |feature|: sound "
+            f"{gaps['sound']:.4g}; projection contracted in bf16 {gaps['projection_in_bf16']:.4g}, forward half "
+            f"only {gaps['forward_half_only']:.4g} (limit {GENE_WIRE_RTOL})")
+        if gaps["sound"] > GENE_WIRE_RTOL:
+            raise AssertionError(f"gene bf16 projection or wire off by {gaps['sound']} of the features")
+        if min(gaps["projection_in_bf16"], gaps["forward_half_only"]) <= GENE_WIRE_RTOL:
+            raise AssertionError(f"the gene projection limit {GENE_WIRE_RTOL} does not catch a planted fault: {gaps}")
+        log(f"gene routes per strand group: {out['routes']}")
+
+        # fp32 checks on one gene a strand (the first of each group) at all 200 shifts
+        picks = [0, N_GENES_PER_STRAND]
+        two = [genes[i] for i in picks]
+        f32 = feats["fp32"][picks]
+        limit = GENE_FEAT_RTOL * float(np.abs(f32).max())
+        cpu = compute_gene_features(two, genome, BelugaRunner(params, batch_size=GENE_BATCH, device="cpu"))
+        codes = np.concatenate([gene_window_codes(genome, g.chrom, g.tss, g.strand) for g in two])
+        window = runner32.predict_and_project(codes, pw, GENE_SHIFTS)
+        raw = replicate_gene_features(two, genome, runner32)
+        replicated = np.stack([project_features(pw, raw[g.gene_id][:, None, :])[0] for g in two])
+        errs = {"card_vs_cpu": float(np.abs(f32 - cpu).max()), "span_vs_window": float(np.abs(f32 - window).max()),
+                "replicate_vs_features": float(np.abs(f32 - replicated).max())}
+        out["fp32_checks"] = {"genes": [g.gene_id for g in two], "limit": limit, "max_abs_err": errs}
+        log(f"gene fp32 checks on {len(two)} genes (one a strand, 200 shifts): max |err| {errs} (limit {limit:.3g})")
+        for name, e in errs.items():
+            if not e <= limit:
+                raise AssertionError(f"gene fp32 {name}: max |err| {e} over the limit {limit}")
+
+        # bf16 vs fp32, per gene row, over max|fp32 feature|
+        scale = float(np.abs(feats["fp32"]).max())
+        sound = _row_gaps(feats["bf16"], feats["fp32"], scale)
+        shifted = _row_gaps(np.roll(feats["bf16"], 1, axis=0), feats["fp32"], scale)
+        out["bf16_vs_fp32"] = {"limit": GENE_BF16_GAP, "sound_max": float(sound.max()),
+                               "rows_shifted_min": float(shifted.min()), "rows_shifted_max": float(shifted.max())}
+        log(f"gene bf16 vs fp32 features, per gene over max|feature| {scale:.4g}: sound max {sound.max():.4g}, rows "
+            f"shifted by one min {shifted.min():.4g} (limit {GENE_BF16_GAP})")
+        if sound.max() > GENE_BF16_GAP:
+            raise AssertionError(f"gene bf16 features differ from fp32 by {sound.max()} of max|feature|")
+        if shifted.min() <= GENE_BF16_GAP:
+            raise AssertionError(f"the gene bf16 limit {GENE_BF16_GAP} does not catch rows shifted by one: "
+                                 f"{shifted.min()}")
+    finally:
+        genome.close()
+    report["genes"] = out
+
+
 def kernel_table(report: dict) -> dict:
     """The kernel line: one entry per hand-written kernel, over the launches
     of one substitution chunk that its main path gives it (each shape
@@ -944,45 +1313,56 @@ def kernel_table(report: dict) -> dict:
     serving run's; the SIMT kernel at fp32 conv1-conv5, whose ``launches``
     are the fp32 parity run's on the card. ``launches_h5_*`` are the timed
     h5-contract chromatin runs', ``h5_chunk_ms`` the kernel's time in one
-    full pair chunk of them; ``max_abs_err`` covers both paths' shapes.
-    Per-shape numbers in ``layers`` and ``h5_layers``."""
+    full pair chunk of them; ``launches_gene_*`` are the timed gene-feature
+    calls', ``gene_chunk_ms`` the kernel's time in one gene chunk of them
+    (16 spans of 41,800 bp); ``max_abs_err`` covers every path's shapes.
+    Per-shape numbers in ``layers``, ``h5_layers`` and ``gene_layers``."""
     conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
     h5_full = [r for r in report["h5_layers"] if r["N"] == H5_CHUNK_N[0]]
     serve, parity = report["main_path"]["launches"], report["parity"]["launches"]
     h5 = {t: report["h5_contract"][t]["launches"] for t in ("fp32", "bf16")}
+    gene = {t: report["genes"][t]["launches"] for t in ("fp32", "bf16")}
 
     def entry(name, source, rows, tag, launches, **extra):
         """``tag``'s numbers on the main path's route of each shape."""
         h5_rows = [r for r in report["h5_layers"] if (r["layer"] == "conv0") == (name == "conv0_codes")]
+        gene_rows = [r for r in report["gene_layers"] if (r["layer"] == "conv0") == (name == "conv0_codes")]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": "expecto_tpu/ops/pallas_conv.py:49",
             "launches": launches,
-            "max_abs_err": max(r[tag]["max_abs_err"] for r in rows + h5_rows),
+            "max_abs_err": max(r[tag]["max_abs_err"] for r in rows + h5_rows + gene_rows),
             "ms": _weighted(rows, tag, "ms"),
             "plain_ms": _weighted(rows, tag, "plain_ms"), "bound_ms": _weighted(rows, tag, "bound_ms"),
             "bound_by": "operations" if _weighted(rows, tag, "ops_ms") >= _weighted(rows, tag, "bytes_ms") else "bytes",
             "library_ms": _weighted(rows, tag, "library_ms"), "dtype": tag,
-            "h5_chunk_ms": _weighted([r for r in h5_full if r in h5_rows], tag, "ms"), **extra,
+            "h5_chunk_ms": _weighted([r for r in h5_full if r in h5_rows], tag, "ms"),
+            "gene_chunk_ms": _weighted(gene_rows, tag, "ms"), "gene_chunk_bound_ms": _weighted(gene_rows, tag, "bound_ms"),
+            "gene_chunk_library_ms": _weighted(gene_rows, tag, "library_ms"), **extra,
         }
 
     return {"kernels": [
         entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
               serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"],
-              launches_h5_bf16=h5["bf16"]["conv8_relu_by_route"]["tc"]),
+              launches_h5_bf16=h5["bf16"]["conv8_relu_by_route"]["tc"],
+              launches_gene_bf16=gene["bf16"]["conv8_relu_by_route"]["tc"]),
         entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
               parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
               launches_h5_fp32=h5["fp32"]["conv8_relu_by_route"]["simt"],
+              launches_gene_fp32=gene["fp32"]["conv8_relu_by_route"]["simt"],
               bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
               min_shape_bound_share=report["simt_fp32_chunk"]["min_shape_share"],
               sass_ffma=report["sass_simt"]["FFMA"], sass_lds=report["sass_simt"]["LDS"],
               sass_hmma=report["sass_simt"]["HMMA"], sass_hgmma=report["sass_simt"]["HGMMA"]),
         entry("conv0_codes", "expecto_tpu_torch/csrc/conv0_codes.cu", conv0, "bf16", serve["conv0_codes"],
               fp32_ms=_weighted(conv0, "fp32", "ms"), fp32_bound_ms=_weighted(conv0, "fp32", "bound_ms"),
-              max_err_fp32=max(r["fp32"]["max_abs_err"] for r in conv0 + report["h5_layers"] if r["layer"] == "conv0"),
+              max_err_fp32=max(r["fp32"]["max_abs_err"] for r in conv0 + report["h5_layers"] + report["gene_layers"]
+                               if r["layer"] == "conv0"),
               h5_chunk_fp32_ms=_weighted([r for r in h5_full if r["layer"] == "conv0"], "fp32", "ms"),
               launches_fp32_parity=parity["conv0_codes"],
               launches_h5_bf16=h5["bf16"]["conv0_codes"], launches_h5_fp32=h5["fp32"]["conv0_codes"],
+              launches_gene_bf16=gene["bf16"]["conv0_codes"], launches_gene_fp32=gene["fp32"]["conv0_codes"],
+              gene_chunk_fp32_ms=_weighted([r for r in report["gene_layers"] if r["layer"] == "conv0"], "fp32", "ms"),
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
@@ -995,7 +1375,11 @@ def kernel_table(report: dict) -> dict:
         for r in conv0 + conv8],
         "h5_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
                       | {f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("route", "ms", "max_abs_err")}
-                      for r in report["h5_layers"]]}
+                      for r in report["h5_layers"]],
+        "gene_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
+                        | {f"{t}_{k}": r[t][k] for t in ("fp32", "bf16")
+                           for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                        for r in report["gene_layers"]]}
 
 
 def main(argv=None) -> int:
@@ -1041,6 +1425,7 @@ def main(argv=None) -> int:
     conv0_phase(report)
     chunk_summary(report)
     h5_kernel_phase(report)
+    gene_kernel_phase(report)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1057,6 +1442,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     h5_contract_phase(report, inputs, card)
     log(f"h5 contract phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    make_gene_inputs(args.seed)
+    gene_phase(report, card)
+    log(f"gene phase {time.perf_counter() - t0:.1f} s")
 
     table = kernel_table(report)
     if args.out:

@@ -3,7 +3,8 @@ contract (``python -m expecto_tpu_torch.cli.chromatin``; the arguments of
 ``expecto_tpu.cli.chromatin`` plus ``--device``).
 
 Writes ``snps_hg19.vcf`` (the standardized VCF, the ``--coorFile`` of
-``expecto_tpu_torch.cli.predict``), ``dropped_contigs.vcf`` when rows on
+``expecto_tpu_torch.cli.predict``), ``not_lifted.vcf`` with ``--hg38`` (the
+rows the chain file does not map), ``dropped_contigs.vcf`` when rows on
 non-canonical contigs are dropped, and ``{prefix}.shift_{s}.diff.h5`` per
 shift (``.legacy.diff.h5`` with ``--legacy_h5`` / ``--legacy_only``).
 
@@ -22,9 +23,11 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Predict variant chromatin effects")
     p.add_argument("inputfile", type=str, help="Input file in vcf format")
-    p.add_argument("--hg38", action="store_true", help="Lift variants from hg38 to hg19 (not in this package yet)")
+    p.add_argument("--hg38", action="store_true", help="Lift variants from hg38 to hg19 (requires --chain_file)")
     p.add_argument("--chain_file", type=str, default=None, help="UCSC hg38->hg19 over.chain[.gz] for --hg38")
-    p.add_argument("--strict_liftover", action="store_true", help="reference-parity liftover (with --hg38)")
+    p.add_argument("--strict_liftover", action="store_true",
+                   help="reference-parity liftover: abort when a position has multiple chain "
+                        "mappings (chromatin.py:128) instead of taking the top-scoring chain")
     p.add_argument("--chunk_size", type=int, default=int(1e5))
     p.add_argument("--chunk_i", type=int, default=None)
     p.add_argument("--maxshift", type=int, default=800)
@@ -47,9 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.hg38:
-        print("--hg38 needs genome/liftover.py, which this package does not have yet "
-              "(ROADMAP queue 1 item 10); lift the VCF to hg19 first", file=sys.stderr)
+    if args.hg38 and not args.chain_file:
+        print("--hg38 requires --chain_file (no network access for chain download)", file=sys.stderr)
         return 2
 
     import numpy as np
@@ -74,6 +76,15 @@ def main(argv=None) -> int:
     genome = FastaIndex(args.genome)
     os.makedirs(args.output_dir, exist_ok=True)
     vcf = read_vcf(args.inputfile, chunk_size=args.chunk_size, chunk_i=args.chunk_i)
+
+    if args.hg38:
+        from ..genome.liftover import ChainLiftover, liftover_vcf
+
+        print("Lifting over to hg19...")
+        lifted, failed = liftover_vcf(vcf, ChainLiftover(args.chain_file), strict=args.strict_liftover)
+        print(f"Failed to lift {int(failed.sum())} variants from hg38 to hg19")
+        vcf[failed].to_csv(f"{args.output_dir}/not_lifted.vcf", sep="\t", header=False, index=False)
+        vcf = lifted[~failed]
 
     # standardize before writing snps_hg19.vcf: the emitted file is the
     # --coorFile of the predict step, so its rows must align 1:1 with the

@@ -58,3 +58,16 @@ def fetch_variant_window(
         ref_matched=window_ref == ref.upper(),
         alt_matched=window_ref == alt.upper(),
     )
+
+
+def gene_shift_window_bounds(tss: int, strand: int, shift: int, windowsize: int = 2000) -> tuple[int, int]:
+    """1-based inclusive (start, stop) of one strand-oriented TSS shift window
+    (reference compute_expecto_features.py:108-110)."""
+    center = tss + shift * strand
+    return center - int(windowsize / 2 - 1), center + int(windowsize / 2)
+
+
+def gene_shifts(span: int = 20000, step: int = 200) -> list[int]:
+    """Gene-path shift enumeration ``range(-20000, 20000, 200)``
+    (compute_expecto_features.py:88)."""
+    return list(range(-span, span, step))

@@ -16,7 +16,10 @@ expecto_tpu/parallel/runner.py).
 - the decay-basis projection and all stacked tissue models run on the device
   as one matmul, and only per-model scalars come back, as (REF, SED): SED =
   ALT - REF is taken in fp32 on the device before the cast to the fetch
-  dtype, and the host rebuilds ALT = REF + SED in fp32.
+  dtype, and the host rebuilds ALT = REF + SED in fp32;
+- the gene path (``predict_spans_project``) applies the (10, 200) decay
+  weights to the fwd/RC-averaged predictions of each 41,800-bp span on the
+  device, in fp32, and fetches only the (N, 20,020) features.
 
 Chunks run one after another (upload, compute, fetch); overlapping them with
 CUDA streams and pinned host buffers is later work.
@@ -376,6 +379,47 @@ class BelugaRunner:
                 if rc_mode == "average":
                     y = (y[:, 0] + y[:, 1]) * 0.5
             out[start : start + codes.shape[0]] = y.to(self._wire).cpu().numpy()
+        return out
+
+    def _project(self, preds: torch.Tensor, pos_weights: torch.Tensor) -> np.ndarray:
+        """(G, S, M) fp32 predictions against (B, S) decay weights -> (G,
+        B*M) features, contracted in fp32 on the device and fetched at the
+        wire dtype (an fp16 wire rounds at about 5e-4 relative), stored fp32."""
+        feats = torch.einsum("bs,nsm->nbm", pos_weights, preds).reshape(preds.shape[0], -1)
+        return feats.to(self._wire).cpu().numpy().astype(np.float32)
+
+    @torch.inference_mode()
+    def predict_spans_project(self, span_codes: np.ndarray, offsets, pos_weights: np.ndarray) -> np.ndarray:
+        """Gene path on the device: (N, span_len) int8 span codes -> shared
+        conv stack over each span's windows at ``offsets``, forward and
+        reverse complement averaged in fp32, the (B, n_offsets) decay
+        weights applied -> (N, B*2002) float32 features. Spans ship 2-bit
+        packed, or 4-bit for N-dense chunks."""
+        span_codes = np.asarray(span_codes, dtype=np.int8)
+        offsets = tuple(int(o) for o in offsets)
+        pw = torch.as_tensor(np.asarray(pos_weights, dtype=np.float32), device=self.device)
+        out = np.empty((span_codes.shape[0], pw.shape[0] * 2002), dtype=np.float32)
+        for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
+            out[start : start + codes.shape[0]] = self._project(self._pair_span_preds(codes, offsets), pw)
+        return out
+
+    @torch.inference_mode()
+    def predict_and_project(self, codes: np.ndarray, pos_weights: np.ndarray, n_shifts: int) -> np.ndarray:
+        """Gene path per window: (G*S, 2000) window codes, S consecutive rows
+        a gene, + (B, S) decay weights -> (G, B*2002) float32 features, fwd/RC
+        averaged and projected on the device (the per-window counterpart of
+        :meth:`predict_spans_project`)."""
+        codes = np.asarray(codes, dtype=np.int8)
+        if codes.shape[0] % n_shifts != 0:
+            raise ValueError("codes rows must be a multiple of n_shifts")
+        pw = torch.as_tensor(np.asarray(pos_weights, dtype=np.float32), device=self.device)
+        genes_per_batch = max(self.batch_size // n_shifts, 1)
+        n_genes = codes.shape[0] // n_shifts
+        out = np.empty((n_genes, pw.shape[0] * 2002), dtype=np.float32)
+        for g0 in range(0, n_genes, genes_per_batch):
+            g1 = min(g0 + genes_per_batch, n_genes)
+            y = self._forward(self._dev(codes[g0 * n_shifts : g1 * n_shifts]), True, torch.float32)
+            out[g0:g1] = self._project(y.reshape(g1 - g0, n_shifts, -1), pw)
         return out
 
     @torch.inference_mode()

@@ -7,7 +7,10 @@ serving runner in fp32 on the card against the same runner on the CPU, and
 the h5-contract runner methods (``predict_span_codes``,
 ``predict_span_pairs_diff``, ``predict_span_pair_diffs_only``) on the card
 against the CPU, with their sinks, an N-dense chunk and the launch counts of
-each dtype's routes.
+each dtype's routes; and the gene-feature path: every conv shape of a gene
+chunk (16 spans of 41,800 bp) on each route, ``predict_spans_project``
+against ``predict_and_project`` and the CPU on both strands, the 4-bit
+route on an N-dense gene chunk, and the launch counts a chunk.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -20,10 +23,11 @@ import numpy as np
 import pytest
 import torch
 
-from expecto_tpu_torch.genome.windows import variant_shifts
+from expecto_tpu_torch.genome.windows import gene_shifts, variant_shifts
 from expecto_tpu_torch.ops import conv0
 from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
 from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
+from expecto_tpu_torch.ops.decay import gene_pos_weights
 from expecto_tpu_torch.parallel.runner import BelugaRunner
 from torch_port_common import narrow_params, random_codes, sed_atol
 
@@ -428,3 +432,99 @@ def test_h5_runner_launch_counts(cuda, dtype):
     assert conv8_relu.launches == 2 * 7 * chunks
     route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
     assert conv8_relu.launches_by_route[route] == 2 * 7 * chunks and conv8_relu.launches_by_route[other] == 0
+
+
+# ---- gene features ------------------------------------------------------------
+
+GENE_SPAN = 41_800
+GENE_POS_WEIGHTS = gene_pos_weights(gene_shifts())
+# window offsets of the 200 gene shifts in a 41,800-bp span: upward on the
+# plus strand, downward on the minus strand
+GENE_OFFSETS = {"plus": tuple(range(0, 39_801, 200)), "minus": tuple(range(39_800, -1, -200))}
+# every conv8_relu shape of a gene chunk at Beluga's widths (16 spans:
+# conv1 at 41,793, conv2/conv3 after pool-1, conv4/conv5 at pool-2 phases 0
+# and 2)
+GENE_CONV8_SHAPES = [(16, 41_793, 320, 320), (16, 10_446, 320, 480), (16, 10_439, 480, 480), (16, 2_608, 480, 640),
+                     (16, 2_607, 480, 640), (16, 2_601, 640, 640), (16, 2_600, 640, 640)]
+
+
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:2], ids=["tc-bf16", "simt-fp32"])
+@pytest.mark.parametrize("n,l,cin,cout", GENE_CONV8_SHAPES)
+def test_conv8_kernels_at_gene_chunk_shapes(cuda, n, l, cin, cout, route, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(l + cin)
+    x = torch.randn((n, l, cin), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((8, cin, cout), generator=gen, device=cuda) / (8 * cin) ** 0.5).to(dtype)
+    b = (torch.randn((cout,), generator=gen, device=cuda) * 0.1).to(dtype)
+    _assert_route_matches_plain(x, w, b, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_conv0_kernel_at_the_gene_chunk_shape(cuda, dtype):
+    codes, w, b = _conv0_inputs(16, GENE_SPAN, 320, 16, cuda, dtype)
+    _assert_conv0_matches_plain(conv0_codes_relu(codes, w, b), codes, w, b)
+
+
+def _gene_spans(n, seed, n_frac=0.02):
+    return random_codes(np.random.default_rng(seed), n, GENE_SPAN, n_frac=n_frac)
+
+
+def _feat_tol(want):
+    """fp32 features: sums of up to 200 weighted track probabilities, so
+    the limit scales with them, 1e-5 * max|feature|."""
+    return 1e-5 * max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("strand", ["plus", "minus"])
+def test_gene_features_span_path_matches_windows_and_cpu(cuda, strand):
+    """predict_spans_project on the card (fp32) against predict_and_project
+    on the card (the same windows, one at a time) and against the CPU; 3
+    spans at batch 400 are two chunks."""
+    offsets = GENE_OFFSETS[strand]
+    params = narrow_params(15)
+    card = BelugaRunner(params, batch_size=400, device="cuda")
+    spans = _gene_spans(3, seed=16)
+    got = card.predict_spans_project(spans, offsets, GENE_POS_WEIGHTS)
+    assert got.shape == (3, 20020) and got.dtype == np.float32 and np.isfinite(got).all()
+    windows = np.stack([s[o : o + 2000] for s in spans for o in offsets])
+    per_window = card.predict_and_project(windows, GENE_POS_WEIGHTS, len(offsets))
+    np.testing.assert_allclose(got, per_window, rtol=0, atol=_feat_tol(per_window))
+    cpu = BelugaRunner(params, batch_size=400, device="cpu").predict_spans_project(spans, offsets, GENE_POS_WEIGHTS)
+    np.testing.assert_allclose(got, cpu, rtol=0, atol=_feat_tol(cpu))
+
+
+def test_gene_features_n_dense_chunk_on_the_4bit_route(cuda):
+    """A contig-edge-like chunk (the first 19,000 bases N) passes the 2-bit
+    wire's N budget and ships 4 bits a base; with the budget raised it ships
+    2 bits and the sideband. Same codes on the card, the same features; and
+    the CPU's."""
+    params = narrow_params(17)
+    card = BelugaRunner(params, batch_size=400, device="cuda")
+    spans = _gene_spans(2, seed=18)
+    spans[0, :19_000] = 4
+    offsets = GENE_OFFSETS["plus"]
+    assert card._pack2_plan(spans, card._span_rows(200)) is None
+    dense = card.predict_spans_project(spans, offsets, GENE_POS_WEIGHTS)
+    card.PACK2_SIDE_BUDGET = 10**6
+    np.testing.assert_array_equal(card.predict_spans_project(spans, offsets, GENE_POS_WEIGHTS), dense)
+    cpu = BelugaRunner(params, batch_size=400, device="cpu").predict_spans_project(spans, offsets, GENE_POS_WEIGHTS)
+    np.testing.assert_allclose(dense, cpu, rtol=0, atol=_feat_tol(cpu))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gene_features_launch_counts(cuda, dtype):
+    """Per gene chunk 16 launches: 2 orientations x (1 conv0 + conv1-conv3
+    once + conv4/conv5 at pool-2 phases 0 and 2); fp32 conv1-conv5 on the
+    SIMT kernel, bf16 on the tc kernel; conv0 on the code-gather kernel."""
+    runner = BelugaRunner(narrow_params(19, convs=TC_WIDTHS), batch_size=400, device="cuda", compute_dtype=dtype,
+                          out_dtype=np.float32 if dtype == torch.float32 else np.float16)
+    spans = _gene_spans(5, seed=20)
+    reset_launch_counts()
+    conv0.reset_launch_counts()
+    feats = runner.predict_spans_project(spans, GENE_OFFSETS["minus"], GENE_POS_WEIGHTS)
+    torch.cuda.synchronize()
+    assert np.isfinite(feats).all()
+    chunks = 3  # 2 spans a chunk at batch 400 and 200 offsets
+    kind = "float32" if dtype == torch.float32 else "bfloat16"
+    assert conv0_codes_relu.launches_by_kind == {kind: 2 * chunks}
+    route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
+    assert conv8_relu.launches_by_route[route] == 14 * chunks and conv8_relu.launches_by_route[other] == 0

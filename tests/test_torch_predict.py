@@ -352,7 +352,7 @@ def test_chromatin_cli_refuses_hg38_and_defaults_to_cuda(tmp_path, tiny_genome, 
 
     common, _gene, _feats = _cli_inputs(tmp_path, tiny_genome, tables, params)
     assert torch_chromatin(common + ["--hg38", "--output_dir", str(tmp_path / "o")]) == 2
-    assert "item 10" in capsys.readouterr().err
+    assert "--hg38 requires --chain_file" in capsys.readouterr().err
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present: the default device runs")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
