@@ -79,7 +79,27 @@ Phases (any failure raises, and the script exits non-zero with no result):
    bf16 predictions projected in fp64 on the host, a limit that a projection
    contracted in bf16 and the forward half alone both exceed; bf16 vs fp32
    features per gene within a stated limit that the same comparison with
-   the gene rows shifted by one exceeds.
+   the gene rows shifted by one exceeds;
+9. GEUVADIS consensus (``expecto-consensus``) on bench.py's four cohort
+   mixes (generator copied, seeded from ``--seed``; 445 records with 42
+   shared sites, 64 with 42 private sites twice, 64 with 4 private sites;
+   393,216 bp each, 200 shifts): first every conv shape of the engines on
+   each dtype's route against the plain version (the backbone forward at
+   N = 1, the patch batches of 704-base sub-spans at K = 8, 16, 24 with 5
+   and 16 samples a chunk, timed beside the plain version, ``F.conv1d``
+   and the bound; the dedup engine's window batch and a fallback chunk);
+   then per mix and dtype three warm timed calls at the CLI's batch 1,024
+   (the sparse mix also at 3,200), each call's engine (the runner methods
+   it called) and launch counts checked; a '-' strand check cohort (K
+   buckets 8, 16 and 24, a backbone copy, a duplicate, an indel-shifted
+   record that falls back): fp32 patch vs span and card vs CPU within
+   1e-5 of max|feature|, a smoke test of the expression wiring, two
+   patch-engine calls equal bit for bit, the splice planted one frame late
+   (it must exceed the limits), bf16 vs fp32 per record; the dedup
+   engine's tracks vs the span path's; patch vs span on the same records
+   at K = 8, 16, 24, 48; the conv1-reusing ``_c1`` patch vs the raw one;
+   ``python -m expecto_tpu_torch.cli.consensus ref`` (its ``main``) in
+   fp32 and ``--bf16``, its CSV equal to the in-process call.
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -186,6 +206,38 @@ GENE_BF16_GAP = 8e-3
 # exceed the limit: the projection contracted in bf16 (weights, predictions
 # and sums rounded at 2^-9), and the fwd/RC average dropped to the forward half
 GENE_WIRE_RTOL = 6e-4
+
+# GEUVADIS consensus (cli.consensus): bench.py's four cohort mixes, each one
+# gene's cohort of 393,216-bp records (TSS at len // 2) over the 200 gene
+# shifts, at the CLI's default batch 1,024 (5 spans a chunk): (bench.py
+# name, records, private sites?, sites, path, the engine it must take)
+CONS_BATCH = 1024
+CONS_BATCH_WIDE = 3200  # the sparse mix again at 16 spans a chunk
+CONS_MIXES = (
+    ("consensus_sample_genes_per_sec", 445, False, 42, "preds", "predict_codes"),
+    ("consensus_private_sample_genes_per_sec", 64, True, 42, "preds", "predict_span_codes"),
+    ("consensus_private_featonly_sample_genes_per_sec", 64, True, 42, "features", "predict_spans_project"),
+    ("consensus_sparse_private_featonly_sample_genes_per_sec", 64, True, 4, "features",
+     "project_spans_backbone_patch"),
+)
+CONS_REPEATS = 3  # timed calls a mix and dtype, each launch-checked; the median is reported
+CONS_SPAN = 41_808  # the features path's span: 41,800 bp extended to a multiple of 16
+CONS_PATCH_SHAPES = ((5, 8), (5, 16), (5, 24), (16, 8), (16, 16), (16, 24))  # (samples a chunk, K)
+CONS_SWEEP_K = (8, 16, 24, 48)  # patch vs span on 16 records with K ranges each (48: max_ranges=48)
+CONS_SWEEP_ROWS = 16
+CONS_REF_GENES = 4  # genes of the ref CLI run, two a strand
+# fp32 features (patch vs span, card vs CPU): as GENE_FEAT_RTOL, 1e-5 of
+# max|feature|; fp32 track probabilities (window dedup vs span path): 1e-5
+CONS_FEAT_RTOL = 1e-5
+CONS_PRED_ATOL = 1e-5
+# bf16 compute vs fp32 features, per record, over max|fp32 feature|: the
+# gene path's limit (GENE_BF16_GAP; sound runs read 4.3-5.2e-3 there and
+# 5.1e-3 here). The bf16 patch with its frames spliced one frame late must
+# exceed it on some patched record; it cannot on every one, since a few
+# private sites move a record's features by about bf16's own noise (the late
+# splice read 6.9e-3 at least, on an H100 80GB HBM3 at 700 W), so the fp32
+# checks at 1e-5 of max|feature| carry the patch's contract
+CONS_BF16_GAP = GENE_BF16_GAP
 
 
 def log(msg: str) -> None:
@@ -1305,6 +1357,578 @@ def gene_phase(report: dict, card: str) -> None:
     report["genes"] = out
 
 
+def consensus_kernel_launches(span_len: int, phases=(0, 2)) -> Counter:
+    """{(layer, L): launches} of one consensus conv batch over spans of
+    ``span_len`` bases, forward and reverse complement: the full stack
+    (conv4/conv5 once per pool-2 phase; a lone 2,000-bp window has one)."""
+    tally = Counter()
+    for _orientation in range(2):
+        tally.update(conv_stack(span_len, phases))
+    return tally
+
+
+def consensus_kernel_phase(report: dict) -> None:
+    """Every conv shape the consensus engines give the kernels, on each
+    dtype's route, held against the fp32 plain version before anything is
+    timed: the backbone forward (one span of CONS_SPAN) and the patch
+    batches (704-base sub-spans, N·K for CONS_PATCH_SHAPES), each also timed
+    beside its plain version, ``F.conv1d`` and the bound; the dedup engine's
+    window batch (CONS_BATCH windows of 2,000 bp) and a fallback span chunk
+    (5 spans), checked and timed."""
+    import torch
+
+    from expecto_tpu_torch.ops.spans import PATCH_SUB_LEN
+
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(4)
+    cases = [("backbone", 1, CONS_SPAN, True)]
+    cases += [(f"patch N={n} K={k}", n * k, PATCH_SUB_LEN, True) for n, k in CONS_PATCH_SHAPES]
+    cases += [("dedup windows", CONS_BATCH, 2000, False), ("fallback spans", CONS_BATCH // GENE_SHIFTS, CONS_SPAN, False)]
+    rows, chunk_ms = [], {}
+    for what, n, span_len, yardsticks in cases:
+        launches = consensus_kernel_launches(span_len, (0,) if span_len == 2000 else (0, 2))
+        n_rows, ms = _chunk_conv_rows(n, launches, gen, f"consensus {what}", yardsticks=yardsticks)
+        for r in n_rows:
+            r["case"] = what
+        rows += n_rows
+        chunk_ms[what] = ms
+        log(f"consensus {what} ({n} spans of {span_len}, {sum(launches.values())} launches): kernels fp32 "
+            f"{ms['fp32']:.3f} ms, bf16 {ms['bf16']:.3f} ms; max |err| fp32 "
+            f"{max(r['fp32']['max_abs_err'] for r in n_rows):.3g}, bf16 {max(r['bf16']['max_abs_err'] for r in n_rows):.3g}")
+        if yardsticks:
+            for tag in ("fp32", "bf16"):
+                log(f"  {tag}: bound {_weighted(n_rows, tag, 'bound_ms'):.3f} ms, plain "
+                    f"{_weighted(n_rows, tag, 'plain_ms'):.3f} ms, F.conv1d {_weighted(n_rows, tag, 'library_ms'):.3f} ms; "
+                    + ", ".join(f"{r['layer']} L={r['L']} {r[tag]['ms']:.4f} ms ({100 * r[tag]['bound_ms'] / r[tag]['ms']:.0f} %"
+                                f" of bound, conv1d {r[tag]['library_ms']:.4f})" for r in n_rows))
+    report["consensus_layers"] = rows
+    report["consensus_chunk_kernel_ms"] = chunk_ms
+
+
+def consensus_cohort(seed: int, n_samples: int, *, private: bool, n_sites: int = 42) -> list:
+    """bench.py's cohort generator (``_consensus_cohort_seqs``), seeded from
+    ``seed`` (seed 0 gives bench.py's cohorts): one gene's records sharing a
+    random 393,216-bp backbone, TSS at len // 2, '+' strand. ``private=False``:
+    ``n_sites`` shared segregating sites within 21 kb of the TSS, each
+    carried w.p. 0.5; ``private=True``: every sample mutates its own
+    ``n_sites`` random positions there."""
+    import numpy as np
+
+    from expecto_tpu_torch.pipeline.consensus import ENFORMER_SEQ_LENGTH
+
+    rng = np.random.default_rng(3 + seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    backbone = rng.integers(0, 4, size=ENFORMER_SEQ_LENGTH, dtype=np.int64)
+    center = ENFORMER_SEQ_LENGTH // 2
+    covered = np.arange(center - 21000, center + 21000)
+    seqs = []
+    if private:
+        for _ in range(n_samples):
+            arr = backbone.copy()
+            sites = rng.choice(covered, size=n_sites, replace=False)
+            arr[sites] = (arr[sites] + rng.integers(1, 4, size=len(sites))) % 4
+            seqs.append((bases[arr].tobytes().decode("latin-1"), "+"))
+        return seqs
+    sites = rng.choice(covered, size=n_sites, replace=False)
+    site_alt = (backbone[sites] + rng.integers(1, 4, size=len(sites))) % 4
+    for _ in range(n_samples):
+        arr = backbone.copy()
+        carry = rng.random(len(sites)) < 0.5
+        arr[sites[carry]] = site_alt[carry]
+        seqs.append((bases[arr].tobytes().decode("latin-1"), "+"))
+    return seqs
+
+
+def consensus_check_cohort(seed: int) -> tuple[list, dict]:
+    """'-' strand records for the checks (not timed): a backbone copy first,
+    8 records in each K bucket of 8, 16 and 24 (5-8, 9-16 and 17-24 sites
+    on a grid at least 1,200 bp apart within 20 kb of the TSS, so each site
+    is its own range), a duplicate, and a record with one base deleted 15 kb
+    upstream of the TSS (a base appended), which differs from the backbone
+    everywhere past it and must fall back to the span path. Returns the
+    records and {"8"/"16"/"24"/"trivial"/"fallback": record indices}."""
+    import numpy as np
+
+    from expecto_tpu_torch.pipeline.consensus import ENFORMER_SEQ_LENGTH
+
+    rng = np.random.default_rng(seed + 7)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    tss = ENFORMER_SEQ_LENGTH // 2
+    bb = rng.integers(0, 4, size=ENFORMER_SEQ_LENGTH)
+    grid = tss - 20000 + 1600 * np.arange(25) + rng.integers(0, 400, size=25)
+
+    def seq(a):
+        return bases[a].tobytes().decode("latin-1")
+
+    recs, groups = [(seq(bb), "-")], {"trivial": [0]}
+    for lo, hi, k8 in ((5, 8, "8"), (9, 16, "16"), (17, 24, "24")):
+        for _ in range(8):
+            k = int(rng.integers(lo, hi + 1))
+            sites = rng.choice(grid, size=k, replace=False)
+            a = bb.copy()
+            a[sites] = (a[sites] + rng.integers(1, 4, size=k)) % 4
+            groups.setdefault(k8, []).append(len(recs))
+            recs.append((seq(a), "-"))
+    recs.append(recs[groups["8"][0]])
+    groups["fallback"] = [len(recs)]
+    recs.append((seq(np.concatenate([np.delete(bb, tss - 15000), bb[:1]])), "-"))
+    return recs, groups
+
+
+def _patch_starts(bb, rows, offsets, max_ranges: int):
+    """(starts_f, starts_r) of ``rows`` against backbone ``bb`` as the cohort
+    engine plans them (ops/spans.conv6_patch_sites_plan on the forward and
+    the mirrored diff positions), K padded to a multiple of 8."""
+    import numpy as np
+
+    from expecto_tpu_torch.ops.spans import conv6_patch_sites_plan
+
+    span_len = rows.shape[1]
+    phases_f = {(o // 4) % 4 for o in offsets}
+    phases_r = {((span_len - 2000 - o) // 4) % 4 for o in offsets}
+    plans = []
+    for r in rows:
+        dp = np.nonzero(r != bb)[0]
+        plans.append((conv6_patch_sites_plan(dp, span_len, phases_f, max_ranges=max_ranges),
+                      conv6_patch_sites_plan((span_len - 1 - dp)[::-1], span_len, phases_r, max_ranges=max_ranges)))
+    if any(p is None for plan in plans for p in plan):
+        raise AssertionError("a record of a patch check has no patch plan")
+    k = max(8, -(-max(len(p) for plan in plans for p in plan) // 8) * 8)
+    sf, sr = (np.zeros((len(rows), k, 2), np.int32) for _ in range(2))
+    for m, (pf, pr) in enumerate(plans):
+        if pf:
+            sf[m, : len(pf)] = pf
+        if pr:
+            sr[m, : len(pr)] = pr
+    return sf, sr
+
+
+CONS_ENGINES = ("predict_codes", "predict_span_codes", "predict_spans_project", "project_spans_backbone_patch")
+
+
+class _EngineSpy:
+    """Records (method, rows, K) of every engine call the consensus
+    pipelines make on a runner."""
+
+    def __init__(self, runner):
+        self.calls = []
+        for name in CONS_ENGINES:
+            setattr(runner, name, self._wrap(name, getattr(runner, name)))
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            patch = name == "project_spans_backbone_patch"
+            self.calls.append((name, len(args[1] if patch else args[0]), len(args[2][0]) if patch else None))
+            return fn(*args, **kw)
+
+        return call
+
+
+def _check_engine(calls: list, engine: str, n: int, what: str) -> None:
+    """The engine a pipeline took over ``n`` records, from the runner
+    methods it called: ``engine`` alone (the patch at K = 8 alone), or for
+    the fallback engine the span projection on most records."""
+    rows_by = Counter()
+    for name, rows, _k in calls:
+        rows_by[name] += rows
+    if engine == "predict_spans_project":  # mostly the fallback: a patch bucket may take a few
+        ok = set(rows_by) <= {engine, "project_spans_backbone_patch"} and rows_by[engine] > n // 2
+    elif engine == "project_spans_backbone_patch":
+        ok = set(rows_by) == {engine} and {k for _n, _r, k in calls} == {8}
+    else:
+        ok = set(rows_by) == {engine}
+    if not ok:
+        raise AssertionError(f"{what}: took {calls}, expected the {engine} engine")
+
+
+def _consensus_counts_checked(kind: str, calls: list, runner, what: str) -> dict:
+    """The launch counts since the last _reset_counts, checked against the
+    chunk arithmetic of the engine calls: a window batch (``batch_size``
+    windows) is 1 conv0 + 5 conv8 an orientation, a span chunk
+    (``_span_rows(200)`` spans) 1 conv0 + 7 conv8 an orientation
+    (conv4/conv5 at pool-2 phases 0 and 2), and the patch method adds the
+    backbone's span forward once."""
+    want0 = want8 = 0
+    span_rows = runner._span_rows(GENE_SHIFTS)
+    for name, rows, _k in calls:
+        if name == "predict_codes":
+            c = -(-rows // runner.batch_size)
+            want0, want8 = want0 + 2 * c, want8 + 10 * c
+        else:
+            c = -(-rows // span_rows) + (name == "project_spans_backbone_patch")
+            want0, want8 = want0 + 2 * c, want8 + 14 * c
+    counts = _read_counts(kind)
+    route, other = ("simt", "tc") if kind == "float32" else ("tc", "simt")
+    by_route = counts["conv8_relu_by_route"]
+    if (counts["conv0_codes"], by_route[route], by_route[other]) != (want0, want8, 0):
+        raise AssertionError(f"{what}: launches {counts}, expected {want0} conv0 and {want8} {route} for {calls}")
+    return {"launches": counts, "engine_calls": [list(c) for c in calls]}
+
+
+def _consensus_call(runner, seqs, path: str):
+    """One cohort gene through the CLI's device path: ``samples
+    --fp16_chromatin`` (track predictions, fp16) or ``samples
+    --features_only`` (features)."""
+    import numpy as np
+
+    from expecto_tpu_torch.pipeline.consensus import _predict_consensus_features_cohort, _predict_consensus_preds
+
+    if path == "preds":
+        return _predict_consensus_preds(runner, seqs, None, dtype=np.float16)
+    return _predict_consensus_features_cohort(runner, seqs, None)
+
+
+def _timed_cohort(params, seqs, path: str, engine: str, dtype, batch: int, repeats: int, what: str):
+    """A warm-up call, then ``repeats`` timed calls of one cohort with the
+    CLI's settings (``--fp16_chromatin``'s fp16 wire for track predictions,
+    an fp32 wire for features), launch counts zeroed just before each and
+    checked just after. Each call's process CPU time stands beside its wall:
+    on the host-bound cells the two move together when the host runs slower.
+    Returns (stats, the last output)."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+
+    runner = BelugaRunner(params, batch_size=batch, device=DEVICE, compute_dtype=dtype,
+                          out_dtype=np.float16 if path == "preds" else np.float32)
+    spy = _EngineSpy(runner)
+    _consensus_call(runner, seqs, path)
+    kind = str(dtype).removeprefix("torch.")
+    walls, cpus = [], []
+    for _ in range(repeats):
+        spy.calls.clear()
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        out = _consensus_call(runner, seqs, path)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        cpus.append(time.process_time() - c0)
+        _check_engine(spy.calls, engine, len(seqs), what)
+        checked = _consensus_counts_checked(kind, spy.calls, runner, what)
+    width = 20030 if path == "features" else GENE_SHIFTS * 2002
+    if out.shape[0] != len(seqs) or out[0].size != width or not np.isfinite(out).all():
+        raise AssertionError(f"{what}: output of shape {out.shape}, or not finite")
+    wall = statistics.median(walls)
+    return {"batch": batch, "wall_s": wall, "walls_s": walls, "cpu_s": cpus, "sample_genes_per_s": len(seqs) / wall,
+            **checked}, out
+
+
+def consensus_phase(report: dict, card: str, seed: int) -> None:
+    """GEUVADIS consensus (``expecto-consensus``) at Beluga's widths: the four
+    bench mixes timed in fp32 and bf16 at the CLI's batch (the sparse mix at
+    3,200 too), each call's engine and launches checked; patch vs span per
+    K; the _c1 patch against the raw one; the checks (patch vs span, card vs
+    CPU, dedup vs span, bit-equal repeats, planted faults, bf16 vs fp32,
+    expression); the ``ref`` CLI in fp32 and ``--bf16``."""
+    import torch
+
+    from expecto_tpu_torch.models.convert import load_params_npz
+
+    params = load_params_npz(WORK / "beluga.npz")
+    out = {"mixes": {}}
+    feats = {}
+    for name, n, private, n_sites, path, engine in CONS_MIXES:
+        t0 = time.perf_counter()
+        seqs = consensus_cohort(seed, n, private=private, n_sites=n_sites)
+        mix = {"records": n, "private": private, "sites": n_sites, "path": path, "engine": engine,
+               "cohort_s": time.perf_counter() - t0}
+        batches = (CONS_BATCH, CONS_BATCH_WIDE) if engine == "project_spans_backbone_patch" else (CONS_BATCH,)
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for batch in batches:
+                key = tag if batch == CONS_BATCH else f"{tag}_batch{batch}"
+                mix[key], res = _timed_cohort(params, seqs, path, engine, dtype, batch, CONS_REPEATS,
+                                              f"consensus {name} {key}")
+                log(f"consensus {name} {key}: {n} records in {mix[key]['wall_s']:.3f} s warm (median of "
+                    f"{[round(w, 3) for w in mix[key]['walls_s']]}, CPU {[round(c, 3) for c in mix[key]['cpu_s']]}) = "
+                    f"{mix[key]['sample_genes_per_s']:.2f} "
+                    f"sample-genes/s; engine calls {mix[key]['engine_calls'][:4]}"
+                    f"{' ...' if len(mix[key]['engine_calls']) > 4 else ''}; launches {mix[key]['launches']} [{card}]")
+                if engine == "project_spans_backbone_patch" and batch == CONS_BATCH:
+                    feats[tag] = res
+                elif engine == "predict_codes" and tag == "fp32":
+                    shared = seqs
+        out["mixes"][name] = mix
+        del seqs
+    _consensus_checks(out, params, shared, feats, seed, card)
+    _consensus_sweep(out, params, seed, card)
+    _consensus_ref_cli(out, seed, card)
+    report["consensus"] = out
+
+
+def _consensus_checks(out: dict, params, shared: list, sparse_feats: dict, seed: int, card: str) -> None:
+    """fp32 patch vs span and card vs CPU on the '-' check cohort (one record
+    a bucket, the fallback and trivial rows); two equal calls of the patch
+    engine; the splice planted one frame late; bf16 vs fp32 per record; the
+    dedup engine vs the span path. The expression step is a smoke test of
+    ``_match_features`` and the model's wiring, not of the model: the
+    gblinear model runs on the host on both sides, so its card-vs-CPU gap
+    is the feature gap times the weights, and its limit (the feature limit
+    times sum|w|) is the Lipschitz bound that the feature check implies."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.genome.windows import gene_shifts
+    from expecto_tpu_torch.models.gblinear import GBLinearModel
+    from expecto_tpu_torch.ops import spans
+    from expecto_tpu_torch.ops.decay import gene_pos_weights, pad_legacy_20030
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+    from expecto_tpu_torch.pipeline.consensus import (
+        PATCH_MAX_RANGES,
+        _match_features,
+        _predict_consensus_features_cohort,
+        _predict_consensus_preds,
+        consensus_span_and_offsets,
+    )
+
+    pw = gene_pos_weights(gene_shifts())
+    recs, groups = consensus_check_cohort(seed)
+    runners = {tag: BelugaRunner(params, batch_size=CONS_BATCH, device=DEVICE, compute_dtype=dtype)
+               for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    spy = _EngineSpy(runners["fp32"])
+    _reset_counts()
+    f32 = _predict_consensus_features_cohort(runners["fp32"], recs, None)
+    torch.cuda.synchronize()
+    checked = _consensus_counts_checked("float32", spy.calls, runners["fp32"], "consensus check cohort")
+    # the buckets in K order (the trivial record joins the fallback beside it), then the fallback
+    calls = list(spy.calls)
+    want_calls = [("project_spans_backbone_patch", 8, k) for k in (8, 16, 24)] + [("predict_spans_project", 2, None)]
+    if calls != want_calls:
+        raise AssertionError(f"check cohort: engine calls {calls}, expected {want_calls}")
+    again = _predict_consensus_features_cohort(runners["fp32"], recs, None)
+    if not np.array_equal(again, f32):
+        raise AssertionError(f"check cohort: two calls of the patch engine differ by {np.abs(again - f32).max()}")
+    spans_offs = [consensus_span_and_offsets(s, st, align=16) for s, st in recs]
+    offsets = spans_offs[0][1]
+    rows = np.stack([sp for sp, _ in spans_offs])
+    span32 = pad_legacy_20030(runners["fp32"].predict_spans_project(rows, offsets, pw))
+    limit = CONS_FEAT_RTOL * float(np.abs(span32).max())
+    errs = {"patch_vs_span": float(np.abs(f32 - span32).max())}
+
+    # card vs CPU: one record a bucket, the fallback and the trivial rows
+    picks = [groups[g][0] for g in ("8", "16", "24")]
+    cpu = BelugaRunner(params, batch_size=CONS_BATCH, device="cpu")
+    bb = rows[0]
+    got_cpu = np.empty((len(picks) + 2, 20020), np.float32)
+    for i, r in enumerate(picks):
+        sf, sr = _patch_starts(bb, rows[[r]], offsets, PATCH_MAX_RANGES)
+        got_cpu[i] = cpu.project_spans_backbone_patch(bb, rows[[r]], sf, sr, offsets, pw)[0]
+    extra = [groups["fallback"][0], groups["trivial"][0]]
+    got_cpu[len(picks):] = cpu.predict_spans_project(rows[extra], offsets, pw)
+    cpu_rows = picks + extra
+    errs["card_vs_cpu"] = float(np.abs(f32[cpu_rows] - pad_legacy_20030(got_cpu)).max())
+    model = GBLinearModel(weight=(np.random.default_rng(seed + 9).standard_normal(20020) * 0.02).astype(np.float32),
+                          bias=0.1, base_score=2.0)
+    expr_card = model.predict(_match_features(f32[cpu_rows], model))
+    expr_cpu = model.predict(_match_features(pad_legacy_20030(got_cpu), model))
+    if expr_card.shape != (len(cpu_rows),) or not np.isfinite(expr_card).all():
+        raise AssertionError(f"consensus expression: shape {expr_card.shape} or non-finite values")
+    expr_limit = limit * float(np.abs(model.weight).sum())
+    errs["expression_card_vs_cpu"] = float(np.abs(expr_card - expr_cpu).max())
+
+    # planted fault: patch frames spliced one frame late
+    splice = spans._splice_patch_frames
+    try:
+        spans._splice_patch_frames = lambda b, s, f0, n, k, ph: splice(b, s, f0 + 1, n, k, ph)
+        late = {tag: _predict_consensus_features_cohort(r, recs, None) for tag, r in runners.items()}
+    finally:
+        spans._splice_patch_frames = splice
+    patch_rows = [r for g in ("8", "16", "24") for r in groups[g]]
+    errs["late_splice_fp32"] = float(np.abs(late["fp32"][patch_rows] - span32[patch_rows]).max())
+    out["checks"] = {"records": len(recs), "feature_limit": limit, "expression_limit": expr_limit,
+                     "max_abs_err": errs, "engine_calls": [list(c) for c in calls], "launches": checked["launches"]}
+    log(f"consensus checks ('-' strand, {len(recs)} records): max |err| {errs} (feature limit {limit:.4g}, "
+        f"expression smoke limit {expr_limit:.4g}); engine calls {calls}; two patch-engine calls equal bit for bit")
+    for k in ("patch_vs_span", "card_vs_cpu"):
+        if not errs[k] <= limit:
+            raise AssertionError(f"consensus {k}: max |err| {errs[k]} over the limit {limit}")
+    if not errs["expression_card_vs_cpu"] <= expr_limit:
+        raise AssertionError(f"consensus expression card vs CPU: {errs['expression_card_vs_cpu']} over {expr_limit}")
+    if not errs["late_splice_fp32"] > limit:
+        raise AssertionError(f"the patch check's limit {limit} does not catch a splice one frame late")
+
+    # bf16 vs fp32 per record, over max|fp32 feature|, on the check cohort and the sparse mix
+    scale = float(np.abs(f32).max())
+    f16 = _predict_consensus_features_cohort(runners["bf16"], recs, None)
+    gaps = {"check_sound_max": float(_row_gaps(f16, f32, scale).max()),
+            "check_late_splice_min": float(_row_gaps(late["bf16"][patch_rows], f32[patch_rows], scale).min()),
+            "check_late_splice_max": float(_row_gaps(late["bf16"][patch_rows], f32[patch_rows], scale).max()),
+            "sparse_sound_max": float(_row_gaps(sparse_feats["bf16"], sparse_feats["fp32"],
+                                                float(np.abs(sparse_feats["fp32"]).max())).max())}
+    out["bf16_vs_fp32"] = {"limit": CONS_BF16_GAP, **gaps}
+    log(f"consensus bf16 vs fp32 features per record over max|feature|: {gaps} (limit {CONS_BF16_GAP})")
+    if max(gaps["check_sound_max"], gaps["sparse_sound_max"]) > CONS_BF16_GAP:
+        raise AssertionError(f"consensus bf16 features differ from fp32 by more than {CONS_BF16_GAP}: {gaps}")
+    if not gaps["check_late_splice_max"] > CONS_BF16_GAP:
+        raise AssertionError(f"the bf16 limit {CONS_BF16_GAP} does not catch a splice one frame late: {gaps}")
+
+    # the dedup engine's track predictions vs the span path's, fp32 wire
+    r32 = runners["fp32"]
+    spy = _EngineSpy(r32)
+    dedup = _predict_consensus_preds(r32, shared, None, dtype=np.float32)
+    if {c[0] for c in spy.calls} != {"predict_codes"}:
+        raise AssertionError(f"shared mix fp32: engine calls {spy.calls}, expected the window dedup")
+    sub = [consensus_span_and_offsets(s, st) for s, st in shared[:CONS_SWEEP_ROWS]]
+    span_preds = r32.predict_span_codes(np.stack([sp for sp, _ in sub]), sub[0][1], rc_mode="average")
+    err = float(np.abs(dedup[:CONS_SWEEP_ROWS] - span_preds).max())
+    out["dedup_vs_span"] = {"records": CONS_SWEEP_ROWS, "max_abs_err": err, "limit": CONS_PRED_ATOL,
+                            "unique_windows": spy.calls[0][1]}
+    log(f"consensus dedup engine vs span path (fp32, {CONS_SWEEP_ROWS} records x 200 shifts): max |err| {err:.3g} "
+        f"(limit {CONS_PRED_ATOL}); {spy.calls[0][1]} unique windows for {len(shared)} records")
+    if not err <= CONS_PRED_ATOL:
+        raise AssertionError(f"consensus dedup vs span path: max |err| {err} over {CONS_PRED_ATOL}")
+    del runners, r32
+    torch.cuda.empty_cache()
+
+
+def _sweep_rows(seed: int, k: int, n: int):
+    """(backbone span, (n, CONS_SPAN) samples, '+' offsets): each sample has
+    k sites at least 800 bp apart, so k patch ranges."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 11 + k)
+    bb = rng.integers(0, 4, size=CONS_SPAN).astype(np.int8)
+    rows = np.stack([bb] * n)
+    grid = 600 + (CONS_SPAN - 1200) * np.arange(k) // k
+    for i in range(n):
+        sites = grid + rng.integers(0, 40, size=k)
+        rows[i, sites] = (rows[i, sites] + 1) % 4
+    return bb, rows, tuple(range(0, 39_801, 200))
+
+
+def _consensus_sweep(out: dict, params, seed: int, card: str) -> None:
+    """Patch vs span on the same CONS_SWEEP_ROWS records (one chunk at batch
+    3,200) at K = 8, 16, 24 and 48 ranges a record, median of three calls
+    each, both dtypes, fp32 features of the two held together; then the
+    conv1-reusing _c1 patch against the raw patch and the full forward
+    (phase buffers only, forward orientation, N = 16, K = 8)."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.genome.windows import gene_shifts
+    from expecto_tpu_torch.ops.decay import gene_pos_weights
+    from expecto_tpu_torch.ops.spans import conv1_acts, conv6_phases, conv6_phases_patch_sites, conv6_phases_patch_sites_c1
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+
+    pw = gene_pos_weights(gene_shifts())
+    sweep = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        runner = BelugaRunner(params, batch_size=CONS_BATCH_WIDE, device=DEVICE, compute_dtype=dtype)
+        for k in CONS_SWEEP_K:
+            bb, rows, offsets = _sweep_rows(seed, k, CONS_SWEEP_ROWS)
+            sf, sr = _patch_starts(bb, rows, offsets, max_ranges=max(CONS_SWEEP_K))
+            if sf.shape[1] != k:
+                raise AssertionError(f"sweep K={k}: planned {sf.shape[1]} ranges a record")
+            calls = {"patch": lambda: runner.project_spans_backbone_patch(bb, rows, sf, sr, offsets, pw),
+                     "span": lambda: runner.predict_spans_project(rows, offsets, pw)}
+            res, walls = {}, {m: [] for m in calls}
+            for m, fn in calls.items():
+                res[m] = fn()  # warm-up
+            for _ in range(CONS_REPEATS):
+                for m, fn in calls.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls[m].append(time.perf_counter() - t0)
+            cell = {m: statistics.median(w) for m, w in walls.items()}
+            cell["span_over_patch"] = cell["span"] / cell["patch"]
+            cell["max_abs_err"] = float(np.abs(res["patch"] - res["span"]).max())
+            cell["limit"] = CONS_FEAT_RTOL * float(np.abs(res["span"]).max())
+            if tag == "fp32" and not cell["max_abs_err"] <= cell["limit"]:
+                raise AssertionError(f"sweep K={k}: fp32 patch vs span max |err| {cell['max_abs_err']} over {cell['limit']}")
+            sweep[f"{tag} K={k}"] = cell
+            log(f"consensus patch vs span {tag} K={k} ({CONS_SWEEP_ROWS} records): patch {cell['patch']:.4f} s, span "
+                f"{cell['span']:.4f} s, span/patch {cell['span_over_patch']:.3f}; max |err| {cell['max_abs_err']:.3g} "
+                f"(fp32 limit {cell['limit']:.3g}) [{card}]")
+        # the _c1 patch vs the raw patch vs the full forward: phase buffers only
+        bb, rows, offsets = _sweep_rows(seed, 8, CONS_SWEEP_ROWS)
+        sf, _sr = _patch_starts(bb, rows, offsets, max_ranges=8)
+        phases = {(o // 4) % 4 for o in offsets}
+        p = runner.params
+        x = runner._dev(rows)
+        base_x = runner._dev(bb[None])
+        base = conv6_phases(p, base_x, phases)
+        base_c1 = conv1_acts(p, base_x)
+        w0, d0 = runner._dev(sf[..., 0]), runner._dev(sf[..., 1])
+        c1 = conv6_phases_patch_sites_c1(p, base_c1, base, x, w0, d0, phases)
+        raw = conv6_phases_patch_sites(p, base, x, w0, phases)
+        c1_err = max(float((c1[ph].float() - raw[ph].float()).abs().max()) for ph in phases)
+        cell = {"c1_ms": cuda_ms(lambda: conv6_phases_patch_sites_c1(p, base_c1, base, x, w0, d0, phases), reps=3),
+                "raw_ms": cuda_ms(lambda: conv6_phases_patch_sites(p, base, x, w0, phases), reps=3),
+                "full_ms": cuda_ms(lambda: conv6_phases(p, x, phases), reps=3), "c1_vs_raw_max_abs": c1_err}
+        sweep[f"{tag} c1"] = cell
+        log(f"consensus _c1 vs raw patch {tag} (N={CONS_SWEEP_ROWS}, K=8, fwd phase buffers): c1 {cell['c1_ms']:.3f} ms, "
+            f"raw {cell['raw_ms']:.3f} ms, full forward {cell['full_ms']:.3f} ms; max |c1 - raw| {c1_err:.3g} [{card}]")
+        if tag == "fp32" and not c1_err <= 1e-4 * max(1.0, max(float(raw[ph].abs().max()) for ph in phases)):
+            raise AssertionError(f"_c1 patch differs from the raw patch by {c1_err}")
+        del runner, x, base, base_c1, c1, raw
+        torch.cuda.empty_cache()
+    out["patch_vs_span"] = sweep
+
+
+def make_consensus_ref_inputs(seed: int) -> tuple[Path, Path]:
+    """A consensus_dir of CONS_REF_GENES genes (ref.fa each, alternating
+    strands) and its genes csv under build/chip_smoke."""
+    import numpy as np
+
+    from expecto_tpu_torch.pipeline.consensus import ENFORMER_SEQ_LENGTH
+
+    rng = np.random.default_rng(seed + 13)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    root = WORK / "consensus_ref"
+    lines = []
+    for g in range(CONS_REF_GENES):
+        start = 10_000 + g * 500_000
+        (root / f"cgene{g}").mkdir(parents=True, exist_ok=True)
+        seq = bases[rng.integers(0, 4, size=ENFORMER_SEQ_LENGTH)].tobytes().decode()
+        (root / f"cgene{g}" / "ref.fa").write_text(f">chr1:{start}-{start + ENFORMER_SEQ_LENGTH - 1}\n{seq}\n")
+        lines.append(f"ENSG{g:011d},chr1,{start + ENFORMER_SEQ_LENGTH // 2},CGENE{g},{'+-'[g % 2]}")
+    (WORK / "consensus_genes.csv").write_text("\n".join(lines) + "\n")
+    return root, WORK / "consensus_genes.csv"
+
+
+def _consensus_ref_cli(out: dict, seed: int, card: str) -> None:
+    """``python -m expecto_tpu_torch.cli.consensus ref`` (its ``main``,
+    weights loaded) on the card in fp32 and with ``--bf16``: its CSV equals
+    the in-process call with the same settings."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from expecto_tpu_torch.cli.consensus import main as consensus_main
+    from expecto_tpu_torch.models.convert import load_params_npz
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+    from expecto_tpu_torch.pipeline.consensus import predict_ref_all_genes
+
+    cdir, genes = make_consensus_ref_inputs(seed)
+    model = str(WORK / "models" / "tissue000.save")
+    res = {}
+    for tag, dtype, flags in (("fp32", torch.float32, []), ("bf16", torch.bfloat16, ["--bf16"])):
+        out_dir = WORK / f"consensus_ref_{tag}"
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc = consensus_main(["ref", model, str(cdir), str(genes), "--beluga_weights", str(WORK / "beluga.npz"),
+                             "-o", str(out_dir), "--device", DEVICE, *flags])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"consensus ref CLI ({tag}) returned {rc}")
+        counts = _read_counts(str(dtype).removeprefix("torch."))
+        csv = pd.read_csv(out_dir / "ref_preds.csv", float_precision="round_trip")
+        runner = BelugaRunner(load_params_npz(WORK / "beluga.npz"), batch_size=CONS_BATCH, device=DEVICE,
+                              compute_dtype=dtype)
+        want = predict_ref_all_genes(model, str(cdir), str(genes), runner, str(WORK / f"consensus_ref_inproc_{tag}"))
+        if csv.shape != (CONS_REF_GENES, 2) or not np.isfinite(csv["ref_preds"]).all():
+            raise AssertionError(f"consensus ref CLI ({tag}): CSV of shape {csv.shape}, or not finite")
+        pd.testing.assert_frame_equal(csv, want)
+        res[tag] = {"cli_wall_s": wall, "launches": counts, "ref_preds": csv["ref_preds"].tolist()}
+        log(f"consensus ref CLI {tag}: {CONS_REF_GENES} genes in {wall:.3f} s (weights loaded); CSV equals the "
+            f"in-process call; launches {counts} [{card}]")
+        del runner
+        torch.cuda.empty_cache()
+    out["ref_cli"] = res
+
+
 def kernel_table(report: dict) -> dict:
     """The kernel line: one entry per hand-written kernel, over the launches
     of one substitution chunk that its main path gives it (each shape
@@ -1322,6 +1946,19 @@ def kernel_table(report: dict) -> dict:
     serve, parity = report["main_path"]["launches"], report["parity"]["launches"]
     h5 = {t: report["h5_contract"][t]["launches"] for t in ("fp32", "bf16")}
     gene = {t: report["genes"][t]["launches"] for t in ("fp32", "bf16")}
+    mixes = report["consensus"]["mixes"].values()
+    cons_cases = ["backbone"] + [f"patch N={n} K={k}" for n, k in CONS_PATCH_SHAPES]
+
+    def cons_launches(tag: str, route: str) -> int:
+        """The launches of the last timed call of each consensus mix at the
+        CLI's batch, summed."""
+        return sum(m[tag]["launches"]["conv0_codes"] if route == "codes"
+                   else m[tag]["launches"]["conv8_relu_by_route"][route] for m in mixes)
+
+    def cons_ms(tag: str, conv0: bool, key: str = "ms") -> dict:
+        """{case: launch-weighted ms} of the backbone forward and each patch batch."""
+        return {c: _weighted([r for r in report["consensus_layers"] if r["case"] == c and (r["layer"] == "conv0") == conv0],
+                             tag, key) for c in cons_cases}
 
     def entry(name, source, rows, tag, launches, **extra):
         """``tag``'s numbers on the main path's route of each shape."""
@@ -1345,11 +1982,17 @@ def kernel_table(report: dict) -> dict:
         entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
               serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"],
               launches_h5_bf16=h5["bf16"]["conv8_relu_by_route"]["tc"],
-              launches_gene_bf16=gene["bf16"]["conv8_relu_by_route"]["tc"]),
+              launches_gene_bf16=gene["bf16"]["conv8_relu_by_route"]["tc"],
+              launches_consensus_bf16=cons_launches("bf16", "tc"), consensus_ms=cons_ms("bf16", False),
+              consensus_bound_ms=cons_ms("bf16", False, "bound_ms"),
+              consensus_library_ms=cons_ms("bf16", False, "library_ms")),
         entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
               parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
               launches_h5_fp32=h5["fp32"]["conv8_relu_by_route"]["simt"],
               launches_gene_fp32=gene["fp32"]["conv8_relu_by_route"]["simt"],
+              launches_consensus_fp32=cons_launches("fp32", "simt"), consensus_ms=cons_ms("fp32", False),
+              consensus_bound_ms=cons_ms("fp32", False, "bound_ms"),
+              consensus_library_ms=cons_ms("fp32", False, "library_ms"),
               bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
               min_shape_bound_share=report["simt_fp32_chunk"]["min_shape_share"],
               sass_ffma=report["sass_simt"]["FFMA"], sass_lds=report["sass_simt"]["LDS"],
@@ -1363,6 +2006,9 @@ def kernel_table(report: dict) -> dict:
               launches_h5_bf16=h5["bf16"]["conv0_codes"], launches_h5_fp32=h5["fp32"]["conv0_codes"],
               launches_gene_bf16=gene["bf16"]["conv0_codes"], launches_gene_fp32=gene["fp32"]["conv0_codes"],
               gene_chunk_fp32_ms=_weighted([r for r in report["gene_layers"] if r["layer"] == "conv0"], "fp32", "ms"),
+              launches_consensus_bf16=cons_launches("bf16", "codes"),
+              launches_consensus_fp32=cons_launches("fp32", "codes"),
+              consensus_ms=cons_ms("bf16", True), consensus_fp32_ms=cons_ms("fp32", True),
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
@@ -1379,7 +2025,11 @@ def kernel_table(report: dict) -> dict:
         "gene_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
                         | {f"{t}_{k}": r[t][k] for t in ("fp32", "bf16")
                            for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
-                        for r in report["gene_layers"]]}
+                        for r in report["gene_layers"]],
+        "consensus_layers": [{k: r[k] for k in ("case", "layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
+                             | {f"{t}_{k}": r[t].get(k) for t in ("fp32", "bf16")
+                                for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                             for r in report["consensus_layers"]]}
 
 
 def main(argv=None) -> int:
@@ -1426,6 +2076,7 @@ def main(argv=None) -> int:
     chunk_summary(report)
     h5_kernel_phase(report)
     gene_kernel_phase(report)
+    consensus_kernel_phase(report)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1446,6 +2097,9 @@ def main(argv=None) -> int:
     make_gene_inputs(args.seed)
     gene_phase(report, card)
     log(f"gene phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    consensus_phase(report, card, args.seed)
+    log(f"consensus phase {time.perf_counter() - t0:.1f} s")
 
     table = kernel_table(report)
     if args.out:

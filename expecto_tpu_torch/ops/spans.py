@@ -22,6 +22,13 @@ short 16-aligned sub-span and splices them into the reference allele's
 buffers; :func:`fc1_delta_from_phases` then adds the fc1 change of only
 those frames.
 
+Backbone patching (the consensus cohort path): personal genomes of one gene
+share a backbone span and differ from it at a few sites each.
+:func:`conv6_patch_sites_plan` merges a sample's diff positions into at most
+K 16-aligned sub-spans on the host, and :func:`conv6_phases_patch_sites`
+runs the conv stack over those (N·K, 704) sub-spans only and splices their
+frames into copies of the backbone's phase buffers.
+
 Every conv runs on a CUDA kernel on the card: conv0 on ops/conv0.py when
 the spans are int8 base codes (the serving path), every other conv on
 ops/conv8.py. The span functions take (N, L, 4) one-hot spans, as the JAX
@@ -137,6 +144,195 @@ def conv6_phases_patch(
         patched[:, f_lo:f_hi] = sub_phases[ph][:, sub_lo : sub_lo + f_hi - f_lo].to(buf.dtype)
         out[ph] = patched
     return out
+
+
+#: default sub-span length for multi-site patching: covers all conv6 frames
+#: whose receptive field (310 bp) touches a diff range of width <=
+#: PATCH_SUB_LEN - 672 after 16-alignment slack on both ends
+PATCH_SUB_LEN = 704
+
+
+def conv6_covering_start(a: int, b: int, span_len: int, phases, frame_counts) -> int | None:
+    """16-aligned sub-span start ``s0`` such that the :data:`PATCH_SUB_LEN`-long
+    sub-span's conv6 frames cover EVERY frame (of every phase in ``phases``)
+    whose receptive field touches span positions ``[a, b]`` — or None when no
+    aligned start covers them (range too wide for the sub-span, or the span's
+    unaligned tail). Host-side planning helper for
+    :func:`conv6_phases_patch_sites`."""
+    s0 = 16 * ((a - CONV6_RF) // CONV6_STRIDE)
+    s0 = max(0, min(s0, 16 * ((span_len - PATCH_SUB_LEN) // CONV6_STRIDE)))
+    if s0 + PATCH_SUB_LEN > span_len:
+        return None
+    f0 = s0 // CONV6_STRIDE
+    for ph in sorted(set(int(p) for p in phases)):
+        f_lo, _ = conv6_frame_range(a, ph)
+        _, f_hi = conv6_frame_range(b, ph)
+        f_hi = min(f_hi, frame_counts[ph])  # exclusive
+        cnt = (PATCH_SUB_LEN - 4 * ph - CONV6_RF) // CONV6_STRIDE + 1
+        if f0 > max(f_lo, 0) or f0 + cnt < f_hi:
+            return None
+    return s0
+
+
+#: conv1-recompute geometry for the layered patch: a diff range [a, b]
+#: (width <= PATCH_SUB_LEN-672) perturbs conv1 activations [a-14, b]; a
+#: C1_PATCH_BASES-wide base slice at d0 = clip(a-14, 0, L-C1_PATCH_BASES)
+#: yields C1_PATCH_BASES-14 conv1 outputs covering them in every clip case
+C1_PATCH_BASES = 80
+
+
+def conv6_patch_sites_plan(
+    diff_positions, span_len: int, phases, *, max_ranges: int = 32
+) -> list[tuple[int, int]] | None:
+    """Greedy plan: merge sorted ``diff_positions`` (span coords where a
+    sample differs from its backbone) into <= ``max_ranges`` covering
+    ranges. Each entry is ``(w0, d0)``: the 16-aligned sub-span start whose
+    conv6 frames cover the range (:func:`conv6_phases_patch_sites` uses w0
+    alone) and the base start of the :data:`C1_PATCH_BASES`-wide
+    conv1-recompute slice (:func:`conv6_phases_patch_sites_c1`). Returns
+    None when the record is not patchable (too many scattered sites, or an
+    uncoverable alignment corner)."""
+    pos = sorted(int(p) for p in diff_positions)
+    if not pos:
+        return []
+    frame_counts = {
+        ph: (span_len - 4 * ph - CONV6_RF) // CONV6_STRIDE + 1
+        for ph in sorted(set(int(p) for p in phases))
+    }
+    width_max = PATCH_SUB_LEN - 672
+    starts: list[tuple[int, int]] = []
+    a = b = pos[0]
+    for p in pos[1:] + [None]:
+        if p is not None and p - a <= width_max:
+            b = p
+            continue
+        s0 = conv6_covering_start(a, b, span_len, phases, frame_counts)
+        if s0 is None or len(starts) >= max_ranges:
+            return None
+        d0 = max(0, min(a - 14, span_len - C1_PATCH_BASES))
+        starts.append((s0, d0))
+        if p is not None:
+            a = b = p
+    return starts
+
+
+def _slices(x: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:
+    """(N, K, length, ...) slices ``x[i, s : s + length]`` of an (N, L, ...)
+    tensor at each of the (N, K) ``starts``, each start clamped to
+    [0, L - length] as ``lax.dynamic_slice_in_dim`` clamps it."""
+    n, span_len = x.shape[:2]
+    if length > span_len:
+        raise ValueError(f"slices of {length} from spans of {span_len}")
+    s = starts.to(device=x.device, dtype=torch.long).clamp(0, span_len - length)
+    idx = s[:, :, None] + torch.arange(length, device=x.device)
+    return x[torch.arange(n, device=x.device)[:, None, None], idx]
+
+
+def _splice_rows(base: torch.Tensor, patches: torch.Tensor, starts: torch.Tensor, n: int) -> torch.Tensor:
+    """(N, F, C) copies of ``base`` ((1 or N, F, C)) with ``patches`` (N, K,
+    cnt, C) written at rows ``starts[i, k] + j``. Rows outside [0, F) are
+    dropped, as the JAX scatter's ``mode="drop"`` drops them: they land on a
+    spare row past the end that the result leaves out, so no index reaches
+    ``index_put_`` out of range and none wraps around. The K slots are
+    written one after another, the last one winning where ranges overlap,
+    so a call gives the same bits every time."""
+    f, c = base.shape[-2:]
+    k, cnt = patches.shape[1:3]
+    buf = torch.empty((n, f + 1, c), dtype=base.dtype, device=base.device)
+    buf[:, :f] = base  # a copy per row: writing into an expanded view would alias every row
+    rows = torch.arange(n, device=base.device)[:, None]
+    idx = starts.to(device=base.device, dtype=torch.long)[:, :, None] + torch.arange(cnt, device=base.device)
+    idx = torch.where((idx >= 0) & (idx < f), idx, f)
+    patches = patches.to(base.dtype)
+    for slot in range(k):
+        buf[rows, idx[:, slot]] = patches[:, slot]
+    return buf[:, :f]
+
+
+def _splice_patch_frames(base_phases, sub_ph, f0: torch.Tensor, n: int, k: int, phases) -> dict[int, torch.Tensor]:
+    """Scatter per-range conv6 frames (``sub_ph``: {phase: (N*K, cnt, C)})
+    into copies of the backbone phase buffers at frame starts ``f0`` (N, K);
+    frames past a buffer's end are dropped (:func:`_splice_rows`)."""
+    out = {}
+    for ph in phases:
+        buf = base_phases[ph]
+        patches = sub_ph[ph].reshape(n, k, -1, buf.shape[-1])
+        out[ph] = _splice_rows(buf, patches, f0, n)
+    return out
+
+
+def conv6_phases_patch_sites(
+    params: BelugaParams,
+    base_phases: dict[int, torch.Tensor],
+    alt_spans: torch.Tensor,
+    range_starts: torch.Tensor,
+    phases,
+) -> dict[int, torch.Tensor]:
+    """Per-sample conv6 phase buffers built from a shared BACKBONE span's
+    buffers by recomputing only the frames around each sample's K diff
+    ranges (the consensus cohort's features-only path).
+
+    Args:
+        base_phases: {phase: (1 or N, F_ph, C)} backbone conv6 buffers
+            (not modified).
+        alt_spans: (N, span_len) int8 codes of the samples, or (N,
+            span_len, 4) one-hot; the (N·K, PATCH_SUB_LEN) sub-spans are gathered
+            from them, so codes never become a float one-hot.
+        range_starts: (N, K) integer 16-aligned sub-span starts from
+            :func:`conv6_patch_sites_plan`. Every frame whose receptive
+            field touches a backbone/sample difference must be covered by
+            some range; inactive slots may point anywhere in the span (a
+            superfluous patch recomputes frames from the sample's own bases).
+
+    Returns {phase: (N, F_ph, C)} buffers equal (to fp reduction order) to
+    ``conv6_phases(params, alt_spans, phases)``."""
+    n = alt_spans.shape[0]
+    k = range_starts.shape[1]
+    phases = sorted(set(int(p) for p in phases))
+    subs = _slices(alt_spans, range_starts, PATCH_SUB_LEN)  # (N, K, PATCH_SUB_LEN[, 4])
+    sub_ph = conv6_phases(params, subs.reshape(n * k, PATCH_SUB_LEN, *subs.shape[3:]), phases)
+    return _splice_patch_frames(base_phases, sub_ph, torch.div(range_starts, CONV6_STRIDE, rounding_mode="floor"),
+                                n, k, phases)
+
+
+def conv6_phases_patch_sites_c1(
+    params: BelugaParams,
+    base_c1: torch.Tensor,
+    base_phases: dict[int, torch.Tensor],
+    alt_spans: torch.Tensor,
+    w0s: torch.Tensor,
+    d0s: torch.Tensor,
+    phases,
+) -> dict[int, torch.Tensor]:
+    """Layered variant of :func:`conv6_phases_patch_sites` that reuses the
+    backbone's conv1 activations: conv0+conv1 are recomputed only on a
+    :data:`C1_PATCH_BASES`-wide slice around each diff range, spliced into a
+    per-sample copy of the backbone's conv1 buffer, and conv2..conv6 then
+    run on (PATCH_SUB_LEN-14)-wide windows gathered from the patched buffer (after
+    ALL conv1 patches are written, so a window overlapping a neighbour's
+    mutated bases reads the recomputed values). The production path uses
+    :func:`conv6_phases_patch_sites`.
+
+    Args:
+        base_c1: (1 or N, span_len-14, C1) backbone conv1 activations
+            (:func:`conv1_acts` of the backbone span).
+        base_phases: {phase: (1 or N, F_ph, C)} backbone conv6 buffers.
+        alt_spans: (N, span_len) int8 codes or (N, span_len, 4) one-hot.
+        w0s / d0s: (N, K) ``(w0, d0)`` columns of
+            :func:`conv6_patch_sites_plan`'s ranges; inactive slots 0.
+
+    Returns {phase: (N, F_ph, C)} buffers equal (to fp reduction order) to
+    ``conv6_phases(params, alt_spans, phases)``."""
+    n = alt_spans.shape[0]
+    k = w0s.shape[1]
+    phases = sorted(set(int(p) for p in phases))
+    win = PATCH_SUB_LEN - 14
+    slices = _slices(alt_spans, d0s, C1_PATCH_BASES)
+    c1_patch = conv1_acts(params, slices.reshape(n * k, C1_PATCH_BASES, *slices.shape[3:]))
+    c1 = _splice_rows(base_c1, c1_patch.reshape(n, k, C1_PATCH_BASES - 14, -1), d0s, n)
+    wins = _slices(c1, w0s, win)  # (N, K, win, C1)
+    sub_ph = conv6_from_conv1(params, wins.reshape(n * k, win, wins.shape[-1]), phases)
+    return _splice_patch_frames(base_phases, sub_ph, torch.div(w0s, CONV6_STRIDE, rounding_mode="floor"), n, k, phases)
 
 
 def _window_starts_by_phase(offsets) -> dict[int, list[tuple[int, int]]]:

@@ -19,7 +19,12 @@ expecto_tpu/parallel/runner.py).
   dtype, and the host rebuilds ALT = REF + SED in fp32;
 - the gene path (``predict_spans_project``) applies the (10, 200) decay
   weights to the fwd/RC-averaged predictions of each 41,800-bp span on the
-  device, in fp32, and fetches only the (N, 20,020) features.
+  device, in fp32, and fetches only the (N, 20,020) features;
+- the consensus cohort path (``project_spans_backbone_patch``) runs the conv
+  stack once over a gene's backbone span, in both orientations, and per
+  sample only over the 704-base sub-spans around its diff ranges, spliced
+  into copies of the backbone's conv6 buffers, before the same dense layers
+  and projection.
 
 Chunks run one after another (upload, compute, fetch); overlapping them with
 CUDA streams and pinned host buffers is later work.
@@ -38,8 +43,10 @@ from ..ops.spans import (
     conv6_patch_ranges,
     conv6_phases,
     conv6_phases_patch,
+    conv6_phases_patch_sites,
     fc1_delta_from_phases,
     fc1_pre_from_phases,
+    fc_from_phases,
     fc_head,
 )
 
@@ -325,6 +332,16 @@ class BelugaRunner:
 
         return preds(h_ref_f, h_ref_r), preds(h_ref_f + d_f, h_ref_r + d_r)
 
+    def _backbone_phases(self, backbone: torch.Tensor, offsets):
+        """(1, L) int8 backbone codes -> (fwd, rc) conv6 phase-buffer dicts
+        of the windows at ``offsets``, computed once per call and shared by
+        every patched chunk; the RC window of offset ``o`` is at
+        ``L - 2000 - o`` of the RC span."""
+        rc_offsets = tuple(backbone.shape[1] - 2000 - o for o in offsets)
+        ph_f = conv6_phases(self.params, backbone, {(o // 4) % 4 for o in offsets})
+        ph_r = conv6_phases(self.params, rc_codes(backbone), {(o // 4) % 4 for o in rc_offsets})
+        return ph_f, ph_r
+
     def _ref_sed(self, p_ref, p_alt, basis, W, bias):
         """(REF, SED) at the wire dtype from (R, S, M) predictions, an
         (S, R, B) decay basis and stacked (B*M, K) models: per-row decay
@@ -401,6 +418,56 @@ class BelugaRunner:
         out = np.empty((span_codes.shape[0], pw.shape[0] * 2002), dtype=np.float32)
         for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
             out[start : start + codes.shape[0]] = self._project(self._pair_span_preds(codes, offsets), pw)
+        return out
+
+    @torch.inference_mode()
+    def project_spans_backbone_patch(self, backbone_span, sample_spans, starts_f, starts_r, offsets,
+                                     pos_weights) -> np.ndarray:
+        """Cohort gene-path projection with backbone conv6 patching: the conv
+        stack runs once over the shared backbone span (both orientations);
+        each sample recomputes only the conv6 frames around its own diff
+        ranges, from (N·K, PATCH_SUB_LEN) sub-spans of its int8 codes, before the
+        dense layers, the fwd/RC average in fp32 and the decay projection
+        on the device.
+
+        Args:
+            backbone_span: (span_len,) int8 codes of the shared backbone.
+            sample_spans: (N, span_len) int8 codes; they ship 2-bit packed,
+                or 4-bit for N-dense chunks, in chunks of
+                ``_span_rows(len(offsets))`` samples.
+            starts_f / starts_r: (N, K, 2) ``(w0, d0)`` range starts for the
+                forward and reverse-complement orientations
+                (ops/spans.conv6_patch_sites_plan on the forward and the
+                mirrored diff positions); K is padded with zeros to a
+                multiple of 8. Inactive slots hold 0: a superfluous patch
+                recomputes frames from the sample's own bases.
+            pos_weights: (B, S) decay basis over the offsets.
+
+        Returns (N, B*2002) float32 features, matching
+        ``predict_spans_project(sample_spans, offsets, pos_weights)`` up to
+        fp reduction order."""
+        backbone_span = np.asarray(backbone_span, dtype=np.int8)
+        sample_spans = np.asarray(sample_spans, dtype=np.int8)
+        offsets = tuple(int(o) for o in offsets)
+        starts_f, starts_r = np.asarray(starts_f, dtype=np.int64), np.asarray(starts_r, dtype=np.int64)
+        # K buckets in steps of 8, as the JAX runner compiles one program per
+        # bucket: an inactive slot still convolves real bases
+        k_pad = -(-max(starts_f.shape[1], starts_r.shape[1], 1) // 8) * 8
+        starts_f, starts_r = (np.pad(s, ((0, 0), (0, k_pad - s.shape[1]), (0, 0))) for s in (starts_f, starts_r))
+        pw = torch.as_tensor(np.asarray(pos_weights, dtype=np.float32), device=self.device)
+        rc_offsets = tuple(sample_spans.shape[1] - 2000 - o for o in offsets)
+        phases_f = {(o // 4) % 4 for o in offsets}
+        phases_r = {(o // 4) % 4 for o in rc_offsets}
+        ph_f, ph_r = self._backbone_phases(self._dev(backbone_span[None]), offsets)
+        out = np.empty((sample_spans.shape[0], pw.shape[0] * 2002), dtype=np.float32)
+        for start, codes in self._code_chunks(sample_spans, self._span_rows(len(offsets))):
+            stop = start + codes.shape[0]
+            pf = conv6_phases_patch_sites(self.params, ph_f, codes, self._dev(starts_f[start:stop, :, 0]), phases_f)
+            pr = conv6_phases_patch_sites(self.params, ph_r, rc_codes(codes), self._dev(starts_r[start:stop, :, 0]),
+                                          phases_r)
+            y = fc_from_phases(self.params, pf, offsets).float()
+            y_rc = fc_from_phases(self.params, pr, rc_offsets).float()
+            out[start:stop] = self._project((y + y_rc) * 0.5, pw)
         return out
 
     @torch.inference_mode()

@@ -10,7 +10,12 @@ against the CPU, with their sinks, an N-dense chunk and the launch counts of
 each dtype's routes; and the gene-feature path: every conv shape of a gene
 chunk (16 spans of 41,800 bp) on each route, ``predict_spans_project``
 against ``predict_and_project`` and the CPU on both strands, the 4-bit
-route on an N-dense gene chunk, and the launch counts a chunk.
+route on an N-dense gene chunk, and the launch counts a chunk; and the
+consensus cohort path: every conv shape of a backbone forward (one span of
+41,808 bp) and of the patch batches (704-base sub-spans, N·K = 40 and 384)
+on each route, ``conv6_phases_patch_sites`` against the full forward and
+the CPU, ``project_spans_backbone_patch`` against ``predict_spans_project``
+and the CPU on both strands, bit-equal repeat calls and the launch counts.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -28,6 +33,7 @@ from expecto_tpu_torch.ops import conv0
 from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
 from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
 from expecto_tpu_torch.ops.decay import gene_pos_weights
+from expecto_tpu_torch.ops.spans import conv6_patch_sites_plan, conv6_phases, conv6_phases_patch_sites
 from expecto_tpu_torch.parallel.runner import BelugaRunner
 from torch_port_common import narrow_params, random_codes, sed_atol
 
@@ -528,3 +534,131 @@ def test_gene_features_launch_counts(cuda, dtype):
     assert conv0_codes_relu.launches_by_kind == {kind: 2 * chunks}
     route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
     assert conv8_relu.launches_by_route[route] == 14 * chunks and conv8_relu.launches_by_route[other] == 0
+
+
+# ---- consensus: backbone patching ------------------------------------------------
+
+CONS_SPAN = 41_808  # the 200-shift span, extended to a multiple of 16
+CONS_OFFSETS = {"plus": tuple(range(0, 39_801, 200)), "minus": tuple(range(39_800, -1, -200))}
+# conv1-conv5 of the backbone forward (N = 1) and of the patch batches of
+# 704-base sub-spans (N·K = 5·8 and 16·24): conv1, conv2/conv3 after
+# pool-1, conv4/conv5 at pool-2 phases 0 and 2 (equal lengths here)
+CONS_CONV8_SHAPES = ([(1, 41_801, 320, 320), (1, 10_448, 320, 480), (1, 10_441, 480, 480), (1, 2_608, 480, 640),
+                      (1, 2_601, 640, 640)]
+                     + [(nk, l, cin, cout) for nk in (40, 384) for l, cin, cout in
+                        ((697, 320, 320), (172, 320, 480), (165, 480, 480), (39, 480, 640), (32, 640, 640))])
+
+
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:2], ids=["tc-bf16", "simt-fp32"])
+@pytest.mark.parametrize("n,l,cin,cout", CONS_CONV8_SHAPES)
+def test_conv8_kernels_at_consensus_shapes(cuda, n, l, cin, cout, route, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + l + cin)
+    x = torch.randn((n, l, cin), generator=gen, device=cuda).to(dtype)
+    w = (torch.randn((8, cin, cout), generator=gen, device=cuda) / (8 * cin) ** 0.5).to(dtype)
+    b = (torch.randn((cout,), generator=gen, device=cuda) * 0.1).to(dtype)
+    _assert_route_matches_plain(x, w, b, route)
+
+
+@pytest.mark.parametrize("n,l", [(1, CONS_SPAN), (40, 704), (384, 704)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_conv0_kernel_at_consensus_shapes(cuda, n, l, dtype):
+    codes, w, b = _conv0_inputs(n, l, 320, n + l, cuda, dtype)
+    _assert_conv0_matches_plain(conv0_codes_relu(codes, w, b), codes, w, b)
+
+
+def _cohort(n, seed, sites_per_sample=(1, 3, 12, 0, 2)):
+    """A backbone span of CONS_SPAN codes and ``n`` samples differing from it
+    at a few private sites each (one sample with none)."""
+    rng = np.random.default_rng(seed)
+    bb = random_codes(rng, 1, CONS_SPAN, n_frac=0.001)[0]
+    samples = np.stack([bb] * n)
+    for i in range(n):
+        k = sites_per_sample[i % len(sites_per_sample)]
+        sites = rng.choice(CONS_SPAN, size=k, replace=False)
+        samples[i, sites] = (samples[i, sites] + 1) % 4
+    return bb, samples
+
+
+def _plans(bb, samples, offsets):
+    """(N, K, 2) forward and reverse-complement range starts, K = 16."""
+    phases_f = {(o // 4) % 4 for o in offsets}
+    phases_r = {((CONS_SPAN - 2000 - o) // 4) % 4 for o in offsets}
+    sf, sr = (np.zeros((len(samples), 16, 2), np.int32) for _ in range(2))
+    for m, row in enumerate(samples):
+        dp = np.nonzero(row != bb)[0]
+        pf = conv6_patch_sites_plan(dp, CONS_SPAN, phases_f, max_ranges=16)
+        pr = conv6_patch_sites_plan((CONS_SPAN - 1 - dp)[::-1], CONS_SPAN, phases_r, max_ranges=16)
+        if pf:
+            sf[m, : len(pf)] = pf
+        if pr:
+            sr[m, : len(pr)] = pr
+    return sf, sr
+
+
+def test_patch_sites_on_card_match_full_forward_and_cpu(cuda):
+    """conv6_phases_patch_sites on the card (fp32) against the full conv6
+    phases of the samples on the card and against the same patch on the
+    CPU; two calls give equal bits; the backbone buffers are not written."""
+    from expecto_tpu_torch.models.convert import params_from_jax
+
+    params = narrow_params(23)
+    bb, samples = _cohort(5, seed=24)
+    sf, _sr = _plans(bb, samples, CONS_OFFSETS["plus"])
+    phases = {0, 2}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params_from_jax(params, device=dev, dtype=torch.float32)
+        base = conv6_phases(p, torch.from_numpy(bb[None]).to(dev), phases)
+        before = {ph: t.clone() for ph, t in base.items()}
+        x, st = torch.from_numpy(samples).to(dev), torch.from_numpy(sf[..., 0]).to(dev)
+        out[dev] = conv6_phases_patch_sites(p, base, x, st, phases)
+        if dev == "cuda":
+            again = conv6_phases_patch_sites(p, base, x, st, phases)
+            full = conv6_phases(p, x, phases)
+            for ph in phases:
+                assert torch.equal(again[ph], out[dev][ph]) and torch.equal(base[ph], before[ph])
+                torch.testing.assert_close(out[dev][ph], full[ph], rtol=1e-5, atol=1e-5)
+    for ph in phases:
+        torch.testing.assert_close(out["cuda"][ph].cpu(), out["cpu"][ph], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("strand", ["plus", "minus"])
+def test_backbone_patch_projection_matches_span_path_and_cpu(cuda, strand):
+    """project_spans_backbone_patch on the card (fp32, 5 samples at batch
+    400: three chunks) against predict_spans_project on the card and the
+    patch on the CPU; a second call gives equal bits."""
+    offsets = CONS_OFFSETS[strand]
+    params = narrow_params(25)
+    bb, samples = _cohort(5, seed=26)
+    sf, sr = _plans(bb, samples, offsets)
+    card = BelugaRunner(params, batch_size=400, device="cuda")
+    got = card.project_spans_backbone_patch(bb, samples, sf, sr, offsets, GENE_POS_WEIGHTS)
+    assert got.shape == (5, 20020) and got.dtype == np.float32 and np.isfinite(got).all()
+    span = card.predict_spans_project(samples, offsets, GENE_POS_WEIGHTS)
+    np.testing.assert_allclose(got, span, rtol=0, atol=_feat_tol(span))
+    np.testing.assert_array_equal(card.project_spans_backbone_patch(bb, samples, sf, sr, offsets, GENE_POS_WEIGHTS),
+                                  got)
+    cpu = BelugaRunner(params, batch_size=400, device="cpu").project_spans_backbone_patch(
+        bb, samples, sf, sr, offsets, GENE_POS_WEIGHTS)
+    np.testing.assert_allclose(got, cpu, rtol=0, atol=_feat_tol(cpu))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_backbone_patch_launch_counts(cuda, dtype):
+    """The backbone forward once (16 launches), then 16 a chunk of samples:
+    2 orientations x (1 conv0 + conv1-conv3 + conv4/conv5 at phases 0 and
+    2) over the chunk's (rows·K, 704) sub-spans; each dtype on its route."""
+    runner = BelugaRunner(narrow_params(27, convs=TC_WIDTHS), batch_size=400, device="cuda", compute_dtype=dtype,
+                          out_dtype=np.float32 if dtype == torch.float32 else np.float16)
+    bb, samples = _cohort(5, seed=28)
+    sf, sr = _plans(bb, samples, CONS_OFFSETS["plus"])
+    reset_launch_counts()
+    conv0.reset_launch_counts()
+    feats = runner.project_spans_backbone_patch(bb, samples, sf, sr, CONS_OFFSETS["plus"], GENE_POS_WEIGHTS)
+    torch.cuda.synchronize()
+    assert np.isfinite(feats).all()
+    calls = 1 + 3  # the backbone, then 3 chunks of 2 samples
+    kind = "float32" if dtype == torch.float32 else "bfloat16"
+    assert conv0_codes_relu.launches_by_kind == {kind: 2 * calls}
+    route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
+    assert conv8_relu.launches_by_route[route] == 14 * calls and conv8_relu.launches_by_route[other] == 0

@@ -25,7 +25,9 @@ def test_every_port_module_imports_without_jax():
     required = ["expecto_tpu_torch.ops.conv8", "expecto_tpu_torch.cli.score", "expecto_tpu_torch.cli.chromatin",
                 "expecto_tpu_torch.cli.predict", "expecto_tpu_torch.io.h5", "expecto_tpu_torch.utils.keep_mask",
                 "expecto_tpu_torch.pipeline.features", "expecto_tpu_torch.cli.compute_features",
-                "expecto_tpu_torch.genome.liftover", "expecto_tpu_torch.analysis.atac"]
+                "expecto_tpu_torch.genome.liftover", "expecto_tpu_torch.analysis.atac",
+                "expecto_tpu_torch.pipeline.consensus", "expecto_tpu_torch.pipeline.merge",
+                "expecto_tpu_torch.cli.consensus"]
     assert set(required) <= set(mods)
     code = (
         "import sys, importlib\n"
