@@ -99,7 +99,26 @@ Phases (any failure raises, and the script exits non-zero with no result):
    engine's tracks vs the span path's; patch vs span on the same records
    at K = 8, 16, 24, 48; the conv1-reusing ``_c1`` patch vs the raw one;
    ``python -m expecto_tpu_torch.cli.consensus ref`` (its ``main``) in
-   fp32 and ``--bf16``, its CSV equal to the in-process call.
+   fp32 and ``--bf16``, its CSV equal to the in-process call;
+10. gblinear training (``expecto-train``) at the published width: a
+   seeded gene table of 24,338 genes (about 22,000 train genes, 900 on
+   chr8, rRNA genes and NaN labels), 24,338 x 20,020 fp32 features and 218
+   tissues, the reference's hyperparameters, 100 rounds of 40 feature
+   blocks: the coordinate-update kernel against its plain version bit for
+   bit at (512, 1), (512, 128) and (512, 218) (padded rows, the 1e-5
+   guard, L1, ties), timed beside it and its bound; one tissue with its
+   watchlist (``train_expression_model``), equal bit for bit to a second
+   run and to the same trainer with the plain version swapped in; all 218
+   tissues in one sweep (``train_all_tissues``); 128 bootstrap seeds through
+   ``python -m expecto_tpu_torch.cli.train`` (its ``main``), each seed's
+   ``.save`` equal to the in-process sweep. Each call's launches are
+   zeroed just before it and checked just after (40 a round), and each is
+   profiled once for its time a round, the block sweep's kernels and the
+   card's idle share. Then the card against the CPU on 2,048 rows, 8
+   tissues and 20 rounds with an L1 weight, within 1e-5 of max|w|, which
+   one round fewer and alpha's sign swapped must exceed. The single-tissue
+   CLI mode (plots) and ``--allTissues`` (``metrics.h5``) run on the CPU
+   tests only.
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -110,6 +129,7 @@ to ``DIR/chip_smoke.json``. Inputs and built kernels go under ``build/``.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import statistics
 import subprocess
@@ -238,6 +258,33 @@ CONS_PRED_ATOL = 1e-5
 # splice read 6.9e-3 at least, on an H100 80GB HBM3 at 700 W), so the fp32
 # checks at 1e-5 of max|feature| carry the patch's contract
 CONS_BF16_GAP = GENE_BF16_GAP
+
+
+# gblinear training (cli.train) at the published width: 24,338 genes of
+# 2,002 tracks x 10 decay bases, 218 tissues, the reference's hyperparameters
+# (eta 0.01, lambda 100, base_score 2) and 100 rounds; seeded features (the
+# real Xreducedall.2002.npy is not in the repository)
+TRAIN_GENES = 24_338
+TRAIN_FEATURES = 20_020
+TRAIN_TISSUES = 218
+TRAIN_ROUNDS = 100
+TRAIN_BOOT_SEEDS = 128
+TRAIN_CD_SHAPES = ((512, 1), (512, 128), (512, 218))  # (block, models) of the coordinate-update kernel
+# genes a chromosome: chr8 is the test split; chrX/chrY (and chr7 for the
+# all-tissue sweep) are held out of training; the rest are spread over the
+# other autosomes
+TRAIN_CHROMS = {"chr8": 900, "chrX": 820, "chrY": 60, "chr7": 1_100}
+# card vs CPU on a reduced problem: rows, models, rounds, and an L1 weight
+# large enough that swapping its sign moves the weights; fp32 products
+# summed in other orders, held within 1e-5 of max|w| (the JAX package's own
+# limit between its trainers, tests/test_gblinear.py:256, is 1e-5 at
+# weights of about 1)
+TRAIN_SMALL_ROWS, TRAIN_SMALL_K, TRAIN_SMALL_ROUNDS, TRAIN_SMALL_ALPHA = 2_048, 8, 20, 20.0
+TRAIN_CPU_RTOL = 1e-5
+# a smoke test that the models learned the labels' signal: unrelated
+# predictions of the 900 chr8 genes would read about 0 +- 0.03 (a model at
+# a tenth of the width, trained on the CPU, read 0.37)
+TRAIN_MIN_SPEARMAN = 0.1
 
 
 def log(msg: str) -> None:
@@ -1929,6 +1976,407 @@ def _consensus_ref_cli(out: dict, seed: int, card: str) -> None:
     out["ref_cli"] = res
 
 
+def make_train_inputs(seed: int) -> dict:
+    """Seeded training tables at the published shape under
+    build/chip_smoke/train: ``geneanno.csv`` (24,338 genes, the real
+    columns; about 22,000 train genes and 900 on chr8; some rRNA genes),
+    ``Xreducedall.npy`` (24,338 x 20,020 fp32, standard normal, drawn on the
+    card) and ``expression.csv`` (218 tissue columns: the exponential of a
+    sparse linear model of the features plus noise; 1 % of the genes NaN in
+    every tissue, so the label filter acts, and some zero entries)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    d = WORK / "train"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed + 8)
+    n, f, k = TRAIN_GENES, TRAIN_FEATURES, TRAIN_TISSUES
+    chroms = np.concatenate([np.repeat(list(TRAIN_CHROMS), list(TRAIN_CHROMS.values())),
+                             rng.choice([f"chr{c}" for c in range(1, 23) if c not in (7, 8)],
+                                        size=n - sum(TRAIN_CHROMS.values()))])
+    rng.shuffle(chroms)
+    gtype = rng.choice(["protein_coding", "lincRNA", "rRNA"], size=n, p=[0.8, 0.198, 0.002])
+    geneanno = pd.DataFrame({
+        "id": [f"ENSG{i:011d}" for i in range(n)], "symbol": [f"G{i}" for i in range(n)], "seqnames": chroms,
+        "strand": rng.choice(["+", "-"], size=n), "TSS": rng.integers(1, 2 * 10**8, size=n),
+        "CAGE_representative_TSS": rng.integers(1, 2 * 10**8, size=n), "type": gtype,
+    })
+    geneanno.to_csv(d / "geneanno.csv", index=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
+    X = torch.randn((n, f), generator=gen, device=DEVICE)
+    w_true = torch.randn((f, k), generator=gen, device=DEVICE) * (torch.rand((f, k), generator=gen, device=DEVICE)
+                                                                  < 0.01)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logit = (X @ w_true) * (0.7 / (0.01 * f) ** 0.5) + 1.0 + 0.5 * torch.randn((n, k), generator=gen, device=DEVICE)
+    expr = torch.exp(logit).cpu().numpy().astype(np.float64)
+    X = X.cpu().numpy()
+    expr[rng.random(n) < 0.01] = np.nan  # genes measured in no tissue
+    expr[rng.random((n, k)) < 0.002] = 0.0
+    np.save(d / "Xreducedall.npy", X)
+    # np.savetxt formats the numbers several times faster than DataFrame.to_csv
+    buf = io.StringIO()
+    np.savetxt(buf, expr, fmt="%.7g", delimiter=",")
+    with open(d / "expression.csv", "w") as fh:
+        fh.write(",".join(["gene", *(f"tissue{t:03d}" for t in range(k))]) + "\n")
+        fh.writelines(f"{gene},{line}\n" for gene, line in zip(geneanno["id"], buf.getvalue().splitlines()))
+    return {"X": X, "geneanno": geneanno, "expression": pd.read_csv(d / "expression.csv"), "dir": d}
+
+
+def _cd_inputs(b: int, k: int, alpha: float, gen):
+    """(g, h, w) of shape (b, k) on the card: hessians around the 1e-5 guard
+    and zero (a last block's padded rows), ties tmp == 0 (g = w = 0) and
+    gradients at +-alpha (gl2 -+ alpha == 0)."""
+    import torch
+
+    g = torch.randn((b, k), generator=gen, device=DEVICE) * 30
+    h = torch.rand((b, k), generator=gen, device=DEVICE) * 50 + 1e-3
+    w = torch.randn((b, k), generator=gen, device=DEVICE) * 0.05
+    h[:6] = torch.tensor([0.0, 5e-6, 9.99e-6, 1e-5, 1.01e-5, 2e-5], device=DEVICE)[:, None]
+    h[-36:] = 0.0
+    g[8:16], w[8:16] = 0.0, 0.0
+    g[16:24], w[16:24] = alpha, 0.0
+    g[24:32], w[24:32] = -alpha, 0.0
+    return g, h, w
+
+
+def device_ms(fn, reps: int = 200) -> float:
+    """The card's time for one call of ``fn``: the summed duration of the
+    kernels it launches over ``reps`` calls (``torch.profiler``), per call.
+    Unlike :func:`cuda_ms` it leaves out the gaps in which the card waits
+    for the host to issue the next launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e - s for s, e, _name in profiled_events(prof)) / 1e3 / reps
+
+
+def profiled_events(prof, device: str = "cuda") -> list:
+    """(start_us, end_us, name) of every event of a ``torch.profiler`` run on
+    ``device`` ("cuda": kernels, copies and the annotation ranges of
+    ``record_function`` spans; "cpu": host ops and spans), read from the
+    profiler's raw results: building ``prof.events()`` takes seconds for a
+    run of 100 training rounds."""
+    import torch
+
+    kind = torch.autograd.DeviceType.CUDA if device == "cuda" else torch.autograd.DeviceType.CPU
+    return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events() if e.device_type() == kind]
+
+
+def train_kernel_phase(out: dict) -> None:
+    """The coordinate-update kernel against its plain version, bit for bit,
+    at each (block, models) shape of the three training calls, with alpha
+    0 and > 0; then timed beside the plain version and its bound (g, h and
+    w read once, w and dw written once: 20 bytes an element): the card's
+    time a call (the kernel, or the plain version's kernels) and the
+    time a call back to back, which the host's issue rate sets."""
+    import torch
+
+    from expecto_tpu_torch.ops.gblinear_cd import coord_update, coord_update_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rows = []
+    for b, k in TRAIN_CD_SHAPES:
+        for alpha in (0.0, 0.7, 25.0):
+            g, h, w = _cd_inputs(b, k, alpha, gen)
+            w_plain = w.clone()
+            dw = coord_update(g, h, w, 0.01, 100.0, alpha)
+            want = coord_update_plain(g, h, w_plain, 0.01, 100.0, alpha)
+            torch.cuda.synchronize()
+            if not (torch.equal(dw.view(torch.int32), want.view(torch.int32))
+                    and torch.equal(w.view(torch.int32), w_plain.view(torch.int32))):
+                raise AssertionError(f"gblinear_cd ({b}, {k}) alpha {alpha}: the kernel and the plain version differ "
+                                     f"(max |dw - plain| {float((dw - want).abs().max())})")
+            if bool((dw[h < 1e-5] != 0).any()):
+                raise AssertionError(f"gblinear_cd ({b}, {k}): a hessian below 1e-5 gave a nonzero update")
+        kernel, plain = (lambda: coord_update(g, h, w, 0.01, 100.0, 25.0),
+                         lambda: coord_update_plain(g, h, w, 0.01, 100.0, 25.0))
+        row = {"B": b, "K": k, "max_abs_err": 0.0, **_bound(20.0 * b * k, 0.0, "fp32"),
+               "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+               "call_ms": cuda_ms(kernel, reps=200, warmup=20), "plain_call_ms": cuda_ms(plain, reps=200, warmup=20)}
+        rows.append(row)
+        log(f"kernel gblinear_cd ({b}, {k}): equal to the plain version bit for bit (alpha 0, 0.7, 25; padded rows, "
+            f"the 1e-5 guard, ties); {row['ms'] * 1e3:.2f} us on the card a launch, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), plain {row['plain_ms'] * 1e3:.2f} us; back to back "
+            f"{row['call_ms'] * 1e3:.2f} us a call, plain {row['plain_call_ms'] * 1e3:.2f} us")
+    out["cd_layers"] = rows
+
+
+def _round_trace(prof, rounds: int) -> dict:
+    """From a ``torch.profiler`` run of one training call: each round's
+    device range (the ``gblinear_round`` annotation: first kernel to last),
+    the card's busy time inside those ranges (the union of kernel and copy
+    intervals) and its kernel time by kind: the coordinate-update kernel,
+    torch's elementwise and reduction kernels, and the products (every
+    other kernel: cuBLAS's GEMV/GEMM); and the whole call's busy time."""
+    ranges, dev = [], []
+    for ev in profiled_events(prof):
+        (ranges if ev[2] == "gblinear_round" else dev).append(ev)
+    if len(ranges) != rounds:
+        raise AssertionError(f"the profile holds {len(ranges)} gblinear_round ranges on the card, not {rounds}")
+    ranges.sort()
+
+    def union(ivs):
+        busy, last = 0.0, float("-inf")
+        for s, e in sorted(ivs):
+            if e > last:
+                busy += e - max(s, last)
+                last = e
+        return busy
+
+    by_kind = {"gblinear_cd": 0.0, "elementwise": 0.0, "products": 0.0, "copies": 0.0}
+    inside = []
+    j = 0
+    dev.sort()
+    for s, e, name in dev:
+        while j < len(ranges) and ranges[j][1] < s:
+            j += 1
+        if j < len(ranges) and ranges[j][0] <= s and e <= ranges[j][1]:
+            inside.append((s, e))
+            kind = ("gblinear_cd" if "gblinear_cd" in name else "copies" if "Memcpy" in name or "Memset" in name
+                    else "elementwise" if "at::native" in name else "products")
+            by_kind[kind] += (e - s) / 1e3
+    sweep_ms = sum(e - s for s, e, _ in ranges) / 1e3
+    busy_ms = union(inside) / 1e3
+    return {"rounds": rounds, "ms_per_round": (ranges[-1][1] - ranges[0][0]) / 1e3 / rounds,
+            "sweep_ms_per_round": sweep_ms / rounds, "sweep_idle_share": 1 - busy_ms / sweep_ms,
+            "kernel_ms_by_kind": by_kind, "call_busy_ms": union([(s, e) for s, e, _ in dev]) / 1e3}
+
+
+def _profiled_train_call(fn, rounds: int):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA): its result, wall
+    time and :func:`_round_trace`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace = _round_trace(prof, rounds)
+    trace["profiled_wall_s"] = wall
+    trace["call_idle_share"] = 1 - trace["call_busy_ms"] / (wall * 1e3)
+    return res, trace
+
+
+def _launch_checked(fn, launches: int, what: str):
+    """``fn()`` timed on the host clock (ending in a synchronize), with the
+    coordinate-update kernel's count zeroed just before and read just after:
+    it must be ``launches``."""
+    import torch
+
+    from expecto_tpu_torch.ops import gblinear_cd
+
+    torch.cuda.synchronize()
+    gblinear_cd.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = gblinear_cd.coord_update.launches
+    if got != launches:
+        raise AssertionError(f"{what}: {got} coordinate-update launches, expected {launches} (blocks x rounds)")
+    return res, wall
+
+
+def _log_train_call(what: str, c: dict, card: str) -> None:
+    log(f"{what}: wall {c['wall_s']:.3f} s (profiled {c['profiled_wall_s']:.3f} s), {c['ms_per_round']:.3f} ms a "
+        f"round ({c['sweep_ms_per_round']:.3f} ms of it the block sweep, idle {100 * c['sweep_idle_share']:.1f} %), "
+        f"call idle {100 * c['call_idle_share']:.1f} %; sweep kernels " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in c["kernel_ms_by_kind"].items()) + f"; launches {c['launches']} [{card}]")
+
+
+def train_phase(report: dict, card: str, seed: int) -> None:
+    """gblinear training at the published width: the kernel checks; three
+    timed calls (one tissue with its watchlist, K = 1; all 218 tissues in
+    one sweep; 128 bootstrap seeds through the CLI), each launch-checked and
+    profiled once for its round time and idle share; the kernel against the
+    plain version swapped in and against a second run, bit for bit; the
+    CLI's models against the in-process sweep; card vs CPU on a reduced
+    problem with two planted faults."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.cli import train as train_cli
+    from expecto_tpu_torch.io.xgb import load_expression_model
+    from expecto_tpu_torch.models import gblinear
+    from expecto_tpu_torch.ops.gblinear_cd import coord_update, coord_update_plain
+    from expecto_tpu_torch.pipeline import train as ptrain
+
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    inp = make_train_inputs(seed)
+    out["inputs_s"] = time.perf_counter() - t0
+    X, geneanno, expression = inp["X"], inp["geneanno"], inp["expression"]
+    n_blocks = -(-TRAIN_FEATURES // gblinear.GBLinearParams().block_size)
+    f_pad = n_blocks * gblinear.GBLinearParams().block_size
+    launches = n_blocks * TRAIN_ROUNDS
+    log(f"train inputs: {X.shape} features, {expression.shape[1] - 1} tissues ({out['inputs_s']:.1f} s)")
+    train_kernel_phase(out)
+
+    # one tissue, its watchlist on: the kernel's run, a rerun, and the plain version swapped in
+    def one_tissue():
+        return ptrain.train_expression_model(X, geneanno, expression.iloc[:, 1].values, device=DEVICE)
+
+    k1, wall = _launch_checked(one_tissue, launches, "train_expression_model")
+    gblinear.coord_update = coord_update_plain
+    try:
+        k1_plain, wall_plain = _launch_checked(one_tissue, 0, "train_expression_model, plain version")
+    finally:
+        gblinear.coord_update = coord_update
+    k1_again, c = _profiled_train_call(one_tissue, TRAIN_ROUNDS)
+    for other, what in ((k1_again, "a second run"), (k1_plain, "the plain version swapped in")):
+        if not (np.array_equal(other.model.weight, k1.model.weight) and other.model.bias == k1.model.bias
+                and other.model.eval_history == k1.model.eval_history):
+            raise AssertionError(f"train_expression_model with the kernel differs from {what}")
+    n_tr = len(k1.train_true)
+    c.update(wall_s=wall, wall_plain_s=wall_plain, launches=launches, train_genes=n_tr,
+             test_genes=len(k1.test_true), spearman=k1.spearman)
+    c["products_gb_per_s"] = 2 * 4 * f_pad * n_tr * TRAIN_ROUNDS / (c["kernel_ms_by_kind"]["products"] * 1e6)
+    c["products_share_of_peak_bytes"] = c["products_gb_per_s"] * 1e9 / PEAK_BYTES
+    out["k1"] = c
+    _log_train_call(f"train_expression_model (1 tissue, {n_tr} train genes, watchlist on)", c, card)
+    log(f"  equal bit for bit to a second (profiled) run and to the plain version swapped in (wall "
+        f"{wall_plain:.3f} s); block-sweep products {c['products_gb_per_s']:.1f} GB/s "
+        f"({100 * c['products_share_of_peak_bytes']:.1f} % of {PEAK_BYTES / 1e12:.2f} TB/s); chr8 spearman "
+        f"{k1.spearman:.4f}")
+    if not (np.isfinite(k1.model.weight).all() and k1.spearman > TRAIN_MIN_SPEARMAN):
+        raise AssertionError(f"one-tissue model: finite weights and a chr8 Spearman above {TRAIN_MIN_SPEARMAN} "
+                             f"expected, got {k1.spearman}")
+    del k1_again, k1_plain
+
+    # every tissue in one sweep
+    def all_tissues():
+        return ptrain.train_all_tissues(X, geneanno, expression, vectorized=True, metrics_path=None, device=DEVICE)
+
+    allt, wall = _launch_checked(all_tissues, launches, "train_all_tissues(vectorized=True)")
+    allt_again, c = _profiled_train_call(all_tissues, TRAIN_ROUNDS)
+    names = list(allt)
+    if names != list(expression.columns[1:]) or not all(
+            np.array_equal(allt[t].model.weight, allt_again[t].model.weight) for t in names):
+        raise AssertionError("train_all_tissues: tissues missing or two runs differ")
+    n_tr = len(allt[names[0]].train_true)
+    c.update(wall_s=wall, launches=launches, train_genes=n_tr, tissues=len(names),
+             spearman_median=float(np.median([r.spearman for r in allt.values()])))
+    c["products_tflop_per_s"] = 4 * f_pad * n_tr * len(names) * TRAIN_ROUNDS / (c["kernel_ms_by_kind"]["products"]
+                                                                                * 1e9)
+    c["products_share_of_peak_fp32"] = c["products_tflop_per_s"] * 1e12 / PEAK_FLOPS["fp32"]
+    out["k218"] = c
+    _log_train_call(f"train_all_tissues (vectorized, {len(names)} tissues, {n_tr} train genes)", c, card)
+    log(f"  block-sweep products {c['products_tflop_per_s']:.2f} TFLOP/s fp32 "
+        f"({100 * c['products_share_of_peak_fp32']:.1f} % of {PEAK_FLOPS['fp32'] / 1e12:.0f}); median chr8 spearman "
+        f"{c['spearman_median']:.4f}")
+    if not (all(np.isfinite(r.model.weight).all() for r in allt.values())
+            and c["spearman_median"] > TRAIN_MIN_SPEARMAN):
+        raise AssertionError(f"train_all_tissues: finite weights and a median chr8 Spearman above "
+                             f"{TRAIN_MIN_SPEARMAN} expected, got {c['spearman_median']}")
+    del allt, allt_again
+
+    # 128 bootstrap seeds of one tissue through the CLI
+    boot_dir = inp["dir"] / "boot"
+    argv = ["--targetIndex", "1", "--bootstrap_seeds", str(TRAIN_BOOT_SEEDS), "--expFile",
+            str(inp["dir"] / "expression.csv"), "--inputFile", str(inp["dir"] / "Xreducedall.npy"),
+            "--annoFile", str(inp["dir"] / "geneanno.csv"), "--output_dir", str(boot_dir), "--device", DEVICE]
+    rc, wall = _launch_checked(lambda: train_cli.main(argv), launches, "cli.train --bootstrap_seeds")
+    if rc != 0:
+        raise AssertionError(f"cli.train --bootstrap_seeds exited {rc}")
+
+    def bootstrap():
+        return ptrain.train_bootstrap(X, geneanno, expression.iloc[:, 1].values, list(range(TRAIN_BOOT_SEEDS)),
+                                      device=DEVICE)
+
+    boot, c = _profiled_train_call(bootstrap, TRAIN_ROUNDS)
+    for seed_j, res in enumerate(boot):
+        saved = load_expression_model(boot_dir / f"bootstrap_seed{seed_j}.save")
+        if not (np.array_equal(saved.weight, res.model.weight)
+                and np.float32(saved.bias) == np.float32(res.model.bias)):
+            raise AssertionError(f"bootstrap seed {seed_j}: the CLI's .save differs from the in-process sweep")
+    c.update(cli_wall_s=wall, launches=launches, seeds=TRAIN_BOOT_SEEDS,
+             spearman_mean=float(np.nanmean([r.spearman for r in boot])))
+    out["boot"] = c
+    log(f"cli.train --bootstrap_seeds {TRAIN_BOOT_SEEDS}: wall {wall:.3f} s (the npy and CSVs loaded, "
+        f"{2 * TRAIN_BOOT_SEEDS} model files written); every seed's .save equal to the in-process sweep")
+    c["wall_s"] = c["profiled_wall_s"]
+    _log_train_call(f"train_bootstrap in process ({TRAIN_BOOT_SEEDS} seeds, profiled only)", c, card)
+    del boot
+
+    train_cpu_check(out, X, expression)
+    report["train"] = out
+
+
+def train_cpu_check(out: dict, X, expression) -> None:
+    """``train_gblinear_multi`` on the card against the CPU on a reduced
+    problem (the first rows, the first tissues, the published feature width,
+    an L1 weight), weights within TRAIN_CPU_RTOL of max|w|; one round fewer
+    and alpha's sign swapped, both on the card, must exceed that limit."""
+    import numpy as np
+
+    from expecto_tpu_torch.models import gblinear
+
+    rows = slice(0, TRAIN_SMALL_ROWS)
+    Y = np.log(expression.iloc[rows, 1:1 + TRAIN_SMALL_K].fillna(1.0).values + 1e-4).astype(np.float32)
+    Xs = X[rows]
+
+    def run(device, rounds=TRAIN_SMALL_ROUNDS, alpha=TRAIN_SMALL_ALPHA):
+        hp = gblinear.GBLinearParams(num_round=rounds, reg_alpha=alpha)
+        return gblinear.train_gblinear_multi(Xs, Y, hp, device=device)
+
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    limit = TRAIN_CPU_RTOL * float(np.abs(cpu.weights).max())
+    gaps = {}
+    for what, res in (("card", run(DEVICE)), ("one round fewer", run(DEVICE, rounds=TRAIN_SMALL_ROUNDS - 1)),
+                      ("alpha's sign swapped", run(DEVICE, alpha=-TRAIN_SMALL_ALPHA))):
+        gaps[what] = float(np.abs(res.weights - cpu.weights).max())
+        if what == "card":
+            bias_gap = float(np.abs(res.biases - cpu.biases).max())
+    if not (gaps["card"] <= limit and bias_gap <= 1e-5):
+        raise AssertionError(f"card vs CPU: weights {gaps['card']} (limit {limit}), biases {bias_gap} (limit 1e-5)")
+    for what in ("one round fewer", "alpha's sign swapped"):
+        if gaps[what] <= limit:
+            raise AssertionError(f"the planted fault '{what}' stays within the card-vs-CPU limit: {gaps[what]}")
+    out["cpu_check"] = {"rows": TRAIN_SMALL_ROWS, "models": TRAIN_SMALL_K, "rounds": TRAIN_SMALL_ROUNDS,
+                        "alpha": TRAIN_SMALL_ALPHA, "limit": limit, "max_abs_w": float(np.abs(cpu.weights).max()),
+                        "bias_gap": bias_gap, "cpu_s": cpu_s, **{f"gap_{k}": v for k, v in gaps.items()}}
+    fewer, swapped = gaps["one round fewer"], gaps["alpha's sign swapped"]
+    log(f"train card vs CPU ({TRAIN_SMALL_ROWS} rows x {TRAIN_FEATURES} features, K {TRAIN_SMALL_K}, "
+        f"{TRAIN_SMALL_ROUNDS} rounds, alpha {TRAIN_SMALL_ALPHA}): weights {gaps['card']:.3g} (limit {limit:.3g} = "
+        f"{TRAIN_CPU_RTOL:g} x max|w|), biases {bias_gap:.3g}; planted faults: one round fewer {fewer:.3g}, "
+        f"alpha's sign swapped {swapped:.3g}")
+
+
+def gblinear_cd_entry(train: dict) -> dict:
+    """The kernel line's entry of the coordinate-update kernel: its time on
+    the card, its plain version's and its bound at the one-tissue call's
+    shape (512, 1), whose timed run gives ``launches``; the times a call
+    back to back (``call_ms``); the same at K = 128 and 218 and the launches
+    of the other two timed calls beside them."""
+    cd = {r["K"]: r for r in train["cd_layers"]}
+    return {
+        "name": "gblinear_cd", "route": "cuda", "source": "expecto_tpu_torch/csrc/gblinear_cd.cu",
+        "replaces": "expecto_tpu/models/gblinear.py:92",
+        "replaces_what": "_coord_delta with the eta scale and weight update of the block steps (:125-127, "
+                         ":249-251): an XLA fusion, no pallas_call",
+        "launches": train["k1"]["launches"], "max_abs_err": max(r["max_abs_err"] for r in cd.values()),
+        "ms": cd[1]["ms"], "plain_ms": cd[1]["plain_ms"], "bound_ms": cd[1]["bound_ms"], "bound_by": cd[1]["bound_by"],
+        "library_ms": None, "shape": [cd[1]["B"], 1], "call_ms": cd[1]["call_ms"],
+        "plain_call_ms": cd[1]["plain_call_ms"],
+        **{f"{key}_k{k}": cd[k][key] for k in (128, 218) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
+        "launches_k218": train["k218"]["launches"], "launches_bootstrap_k128": train["boot"]["launches"],
+    }
+
+
 def kernel_table(report: dict) -> dict:
     """The kernel line: one entry per hand-written kernel, over the launches
     of one substitution chunk that its main path gives it (each shape
@@ -1999,17 +2447,23 @@ def kernel_table(report: dict) -> dict:
               sass_hmma=report["sass_simt"]["HMMA"], sass_hgmma=report["sass_simt"]["HGMMA"]),
         entry("conv0_codes", "expecto_tpu_torch/csrc/conv0_codes.cu", conv0, "bf16", serve["conv0_codes"],
               fp32_ms=_weighted(conv0, "fp32", "ms"), fp32_bound_ms=_weighted(conv0, "fp32", "bound_ms"),
+              fp32_plain_ms=_weighted(conv0, "fp32", "plain_ms"),
+              fp32_library_ms=_weighted(conv0, "fp32", "library_ms"),
               max_err_fp32=max(r["fp32"]["max_abs_err"] for r in conv0 + report["h5_layers"] + report["gene_layers"]
                                if r["layer"] == "conv0"),
               h5_chunk_fp32_ms=_weighted([r for r in h5_full if r["layer"] == "conv0"], "fp32", "ms"),
               launches_fp32_parity=parity["conv0_codes"],
               launches_h5_bf16=h5["bf16"]["conv0_codes"], launches_h5_fp32=h5["fp32"]["conv0_codes"],
               launches_gene_bf16=gene["bf16"]["conv0_codes"], launches_gene_fp32=gene["fp32"]["conv0_codes"],
-              gene_chunk_fp32_ms=_weighted([r for r in report["gene_layers"] if r["layer"] == "conv0"], "fp32", "ms"),
+              **{f"gene_chunk_fp32_{k}": _weighted([r for r in report["gene_layers"] if r["layer"] == "conv0"], "fp32",
+                                                   k) for k in ("ms", "bound_ms", "library_ms")},
               launches_consensus_bf16=cons_launches("bf16", "codes"),
               launches_consensus_fp32=cons_launches("fp32", "codes"),
               consensus_ms=cons_ms("bf16", True), consensus_fp32_ms=cons_ms("fp32", True),
+              consensus_fp32_bound_ms=cons_ms("fp32", True, "bound_ms"),
+              consensus_fp32_library_ms=cons_ms("fp32", True, "library_ms"),
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
+        gblinear_cd_entry(report["train"]),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
          "launches_per_chunk": r["launches_per_chunk"],
@@ -2100,6 +2554,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     consensus_phase(report, card, args.seed)
     log(f"consensus phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_phase(report, card, args.seed)
+    log(f"train phase {time.perf_counter() - t0:.1f} s")
 
     table = kernel_table(report)
     if args.out:

@@ -93,6 +93,12 @@ def load_xgb07_binary(path: str | os.PathLike) -> GBLinearModel:
     )
 
 
+def dump_text(model: GBLinearModel) -> str:
+    lines = ["bias:", repr(float(np.float32(model.bias))), "weight:"]
+    lines += [repr(float(w)) for w in np.asarray(model.weight, np.float32)]
+    return "\n".join(lines) + "\n"
+
+
 def parse_dump_text(text: str, base_score: float = 2.0) -> GBLinearModel:
     """Parse a gblinear text dump. ``base_score`` is not stored in dumps;
     callers supply it (the reference default is 2, train.py:49-50)."""
@@ -102,6 +108,19 @@ def parse_dump_text(text: str, base_score: float = 2.0) -> GBLinearModel:
     bias = float(lines[1])
     weights = np.array([float(v) for v in lines[3:]], dtype=np.float32)
     return GBLinearModel(weight=weights, bias=bias, base_score=base_score)
+
+
+def save_expression_model(model: GBLinearModel, path: str | os.PathLike) -> None:
+    """Write by extension: .save -> xgboost 0.7 binary, .dump -> text,
+    .npz -> native."""
+    p = str(path)
+    if p.endswith(".dump"):
+        with open(p, "w") as f:
+            f.write(dump_text(model))
+    elif p.endswith(".npz"):
+        np.savez(p, weight=model.weight, bias=np.float32(model.bias), base_score=np.float32(model.base_score))
+    else:
+        save_xgb07_binary(model, p)
 
 
 def load_expression_model(path: str | os.PathLike, base_score: float = 2.0) -> GBLinearModel:

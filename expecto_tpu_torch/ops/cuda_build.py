@@ -103,12 +103,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(name: str, n_ints: int):
+def launcher(name: str, n_ints: int, n_floats: int = 0):
     """``<name>_launch`` of ``csrc/<name>.cu``, whose C signature is four
-    pointers, ``n_ints`` ints and the stream, returning the CUDA error."""
+    pointers, ``n_ints`` ints, ``n_floats`` floats and the stream, returning
+    the CUDA error."""
     fn = getattr(load(name), f"{name}_launch")
     if fn.argtypes is None:
         vp = ctypes.c_void_p
-        fn.argtypes = [vp] * 4 + [ctypes.c_int] * n_ints + [vp]
+        fn.argtypes = [vp] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [vp]
         fn.restype = ctypes.c_int
     return fn

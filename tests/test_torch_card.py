@@ -15,7 +15,13 @@ consensus cohort path: every conv shape of a backbone forward (one span of
 41,808 bp) and of the patch batches (704-base sub-spans, N·K = 40 and 384)
 on each route, ``conv6_phases_patch_sites`` against the full forward and
 the CPU, ``project_spans_backbone_patch`` against ``predict_spans_project``
-and the CPU on both strands, bit-equal repeat calls and the launch counts.
+and the CPU on both strands, bit-equal repeat calls and the launch counts; and
+gblinear training: the coordinate-update kernel (``csrc/gblinear_cd.cu``)
+against its plain version bit for bit at (512, 1), (512, 128) and (512, 218)
+with padded rows, the hessian guard, L1 and ties, its wrapper's checks and
+launch count, and the trainers with the kernel against the same trainers
+with the plain version swapped in (bit for bit), against a second run and
+against the CPU.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -29,7 +35,8 @@ import pytest
 import torch
 
 from expecto_tpu_torch.genome.windows import gene_shifts, variant_shifts
-from expecto_tpu_torch.ops import conv0
+from expecto_tpu_torch.models import gblinear
+from expecto_tpu_torch.ops import conv0, gblinear_cd
 from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
 from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
 from expecto_tpu_torch.ops.decay import gene_pos_weights
@@ -662,3 +669,107 @@ def test_backbone_patch_launch_counts(cuda, dtype):
     assert conv0_codes_relu.launches_by_kind == {kind: 2 * calls}
     route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
     assert conv8_relu.launches_by_route[route] == 14 * calls and conv8_relu.launches_by_route[other] == 0
+
+
+# ---- gblinear training -----------------------------------------------------
+
+
+def _cd_inputs(b: int, k: int, alpha: float, seed: int):
+    """(g, h, w) of shape (b, k) on the card: hessians around the 1e-5 guard
+    and zero (the padded rows of a last block), ties tmp == 0 (g = w = 0),
+    and gradients at +-alpha (gl2 -+ alpha == 0)."""
+    rng = np.random.default_rng(seed)
+    g = (rng.normal(size=(b, k)) * 30).astype(np.float32)
+    h = (rng.random((b, k)) * 50 + 1e-3).astype(np.float32)
+    w = (rng.normal(size=(b, k)) * 0.05).astype(np.float32)
+    h[:6] = np.array([0.0, 5e-6, 9.99e-6, 1e-5, 1.01e-5, 2e-5], np.float32)[:, None]
+    h[-36:] = 0.0
+    g[8:16], w[8:16] = 0.0, 0.0
+    g[16:24], w[16:24] = alpha, 0.0
+    g[24:32], w[24:32] = -alpha, 0.0
+    return tuple(torch.from_numpy(a).cuda() for a in (g, h, w))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.7, 25.0])
+@pytest.mark.parametrize("k", [1, 128, 218])
+def test_gblinear_cd_kernel_equals_plain_bit_for_bit(cuda, k, alpha):
+    g, h, w = _cd_inputs(512, k, alpha, seed=k)
+    w_plain = w.clone()
+    before = gblinear_cd.coord_update.launches
+    dw = gblinear_cd.coord_update(g, h, w, 0.01, 100.0, alpha)
+    want = gblinear_cd.coord_update_plain(g, h, w_plain, 0.01, 100.0, alpha)
+    torch.cuda.synchronize()
+    assert gblinear_cd.coord_update.launches == before + 1
+    assert torch.equal(_bits(dw), _bits(want)) and torch.equal(_bits(w), _bits(w_plain))
+    assert (dw[h < 1e-5] == 0).all() and (dw[-36:] == 0).all()
+
+
+def test_gblinear_cd_wrapper_checks_on_cuda(cuda):
+    g, h, w = _cd_inputs(512, 8, 0.0, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        gblinear_cd.coord_update(g.t(), h.t(), w.t(), 0.01, 100.0, 0.0)
+    with pytest.raises(ValueError, match="one device"):
+        gblinear_cd.coord_update(g.cpu(), h, w, 0.01, 100.0, 0.0)
+    with pytest.raises(TypeError, match="fp32"):
+        gblinear_cd.coord_update(g.half(), h, w, 0.01, 100.0, 0.0)
+
+
+@pytest.fixture(scope="module")
+def train_problem():
+    """n 2,000 rows, F 1,100 features (three blocks of 512, the last one
+    padded), labels from a sparse linear model plus noise, and a held-out
+    eval set."""
+    rng = np.random.default_rng(77)
+    X = rng.normal(size=(2300, 1100)).astype(np.float32)
+    w_true = np.where(rng.random(1100) < 0.05, rng.normal(size=1100), 0.0)
+    y = (2.0 + X @ w_true + rng.normal(size=2300) * 0.3).astype(np.float32)
+    return X[:2000], y[:2000], X[2000:], y[2000:]
+
+
+def _train_k1(problem, device):
+    X, y, Xe, ye = problem
+    hp = gblinear.GBLinearParams(num_round=30)
+    return gblinear.train_gblinear(X, y, hp, evals=[(Xe, ye, "eval"), (X, y, "train")], device=device)
+
+
+def _train_multi(problem, device):
+    X, y, _, _ = problem
+    Y = np.stack([y, y * 0.5 + 1.0, y[::-1].copy()], axis=1)
+    hp = gblinear.GBLinearParams(num_round=30, reg_alpha=5.0)
+    return gblinear.train_gblinear_multi(X, Y, hp, row_weights=gblinear.bootstrap_row_weights(len(y), [0, 1, 2]),
+                                         device=device)
+
+
+def test_trainers_with_the_kernel_equal_the_plain_version_and_a_rerun(cuda, train_problem, monkeypatch):
+    gblinear_cd.reset_launch_counts()
+    k1, multi = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
+    assert gblinear_cd.coord_update.launches == 2 * 30 * 3  # 3 blocks a round, 30 rounds, two trainers
+    k1_again, multi_again = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
+    monkeypatch.setattr(gblinear, "coord_update", gblinear_cd.coord_update_plain)
+    gblinear_cd.reset_launch_counts()
+    k1_plain, multi_plain = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
+    assert gblinear_cd.coord_update.launches == 0
+    for other in (k1_again, k1_plain):
+        np.testing.assert_array_equal(other.weight, k1.weight)
+        assert other.bias == k1.bias and other.eval_history == k1.eval_history
+    for other in (multi_again, multi_plain):
+        np.testing.assert_array_equal(other.weights, multi.weights)
+        np.testing.assert_array_equal(other.biases, multi.biases)
+
+
+def test_trainers_on_card_match_cpu(cuda, train_problem):
+    """fp32 products with TF32 off, summed in other orders on the card and on
+    the CPU: weights within 1e-5 of max|w|, the per-round RMSE within 1e-5."""
+    k1_gpu, k1_cpu = _train_k1(train_problem, "cuda"), _train_k1(train_problem, "cpu")
+    tol = 1e-5 * float(np.abs(k1_cpu.weight).max())
+    np.testing.assert_allclose(k1_gpu.weight, k1_cpu.weight, rtol=0, atol=tol)
+    assert abs(k1_gpu.bias - k1_cpu.bias) < 1e-5
+    for name in ("eval", "train"):
+        np.testing.assert_allclose(k1_gpu.eval_history[name], k1_cpu.eval_history[name], rtol=0, atol=1e-5)
+    m_gpu, m_cpu = _train_multi(train_problem, "cuda"), _train_multi(train_problem, "cpu")
+    np.testing.assert_allclose(m_gpu.weights, m_cpu.weights, rtol=0, atol=1e-5 * float(np.abs(m_cpu.weights).max()))
+    np.testing.assert_allclose(m_gpu.biases, m_cpu.biases, rtol=0, atol=1e-5)

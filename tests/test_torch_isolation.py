@@ -27,7 +27,9 @@ def test_every_port_module_imports_without_jax():
                 "expecto_tpu_torch.pipeline.features", "expecto_tpu_torch.cli.compute_features",
                 "expecto_tpu_torch.genome.liftover", "expecto_tpu_torch.analysis.atac",
                 "expecto_tpu_torch.pipeline.consensus", "expecto_tpu_torch.pipeline.merge",
-                "expecto_tpu_torch.cli.consensus"]
+                "expecto_tpu_torch.cli.consensus", "expecto_tpu_torch.models.gblinear",
+                "expecto_tpu_torch.ops.gblinear_cd", "expecto_tpu_torch.pipeline.train",
+                "expecto_tpu_torch.utils.plotting", "expecto_tpu_torch.cli.train"]
     assert set(required) <= set(mods)
     code = (
         "import sys, importlib\n"
