@@ -118,7 +118,28 @@ Phases (any failure raises, and the script exits non-zero with no result):
    tissues and 20 rounds with an L1 weight, within 1e-5 of max|w|, which
    one round fewer and alpha's sign swapped must exceed. The single-tissue
    CLI mode (plots) and ``--allTissues`` (``metrics.h5``) run on the CPU
-   tests only.
+   tests only;
+11. multi-process runs: each flow's CLI as a 2-rank group, ``python -m
+   torch.distributed.run --standalone --nproc_per_node 2`` on this card
+   (the two ranks share it, so the backend is gloo), each rank running
+   ``-m expecto_tpu_torch.cli.<flow>`` under ``--rank-worker``, which
+   zeroes the launch counts first and writes each rank's counts; against
+   the same call at one rank (the earlier phases' outputs where they are
+   the same call): ``cli.score --fp32`` on the fp32 serve's 514 rows (same
+   rows in the same order, REF/ALT rtol 1e-4, REF/ALT/SED within 1e-5 of
+   max|REF|, no exchange file left; the ranks' blocks assembled in reverse
+   rank order must fail that check); ``cli.score`` (bf16) on all rows
+   (within SERVE_BF16_GAP of one rank's, which also bounds bf16 vs fp32 at
+   one rank; rows shifted by one must exceed it); ``cli.compute_features``
+   on the 96 genes in fp32 (1e-5 of max|feature|); ``cli.consensus ref``
+   in fp32; ``cli.train --bootstrap_seeds 128`` at the published width
+   (every ``.save`` within 1e-5 of max|w|, biases 1e-6; per rank 4,000
+   coordinate-update launches and 3 + 100 x 41 = 4,103 all-reduce calls,
+   whose host time is printed), and again on its first 8 seeds with the
+   all-reduce swapped for the identity, which must miss those limits. Every rank's convs must run
+   on its dtype's kernels. The backend and each run's wall at one and two
+   ranks are printed; the ranks share one card, so the walls are the
+   layer's cost, not a scaling.
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -285,6 +306,21 @@ TRAIN_CPU_RTOL = 1e-5
 # predictions of the 900 chr8 genes would read about 0 +- 0.03 (a model at
 # a tenth of the width, trained on the CPU, read 0.37)
 TRAIN_MIN_SPEARMAN = 0.1
+
+# multi-process runs (torchrun, this card shared by every rank over gloo):
+# ranks a group, host threads a rank, and each group's time limit
+MP_RANKS = 2
+MP_OMP_THREADS = 4
+MP_TIMEOUT_S = 300
+# the planted all-reduce fault trains the first 8 bootstrap seeds: a seed's
+# resample weights and model do not depend on the other seeds of the sweep,
+# so they are held against the 1-rank sweep's models of the same seeds
+MP_FAULT_SEEDS = 8
+# bf16 serving (bf16 compute, fp16 wire) against fp32, per (row, model),
+# REF, ALT and SED over max|fp32 REF|: asserted on the fp32 serve's rows at
+# one rank, and between the 2-rank and the 1-rank bf16 runs on every row; the
+# 2-rank rows shifted by one must exceed it
+SERVE_BF16_GAP = 1e-2
 
 
 def log(msg: str) -> None:
@@ -2356,12 +2392,13 @@ def train_cpu_check(out: dict, X, expression) -> None:
         f"alpha's sign swapped {swapped:.3g}")
 
 
-def gblinear_cd_entry(train: dict) -> dict:
+def gblinear_cd_entry(train: dict, mp_train: dict) -> dict:
     """The kernel line's entry of the coordinate-update kernel: its time on
     the card, its plain version's and its bound at the one-tissue call's
     shape (512, 1), whose timed run gives ``launches``; the times a call
     back to back (``call_ms``); the same at K = 128 and 218 and the launches
-    of the other two timed calls beside them."""
+    of the other two timed calls beside them, and of each rank of the
+    2-rank bootstrap run."""
     cd = {r["K"]: r for r in train["cd_layers"]}
     return {
         "name": "gblinear_cd", "route": "cuda", "source": "expecto_tpu_torch/csrc/gblinear_cd.cu",
@@ -2374,7 +2411,364 @@ def gblinear_cd_entry(train: dict) -> dict:
         "plain_call_ms": cd[1]["plain_call_ms"],
         **{f"{key}_k{k}": cd[k][key] for k in (128, 218) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
         "launches_k218": train["k218"]["launches"], "launches_bootstrap_k128": train["boot"]["launches"],
+        "launches_bootstrap_k128_per_rank_of_2": [r["gblinear_cd"] for r in mp_train["sound"]["ranks"]],
     }
+
+
+def _torchrun(target: list[str], what: str) -> tuple[float, str]:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    MP_RANKS <target>`` on this machine: its wall time and the ranks' stderr.
+    Raises if it fails; on its time limit the launcher and every rank are
+    killed (their own process group)."""
+    import os
+    import signal
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")])),
+           "OMP_NUM_THREADS": str(MP_OMP_THREADS)}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(MP_RANKS), *target]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: torchrun exited {proc.returncode}\n{out[-3000:]}\n{err[-6000:]}")
+    return wall, err
+
+
+def _backend(err: str, what: str) -> str:
+    """The backend every rank printed when it joined the group."""
+    import re
+
+    found = re.findall(r"torch\.distributed: rank (\d+) of (\d+), backend (\w+)", err)
+    if sorted(int(r) for r, _w, _b in found) != list(range(MP_RANKS)) or len({b for *_x, b in found}) != 1:
+        raise AssertionError(f"{what}: the ranks did not each join one group: {found}")
+    return found[0][2]
+
+
+def _no_leftovers(d: Path, what: str) -> None:
+    left = [p.name for p in d.iterdir() if "shard" in p.name or "exchange" in p.name]
+    if left:
+        raise AssertionError(f"{what}: shard or exchange files left behind: {left}")
+
+
+def _group(module: str, argv: list[str], what: str, *, identity_all_reduce: bool = False) -> dict:
+    """``-m module argv`` as a 2-rank torchrun group, each rank under
+    :func:`rank_worker`: its wall, backend and each rank's counts (checked:
+    exit code 0)."""
+    stats = WORK / "multiprocess" / f"stats_{what.replace(' ', '_')}"
+    wall, err = _torchrun([str(REPO / "chip_smoke.py"), "--rank-worker", str(stats),
+                           *(["--identity-all-reduce"] if identity_all_reduce else []), "--", "-m", module, *argv],
+                          what)
+    ranks = [json.loads(Path(f"{stats}.rank{r}.json").read_text()) for r in range(MP_RANKS)]
+    if any(r["rc"] != 0 for r in ranks):
+        raise AssertionError(f"{what}: a rank exited non-zero: {ranks}")
+    return {"wall_2_s": wall, "backend": _backend(err, what), "ranks": ranks}
+
+
+def _rank_routes(ranks: list, dtype: str, what: str) -> None:
+    """Every rank ran its convs on the kernels of ``dtype``'s routes: conv1-
+    conv5 on the SIMT kernel (fp32) or the tc kernel (bf16) alone, conv0 on
+    the code-gather kernel in ``dtype``."""
+    route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
+    for r in ranks:
+        by = r["conv8_relu_by_route"]
+        if not (by[route] > 0 and by[other] == 0 and r["conv0_codes"] > 0
+                and r["conv0_codes_by_kind"] == {dtype: r["conv0_codes"]}):
+            raise AssertionError(f"{what} rank {r['rank']}: convs not on the {dtype} kernels: {r}")
+
+
+def _launches(ranks: list) -> list:
+    return [{"conv8_relu": r["conv8_relu_by_route"], "conv0_codes": r["conv0_codes"], "gblinear_cd": r["gblinear_cd"]}
+            for r in ranks]
+
+
+def _serve_gaps(got, want) -> dict:
+    """REF/ALT/SED of two score CLI outputs: {name: max |got - want|}."""
+    import numpy as np
+
+    return {k: float(np.abs(g - w).max()) for k, g, w in zip(("REF", "ALT", "SED"), got, want)}
+
+
+def _serve_check(got_df, want_df, what: str) -> dict:
+    """The rows of ``got_df`` are ``want_df``'s, in order (every non-float
+    column equal); REF/ALT within rtol PARITY_RTOL and SED within rtol 0,
+    both with an absolute limit of 1e-5 of max|REF|: REF, ALT and their
+    difference SED carry the summation-order noise of the same 20,020-term
+    fp32 products, at the scale of |REF| (tests/torch_port_common.sed_atol).
+    Returns the gaps, and how many elements pass only by that scaling
+    (beyond PARITY_ATOL)."""
+    import numpy as np
+
+    names = [f"Tissue{j:03d}" for j in range(N_MODELS)]
+    ids = [c for c in want_df.columns if want_df[c].dtype.kind != "f"]
+    if list(got_df.columns) != list(want_df.columns) or not got_df[ids].equals(want_df[ids]):
+        raise AssertionError(f"{what}: other rows, or rows in another order, than one rank's")
+    got = [got_df[[f"{p}{m}" for m in names]].to_numpy(np.float64) for p in ("REF_", "ALT_", "")]
+    want = [want_df[[f"{p}{m}" for m in names]].to_numpy(np.float64) for p in ("REF_", "ALT_", "")]
+    atol = 1e-5 * max(1.0, float(np.abs(want[0]).max()))
+    beyond = 0
+    for name, g, w in zip(("REF", "ALT", "SED"), got, want):
+        rtol = PARITY_RTOL if name != "SED" else 0
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=f"{what}: {name}")
+        if name != "SED":
+            beyond += int((np.abs(g - w) > PARITY_ATOL + rtol * np.abs(w)).sum())
+    return {**_serve_gaps(got, want), "atol": atol, "ref_alt_beyond_parity_atol": beyond, "elements": got[0].size}
+
+
+def _bf16_serve_gap(got_df, want_df) -> float:
+    """max |bf16 - fp32| of REF, ALT and SED over max|fp32 REF|, rows paired
+    by position."""
+    import numpy as np
+
+    names = [f"Tissue{j:03d}" for j in range(N_MODELS)]
+    got = np.stack([got_df[[f"{p}{m}" for m in names]].to_numpy(np.float64) for p in ("REF_", "ALT_", "")])
+    want = np.stack([want_df[[f"{p}{m}" for m in names]].to_numpy(np.float64) for p in ("REF_", "ALT_", "")])
+    return float(np.abs(got - want).max() / np.abs(want[0]).max())
+
+
+def multiprocess_phase(report: dict, inputs: dict, card: str) -> None:
+    """The port's multi-process runs: each flow's CLI as a 2-rank torchrun
+    group on this card, against the same call at one rank (the earlier
+    phases' outputs where they are the same call), with two planted faults;
+    the backend, walls and the training collectives printed."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from expecto_tpu_torch.cli.score import main as score_main
+    from expecto_tpu_torch.io.xgb import load_expression_model
+    from expecto_tpu_torch.parallel import dist
+
+    torch.cuda.empty_cache()
+    out = {"ranks": MP_RANKS, "cards": torch.cuda.device_count()}
+    backends = set()
+    mp = WORK / "multiprocess"
+    mp.mkdir(exist_ok=True)
+
+    # serving, fp32: the fp32 serve phase's rows, one rank in this process, then two
+    vcf, genes, n_rows = subset(inputs, range(N_FP32_SERVE), "fp32_serve")
+    one, two = mp / "score_fp32_1", mp / "score_fp32_2"
+    for d in (one, two):
+        d.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    if score_main(score_args(vcf, genes, "--fp32", "--output", str(one / "output.csv"))) != 0:
+        raise AssertionError("score CLI --fp32 at one rank failed")
+    wall1 = time.perf_counter() - t0
+    run = _group("expecto_tpu_torch.cli.score", score_args(vcf, genes, "--fp32", "--output", str(two / "output.csv")),
+                 "score fp32")
+    _rank_routes(run["ranks"], "float32", "score --fp32")
+    backends.add(run["backend"])
+    wall2 = run["wall_2_s"]
+    want, got = check_output(one / "output.csv", n_rows)[0], check_output(two / "output.csv", n_rows)[0]
+    gaps = _serve_check(got, want, "score --fp32 at 2 ranks")
+    _no_leftovers(two, "score --fp32")
+    # the merge fault: the ranks' blocks assembled in reverse rank order
+    blocks = [dist.host_row_range(n_rows, r, MP_RANKS) for r in range(MP_RANKS)]
+    names = [f"{p}Tissue{j:03d}" for p in ("REF_", "ALT_", "") for j in range(N_MODELS)]
+    vals = got[names].to_numpy()
+    starts = np.cumsum([0] + [hi - lo for lo, hi in blocks[::-1]])[:-1]
+    swapped = got.copy()
+    swapped[names] = dist.assemble_rows([(int(s), vals[lo:hi]) for s, (lo, hi) in zip(starts, blocks[::-1])], n_rows)
+    try:
+        _serve_check(swapped, want, "reverse rank order")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("the serving blocks in reverse rank order pass the row check")
+    names = [f"Tissue{j:03d}" for j in range(N_MODELS)]
+    reverse = _serve_gaps(*[[d[[f"{p}{m}" for m in names]].to_numpy(np.float64) for p in ("REF_", "ALT_", "")]
+                            for d in (swapped, want)])
+    out["score_fp32"] = {"rows": n_rows, "wall_1_s": wall1, "wall_2_s": wall2, "max_abs_err": gaps,
+                         "reverse_rank_order_max_abs_err": reverse, "launches_per_rank": _launches(run["ranks"])}
+    log(f"multi-process score --fp32 ({n_rows} rows x {N_MODELS} models): 1 rank {wall1:.3f} s (in process, "
+        f"weights loaded), 2 ranks {wall2:.3f} s (torchrun, process start included; CLI per rank " + ", ".join(
+            f"{r['main_s']:.3f}" for r in run["ranks"]) + f" s); REF/ALT/SED gaps {gaps}; same rows in the same "
+        f"order, no exchange files; the blocks in reverse rank order fail the check ({reverse}); launches per rank "
+        f"{_launches(run['ranks'])} [{card}]")
+
+    # serving, bf16 (the CLI's default) on every row
+    two = mp / "score_bf16_2"
+    two.mkdir(exist_ok=True)
+    run = _group("expecto_tpu_torch.cli.score", score_args(WORK / "variants.vcf", WORK / "genes.tsv", "--output",
+                                                           str(two / "output.csv")), "score bf16")
+    _rank_routes(run["ranks"], "bfloat16", "score bf16")
+    backends.add(run["backend"])
+    wall2 = run["wall_2_s"]
+    got = check_output(two / "output.csv", inputs["n_rows"])[0]
+    want16 = check_output(WORK / "output.csv", inputs["n_rows"])[0]
+    ids = [c for c in want16.columns if want16[c].dtype.kind != "f"]
+    if not got[ids].equals(want16[ids]):
+        raise AssertionError("score bf16 at 2 ranks: other rows, or rows in another order, than one rank's")
+    _no_leftovers(two, "score bf16")
+    # bf16 vs fp32 on the fp32 rows (one rank each), and 2 ranks vs 1 in bf16
+    bf16_rows = want16.iloc[:n_rows].reset_index(drop=True)
+    if not bf16_rows[ids].equals(want[ids]):
+        raise AssertionError("the fp32 serve rows are not the first rows of the main path's output")
+    gap = {"bf16_vs_fp32_1rank": _bf16_serve_gap(bf16_rows, want), "ranks_2_vs_1": _bf16_serve_gap(got, want16),
+           "rows_shifted": _bf16_serve_gap(got.iloc[np.roll(np.arange(len(got)), 1)].reset_index(drop=True), want16)}
+    out["score_bf16"] = {"rows": inputs["n_rows"], "wall_1_s": report["main_path"]["cli_wall_s"], "wall_2_s": wall2,
+                         "limit": SERVE_BF16_GAP, **gap, "launches_per_rank": _launches(run["ranks"])}
+    log(f"multi-process score bf16 ({inputs['n_rows']} rows): 1 rank {report['main_path']['cli_wall_s']:.3f} s (main "
+        f"path, in process), 2 ranks {wall2:.3f} s (torchrun; CLI per rank " + ", ".join(
+            f"{r['main_s']:.3f}" for r in run["ranks"]) + f" s); over max|REF|: 2 ranks vs 1 {gap['ranks_2_vs_1']:.4g}, "
+        f"bf16 vs fp32 at 1 rank {gap['bf16_vs_fp32_1rank']:.4g}, rows shifted by one {gap['rows_shifted']:.4g} "
+        f"(limit {SERVE_BF16_GAP}); launches per rank {_launches(run['ranks'])} [{card}]")
+    if max(gap["ranks_2_vs_1"], gap["bf16_vs_fp32_1rank"]) > SERVE_BF16_GAP:
+        raise AssertionError(f"score bf16 beyond the bf16 limit {SERVE_BF16_GAP}: {gap}")
+    if gap["rows_shifted"] <= SERVE_BF16_GAP:
+        raise AssertionError(f"the bf16 serve limit {SERVE_BF16_GAP} does not catch rows shifted by one: {gap}")
+
+    # gene features, fp32, the 96 genes
+    two = mp / "features_2"
+    run = _group("expecto_tpu_torch.cli.compute_features", [str(WORK / "geneanno.csv"), "--genome",
+                 str(WORK / "genome.fa"), "--beluga_weights", str(WORK / "beluga.npz"), "-o", str(two), "--device",
+                 DEVICE], "compute_features")
+    _rank_routes(run["ranks"], "float32", "compute_features")
+    backends.add(run["backend"])
+    wall2 = run["wall_2_s"]
+    name = "Xreducedall.2002.representative_tss_top.npy"
+    f1, f2 = np.load(WORK / "features_fp32" / name), np.load(two / name)
+    limit = GENE_FEAT_RTOL * float(np.abs(f1).max())
+    fgap = float(np.abs(f2 - f1).max()) if f1.shape == f2.shape else float("inf")
+    shifted = float(np.abs(np.roll(f2, 1, axis=0) - f1).max())
+    _no_leftovers(two, "compute_features")
+    out["features"] = {"genes": int(f1.shape[0]), "wall_1_s": report["genes"]["fp32"]["cli_wall_s"],
+                       "wall_2_s": wall2, "max_abs_err": fgap, "limit": limit, "rows_shifted": shifted,
+                       "launches_per_rank": _launches(run["ranks"])}
+    log(f"multi-process compute_features fp32 ({f1.shape[0]} genes): 1 rank {report['genes']['fp32']['cli_wall_s']:.3f}"
+        f" s, 2 ranks {wall2:.3f} s; max |err| {fgap:.4g} (limit {limit:.4g}; rows shifted by one {shifted:.4g}); "
+        f"launches per rank {_launches(run['ranks'])} [{card}]")
+    if not (f2.shape == f1.shape and fgap <= limit < shifted):
+        raise AssertionError(f"compute_features at 2 ranks: shape {f2.shape}, max |err| {fgap} (limit {limit})")
+
+    # consensus ref, fp32
+    cdir, cgenes = WORK / "consensus_ref", WORK / "consensus_genes.csv"
+    two = mp / "consensus_ref_2"
+    run = _group("expecto_tpu_torch.cli.consensus", ["ref", str(WORK / "models" / "tissue000.save"), str(cdir),
+                 str(cgenes), "--beluga_weights", str(WORK / "beluga.npz"), "-o", str(two), "--device", DEVICE],
+                 "consensus ref")
+    _rank_routes(run["ranks"], "float32", "consensus ref")
+    backends.add(run["backend"])
+    wall2 = run["wall_2_s"]
+    c1 = pd.read_csv(WORK / "consensus_ref_fp32" / "ref_preds.csv")
+    c2 = pd.read_csv(two / "ref_preds.csv")
+    climit = CONS_FEAT_RTOL * max(1.0, float(np.abs(c1["ref_preds"]).max()))
+    if list(c2["genes"]) != list(c1["genes"]):
+        raise AssertionError("consensus ref at 2 ranks: other genes, or genes in another order")
+    cgap = float(np.abs(c2["ref_preds"] - c1["ref_preds"]).max())
+    _no_leftovers(two, "consensus ref")
+    out["consensus_ref"] = {"genes": len(c1), "wall_1_s": report["consensus"]["ref_cli"]["fp32"]["cli_wall_s"],
+                            "wall_2_s": wall2, "max_abs_err": cgap, "limit": climit,
+                            "launches_per_rank": _launches(run["ranks"])}
+    log(f"multi-process consensus ref fp32 ({len(c1)} genes): 1 rank "
+        f"{report['consensus']['ref_cli']['fp32']['cli_wall_s']:.3f} s, 2 ranks {wall2:.3f} s; max |err| {cgap:.4g} "
+        f"(limit {climit:.4g}); launches per rank {_launches(run['ranks'])} [{card}]")
+    if cgap > climit:
+        raise AssertionError(f"consensus ref at 2 ranks: max |err| {cgap} over {climit}")
+
+    # training at full width: the bootstrap CLI, 128 seeds, sound and with the identity all-reduce
+    tdir = WORK / "train"
+    n_blocks = -(-TRAIN_FEATURES // 512)
+    want_calls = 3 + TRAIN_ROUNDS * (1 + n_blocks)
+    saved1 = [load_expression_model(tdir / "boot" / f"bootstrap_seed{j}.save") for j in range(TRAIN_BOOT_SEEDS)]
+    train = {"wall_1_s": report["train"]["boot"]["cli_wall_s"], "all_reduce_calls_expected": want_calls}
+    for fault in ("", "identity"):
+        odir = mp / f"boot_2{('_' + fault) if fault else ''}"
+        seeds = MP_FAULT_SEEDS if fault else TRAIN_BOOT_SEEDS
+        argv = ["--targetIndex", "1", "--bootstrap_seeds", str(seeds), "--expFile",
+                str(tdir / "expression.csv"), "--inputFile", str(tdir / "Xreducedall.npy"), "--annoFile",
+                str(tdir / "geneanno.csv"), "--output_dir", str(odir), "--device", DEVICE]
+        run = _group("expecto_tpu_torch.cli.train", argv, f"train {fault or 'sound'}",
+                     identity_all_reduce=bool(fault))
+        backends.add(run["backend"])
+        wall2, ranks = run["wall_2_s"], run["ranks"]
+        wgap = bgap = 0.0
+        for j in range(seeds):
+            m2 = load_expression_model(odir / f"bootstrap_seed{j}.save")
+            wgap = max(wgap, float(np.abs(m2.weight - saved1[j].weight).max()) / float(np.abs(saved1[j].weight).max()))
+            bgap = max(bgap, abs(float(m2.bias) - float(saved1[j].bias)))
+        row = {"seeds": seeds, "wall_2_s": wall2, "ranks": ranks, "w_gap_over_max_w": wgap, "bias_gap": bgap}
+        for r in ranks:
+            if r["gblinear_cd"] != TRAIN_ROUNDS * n_blocks or r["all_reduce_calls"] != want_calls:
+                raise AssertionError(f"train {fault or 'sound'} rank {r['rank']}: {r['gblinear_cd']} coordinate-update "
+                                     f"launches (expected {TRAIN_ROUNDS * n_blocks}), {r['all_reduce_calls']} "
+                                     f"all-reduce calls (expected {want_calls})")
+        sound = wgap <= 1e-5 and bgap <= 1e-6
+        log(f"multi-process cli.train --bootstrap_seeds {seeds}{' (identity all-reduce)' if fault else ''}: "
+            f"2 ranks {wall2:.3f} s (torchrun; CLI main per rank " + ", ".join(
+                f"{r['main_s']:.3f}" for r in ranks) + " s); every .save vs 1 rank: weights "
+            f"{wgap:.4g} of max|w| (limit 1e-05), biases {bgap:.4g} (limit 1e-06); per rank "
+            f"{ranks[0]['gblinear_cd']} coordinate-update launches, {ranks[0]['all_reduce_calls']} all-reduce calls "
+            f"(3 + {TRAIN_ROUNDS} x (1 + {n_blocks})) taking " + ", ".join(
+                f"{r['all_reduce_s']:.3f}" for r in ranks) + f" s of host time [{card}]")
+        if fault and sound:
+            raise AssertionError("the identity all-reduce stays within the training limits")
+        if not fault and not sound:
+            raise AssertionError(f"train at 2 ranks: weights {wgap} of max|w|, biases {bgap}")
+        train["identity" if fault else "sound"] = row
+    out["train"] = train
+    log(f"  1 rank: cli.train --bootstrap_seeds {TRAIN_BOOT_SEEDS} {train['wall_1_s']:.3f} s (in process)")
+
+    if len(backends) != 1:
+        raise AssertionError(f"the groups took several backends: {backends}")
+    out["backend"] = backends.pop()
+    log(f"multi-process backend: {out['backend']} ({MP_RANKS} ranks, {out['cards']} card(s)); the ranks share one "
+        f"card, so these walls measure the layer's cost, not scaling [{card}]")
+    report["multiprocess"] = out
+
+
+def rank_worker(args) -> int:
+    """One rank of a multi-process group: ``args.cli_args`` is ``-m <module>
+    <arguments>``, run as ``python -m`` runs it (``runpy``), with every
+    kernel's launch count zeroed first and the training sweep's all-reduce
+    calls and their host time counted (``--identity-all-reduce``: each rank
+    keeps its local sums, a planted fault). Writes the counts to
+    ``<rank_worker>.rank<r>.json`` and returns the module's exit code."""
+    import runpy
+
+    sys.path.insert(0, str(REPO))
+    from expecto_tpu_torch.models import gblinear
+    from expecto_tpu_torch.ops import conv0, conv8, gblinear_cd
+    from expecto_tpu_torch.parallel import dist
+
+    if args.cli_args[:1] != ["-m"] or len(args.cli_args) < 2:
+        raise SystemExit("--rank-worker runs '-- -m <module> <arguments>'")
+    module = args.cli_args[1]
+    inner = (lambda t: t) if args.identity_all_reduce else gblinear._all_reduce
+    stats = {"all_reduce_calls": 0, "all_reduce_s": 0.0}
+
+    def counted(t):
+        t0 = time.perf_counter()
+        inner(t)
+        stats["all_reduce_s"] += time.perf_counter() - t0
+        stats["all_reduce_calls"] += 1
+        return t
+
+    gblinear._all_reduce = counted
+    _reset_counts()
+    gblinear_cd.reset_launch_counts()
+    sys.argv = [module, *args.cli_args[2:]]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+    main_s = time.perf_counter() - t0  # the module's files are written from fetched results
+    rank = dist.process_info()[0]
+    Path(f"{args.rank_worker}.rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "rc": rc, "main_s": main_s, "conv8_relu": conv8.conv8_relu.launches,
+        "conv8_relu_by_route": dict(conv8.conv8_relu.launches_by_route),
+        "conv0_codes": conv0.conv0_codes_relu.launches,
+        "conv0_codes_by_kind": dict(conv0.conv0_codes_relu.launches_by_kind),
+        "gblinear_cd": gblinear_cd.coord_update.launches, **stats}))
+    return rc
 
 
 def kernel_table(report: dict) -> dict:
@@ -2463,7 +2857,7 @@ def kernel_table(report: dict) -> dict:
               consensus_fp32_bound_ms=cons_ms("fp32", True, "bound_ms"),
               consensus_fp32_library_ms=cons_ms("fp32", True, "library_ms"),
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
-        gblinear_cd_entry(report["train"]),
+        gblinear_cd_entry(report["train"], report["multiprocess"]["train"]),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
          "launches_per_chunk": r["launches_per_chunk"],
@@ -2490,7 +2884,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report to DIR/chip_smoke.json")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank-worker", default=None, metavar="STATS",
+                    help="run as one rank of a multi-process group (under torchrun): '-- -m <module> <arguments>' "
+                         "as python -m runs it, the launch counts written to STATS.rank<r>.json")
+    ap.add_argument("--identity-all-reduce", action="store_true",
+                    help="with --rank-worker: each rank keeps its local sums (a planted fault)")
+    ap.add_argument("cli_args", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
+    if args.cli_args[:1] == ["--"]:
+        args.cli_args = args.cli_args[1:]
+    if args.rank_worker:
+        return rank_worker(args)
 
     import torch
 
@@ -2557,6 +2961,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     train_phase(report, card, args.seed)
     log(f"train phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multiprocess_phase(report, inputs, card)
+    log(f"multi-process phase {time.perf_counter() - t0:.1f} s")
 
     table = kernel_table(report)
     if args.out:

@@ -11,6 +11,11 @@ shift (``.legacy.diff.h5`` with ``--legacy_h5`` / ``--legacy_only``).
 Default compute is fp32 with TF32 off and an fp32 wire (parity mode);
 ``--bf16`` runs bf16 compute with an fp16 wire, diff still taken in fp32 on
 the device.
+
+Under ``torchrun`` each rank computes its block of the variants into shard
+h5s, rank 0 merges them and writes the VCF side files::
+
+    torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.chromatin ...
 """
 
 from __future__ import annotations
@@ -60,13 +65,17 @@ def main(argv=None) -> int:
     from ..genome.fasta import FastaIndex
     from ..genome.vcf import read_vcf, standardize_chroms, write_vcf_hg19
     from ..models.convert import load_params_npz
+    from ..parallel import dist
+    from ..parallel.mesh import local_device, maybe_initialize_distributed
     from ..parallel.runner import BelugaRunner
     from ..pipeline.chromatin import compute_variant_chromatin_effects
 
+    # several ranks: join the process group before any CUDA work
+    maybe_initialize_distributed(args.device)
     runner = BelugaRunner(
         load_params_npz(args.beluga_weights),
         batch_size=args.batchsize,
-        device=args.device,
+        device=local_device(args.device),
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         # the fp16 wire is safe for the h5 contract: diff = alt - ref is
         # taken in fp32 on the device before the cast, and the per-window
@@ -83,7 +92,8 @@ def main(argv=None) -> int:
         print("Lifting over to hg19...")
         lifted, failed = liftover_vcf(vcf, ChainLiftover(args.chain_file), strict=args.strict_liftover)
         print(f"Failed to lift {int(failed.sum())} variants from hg38 to hg19")
-        vcf[failed].to_csv(f"{args.output_dir}/not_lifted.vcf", sep="\t", header=False, index=False)
+        if dist.is_primary():  # every rank holds the full table; one writes it
+            vcf[failed].to_csv(f"{args.output_dir}/not_lifted.vcf", sep="\t", header=False, index=False)
         vcf = lifted[~failed]
 
     # standardize before writing snps_hg19.vcf: the emitted file is the
@@ -92,13 +102,14 @@ def main(argv=None) -> int:
     # (chromatin.py:232-241), a deliberate divergence.
     n_before = vcf.shape[0]
     std = standardize_chroms(vcf)
-    if std.shape[0] != n_before:
+    if std.shape[0] != n_before and dist.is_primary():
         dropped = vcf[~vcf.index.isin(std.index)]
         dropped.to_csv(f"{args.output_dir}/dropped_contigs.vcf", sep="\t", header=False, index=False)
         print(f"Dropped {n_before - std.shape[0]} variants on non-canonical contigs "
               f"(written to {args.output_dir}/dropped_contigs.vcf)")
     vcf = std
-    write_vcf_hg19(vcf, f"{args.output_dir}/snps_hg19.vcf")
+    if dist.is_primary():
+        write_vcf_hg19(vcf, f"{args.output_dir}/snps_hg19.vcf")
 
     try:
         compute_variant_chromatin_effects(

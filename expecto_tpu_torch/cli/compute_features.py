@@ -9,6 +9,12 @@ Writes ``Xreducedall.2002.representative_tss_top.npy`` (n_genes, 20,020) in
 
 Default compute is fp32 with TF32 off and an fp32 wire (parity mode);
 ``--bf16`` runs bf16 compute with an fp16 wire for the features.
+
+Under ``torchrun`` each rank computes its slice of the genes and rank 0
+merges the feature shards (``--replicate_raw``: each rank writes its own
+genes' files)::
+
+    torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.compute_features ...
 """
 
 from __future__ import annotations
@@ -82,13 +88,17 @@ def main(argv=None) -> int:
 
     from ..genome.fasta import FastaIndex
     from ..models.convert import load_params_npz
+    from ..parallel.mesh import local_device, maybe_initialize_distributed
     from ..parallel.runner import BelugaRunner
     from ..pipeline.features import compute_gene_features, records_from_geneanno, replicate_gene_features
 
+    # several ranks: join the process group before any CUDA work; each rank
+    # then computes its slice of the genes (pipeline/features.py)
+    maybe_initialize_distributed(args.device)
     runner = BelugaRunner(
         load_params_npz(args.beluga_weights),
         batch_size=args.batchsize,
-        device=args.device,
+        device=local_device(args.device),
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         # features are contracted in fp32 on the device; the fp16 wire
         # rounds them at about 5e-4 relative, host arrays stay fp32

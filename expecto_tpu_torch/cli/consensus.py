@@ -9,6 +9,12 @@ Default compute is fp32 with TF32 off and an fp32 wire (parity mode);
 ``chromatin_preds`` (and the runner's wire) in fp16. ``samples``,
 ``eqtl-sed`` and ``top-eqtls`` write h5 files and need h5py; ``ref`` writes
 only ``ref_preds.csv``.
+
+Under ``torchrun`` ``samples``, ``ref`` and ``top-eqtls`` shard their gene
+lists per rank (``ref``: rank 0 merges the CSV shards); ``eqtl-sed`` runs
+its handful of eQTLs on every rank::
+
+    torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.consensus ref ...
 """
 
 from __future__ import annotations
@@ -74,14 +80,18 @@ def main(argv=None) -> int:
     import torch
 
     from ..models.convert import load_params_npz
+    from ..parallel.mesh import local_device, maybe_initialize_distributed
     from ..parallel.runner import BelugaRunner
     from ..pipeline import consensus as c
 
+    # several ranks: join the process group before any CUDA work; the gene
+    # lists then shard per rank
+    maybe_initialize_distributed(args.device)
     fp16 = getattr(args, "fp16_chromatin", False)
     runner = BelugaRunner(
         load_params_npz(args.beluga_weights),
         batch_size=args.batch_size,
-        device=args.device,
+        device=local_device(args.device),
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         out_dtype=np.float16 if fp16 else np.float32,
     )

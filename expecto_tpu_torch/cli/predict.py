@@ -8,6 +8,12 @@ Host numpy only: no device code runs here. ``--model_save_file`` writes
 ``sed.tsv`` (SED = pred(alt) - pred(ref)) and the two sorted tables under
 ``-o``; ``--modelList`` writes ``--output`` with one column per model
 holding ``pred(0) - pred(diff)``, minus the SED of ``cli.score``.
+
+Under ``torchrun`` each rank scores its block of the rows (a gloo group:
+nothing runs on a card), the ranks exchange the per-row scalars, and rank 0
+writes the files::
+
+    torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.predict ...
 """
 
 from __future__ import annotations
@@ -56,8 +62,13 @@ def main(argv=None) -> int:
 
     from ..io.tables import load_beluga_features, load_closest_genes, load_modellist
     from ..io.xgb import load_expression_model
+    from ..parallel.mesh import maybe_initialize_distributed
     from ..pipeline.sed import load_shift_effects, score_sed, score_sed_multimodel
     from ..utils.keep_mask import get_keep_mask
+
+    # several ranks: join a host-only (gloo) process group; scoring rows then
+    # shard per rank (replaces merge_predict_batched.py:10-30)
+    maybe_initialize_distributed("cpu")
 
     keep_mask = None
     if args.intersect_with_lambert and not (os.path.exists(args.lambert_hgnc) and os.path.exists(args.hgnc_mapping)):

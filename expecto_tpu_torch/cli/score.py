@@ -1,6 +1,13 @@
 """CLI: one-shot SED serving on a CUDA GPU — VCF to per-tissue expression
 effects in a single device pass (``python -m expecto_tpu_torch.cli.score``;
-the arguments of ``expecto_tpu.cli.score`` plus ``--device``)."""
+the arguments of ``expecto_tpu.cli.score`` plus ``--device``).
+
+Under ``torchrun`` each rank serves its block of the (variant, gene) rows on
+its own card (or a shared one), the ranks exchange the per-row scalars, and
+rank 0 writes ``--output``::
+
+    torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.score ...
+"""
 
 from __future__ import annotations
 
@@ -38,13 +45,17 @@ def main(argv=None) -> int:
     from ..genome.vcf import read_vcf, standardize_chroms
     from ..io.tables import load_closest_genes, load_modellist
     from ..models.convert import load_params_npz
+    from ..parallel.mesh import local_device, maybe_initialize_distributed
     from ..parallel.runner import BelugaRunner
     from ..pipeline.sed import score_sed_serving
 
+    # several ranks: join the process group before any CUDA work; rows then
+    # shard per rank and rank 0 writes the merged output.csv
+    maybe_initialize_distributed(args.device)
     runner = BelugaRunner(
         load_params_npz(args.beluga_weights),
         batch_size=args.batchsize,
-        device=args.device,
+        device=local_device(args.device),
         compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
         out_dtype=np.float32 if args.fp32 else np.float16,
     )

@@ -7,7 +7,11 @@ Three modes: one tissue (``--targetIndex``: ``.save``/``.dump``, the
 ``--evalFile`` CSV and two pred-vs-label plots), ``--bootstrap_seeds N``
 (N resampled models of one tissue in one sweep) and ``--allTissues`` (every
 expression column, ``metrics.h5``; ``--vectorized`` trains them in one
-sweep). Products are fp32 with TF32 off. Runs in one process.
+sweep). Products are fp32 with TF32 off. Under ``torchrun`` each rank
+trains on its slice of the training genes (gradient sums all-reduced) and
+rank 0 writes the files::
+
+    torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.train ...
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ def main(argv=None) -> int:
 
     from ..io.tables import load_beluga_features
     from ..models.gblinear import GBLinearParams
-    from ..parallel.runner import resolve_device
+    from ..parallel import dist
+    from ..parallel.mesh import local_device, maybe_initialize_distributed
     from ..pipeline.train import train_all_tissues, train_bootstrap, train_expression_model
     from ..utils.keep_mask import get_keep_mask
 
@@ -79,7 +84,10 @@ def main(argv=None) -> int:
     if args.allTissues and args.bootstrap_seeds:
         print("--allTissues and --bootstrap_seeds are mutually exclusive", file=sys.stderr)
         return 2
-    device = resolve_device(args.device)
+    # several ranks: join the process group before any CUDA work; the
+    # training rows then shard across ranks (pipeline/train.py)
+    maybe_initialize_distributed(args.device)
+    device = local_device(args.device)
 
     Xreducedall = np.load(args.inputFile)
     geneanno = pd.read_csv(args.annoFile)
@@ -170,9 +178,9 @@ def main(argv=None) -> int:
         seed_resample=args.seed, extra_filter=extra_filter, verbose=True, device=device,
     )
     print(f"spearman (chr8 holdout): {res.spearman:.4f}")
-    if args.evalFile:
+    if args.evalFile and dist.is_primary():
         pd.DataFrame({"pred": res.test_pred, "target": res.test_true}).to_csv(args.evalFile)
-    if res.train_pred is not None:
+    if res.train_pred is not None and dist.is_primary():
         from ..utils.plotting import plot_preds
 
         plot_preds(res.test_true, res.test_pred, os.path.join(args.output_dir, "test_plots.png"))

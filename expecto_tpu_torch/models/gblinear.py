@@ -18,8 +18,10 @@ advanced once per block by a second product. A block step is those two
 ``torch.matmul`` products and one launch of the coordinate-update kernel
 (``csrc/gblinear_cd.cu``); nothing in a round waits for the host.
 
-The row-sharded multi-process trainers of the JAX package are not ported
-here (they need ``torch.distributed``).
+The row-sharded trainers (:func:`train_gblinear_multi_sharded`,
+:func:`train_gblinear_sharded`) run the same sweep in every rank of a
+``torch.distributed`` group on that rank's rows, with each row sum the JAX
+package takes by ``psum`` taken by one ``all_reduce`` (:func:`_all_reduce`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..ops.gblinear_cd import coord_update
@@ -242,7 +245,17 @@ def train_gblinear_multi(
             "train_gblinear with evals for early stopping)",
             stacklevel=2,
         )
-    device = resolve_device(device)
+    return _multi_sweep(X, Y, row_weights, hp, resolve_device(device), reduce=lambda t: t, verbose=verbose)
+
+
+def _multi_sweep(X, Y, row_weights, hp: GBLinearParams, device: torch.device, *, reduce, evals=None,
+                 verbose: bool = False) -> MultiTrainResult:
+    """The K-model block sweep of :func:`train_gblinear_multi` and
+    :func:`train_gblinear_multi_sharded` over this process's rows.
+    ``reduce(t)`` turns a sum over these rows into the sum over all rows, in
+    place: the identity in one process, an all-reduce across ranks. With
+    ``evals`` ([(X_e, y_e, name), ...], y_e (n_e,) or (n_e, K)) each round
+    records one RMSE a set and model, computed on the device."""
     X = np.asarray(X, dtype=np.float32)
     Y = np.asarray(Y, dtype=np.float32)
     if Y.ndim == 1:
@@ -252,32 +265,47 @@ def train_gblinear_multi(
     if row_weights is None:
         row_weights = np.ones((n, k), np.float32)
     row_weights = np.asarray(row_weights, dtype=np.float32)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
     with _matmul_precision(hp.precision):
         Xt, n_blocks = _pad_blocks(_dev(X, device).T, hp.block_size)
         rw = _dev(row_weights, device)
-        denom = _dev(row_weights.sum(axis=0), device) + hp.reg_lambda_bias  # effective row counts
+        denom = reduce(_dev(row_weights.sum(axis=0), device)) + hp.reg_lambda_bias  # effective row counts
         # per-(feature, model) hessians are loop-invariant: once, block by
         # block to bound the X*X temporary
-        hess = torch.stack([(Xb * Xb) @ rw for Xb in Xt])
+        hess = reduce(torch.stack([(Xb * Xb) @ rw for Xb in Xt]))
+        evals_dev = []
+        for Xe, ye, name in evals or []:
+            ye = np.asarray(ye, dtype=np.float32)
+            evals_dev.append((_dev(Xe, device), _dev(ye[:, None] if ye.ndim == 1 else ye, device), name))
 
         w_blocks = torch.zeros((n_blocks, hp.block_size, k), dtype=torch.float32, device=device)
         bias = torch.zeros(k, dtype=torch.float32, device=device)
         r = _dev(np.full((n, k), hp.base_score, np.float32) - Y, device)
+        history: dict[str, list] = {name: [] for *_unused, name in evals_dev}
         for it in range(hp.num_round):
             with record_function("gblinear_round"):
                 # bias step: sum_g / sum_h per model
-                db = hp.eta * (-(rw * r).sum(0) / denom)
+                db = hp.eta * (-reduce((rw * r).sum(0)) / denom)
                 bias += db
                 r += db
                 for Xb, hb, wb in zip(Xt, hess, w_blocks):
-                    dw = coord_update(Xb @ (rw * r), hb, wb, hp.eta, hp.reg_lambda, hp.reg_alpha)
+                    dw = coord_update(reduce(Xb @ (rw * r)), hb, wb, hp.eta, hp.reg_lambda, hp.reg_alpha)
                     r += Xb.T @ dw
-            if verbose and it % 10 == 0:
+            if evals_dev:
+                w_now = w_blocks.view(-1, k)[:f]
+                offset = hp.base_score + bias
+                rmse = torch.stack([((offset + Xe @ w_now - ye) ** 2).mean(0).sqrt() for Xe, ye, _ in evals_dev])
+                for (*_unused, name), value in zip(evals_dev, rmse.cpu().numpy()):
+                    history[name].append(float(value[0]) if k == 1 else value)
+                    if verbose and rank0:
+                        print(f"[{it}]\t{name}-rmse:" + ",".join(f"{v:.6f}" for v in value))
+            elif verbose and rank0 and it % 10 == 0:
                 print(f"[{it}] mean|r| = {float(r.abs().mean()):.5f}")
 
     weights = w_blocks.view(-1, k)[:f].cpu().numpy()
-    return MultiTrainResult(weights=weights, biases=bias.cpu().numpy(), base_score=hp.base_score)
+    return MultiTrainResult(weights=weights, biases=bias.cpu().numpy(), base_score=hp.base_score,
+                            eval_history=history)
 
 
 def bootstrap_row_weights(n_train: int, seeds: list[int]) -> np.ndarray:
@@ -290,3 +318,81 @@ def bootstrap_row_weights(n_train: int, seeds: list[int]) -> np.ndarray:
         idx = rs.choice(np.arange(n_train), size=n_train, replace=True)
         out[:, j] = np.bincount(idx, minlength=n_train)
     return out
+
+
+def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` in place over the default process group and return it (one
+    process: ``t`` unchanged). Every row sum of the sharded trainers goes
+    through this one function, so a test can swap it."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t
+
+
+def train_gblinear_multi_sharded(
+    X_local,
+    Y_local,
+    params: GBLinearParams | None = None,
+    *,
+    row_weights_local: np.ndarray | None = None,
+    evals: list[tuple] | None = None,
+    verbose: bool = False,
+    device="cuda",
+) -> MultiTrainResult:
+    """Row-sharded K-model training across the ranks of the default process
+    group (replaces the reference's per-node shell loops,
+    scripts/train_bootstrap.sh:4-7 and train_susztak.py's per-column loop).
+
+    Every rank passes only its contiguous row shard (``host_row_range``
+    order) and runs :func:`train_gblinear_multi`'s sweep on ``device``. The
+    row sums become sums over all ranks through :func:`_all_reduce`: the
+    global row count (once, to reject an empty problem on every rank), the
+    effective row counts and the (F, K) hessians (once, before round 0), and
+    per round the bias gradient and each block's (B, K) gradient, before the
+    coordinate update. So a run makes ``3 + num_round * (1 + n_blocks)``
+    all-reduce calls, and the updates, computed from the same sums on every
+    rank, keep the weights replicated; the coordinate update stays one
+    kernel launch a block on each rank. Rows are not padded: the sums need
+    no static shape. One process: the sums are local and the result equals
+    :func:`train_gblinear_multi`'s bit for bit.
+
+    ``evals``: xgboost-style watchlist [(X_eval, y_eval, name), ...], the
+    same sets on every rank; ``y_eval`` may be (n_e,) or (n_e, K). The sets
+    stay on the device, every rank computes the same RMSE from its
+    replicated weights (one fetch a round), and only rank 0 prints it.
+    Records ``eval_history`` ({name: per-round RMSE}, (K,) arrays for K >
+    1). All ``num_round`` rounds run.
+    """
+    hp = params or GBLinearParams()
+    device = resolve_device(device)
+    n_global = int(_all_reduce(torch.tensor([len(X_local)], dtype=torch.int64, device=device)).item())
+    if n_global == 0:
+        raise ValueError("train_gblinear_multi_sharded: no training rows on any rank")
+    return _multi_sweep(X_local, Y_local, row_weights_local, hp, device, reduce=lambda t: _all_reduce(t),
+                        evals=evals, verbose=verbose)
+
+
+def train_gblinear_sharded(
+    X_local,
+    y_local,
+    params: GBLinearParams | None = None,
+    *,
+    evals: list[tuple] | None = None,
+    verbose: bool = False,
+    device="cuda",
+) -> GBLinearModel:
+    """Single-model row-sharded trainer, the K = 1 view of
+    :func:`train_gblinear_multi_sharded`; runs all ``num_round`` rounds (the
+    reference's behaviour: it passes early_stopping_rounds where xgboost
+    ignores it, train.py:140-146). ``evals`` must be the same on every rank;
+    the watchlist matches :func:`train_gblinear`'s."""
+    hp = params or GBLinearParams()
+    multi = train_gblinear_multi_sharded(
+        X_local, np.asarray(y_local, np.float32)[:, None], hp, evals=evals, verbose=verbose, device=device
+    )
+    return GBLinearModel(
+        weight=multi.weights[:, 0].astype(np.float32),
+        bias=float(multi.biases[0]),
+        base_score=hp.base_score,
+        eval_history=multi.eval_history,
+    )

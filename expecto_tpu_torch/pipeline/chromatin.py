@@ -17,7 +17,10 @@ the ref offsets. Variants whose windows cross a contig edge, or whose length
 change exceeds the crop slack, are not span-eligible and take the
 per-window path.
 
-One process; ``h5py`` is imported only where a file is written or read.
+In a multi-process run each rank computes its ``host_row_range`` block of
+variants into shard h5 files and the primary merges them in shard order
+(parallel/dist.py). ``h5py`` is imported only where a file is written or
+read.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..genome.encode import alleles_to_flat_codes, reverse_complement_codes, seq
 from ..genome.windows import fetch_variant_window, variant_shifts
 from ..io.h5 import write_legacy_shift_h5, write_shift_h5
 from ..models.beluga import BELUGA_N_TRACKS
+from ..parallel import dist
 from ..parallel.runner import fp32_wire_kw
 
 
@@ -357,10 +361,11 @@ def stream_span_rows(genome, runner, chroms, positions, refs, alts, shifts, maxs
 
 def _run_span_path_streaming(
     genome, runner, chroms, positions, refs, alts, shifts, maxshift, inputsize, span_ok,
-    output_dir, output_prefix, legacy_h5, legacy_only=False,
+    output_dir, output_prefix, legacy_h5, path_fn, legacy_only=False,
 ) -> list[str]:
-    """:func:`stream_span_rows` into preallocated per-shift h5 datasets.
-    Returns the h5 paths written."""
+    """:func:`stream_span_rows` into preallocated per-shift h5 datasets, each
+    file at ``path_fn(path)`` (this rank's shard name in a distributed run).
+    Returns the logical h5 paths."""
     import h5py
 
     n = len(chroms)
@@ -373,7 +378,7 @@ def _run_span_path_streaming(
             if not legacy_only:
                 path = os.path.join(output_dir, f"{output_prefix}.shift_{shift}.diff.h5")
                 paths.append(path)
-                f = h5py.File(path, "w")
+                f = h5py.File(path_fn(path), "w")
                 files.append(f)
                 d = {
                     name: f.create_dataset(name, shape=(2 * n, BELUGA_N_TRACKS), dtype=np.float32)
@@ -382,7 +387,7 @@ def _run_span_path_streaming(
             if legacy_h5:
                 lpath = os.path.join(output_dir, f"{output_prefix}.shift_{shift}.legacy.diff.h5")
                 paths.append(lpath)
-                lf = h5py.File(lpath, "w")
+                lf = h5py.File(path_fn(lpath), "w")
                 files.append(lf)
                 d["pred"] = lf.create_dataset("pred", shape=(2 * n, BELUGA_N_TRACKS), dtype=np.float32)
             dsets.append(d)
@@ -392,6 +397,17 @@ def _run_span_path_streaming(
         for f in files:
             f.close()
     return paths
+
+
+def _merge_shift_shards(h5_paths: list[str]) -> None:
+    """Once every rank's shard files exist, the primary merges each shift's
+    shards with ``fold_axis0=2`` (the single-process [fwd_all; rc_all] row
+    layout); the closing barrier lets every rank read the merged files."""
+    dist.barrier("chromatin.shards_written")
+    if dist.is_primary():
+        for path in h5_paths:
+            dist.merge_sharded_h5(path, fold_axis0=2, delete_shards=True)
+    dist.barrier("chromatin.merged")
 
 
 def compute_variant_chromatin_effects(
@@ -408,6 +424,7 @@ def compute_variant_chromatin_effects(
     verbose: bool = True,
     legacy_h5: bool = False,
     legacy_only: bool = False,
+    distribute: bool = True,
 ) -> ChromatinResult:
     """Run the full per-shift chromatin-effect computation.
 
@@ -429,6 +446,13 @@ def compute_variant_chromatin_effects(
             ``legacy_h5``). The legacy ``pred`` dataset is the diff alone,
             so the streaming path then ships only ``diff = alt - ref`` off
             the device: half the wire of the diff/ref/alt contract.
+        distribute: in a multi-process run each rank computes its
+            ``host_row_range`` block of variants and writes shard h5s;
+            the primary merges them after a barrier (``fold_axis0=2``
+            keeps the [fwd; rc] layout), in the rows a single process
+            writes. Replaces the reference's per-node chunk flags and
+            shell-loop merge (chromatin.py:30-31). Requires ``output_dir``;
+            ``keep_arrays`` holds only the rank's own rows.
     """
     if legacy_only:
         legacy_h5 = True
@@ -441,10 +465,16 @@ def compute_variant_chromatin_effects(
 
     if output_dir is not None:
         os.makedirs(output_dir, exist_ok=True)
+    distributed = distribute and dist.process_info()[1] > 1 and output_dir is not None
 
-    # validate before any per-row fetch
+    # validate on the full table, before any per-row fetch, so every rank
+    # raises the same error: one rank dying while the others wait at a shard
+    # barrier would turn a clear error into a timeout
     _require_known_chromosomes(genome, chroms)
-    ref_matched, alt_matched = _diagnostics(genome, chroms, positions, refs, alts, inputsize, verbose)
+    # diagnostics count the full table on every rank; only the primary prints
+    ref_matched, alt_matched = _diagnostics(
+        genome, chroms, positions, refs, alts, inputsize, verbose and dist.is_primary()
+    )
     result = ChromatinResult(shifts=shifts, n_variants=n, ref_matched=ref_matched, alt_matched=alt_matched)
 
     # skip the eligibility pass when the window path is forced and nothing
@@ -461,6 +491,12 @@ def compute_variant_chromatin_effects(
                 "(allele length change beyond the 100 bp crop slack, or shift windows crossing "
                 "a contig edge where the reference clamp-shifts the fetch) — use 'auto' or 'never'"
             )
+    if distributed:
+        lo, hi = dist.host_row_range(n)
+        chroms, positions, refs, alts = chroms[lo:hi], positions[lo:hi], refs[lo:hi], alts[lo:hi]
+        span_ok = span_ok[lo:hi]
+        n = hi - lo
+    path_fn = dist.shard_path if distributed else (lambda p: p)
 
     # streaming path: nothing needs the in-memory arrays (h5 output only), so
     # span-eligible rows' chunks go
@@ -469,14 +505,18 @@ def compute_variant_chromatin_effects(
     # demotes the chunk). Peak memory drops from 3 x (2N, S, M) fp32 to one
     # chunk.
     if output_dir is not None and not keep_arrays and bool(span_ok.any()):
-        _run_span_path_streaming(
+        h5_paths = _run_span_path_streaming(
             genome, runner, np.asarray(chroms), np.asarray(positions), np.asarray(refs),
             np.asarray(alts), shifts, maxshift, inputsize, span_ok,
-            output_dir, output_prefix, legacy_h5, legacy_only=legacy_only,
+            output_dir, output_prefix, legacy_h5, path_fn, legacy_only=legacy_only,
         )
+        if distributed:
+            _merge_shift_shards(h5_paths)
         return result
 
     if n == 0:
+        # a rank can own zero rows when ranks outnumber variants; its shards
+        # still need every dataset for the merge
         empty = np.zeros((0, BELUGA_N_TRACKS), np.float32)
         per_shift = {shift: (empty, empty, empty) for shift in shifts}
     elif span_ok.all():
@@ -507,15 +547,22 @@ def compute_variant_chromatin_effects(
         per_shift = _run_window_path(genome, runner, chroms, positions, refs, alts, shifts, inputsize)
 
     arrays: dict = {}
+    h5_paths: list[str] = []
     for shift in shifts:
         ref_rows, alt_rows, diff = per_shift[shift]
         if output_dir is not None:
             if not legacy_only:
-                write_shift_h5(os.path.join(output_dir, f"{output_prefix}.shift_{shift}.diff.h5"), diff, ref_rows, alt_rows)
+                path = os.path.join(output_dir, f"{output_prefix}.shift_{shift}.diff.h5")
+                h5_paths.append(path)
+                write_shift_h5(path_fn(path), diff, ref_rows, alt_rows)
             if legacy_h5:
-                write_legacy_shift_h5(os.path.join(output_dir, f"{output_prefix}.shift_{shift}.legacy.diff.h5"), diff)
+                lpath = os.path.join(output_dir, f"{output_prefix}.shift_{shift}.legacy.diff.h5")
+                h5_paths.append(lpath)
+                write_legacy_shift_h5(path_fn(lpath), diff)
         if keep_arrays:
             arrays[shift] = (diff, ref_rows, alt_rows)
+    if distributed:
+        _merge_shift_shards(h5_paths)
     if keep_arrays:
         result.arrays = arrays
     return result

@@ -13,9 +13,10 @@ Each consensus sequence is encoded to int8 codes **once** and the 200
 windows are strided views of that array (the reference re-encodes 400,000
 bp of window text per sample, geuvadis_predict_consensus.py:93); all samples
 of a gene go through the runner's span paths together. The runner has every
-method these pipelines call, so they call them directly; single process
-(the multi-process gene sharding is not ported yet). h5py is imported only
-where a file is read or written, so the ``ref`` pipeline runs without it.
+method these pipelines call, so they call them directly. In a
+multi-process run each rank takes its ``host_row_range`` slice of the genes
+(parallel/dist.py). h5py is imported only where a file is read or written,
+so the ``ref`` pipeline runs without it.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..io.xgb import load_expression_model
 from ..models.gblinear import GBLinearModel
 from ..ops.decay import gene_pos_weights, project_features, pad_legacy_20030
 from ..ops.spans import CONV6_STRIDE, conv6_patch_sites_plan
+from ..parallel import dist
 from ..parallel.runner import BelugaRunner
 from .merge import natsorted
 
@@ -517,6 +519,7 @@ def predict_consensus_genes(
     shifts=None,
     progress: bool = False,
     chromatin_dtype=np.float32,
+    distribute: bool = True,
     features_only: bool = False,
 ) -> list[str]:
     """C18: per-gene, per-individual consensus expression prediction with
@@ -537,7 +540,9 @@ def predict_consensus_genes(
     resume therefore cannot use these genes.
 
     ``num_chunks``/``chunk_i`` keep the reference's file-level chunk
-    semantics."""
+    semantics. Without them, multi-process runs (``distribute``) shard the
+    gene list per rank; the outputs are per-gene directories, so nothing is
+    merged."""
     if features_only and exp_only:
         raise ValueError(
             "features_only and exp_only are mutually exclusive: exp_only re-scores "
@@ -558,12 +563,15 @@ def predict_consensus_genes(
         genes = list(np.array_split(np.array(genes, dtype=object), num_chunks)[chunk_i])
         if not genes:
             raise AssertionError("Gene split resulted in empty list")
+    elif distribute:
+        lo, hi = dist.host_row_range(len(genes))
+        genes = genes[lo:hi]
 
     import h5py
 
     done = []
     for gi, gene in enumerate(genes):
-        _progress(progress, "consensus genes", gi, len(genes))
+        _progress(progress and dist.is_primary(), "consensus genes", gi, len(genes))
         strand = genes_df.loc[gene, "strand"]
         if isinstance(strand, pd.Series):  # duplicate gene symbols in the annotation
             strand = strand.iloc[0]
@@ -640,6 +648,7 @@ def predict_consensus_for_top_eqtls(
     genes=None,
     shifts=None,
     progress: bool = False,
+    distribute: bool = True,
 ) -> pd.DataFrame:
     """C18 variant for the top-eQTL gene set
     (geuvadis_predict_consensus_for_top_eqtls.py:23-128): consensus samples
@@ -647,6 +656,11 @@ def predict_consensus_for_top_eqtls(
     embedded in each record id (field -2 of the '|' split), and the per-gene
     h5 additionally stores the 41,800-bp ExPecto receptive-field slice of
     every sample ('seqs') alongside 'preds' and 'record_ids'.
+
+    Multi-process runs shard the gene list per rank like
+    :func:`predict_consensus_genes` (per-gene directories, no merge); the
+    returned eqtls/vcf join comes from the input files, the same on every
+    rank.
 
     TSS indexing uses len(seq)//2 for both strands, matching the Enformer
     convention the main consensus script settled on
@@ -658,11 +672,14 @@ def predict_consensus_for_top_eqtls(
     bst = load_expression_model(expecto_model_path.strip())
     eqtls_df = merge_eqtls_with_vcf(eqtls_df_file, snps_vcf)
     genes = list(REFERENCE_TOP_EQTL_GENES) if genes is None else list(genes)
+    if distribute:
+        lo, hi = dist.host_row_range(len(genes))
+        genes = genes[lo:hi]
 
     import h5py
 
     for gi, gene in enumerate(genes):
-        _progress(progress, "top-eqtl genes", gi, len(genes))
+        _progress(progress and dist.is_primary(), "top-eqtl genes", gi, len(genes))
         g = gene.lower()
         preds_dir = f"{out_dir}/{g}"
         os.makedirs(preds_dir, exist_ok=True)
@@ -703,6 +720,7 @@ def predict_ref_all_genes(
     shifts=None,
     progress: bool = False,
     genes_per_call: int = 32,
+    distribute: bool = True,
 ) -> pd.DataFrame:
     """C19: reference-haplotype predictions for all genes -> ref_preds.csv
     (geuvadis_predict_ref_all_genes.py:23-106).
@@ -710,7 +728,11 @@ def predict_ref_all_genes(
     Genes are batched ``genes_per_call`` at a time through one runner call:
     the per-gene compute is a few ms, so per-gene calls would pay the fixed
     per-call cost 24,338 times on the full gene set. Writes only the CSV, so
-    it needs no h5py."""
+    it needs no h5py.
+
+    Multi-process runs (``distribute``) shard the genes per rank, write
+    ``ref_preds.csv`` shards and the primary concatenates them in shard
+    order (the rows of one process); every rank returns the merged table."""
     os.makedirs(out_dir, exist_ok=True)
     bst = load_expression_model(expecto_model_path.strip())
 
@@ -719,11 +741,15 @@ def predict_ref_all_genes(
     genes_df = genes_df.set_index("gene_symbol")
 
     gene_rows = list(zip(genes_df.index, genes_df["strand"]))
+    distributed = distribute and dist.process_info()[1] > 1
+    if distributed:
+        lo, hi = dist.host_row_range(len(gene_rows))
+        gene_rows = gene_rows[lo:hi]
 
     groups = [gene_rows[i : i + genes_per_call] for i in range(0, len(gene_rows), genes_per_call)]
     ref_preds_out = []
     for group in groups:
-        _progress(progress, "ref genes", len(ref_preds_out), len(gene_rows))
+        _progress(progress and dist.is_primary(), "ref genes", len(ref_preds_out), len(gene_rows))
         seqs = []
         for gene, strand in group:
             records = list(parse_fasta(f"{consensus_dir}/{gene.lower()}/ref.fa"))
@@ -734,11 +760,19 @@ def predict_ref_all_genes(
         feats = _match_features(_predict_consensus_features(runner, seqs, shifts), bst)
         ref_preds_out.extend(float(x) for x in bst.predict(feats))
 
+    csv_path = f"{out_dir}/ref_preds.csv"
     df = pd.DataFrame(
         {"genes": np.array([g for g, _ in gene_rows]), "ref_preds": np.array(ref_preds_out)}
     )
-    df.to_csv(f"{out_dir}/ref_preds.csv", header=True, index=False)
-    return df
+    if not distributed:
+        df.to_csv(csv_path, header=True, index=False)
+        return df
+    df.to_csv(dist.shard_path(csv_path), header=True, index=False)
+    dist.barrier("ref_all_genes.shards_written")
+    if dist.is_primary():
+        dist.merge_sharded_csv(csv_path, delete_shards=True)
+    dist.barrier("ref_all_genes.merged")
+    return pd.read_csv(csv_path)
 
 
 def sed_for_top_eqtls(

@@ -12,6 +12,10 @@ the host fetches one contiguous 41,800-bp span per gene and the runner's
 span forward (ops/spans.py) shares the conv stack across its windows. Genes
 are grouped by the window-offset signature of their strand and their spans
 fetched lazily, one block at a time.
+
+In a multi-process run each rank computes its ``host_row_range`` slice of
+the genes and the primary merges the shard ``.npy`` files in shard order
+(parallel/dist.py).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..analysis.atac import apply_peak_mask, get_atac_peak_bins
 from ..genome.fasta import FastaIndex
 from ..genome.windows import gene_shift_window_bounds, gene_shifts
 from ..ops.decay import gene_pos_weights, project_features
+from ..parallel import dist
 from ..parallel.runner import BelugaRunner
 
 
@@ -97,6 +102,23 @@ def _offset_groups(genes: list[GeneRecord], shifts: list[int], windowsize: int) 
     return groups
 
 
+def _npy_path(out_path) -> str:
+    """``out_path`` as np.save writes it (it appends ``.npy``): shard names
+    must agree with the file."""
+    path = str(out_path)
+    return path if path.endswith(".npy") else path + ".npy"
+
+
+def _merge_npy_shards(path: str, tag: str) -> np.ndarray:
+    """Once every rank's shard of ``path`` exists, the primary merges them
+    in shard order; every rank returns the merged matrix."""
+    dist.barrier(f"{tag}.shards_written")
+    if dist.is_primary():
+        dist.merge_sharded_npy(path, delete_shards=True)
+    dist.barrier(f"{tag}.merged")
+    return np.load(path)
+
+
 def compute_gene_features(
     genes: list[GeneRecord],
     genome: FastaIndex,
@@ -106,6 +128,7 @@ def compute_gene_features(
     out_path: str | os.PathLike | None = None,
     genes_per_chunk: int | None = None,
     progress: bool = False,
+    distribute: bool = True,
 ) -> np.ndarray:
     """(n_genes, 20020) decay-projected features
     (compute_expecto_features.py:103-128).
@@ -114,7 +137,21 @@ def compute_gene_features(
     runs through ``runner.predict_spans_project`` a block at a time: spans
     are fetched per block (about 42 KB a gene), not for the whole gene list.
     ``genes_per_chunk`` sets the block (default: 16 of the runner's device
-    chunks, at least 64 genes); it changes host memory, not the result."""
+    chunks, at least 64 genes); it changes host memory, not the result.
+
+    In a multi-process run (``distribute`` and ``out_path`` set) each rank
+    computes its ``host_row_range`` gene slice into a shard ``.npy``, the
+    primary merges them (replacing the reference's per-node chunked reruns
+    of compute_expecto_features.py), and every rank returns the merged
+    (n_genes, 20020) matrix."""
+    if distribute and out_path is not None and dist.process_info()[1] > 1:
+        lo, hi = dist.host_row_range(len(genes))
+        path = _npy_path(out_path)
+        compute_gene_features(
+            genes[lo:hi], genome, runner, windowsize=windowsize, out_path=dist.shard_path(path),
+            genes_per_chunk=genes_per_chunk, progress=progress and dist.is_primary(), distribute=False,
+        )
+        return _merge_npy_shards(path, "features")
     shifts = gene_shifts()
     pos_weights = gene_pos_weights(shifts)  # (10, 200)
     features = np.empty((len(genes), pos_weights.shape[0] * 2002), dtype=np.float32)
@@ -146,6 +183,7 @@ def compute_gene_features_atac(
     windowsize: int = 2000,
     out_path: str | os.PathLike | None = None,
     progress: bool = False,
+    distribute: bool = True,
 ) -> np.ndarray:
     """ATAC x predicted-ChIP intersect features (reference
     expecto_intersect_chip_atac.py:73-107): per gene, the fwd/RC-averaged
@@ -153,7 +191,16 @@ def compute_gene_features_atac(
     binary DeepSEA-style peak-bin mask before the decay projection.
 
     The mask is the same for both orientations, so masking the device's
-    average equals the reference's mask-then-average."""
+    average equals the reference's mask-then-average. Multi-process runs
+    shard the genes and merge like :func:`compute_gene_features`."""
+    if distribute and out_path is not None and dist.process_info()[1] > 1:
+        lo, hi = dist.host_row_range(len(genes))
+        path = _npy_path(out_path)
+        compute_gene_features_atac(
+            genes[lo:hi], genome, runner, peaks_by_chrom, chip_track_indices, windowsize=windowsize,
+            out_path=dist.shard_path(path), progress=progress and dist.is_primary(), distribute=False,
+        )
+        return _merge_npy_shards(path, "features_atac")
     shifts = gene_shifts()
     pos_weights = gene_pos_weights(shifts)
     features = np.empty((len(genes), pos_weights.shape[0] * 2002), dtype=np.float32)
@@ -177,10 +224,18 @@ def replicate_gene_features(
     *,
     windowsize: int = 2000,
     out_dir: str | os.PathLike | None = None,
+    distribute: bool = True,
 ) -> dict[str, np.ndarray]:
     """Raw per-gene (200, 2002) fwd/RC-averaged prediction matrices without
     projection (reference replicate_expecto_features.py:16-92), the input to
-    SVD/clustering; with ``out_dir``, one fp32 ``{gene_id}.npy`` per gene."""
+    SVD/clustering; with ``out_dir``, one fp32 ``{gene_id}.npy`` per gene.
+
+    The output is one file per gene, so multi-process runs need no merge:
+    each rank takes its ``host_row_range`` gene slice and returns only its
+    own matrices (the files form the complete set)."""
+    if distribute and out_dir is not None:
+        lo, hi = dist.host_row_range(len(genes))
+        genes = genes[lo:hi]
     out: dict[str, np.ndarray] = {}
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)

@@ -16,6 +16,11 @@ Two contracts:
   ``sed.tsv`` holds ``SED = pred(alt) - pred(ref)``; the ``--modelList``
   output holds the original ExPecto effect ``pred(0) - pred(diff)``, the
   opposite sign of the fused scorer's SED.
+
+In a multi-process run (parallel/mesh.py) every scorer takes its rank's
+``host_row_range`` block of the aligned (variant, gene) rows, the ranks
+exchange the per-row scalars exactly (``dist.exchange_row_blocks``), and
+the primary writes the output (replaces merge_predict_batched.py:10-30).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ..io.h5 import read_shift_h5_averaged
 from ..io.xgb import load_expression_model
 from ..models.gblinear import GBLinearModel
 from ..ops.decay import N_BASIS, pad_legacy_20030, project_features, variant_basis
+from ..parallel import dist
 from ..parallel.runner import fp32_wire_kw
 from ..utils.keep_mask import subset_features_by_mask
 from .chromatin import (
@@ -101,16 +107,39 @@ def align_variants_with_genes(
     effects = {k: np.repeat(v, repeats=repeats, axis=1) for k, v in effects.items()}
 
     if fixeddist == 0:
-        dist = -np.asarray(gene.iloc[:, -1])
+        distance = -np.asarray(gene.iloc[:, -1])
     else:
-        dist = np.full(gene.shape[0], fixeddist)
+        distance = np.full(gene.shape[0], fixeddist)
     return SedInputs(
         coor=coor_new,
-        dist=np.asarray(dist),
+        dist=np.asarray(distance),
         strand=np.asarray(gene.iloc[:, -3]),
         genename=np.asarray(gene.iloc[:, -2]),
         effects=effects,
     )
+
+
+def _host_slice_inputs(inputs: SedInputs) -> SedInputs:
+    """This rank's contiguous (variant, gene) row block of the aligned
+    inputs: the ``host_row_range`` slicing shared by the three scorers."""
+    lo, hi = dist.host_row_range(inputs.coor.shape[0])
+    return SedInputs(
+        coor=inputs.coor.iloc[lo:hi],
+        dist=inputs.dist[lo:hi],
+        strand=inputs.strand[lo:hi],
+        genename=inputs.genename[lo:hi],
+        effects={k: v[:, lo:hi] for k, v in inputs.effects.items()},
+    )
+
+
+def _primary_write(distributed: bool, barrier_tag: str, write_fn) -> None:
+    """Primary-only output write and a closing barrier, the end of every
+    distributed scorer (each rank holds the full table after the exchange;
+    one writes it)."""
+    if not distributed or dist.is_primary():
+        write_fn()
+    if distributed:
+        dist.barrier(barrier_tag)
 
 
 def _project(inputs: SedInputs, maxshift: int, keep_mask: np.ndarray | None, n_tracks: int, keys=None):
@@ -152,16 +181,24 @@ def score_sed(
     keep_mask: np.ndarray | None = None,
     fixeddist: int = 0,
     out_dir: str | os.PathLike | None = None,
+    distribute: bool = True,
 ) -> SedResult:
     """Single-model SED scoring -> sed.tsv and the two sorted tables (fork
-    contract, predict.py:249-280)."""
+    contract, predict.py:249-280).
+
+    Multi-process runs score each rank's row block, exchange the per-row
+    REF/ALT/SED scalars through exact npz shards in ``out_dir`` (required:
+    the exchange rides the shared filesystem), and every rank assembles the
+    same full table; the primary writes the files."""
     inputs = align_variants_with_genes(coor, gene, effects, fixeddist)
+    distributed = distribute and dist.process_info()[1] > 1 and out_dir is not None
+    local = _host_slice_inputs(inputs) if distributed else inputs
     have_refalt = "ref" in inputs.effects and "alt" in inputs.effects
     # fork-schema inputs (diff/ref/alt) report SED = ALT - REF only
     # (predict.py:264; the diff-based effect is dead code there), so the
     # diff tensor is not projected
     keys = ("ref", "alt") if have_refalt else ("diff",)
-    feats = _project(inputs, maxshift, keep_mask, n_tracks, keys=keys)
+    feats = _project(local, maxshift, keep_mask, n_tracks, keys=keys)
 
     def predict(X):
         return model.predict(_match_model_features(X, model, n_tracks))
@@ -179,6 +216,10 @@ def score_sed(
         ref = np.zeros_like(effect)
         alt = np.zeros_like(effect)
         sed = -effect
+
+    if distributed:
+        merged = dist.exchange_row_blocks({"ref": ref, "alt": alt, "sed": sed}, str(out_dir), "sed_rows")
+        ref, alt, sed = merged["ref"], merged["alt"], merged["sed"]
 
     df = inputs.coor.copy()
     df["dist"] = inputs.dist
@@ -205,10 +246,15 @@ def score_sed(
     by_prop = by_prop.sort_values(by="SED_PROPORTION", ascending=False)
 
     if out_dir is not None:
-        os.makedirs(out_dir, exist_ok=True)
-        df.to_csv(os.path.join(out_dir, "sed.tsv"), header=True, sep="\t", index=False)
-        by_mag.to_csv(os.path.join(out_dir, "sed_sorted_by_magnitude.tsv"), header=True, sep="\t", index=False)
-        by_prop.to_csv(os.path.join(out_dir, "sed_sorted_by_proportion.tsv"), header=True, sep="\t", index=False)
+
+        def _write():
+            os.makedirs(out_dir, exist_ok=True)
+            df.to_csv(os.path.join(out_dir, "sed.tsv"), header=True, sep="\t", index=False)
+            by_mag.to_csv(os.path.join(out_dir, "sed_sorted_by_magnitude.tsv"), header=True, sep="\t", index=False)
+            by_prop.to_csv(os.path.join(out_dir, "sed_sorted_by_proportion.tsv"), header=True, sep="\t",
+                           index=False)
+
+        _primary_write(distributed, "sed.outputs_written", _write)
     return SedResult(table=df, sorted_by_magnitude=by_mag, sorted_by_proportion=by_prop)
 
 
@@ -224,6 +270,7 @@ def score_sed_multimodel(
     fixeddist: int = 0,
     output_csv: str | os.PathLike | None = None,
     model_names: list[str] | None = None,
+    distribute: bool = True,
 ) -> pd.DataFrame:
     """Original-ExPecto multi-model contract: one log-fold-change column per
     tissue model, appended to the vcf columns (README.md:25-30). All model
@@ -231,9 +278,14 @@ def score_sed_multimodel(
     list scores as one matmul.
 
     Each column is the reference's effect ``pred(0) - pred(diff) =
-    -(X_diff @ w)`` (predict.py:156-157): minus the fused scorer's SED."""
+    -(X_diff @ w)`` (predict.py:156-157): minus the fused scorer's SED.
+    Multi-process runs score each rank's row block and exchange the per-row
+    model scalars exactly (see :func:`score_sed`) in ``output_csv``'s
+    directory; the primary writes ``output_csv``."""
     inputs = align_variants_with_genes(coor, gene, effects, fixeddist)
-    feats = _project(inputs, maxshift, keep_mask, n_tracks, keys=("diff",))
+    distributed = distribute and dist.process_info()[1] > 1 and output_csv is not None
+    local = _host_slice_inputs(inputs) if distributed else inputs
+    feats = _project(local, maxshift, keep_mask, n_tracks, keys=("diff",))
 
     models = [load_expression_model(p) for p in model_paths]
     n_feats = {m.n_features for m in models}
@@ -242,6 +294,10 @@ def score_sed_multimodel(
     X_diff = _match_model_features(feats["diff"], models[0], n_tracks)
     W = np.stack([m.weight for m in models], axis=1)  # (F, n_models)
     sed_all = -(X_diff @ W)  # (M_rows, n_models); the bias cancels in pred(0) - pred(diff)
+    if distributed:
+        sed_all = dist.exchange_row_blocks(
+            {"sed": sed_all}, os.path.dirname(str(output_csv)) or ".", "sed_multimodel"
+        )["sed"]
 
     df = inputs.coor.copy()
     df["dist"] = inputs.dist
@@ -251,7 +307,7 @@ def score_sed_multimodel(
     for j, name in enumerate(names):
         df[name] = sed_all[:, j]
     if output_csv is not None:
-        df.to_csv(output_csv, header=True, index=False)
+        _primary_write(distributed, "sed_multimodel.written", lambda: df.to_csv(output_csv, header=True, index=False))
     return df
 
 
@@ -334,6 +390,7 @@ def score_sed_serving(
     fixeddist: int = 0,
     model_names: list[str] | None = None,
     output_csv: str | os.PathLike | None = None,
+    distribute: bool = True,
 ) -> pd.DataFrame:
     """End-to-end fused SED serving: VCF -> spans -> Beluga (span-amortized,
     conv shared across shifts) -> on-device decay projection -> all models in
@@ -345,12 +402,24 @@ def score_sed_serving(
     variant like substitutions); span-INeligible rows (shift windows
     crossing a contig edge, allele lengths beyond the span crop arithmetic)
     take the reference's per-window path in-process.
+
+    Multi-process runs serve each rank's (variant, gene) row block, exchange
+    the per-row model scalars exactly in ``output_csv``'s directory, and the
+    primary writes ``output_csv``. A row's route does not depend on how the
+    table is sliced, but its chunk's other rows do, and the GEMMs may pick
+    another reduction order for another row count: rows agree with one
+    process within fp32 summation noise, not always bit for bit.
     """
+    # validate chromosomes on the full table, so every rank raises the same
+    # error (one rank dying on an unknown contig would hang the others at
+    # the exchange barrier)
     _require_known_chromosomes(genome, vcf.iloc[:, 0].astype(str).values)
 
     # align (variant, gene) rows exactly like the h5 path
     dummy = {"diff": np.zeros((1, vcf.shape[0], 1), np.float32)}
     inputs = align_variants_with_genes(vcf, gene, dummy, fixeddist)
+    distributed = distribute and dist.process_info()[1] > 1 and output_csv is not None
+    local = _host_slice_inputs(inputs) if distributed else inputs
 
     shifts = variant_shifts(maxshift)
     offsets = tuple(sh + maxshift for sh in shifts)
@@ -358,13 +427,13 @@ def score_sed_serving(
     half = int(inputsize / 2 - 1)
     mutpos = maxshift + half
 
-    chroms = inputs.coor.iloc[:, 0].astype(str).values
-    positions = inputs.coor.iloc[:, 1].astype(int).values
-    row_refs = inputs.coor.iloc[:, 3].astype(str).values
-    row_alts = inputs.coor.iloc[:, 4].astype(str).values
+    chroms = local.coor.iloc[:, 0].astype(str).values
+    positions = local.coor.iloc[:, 1].astype(int).values
+    row_refs = local.coor.iloc[:, 3].astype(str).values
+    row_alts = local.coor.iloc[:, 4].astype(str).values
     n = len(positions)
 
-    basis = variant_basis(inputs.dist, inputs.strand, shifts)  # (S, n, 10)
+    basis = variant_basis(local.dist, local.strand, shifts)  # (S, n, 10)
     W, bias = _stacked_models(model_paths)
     k = W.shape[1]
     REF = np.empty((n, k), dtype=np.float32)
@@ -433,6 +502,12 @@ def score_sed_serving(
         )
         REF[win_rows], ALT[win_rows], SED[win_rows] = R, A, S
 
+    if distributed:
+        merged = dist.exchange_row_blocks(
+            {"REF": REF, "ALT": ALT, "SED": SED}, os.path.dirname(str(output_csv)) or ".", "sed_serving"
+        )
+        REF, ALT, SED = merged["REF"], merged["ALT"], merged["SED"]
+
     df = inputs.coor.copy()
     df["dist"] = inputs.dist
     df["gene"] = inputs.genename
@@ -446,5 +521,5 @@ def score_sed_serving(
         cols[name] = SED[:, j]
     df = pd.concat([df, pd.DataFrame(cols, index=df.index)], axis=1)
     if output_csv is not None:
-        df.to_csv(output_csv, header=True, index=False)
+        _primary_write(distributed, "sed_serving.written", lambda: df.to_csv(output_csv, header=True, index=False))
     return df

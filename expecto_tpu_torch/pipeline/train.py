@@ -13,7 +13,11 @@ Shared semantics:
 The bootstrap and multi-tissue sweeps replace the reference's 1000x shell
 loops with one sweep of the deterministic trainer on the device
 (models/gblinear.py), K models per product. Each function trains on
-``device`` (default cuda; raises with no GPU) in one process.
+``device`` (default cuda; raises with no GPU). In a multi-process run
+(parallel/mesh.py) each rank trains on its ``host_row_range`` slice of the
+training genes through the all-reduced sharded trainers; weights are
+replicated, so every rank computes the same metrics, and only the primary
+writes files.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ from ..models.gblinear import (
     GBLinearParams,
     bootstrap_row_weights,
     train_gblinear,
-    train_gblinear_multi,
+    train_gblinear_multi_sharded,
+    train_gblinear_sharded,
 )
+from ..parallel import dist
 from ..utils.keep_mask import subset_features_by_mask
 from ..utils.plotting import r2_score
 
@@ -88,6 +94,7 @@ def train_expression_model(
     seed_resample: int | None = None,
     holdout_train: tuple = ("chrX", "chrY", "chr8"),
     verbose: bool = False,
+    distribute: bool = True,
     device="cuda",
 ) -> TrainResult:
     """Train one tissue model (reference train.py main).
@@ -100,6 +107,12 @@ def train_expression_model(
     ("train"), as the reference prints it (train.py:146-154). Early stopping
     never fires — the reference passes early_stopping_rounds where xgboost
     ignores it (train.py:140-146) — so all ``num_round`` rounds run.
+
+    In a multi-process run (``distribute``) each rank trains on its
+    ``host_row_range`` slice of the training genes
+    (:func:`train_gblinear_sharded`); the watchlist's sets are the full
+    test and train genes on every rank, and only the primary writes the
+    ``.save``/``.dump`` files.
     """
     hp = params or GBLinearParams()
     X = Xreducedall
@@ -123,13 +136,16 @@ def train_expression_model(
     X_tr, y_tr = X[tr_idx], labels[tr_idx].astype(np.float32)
     X_te, y_te = X[te], labels[te].astype(np.float32)
 
-    model = train_gblinear(
-        X_tr, y_tr, hp, evals=[(X_te, y_te, "eval"), (X_tr, y_tr, "train")], verbose=verbose, device=device
-    )
+    evals = [(X_te, y_te, "eval"), (X_tr, y_tr, "train")]
+    if distribute and dist.process_info()[1] > 1:
+        lo, hi = dist.host_row_range(len(tr_idx))
+        model = train_gblinear_sharded(X_tr[lo:hi], y_tr[lo:hi], hp, evals=evals, verbose=verbose, device=device)
+    else:
+        model = train_gblinear(X_tr, y_tr, hp, evals=evals, verbose=verbose, device=device)
     pred_te = model.predict(X_te)
     pred_tr = model.predict(X_tr)
 
-    if output_prefix is not None:
+    if output_prefix is not None and dist.is_primary():
         save_expression_model(model, str(output_prefix) + ".save")
         with open(str(output_prefix) + ".dump", "w") as f:
             f.write(dump_text(model))
@@ -157,7 +173,9 @@ def train_bootstrap(
     ``vectorized=True`` trains all seeds **simultaneously** on the device:
     with-replacement resampling is expressed as per-seed integer row weights
     (weighted least squares == training on the resampled rows), so K seeds
-    cost one sweep with (n, K) residual products instead of K sweeps.
+    cost one sweep with (n, K) residual products instead of K sweeps. In a
+    multi-process run the weights are drawn for all training genes, then
+    each rank takes its ``host_row_range`` rows of them.
     """
     if not vectorized:
         results = []
@@ -196,8 +214,12 @@ def train_bootstrap(
     te = np.nonzero(testind & filt)[0]
 
     y_tr = labels[tr].astype(np.float32)
-    multi = train_gblinear_multi(
-        X[tr], np.tile(y_tr[:, None], (1, len(seeds))), hp, row_weights=bootstrap_row_weights(len(tr), seeds),
+    row_w = bootstrap_row_weights(len(tr), seeds)
+    # this rank's rows (all of them in one process, where the sharded
+    # trainer is train_gblinear_multi bit for bit)
+    lo, hi = dist.host_row_range(len(tr))
+    multi = train_gblinear_multi_sharded(
+        X[tr[lo:hi]], np.tile(y_tr[lo:hi, None], (1, len(seeds))), hp, row_weights_local=row_w[lo:hi],
         verbose=verbose, device=device,
     )
 
@@ -209,7 +231,7 @@ def train_bootstrap(
     for j, seed in enumerate(seeds):
         model = GBLinearModel(weight=weights[j], bias=float(multi.biases[j]), base_score=hp.base_score)
         pred = model.predict(X_te)
-        if output_dir is not None:
+        if output_dir is not None and dist.is_primary():
             os.makedirs(output_dir, exist_ok=True)
             save_expression_model(model, os.path.join(output_dir, f"bootstrap_seed{seed}.save"))
             save_expression_model(model, os.path.join(output_dir, f"bootstrap_seed{seed}.dump"))
@@ -247,8 +269,9 @@ def train_all_tissues(
     The default train split holds out chr7 AND chr8, matching the reference
     multi-tissue trainer exactly (train_susztak.py:117-122; the single-model
     trainer holds out only chr8, train.py:127-129). ``vectorized=True``
-    trains all columns simultaneously via :func:`train_gblinear_multi` (one
-    sweep with (n, K) residual products); only rows where every column is
+    trains all columns simultaneously in one multi-model sweep
+    (:func:`train_gblinear_multi_sharded` over this rank's rows; (n, K)
+    residual products); only rows where every column is
     finite participate in that mode (the per-column mode keeps per-column
     finite filters). That mode scores every column's train and test genes
     with one (n, F) x (F, K) product on the host, not one einsum a model:
@@ -304,7 +327,9 @@ def train_all_tissues(
         tr = trainind & filt
         te = testind & filt
         X_tr, Y_tr = Xreducedall[tr], Y[tr]
-        multi = train_gblinear_multi(X_tr, Y_tr.astype(np.float32), hp, verbose=verbose, device=device)
+        lo, hi = dist.host_row_range(X_tr.shape[0])  # every row in one process
+        multi = train_gblinear_multi_sharded(X_tr[lo:hi], Y_tr[lo:hi].astype(np.float32), hp, verbose=verbose,
+                                             device=device)
         X_te, Y_te = Xreducedall[te], Y[te]
         offset = (hp.base_score + multi.biases).astype(np.float32)
         P_te = np.ascontiguousarray((np.asarray(X_te, np.float32) @ multi.weights + offset).T)
@@ -312,7 +337,7 @@ def train_all_tissues(
         weights = np.ascontiguousarray(multi.weights.T)
         for j, name in enumerate(names):
             model = GBLinearModel(weight=weights[j], bias=float(multi.biases[j]), base_score=hp.base_score)
-            if output_dir is not None:
+            if output_dir is not None and dist.is_primary():
                 os.makedirs(output_dir, exist_ok=True)
                 save_expression_model(model, os.path.join(output_dir, f"expecto_{name}.save"))
                 save_expression_model(model, os.path.join(output_dir, f"expecto_{name}.dump"))
@@ -333,7 +358,7 @@ def train_all_tissues(
             )
             _record(name, res)
 
-    if metrics_path is not None:
+    if metrics_path is not None and dist.is_primary():
         import h5py
 
         with h5py.File(metrics_path, "w") as f:

@@ -21,7 +21,10 @@ against its plain version bit for bit at (512, 1), (512, 128) and (512, 218)
 with padded rows, the hessian guard, L1 and ties, its wrapper's checks and
 launch count, and the trainers with the kernel against the same trainers
 with the plain version swapped in (bit for bit), against a second run and
-against the CPU.
+against the CPU; and multi-process runs: the backend and device rule on
+this machine's cards, and the row-sharded trainers as a 2-rank torchrun
+group on the card (two ranks share one card over gloo) against the 1-rank
+trainer.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -29,6 +32,8 @@ so it runs where JAX is absent; on such a machine pass ``--noconftest``
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_card.py
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -41,8 +46,9 @@ from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
 from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
 from expecto_tpu_torch.ops.decay import gene_pos_weights
 from expecto_tpu_torch.ops.spans import conv6_patch_sites_plan, conv6_phases, conv6_phases_patch_sites
+from expecto_tpu_torch.parallel import mesh
 from expecto_tpu_torch.parallel.runner import BelugaRunner
-from torch_port_common import narrow_params, random_codes, sed_atol
+from torch_port_common import DIST_WORKER, narrow_params, random_codes, sed_atol, torchrun
 
 pytestmark = pytest.mark.gpu
 
@@ -773,3 +779,46 @@ def test_trainers_on_card_match_cpu(cuda, train_problem):
     m_gpu, m_cpu = _train_multi(train_problem, "cuda"), _train_multi(train_problem, "cpu")
     np.testing.assert_allclose(m_gpu.weights, m_cpu.weights, rtol=0, atol=1e-5 * float(np.abs(m_cpu.weights).max()))
     np.testing.assert_allclose(m_gpu.biases, m_cpu.biases, rtol=0, atol=1e-5)
+
+
+def test_backend_and_device_rule_on_this_machine(cuda):
+    """Two local ranks: NCCL when each has a card, gloo when they share one;
+    the second rank's bare ``cuda`` is card 1 % cards."""
+    cards = torch.cuda.device_count()
+    assert mesh.choose_backend("cuda", 2, cards) == ("nccl" if cards >= 2 else "gloo")
+    assert mesh.choose_backend("cuda", 1, cards) == "nccl"
+    assert mesh.rank_device(torch.device("cuda"), 1, cards) == torch.device("cuda", 1 % cards)
+    assert mesh.local_device("cuda") == torch.device("cuda", 0)
+
+
+def test_two_rank_sharded_trainer_on_the_card_matches_one_rank(cuda, train_problem, tmp_path):
+    """The sharded trainers as a 2-rank group on the card (this rule's
+    backend, one card shared over gloo where there is one) against
+    train_gblinear_multi on the card at one rank: weights within 1e-5 of
+    max|w|, biases 1e-6, watchlist 1e-5; the coordinate-update kernel ran
+    once a block a round on each rank, and the identity all-reduce misses."""
+    X, y, Xe, ye = train_problem
+    rounds, block = 10, 512
+    Y8 = np.stack([y + 0.1 * j for j in range(8)], axis=1).astype(np.float32)
+    rw8 = gblinear.bootstrap_row_weights(len(y), list(range(8)))
+    np.savez(tmp_path / "inputs.npz", X=X, y1=y, Y8=Y8, rw8=rw8, Xe=Xe, ye=ye)
+    cfg = {"inputs": str(tmp_path / "inputs.npz"), "out": str(tmp_path / "out.npz"), "num_round": rounds,
+           "block_size": block, "alpha": 0.5, "device": "cuda"}
+    torchrun([DIST_WORKER, "train", json.dumps(cfg)], backend=mesh.choose_backend("cuda", 2, torch.cuda.device_count()),
+             timeout=600)
+    got = np.load(tmp_path / "out.npz")
+    hp = gblinear.GBLinearParams(num_round=rounds, block_size=block, reg_alpha=0.5)
+    k1 = gblinear.train_gblinear_multi(X, y, hp, device="cuda")
+    k8 = gblinear.train_gblinear_multi(X, Y8, hp, row_weights=rw8, device="cuda")
+    n_blocks = -(-X.shape[1] // block)
+    assert int(got["k1_launches"]) == rounds * n_blocks
+    assert int(got["k1_calls"]) == 3 + rounds * (1 + n_blocks)
+    for prefix, sound in (("", True), ("identity_", False)):
+        gaps = [np.abs(got[f"{prefix}k1_w"] - k1.weights[:, 0]).max() / np.abs(k1.weights).max(),
+                np.abs(got[f"{prefix}k8_w"] - k8.weights).max() / np.abs(k8.weights).max(),
+                10 * abs(float(got[f"{prefix}k1_b"]) - float(k1.biases[0])),
+                10 * np.abs(got[f"{prefix}k8_b"] - k8.biases).max()]
+        assert (max(gaps) <= 1e-5) == sound, (prefix, gaps)
+    single = gblinear.train_gblinear(X, y, hp, evals=[(Xe, ye, "eval"), (X, y, "train")], device="cuda")
+    for name in ("eval", "train"):
+        np.testing.assert_allclose(got[f"k1_hist_{name}"], single.eval_history[name], rtol=0, atol=1e-5)

@@ -29,7 +29,8 @@ def test_every_port_module_imports_without_jax():
                 "expecto_tpu_torch.pipeline.consensus", "expecto_tpu_torch.pipeline.merge",
                 "expecto_tpu_torch.cli.consensus", "expecto_tpu_torch.models.gblinear",
                 "expecto_tpu_torch.ops.gblinear_cd", "expecto_tpu_torch.pipeline.train",
-                "expecto_tpu_torch.utils.plotting", "expecto_tpu_torch.cli.train"]
+                "expecto_tpu_torch.utils.plotting", "expecto_tpu_torch.cli.train",
+                "expecto_tpu_torch.parallel.dist", "expecto_tpu_torch.parallel.mesh"]
     assert set(required) <= set(mods)
     code = (
         "import sys, importlib\n"

@@ -2,6 +2,10 @@
 Beluga weights and serving tables, made from a seed with numpy so the JAX
 package and its PyTorch port see the same numbers."""
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -104,3 +108,22 @@ def write_models(dirpath, save_xgb07_binary, GBLinearModel, n_models: int = 2, s
         save_xgb07_binary(model, path)
         paths.append(path)
     return paths
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: one rank of the 2-process groups of the tests/test_torch_dist*.py files
+DIST_WORKER = os.path.join(REPO, "tests", "torch_dist_worker.py")
+
+
+def torchrun(target: list[str], backend: str = "gloo", timeout: int = 180) -> None:
+    """``target`` (``-m module args`` or ``script args``) as a 2-rank torchrun
+    group (``--standalone``: the rendezvous takes a port the OS chooses, so
+    concurrent groups cannot collide), whose ranks must each join a group
+    of ``backend``."""
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                          *target], cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-8000:]
+    assert res.stderr.count(f"backend {backend}") == 2, res.stderr[-8000:]
