@@ -107,12 +107,20 @@ Phases (any failure raises, and the script exits non-zero with no result):
    blocks: the coordinate-update kernel against its plain version bit for
    bit at (512, 1), (512, 128) and (512, 218) (padded rows, the 1e-5
    guard, L1, ties), timed beside it and its bound; one tissue with its
-   watchlist (``train_expression_model``), equal bit for bit to a second
-   run and to the same trainer with the plain version swapped in; all 218
-   tissues in one sweep (``train_all_tissues``); 128 bootstrap seeds through
-   ``python -m expecto_tpu_torch.cli.train`` (its ``main``), each seed's
-   ``.save`` equal to the in-process sweep. Each call's launches are
-   zeroed just before it and checked just after (40 a round), and each is
+   watchlist (``train_expression_model``), which launches the round kernel
+   once a round and the coordinate update never, equal bit for bit to a
+   second run and, with the plain round (the per-block loop) swapped in,
+   within 1e-5 of max|w| (weights), 1e-6 (bias) and 1e-5 (RMSE history),
+   limits that the plain round with a stale residual (r not advanced after
+   the first block) must miss; the round kernel at the published shape
+   against the plain round over one round (and a bit-equal rerun), timed
+   beside the plain round, a CUDA-graph replay of the plain round (a
+   yardstick of what removing the launches alone buys) and its bound; all
+   218 tissues in one sweep (``train_all_tissues``); 128 bootstrap seeds
+   through ``python -m expecto_tpu_torch.cli.train`` (its ``main``), each
+   seed's ``.save`` equal to the in-process sweep. Each call's launches are
+   zeroed just before it and checked just after (one round kernel a round
+   at K = 1, 40 coordinate updates a round at K = 218 and 128), and each is
    profiled once for its time a round, the block sweep's kernels and the
    card's idle share. Then the card against the CPU on 2,048 rows, 8
    tissues and 20 rounds with an L1 weight, within 1e-5 of max|w|, which
@@ -150,6 +158,7 @@ to ``DIR/chip_smoke.json``. Inputs and built kernels go under ``build/``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import io
 import json
 import statistics
@@ -302,6 +311,11 @@ TRAIN_CHROMS = {"chr8": 900, "chrX": 820, "chrY": 60, "chr7": 1_100}
 # weights of about 1)
 TRAIN_SMALL_ROWS, TRAIN_SMALL_K, TRAIN_SMALL_ROUNDS, TRAIN_SMALL_ALPHA = 2_048, 8, 20, 20.0
 TRAIN_CPU_RTOL = 1e-5
+# the round kernel (K = 1) against the plain round (the per-block loop) on
+# the card, whole training calls and single rounds: fp32 products summed in
+# another order, so the card-vs-CPU limits (tests/test_torch_card.py):
+# weights over max|w|, the bias, and the per-round RMSE
+TRAIN_ROUND_LIMITS = {"w_over_max_w": 1e-5, "bias": 1e-6, "rmse": 1e-5}
 # a smoke test that the models learned the labels' signal: unrelated
 # predictions of the 900 chr8 genes would read about 0 +- 0.03 (a model at
 # a tenth of the width, trained on the CPU, read 0.37)
@@ -2149,9 +2163,10 @@ def _round_trace(prof, rounds: int) -> dict:
     """From a ``torch.profiler`` run of one training call: each round's
     device range (the ``gblinear_round`` annotation: first kernel to last),
     the card's busy time inside those ranges (the union of kernel and copy
-    intervals) and its kernel time by kind: the coordinate-update kernel,
-    torch's elementwise and reduction kernels, and the products (every
-    other kernel: cuBLAS's GEMV/GEMM); and the whole call's busy time."""
+    intervals) and its kernel time by kind: the round kernel, the
+    coordinate-update kernel, torch's elementwise and reduction kernels, and
+    the products (every other kernel: cuBLAS's GEMV/GEMM); and the whole
+    call's busy time."""
     ranges, dev = [], []
     for ev in profiled_events(prof):
         (ranges if ev[2] == "gblinear_round" else dev).append(ev)
@@ -2167,7 +2182,7 @@ def _round_trace(prof, rounds: int) -> dict:
                 last = e
         return busy
 
-    by_kind = {"gblinear_cd": 0.0, "elementwise": 0.0, "products": 0.0, "copies": 0.0}
+    by_kind = {"gblinear_round": 0.0, "gblinear_cd": 0.0, "elementwise": 0.0, "products": 0.0, "copies": 0.0}
     inside = []
     j = 0
     dev.sort()
@@ -2176,8 +2191,9 @@ def _round_trace(prof, rounds: int) -> dict:
             j += 1
         if j < len(ranges) and ranges[j][0] <= s and e <= ranges[j][1]:
             inside.append((s, e))
-            kind = ("gblinear_cd" if "gblinear_cd" in name else "copies" if "Memcpy" in name or "Memset" in name
-                    else "elementwise" if "at::native" in name else "products")
+            kind = next((k for k in ("gblinear_round", "gblinear_cd") if k in name), None) or (
+                "copies" if "Memcpy" in name or "Memset" in name else "elementwise" if "at::native" in name
+                else "products")
             by_kind[kind] += (e - s) / 1e3
     sweep_ms = sum(e - s for s, e, _ in ranges) / 1e3
     busy_ms = union(inside) / 1e3
@@ -2204,23 +2220,25 @@ def _profiled_train_call(fn, rounds: int):
     return res, trace
 
 
-def _launch_checked(fn, launches: int, what: str):
+def _launch_checked(fn, what: str, *, rounds: int = 0, blocks: int = 0):
     """``fn()`` timed on the host clock (ending in a synchronize), with the
-    coordinate-update kernel's count zeroed just before and read just after:
-    it must be ``launches``."""
+    round kernel's and the coordinate-update kernel's counts zeroed just
+    before and read just after: they must be ``rounds`` and ``blocks``."""
     import torch
 
-    from expecto_tpu_torch.ops import gblinear_cd
+    from expecto_tpu_torch.ops import gblinear_cd, gblinear_round
 
     torch.cuda.synchronize()
     gblinear_cd.reset_launch_counts()
+    gblinear_round.reset_launch_counts()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = gblinear_cd.coord_update.launches
-    if got != launches:
-        raise AssertionError(f"{what}: {got} coordinate-update launches, expected {launches} (blocks x rounds)")
+    got = (gblinear_round.gblinear_round.launches, gblinear_cd.coord_update.launches)
+    if got != (rounds, blocks):
+        raise AssertionError(f"{what}: {got[0]} round-kernel and {got[1]} coordinate-update launches, expected "
+                             f"{rounds} and {blocks}")
     return res, wall
 
 
@@ -2231,21 +2249,135 @@ def _log_train_call(what: str, c: dict, card: str) -> None:
             f"{k} {v:.1f} ms" for k, v in c["kernel_ms_by_kind"].items()) + f"; launches {c['launches']} [{card}]")
 
 
+def stale_residual_round(Xt, col_hess, w_blocks, bias, r, scratch, denom, eta, lam, alpha, *, update):
+    """A planted fault: the plain round (ops/gblinear_round.py) with r left
+    unadvanced after the first block, so the second block's gradient is
+    stale. Swapped in for ``models/gblinear.gblinear_round``."""
+    db = eta * (-r.sum() / denom)
+    bias += db
+    r += db
+    for i, (Xb, hb, wb) in enumerate(zip(Xt, col_hess, w_blocks)):
+        dw = update(Xb @ r, hb, wb, eta, lam, alpha)
+        if i != 0:
+            r += dw @ Xb
+
+
+def _model_gaps(want, got) -> dict:
+    """A single-model training run against another: weights over max|w|
+    of ``want``, the bias and the per-round RMSE of every watchlist set."""
+    import numpy as np
+
+    return {"w_over_max_w": float(np.abs(got.weight - want.weight).max() / np.abs(want.weight).max()),
+            "bias": abs(float(got.bias) - float(want.bias)),
+            "rmse": max(float(np.abs(np.subtract(got.eval_history[k], want.eval_history[k])).max())
+                        for k in want.eval_history)}
+
+
+def _within_train_limits(gaps: dict) -> bool:
+    return all(gaps[k] <= v for k, v in TRAIN_ROUND_LIMITS.items())
+
+
+def _gaps_text(gaps: dict) -> str:
+    return ", ".join(f"{k} {gaps[k]:.3g} (limit {v:g})" for k, v in TRAIN_ROUND_LIMITS.items())
+
+
+def train_round_phase(out: dict, X, n_rows: int, card: str) -> None:
+    """The round kernel at the published shape: the first ``n_rows`` rows of
+    the features (the K = 1 call's training-row count), 40 blocks of 512,
+    the reference's hyperparameters. One round from zero weights against the
+    plain round on the same inputs (weights, bias and the RMSE of r within
+    TRAIN_ROUND_LIMITS) and against a rerun (bit for bit); then timed with
+    CUDA events, the state advancing round by round, in turns beside the
+    plain round (the per-block loop: two GEMVs, the coordinate-update kernel
+    and an add a block), a CUDA-graph replay of one plain round (a
+    yardstick: what removing the launches alone buys) and the bound (X, the
+    hessians and the weights read once; the weights, bias and r written
+    once; 4 flops an element of X)."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.models import gblinear
+    from expecto_tpu_torch.ops import cuda_build
+    from expecto_tpu_torch.ops.gblinear_cd import coord_update
+    from expecto_tpu_torch.ops.gblinear_round import gblinear_round, gblinear_round_plain, round_ctas, round_scratch
+
+    hp = gblinear.GBLinearParams()
+    Xt, n_blocks = gblinear._pad_blocks(torch.from_numpy(X[:n_rows]).to(DEVICE).T, hp.block_size)
+    hess = torch.stack([Xb.double().square().sum(1) for Xb in Xt]).float()
+    r0 = torch.randn(n_rows, generator=torch.Generator(device=DEVICE).manual_seed(10), device=DEVICE)
+    denom, scratch, args = float(n_rows), round_scratch(Xt), (hp.eta, hp.reg_lambda, hp.reg_alpha)
+
+    def state():
+        return torch.zeros((n_blocks, hp.block_size), device=DEVICE), torch.zeros(1, device=DEVICE), r0.clone()
+
+    runs = {}
+    for tag, fn in (("kernel", gblinear_round), ("again", gblinear_round), ("plain", gblinear_round_plain)):
+        w, b, r = state()
+        fn(Xt, hess, w, b, r, scratch, denom, *args, update=coord_update)
+        torch.cuda.synchronize()
+        runs[tag] = (w, b, r)
+    if not all(torch.equal(a.view(torch.int32), z.view(torch.int32)) for a, z in zip(runs["kernel"], runs["again"])):
+        raise AssertionError("the round kernel differs from a rerun on the same inputs")
+    (wk, bk, rk), (wp, bp, rp) = runs["kernel"], runs["plain"]
+    gaps = {"w_over_max_w": float((wk - wp).abs().max() / wp.abs().max()), "bias": float((bk - bp).abs().max()),
+            "rmse": float((rk.square().mean().sqrt() - rp.square().mean().sqrt()).abs())}
+    if not _within_train_limits(gaps):
+        raise AssertionError(f"one round: the round kernel vs the plain round {gaps} exceeds {TRAIN_ROUND_LIMITS}")
+    row = {"n": n_rows, "n_blocks": n_blocks, "B": hp.block_size, "gaps_vs_plain": gaps,
+           "max_abs_err": float((wk - wp).abs().max()), "r_max_abs_err": float((rk - rp).abs().max())}
+    del runs
+
+    w, b, r = state()
+    calls = {"ms": lambda: gblinear_round(Xt, hess, w, b, r, scratch, denom, *args),
+             "plain_ms": lambda: gblinear_round_plain(Xt, hess, w, b, r, None, denom, *args, update=coord_update)}
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls["plain_ms"]()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        calls["plain_ms"]()
+    calls["graph_ms"] = graph.replay
+    times = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            times[k].append(cuda_ms(calls[k], reps=5 if k == "plain_ms" else 20, warmup=2))
+    row.update({k: min(v) for k, v in times.items()}, times=times)
+    row.update(_bound(4.0 * (Xt.numel() + 3 * w.numel() + 2 * n_rows + 2), 4.0 * Xt.numel(), "fp32"))
+    if not bool(torch.isfinite(w).all() and torch.isfinite(r).all()):
+        raise AssertionError("the timed rounds left non-finite weights or residuals")
+    smem = cuda_build.load("gblinear_round").gblinear_round_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    row["smem_bytes"], row["ctas"] = smem(n_rows, hp.block_size), round_ctas(torch.cuda.current_device(), n_rows,
+                                                                             hp.block_size)
+    out["round"] = row
+    del graph, Xt, hess
+    torch.cuda.empty_cache()
+    log(f"kernel gblinear_round ({n_blocks} blocks of {hp.block_size} x {n_rows} rows): {row['ms']:.3f} ms a round, "
+        f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f} % of it); plain "
+        f"round {row['plain_ms']:.3f} ms, CUDA graph of the plain round {row['graph_ms']:.3f} ms; one round vs the "
+        f"plain round: " + _gaps_text(gaps) + f"; a rerun equal bit for bit; {row['ctas']} CTAs of "
+        f"{row['smem_bytes']} bytes of dynamic shared memory [{card}]")
+
+
 def train_phase(report: dict, card: str, seed: int) -> None:
-    """gblinear training at the published width: the kernel checks; three
-    timed calls (one tissue with its watchlist, K = 1; all 218 tissues in
-    one sweep; 128 bootstrap seeds through the CLI), each launch-checked and
-    profiled once for its round time and idle share; the kernel against the
-    plain version swapped in and against a second run, bit for bit; the
-    CLI's models against the in-process sweep; card vs CPU on a reduced
-    problem with two planted faults."""
+    """gblinear training at the published width: the coordinate-update
+    kernel's checks; three timed calls (one tissue with its watchlist, K =
+    1, on the round kernel; all 218 tissues in one sweep; 128 bootstrap
+    seeds through the CLI), each launch-checked and profiled once for its
+    round time and idle share; K = 1 against a second run (bit for bit), the
+    plain round swapped in (within TRAIN_ROUND_LIMITS) and a planted stale
+    residual (beyond them); the round kernel at the published shape
+    (:func:`train_round_phase`); the CLI's models against the in-process
+    sweep; card vs CPU on a reduced problem with two planted faults."""
     import numpy as np
     import torch
 
     from expecto_tpu_torch.cli import train as train_cli
     from expecto_tpu_torch.io.xgb import load_expression_model
     from expecto_tpu_torch.models import gblinear
-    from expecto_tpu_torch.ops.gblinear_cd import coord_update, coord_update_plain
+    from expecto_tpu_torch.ops.gblinear_round import gblinear_round, gblinear_round_plain
     from expecto_tpu_torch.pipeline import train as ptrain
 
     torch.cuda.empty_cache()
@@ -2255,47 +2387,52 @@ def train_phase(report: dict, card: str, seed: int) -> None:
     out["inputs_s"] = time.perf_counter() - t0
     X, geneanno, expression = inp["X"], inp["geneanno"], inp["expression"]
     n_blocks = -(-TRAIN_FEATURES // gblinear.GBLinearParams().block_size)
-    f_pad = n_blocks * gblinear.GBLinearParams().block_size
     launches = n_blocks * TRAIN_ROUNDS
     log(f"train inputs: {X.shape} features, {expression.shape[1] - 1} tissues ({out['inputs_s']:.1f} s)")
     train_kernel_phase(out)
 
-    # one tissue, its watchlist on: the kernel's run, a rerun, and the plain version swapped in
+    # one tissue, its watchlist on: the round kernel's run, a rerun, the plain round swapped in, a planted fault
     def one_tissue():
         return ptrain.train_expression_model(X, geneanno, expression.iloc[:, 1].values, device=DEVICE)
 
-    k1, wall = _launch_checked(one_tissue, launches, "train_expression_model")
-    gblinear.coord_update = coord_update_plain
+    k1, wall = _launch_checked(one_tissue, "train_expression_model", rounds=TRAIN_ROUNDS)
+    gblinear.gblinear_round = gblinear_round_plain
     try:
-        k1_plain, wall_plain = _launch_checked(one_tissue, 0, "train_expression_model, plain version")
+        k1_plain, wall_plain = _launch_checked(one_tissue, "train_expression_model, plain round", blocks=launches)
+        gblinear.gblinear_round = stale_residual_round
+        k1_stale, _ = _launch_checked(one_tissue, "train_expression_model, stale residual", blocks=launches)
     finally:
-        gblinear.coord_update = coord_update
+        gblinear.gblinear_round = gblinear_round
     k1_again, c = _profiled_train_call(one_tissue, TRAIN_ROUNDS)
-    for other, what in ((k1_again, "a second run"), (k1_plain, "the plain version swapped in")):
-        if not (np.array_equal(other.model.weight, k1.model.weight) and other.model.bias == k1.model.bias
-                and other.model.eval_history == k1.model.eval_history):
-            raise AssertionError(f"train_expression_model with the kernel differs from {what}")
+    if not (np.array_equal(k1_again.model.weight, k1.model.weight) and k1_again.model.bias == k1.model.bias
+            and k1_again.model.eval_history == k1.model.eval_history):
+        raise AssertionError("train_expression_model with the round kernel differs from a second run")
+    gaps = {what: _model_gaps(k1.model, other.model) for what, other in (("plain", k1_plain), ("stale", k1_stale))}
+    if not _within_train_limits(gaps["plain"]):
+        raise AssertionError(f"train_expression_model: the round kernel vs the plain round {gaps['plain']} exceeds "
+                             f"{TRAIN_ROUND_LIMITS}")
+    if _within_train_limits(gaps["stale"]):
+        raise AssertionError(f"the planted stale residual stays within {TRAIN_ROUND_LIMITS}: {gaps['stale']}")
     n_tr = len(k1.train_true)
-    c.update(wall_s=wall, wall_plain_s=wall_plain, launches=launches, train_genes=n_tr,
-             test_genes=len(k1.test_true), spearman=k1.spearman)
-    c["products_gb_per_s"] = 2 * 4 * f_pad * n_tr * TRAIN_ROUNDS / (c["kernel_ms_by_kind"]["products"] * 1e6)
-    c["products_share_of_peak_bytes"] = c["products_gb_per_s"] * 1e9 / PEAK_BYTES
+    c.update(wall_s=wall, wall_plain_s=wall_plain, launches=TRAIN_ROUNDS, launches_gblinear_cd=0, train_genes=n_tr,
+             test_genes=len(k1.test_true), spearman=k1.spearman, gaps_vs_plain=gaps["plain"],
+             gaps_stale_fault=gaps["stale"], round_kernel_ms=c["kernel_ms_by_kind"]["gblinear_round"] / TRAIN_ROUNDS)
     out["k1"] = c
     _log_train_call(f"train_expression_model (1 tissue, {n_tr} train genes, watchlist on)", c, card)
-    log(f"  equal bit for bit to a second (profiled) run and to the plain version swapped in (wall "
-        f"{wall_plain:.3f} s); block-sweep products {c['products_gb_per_s']:.1f} GB/s "
-        f"({100 * c['products_share_of_peak_bytes']:.1f} % of {PEAK_BYTES / 1e12:.2f} TB/s); chr8 spearman "
-        f"{k1.spearman:.4f}")
+    log(f"  equal bit for bit to a second (profiled) run; the plain round swapped in (wall {wall_plain:.3f} s): "
+        + _gaps_text(gaps["plain"]) + "; the plain round with a stale residual: " + _gaps_text(gaps["stale"])
+        + f"; the round kernel {c['round_kernel_ms']:.3f} ms a round on the card; chr8 spearman {k1.spearman:.4f}")
     if not (np.isfinite(k1.model.weight).all() and k1.spearman > TRAIN_MIN_SPEARMAN):
         raise AssertionError(f"one-tissue model: finite weights and a chr8 Spearman above {TRAIN_MIN_SPEARMAN} "
                              f"expected, got {k1.spearman}")
-    del k1_again, k1_plain
+    del k1_again, k1_plain, k1_stale
+    train_round_phase(out, X, n_tr, card)
 
     # every tissue in one sweep
     def all_tissues():
         return ptrain.train_all_tissues(X, geneanno, expression, vectorized=True, metrics_path=None, device=DEVICE)
 
-    allt, wall = _launch_checked(all_tissues, launches, "train_all_tissues(vectorized=True)")
+    allt, wall = _launch_checked(all_tissues, "train_all_tissues(vectorized=True)", blocks=launches)
     allt_again, c = _profiled_train_call(all_tissues, TRAIN_ROUNDS)
     names = list(allt)
     if names != list(expression.columns[1:]) or not all(
@@ -2304,6 +2441,7 @@ def train_phase(report: dict, card: str, seed: int) -> None:
     n_tr = len(allt[names[0]].train_true)
     c.update(wall_s=wall, launches=launches, train_genes=n_tr, tissues=len(names),
              spearman_median=float(np.median([r.spearman for r in allt.values()])))
+    f_pad = n_blocks * gblinear.GBLinearParams().block_size
     c["products_tflop_per_s"] = 4 * f_pad * n_tr * len(names) * TRAIN_ROUNDS / (c["kernel_ms_by_kind"]["products"]
                                                                                 * 1e9)
     c["products_share_of_peak_fp32"] = c["products_tflop_per_s"] * 1e12 / PEAK_FLOPS["fp32"]
@@ -2323,7 +2461,7 @@ def train_phase(report: dict, card: str, seed: int) -> None:
     argv = ["--targetIndex", "1", "--bootstrap_seeds", str(TRAIN_BOOT_SEEDS), "--expFile",
             str(inp["dir"] / "expression.csv"), "--inputFile", str(inp["dir"] / "Xreducedall.npy"),
             "--annoFile", str(inp["dir"] / "geneanno.csv"), "--output_dir", str(boot_dir), "--device", DEVICE]
-    rc, wall = _launch_checked(lambda: train_cli.main(argv), launches, "cli.train --bootstrap_seeds")
+    rc, wall = _launch_checked(lambda: train_cli.main(argv), "cli.train --bootstrap_seeds", blocks=launches)
     if rc != 0:
         raise AssertionError(f"cli.train --bootstrap_seeds exited {rc}")
 
@@ -2394,24 +2532,46 @@ def train_cpu_check(out: dict, X, expression) -> None:
 
 def gblinear_cd_entry(train: dict, mp_train: dict) -> dict:
     """The kernel line's entry of the coordinate-update kernel: its time on
-    the card, its plain version's and its bound at the one-tissue call's
-    shape (512, 1), whose timed run gives ``launches``; the times a call
-    back to back (``call_ms``); the same at K = 128 and 218 and the launches
-    of the other two timed calls beside them, and of each rank of the
-    2-rank bootstrap run."""
+    the card, its plain version's and its bound at the all-tissue call's
+    shape (512, 218), whose timed run gives ``launches``; the times a call
+    back to back (``call_ms``); the same at K = 1 (the shape of the per-block
+    loop that the round kernel replaced, now the plain round's) and 128, and
+    the launches of the bootstrap call and of each rank of the 2-rank
+    bootstrap run. The K = 1 call launches it no more."""
     cd = {r["K"]: r for r in train["cd_layers"]}
     return {
         "name": "gblinear_cd", "route": "cuda", "source": "expecto_tpu_torch/csrc/gblinear_cd.cu",
         "replaces": "expecto_tpu/models/gblinear.py:92",
         "replaces_what": "_coord_delta with the eta scale and weight update of the block steps (:125-127, "
                          ":249-251): an XLA fusion, no pallas_call",
-        "launches": train["k1"]["launches"], "max_abs_err": max(r["max_abs_err"] for r in cd.values()),
-        "ms": cd[1]["ms"], "plain_ms": cd[1]["plain_ms"], "bound_ms": cd[1]["bound_ms"], "bound_by": cd[1]["bound_by"],
-        "library_ms": None, "shape": [cd[1]["B"], 1], "call_ms": cd[1]["call_ms"],
-        "plain_call_ms": cd[1]["plain_call_ms"],
-        **{f"{key}_k{k}": cd[k][key] for k in (128, 218) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
-        "launches_k218": train["k218"]["launches"], "launches_bootstrap_k128": train["boot"]["launches"],
+        "launches": train["k218"]["launches"], "max_abs_err": max(r["max_abs_err"] for r in cd.values()),
+        "ms": cd[218]["ms"], "plain_ms": cd[218]["plain_ms"], "bound_ms": cd[218]["bound_ms"],
+        "bound_by": cd[218]["bound_by"], "library_ms": None, "shape": [cd[218]["B"], 218],
+        "call_ms": cd[218]["call_ms"], "plain_call_ms": cd[218]["plain_call_ms"],
+        **{f"{key}_k{k}": cd[k][key] for k in (1, 128) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
+        "launches_k1": train["k1"]["launches_gblinear_cd"], "launches_bootstrap_k128": train["boot"]["launches"],
         "launches_bootstrap_k128_per_rank_of_2": [r["gblinear_cd"] for r in mp_train["sound"]["ranks"]],
+    }
+
+
+def gblinear_round_entry(train: dict) -> dict:
+    """The kernel line's entry of the round kernel: its time a round at the
+    published shape beside its bound, the plain round's (the per-block
+    loop) and a CUDA-graph replay of the plain round (``graph_ms``, a
+    yardstick); ``launches`` from the one-tissue call's timed run, and the
+    card's time for the kernel a round inside that call (profiled). No
+    single PyTorch call computes a round."""
+    row, k1 = train["round"], train["k1"]
+    return {
+        "name": "gblinear_round", "route": "cuda", "source": "expecto_tpu_torch/csrc/gblinear_round.cu",
+        "replaces": "expecto_tpu/models/gblinear.py:104",
+        "replaces_what": "_round_body's one_round (:104-132, jitted at :169): the XLA program of one round of the "
+                         "K = 1 sweep, no pallas_call",
+        "launches": k1["launches"], "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None, "graph_ms": row["graph_ms"],
+        "shape": [row["n_blocks"], row["B"], row["n"]], "r_max_abs_err": row["r_max_abs_err"],
+        "in_call_ms": k1["round_kernel_ms"], "gaps_vs_plain_round": row["gaps_vs_plain"],
+        "gaps_k1_call_vs_plain": k1["gaps_vs_plain"],
     }
 
 
@@ -2484,7 +2644,8 @@ def _rank_routes(ranks: list, dtype: str, what: str) -> None:
 
 
 def _launches(ranks: list) -> list:
-    return [{"conv8_relu": r["conv8_relu_by_route"], "conv0_codes": r["conv0_codes"], "gblinear_cd": r["gblinear_cd"]}
+    return [{"conv8_relu": r["conv8_relu_by_route"], "conv0_codes": r["conv0_codes"], "gblinear_cd": r["gblinear_cd"],
+             "gblinear_round": r["gblinear_round"]}
             for r in ranks]
 
 
@@ -2695,9 +2856,11 @@ def multiprocess_phase(report: dict, inputs: dict, card: str) -> None:
             bgap = max(bgap, abs(float(m2.bias) - float(saved1[j].bias)))
         row = {"seeds": seeds, "wall_2_s": wall2, "ranks": ranks, "w_gap_over_max_w": wgap, "bias_gap": bgap}
         for r in ranks:
-            if r["gblinear_cd"] != TRAIN_ROUNDS * n_blocks or r["all_reduce_calls"] != want_calls:
+            if (r["gblinear_cd"] != TRAIN_ROUNDS * n_blocks or r["gblinear_round"] != 0
+                    or r["all_reduce_calls"] != want_calls):
                 raise AssertionError(f"train {fault or 'sound'} rank {r['rank']}: {r['gblinear_cd']} coordinate-update "
-                                     f"launches (expected {TRAIN_ROUNDS * n_blocks}), {r['all_reduce_calls']} "
+                                     f"launches (expected {TRAIN_ROUNDS * n_blocks}), {r['gblinear_round']} "
+                                     f"round-kernel launches (expected 0), {r['all_reduce_calls']} "
                                      f"all-reduce calls (expected {want_calls})")
         sound = wgap <= 1e-5 and bgap <= 1e-6
         log(f"multi-process cli.train --bootstrap_seeds {seeds}{' (identity all-reduce)' if fault else ''}: "
@@ -2734,7 +2897,7 @@ def rank_worker(args) -> int:
 
     sys.path.insert(0, str(REPO))
     from expecto_tpu_torch.models import gblinear
-    from expecto_tpu_torch.ops import conv0, conv8, gblinear_cd
+    from expecto_tpu_torch.ops import conv0, conv8, gblinear_cd, gblinear_round
     from expecto_tpu_torch.parallel import dist
 
     if args.cli_args[:1] != ["-m"] or len(args.cli_args) < 2:
@@ -2753,6 +2916,7 @@ def rank_worker(args) -> int:
     gblinear._all_reduce = counted
     _reset_counts()
     gblinear_cd.reset_launch_counts()
+    gblinear_round.reset_launch_counts()
     sys.argv = [module, *args.cli_args[2:]]
     t0 = time.perf_counter()
     try:
@@ -2767,7 +2931,8 @@ def rank_worker(args) -> int:
         "conv8_relu_by_route": dict(conv8.conv8_relu.launches_by_route),
         "conv0_codes": conv0.conv0_codes_relu.launches,
         "conv0_codes_by_kind": dict(conv0.conv0_codes_relu.launches_by_kind),
-        "gblinear_cd": gblinear_cd.coord_update.launches, **stats}))
+        "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
+        **stats}))
     return rc
 
 
@@ -2858,6 +3023,7 @@ def kernel_table(report: dict) -> dict:
               consensus_fp32_library_ms=cons_ms("fp32", True, "library_ms"),
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
         gblinear_cd_entry(report["train"], report["multiprocess"]["train"]),
+        gblinear_round_entry(report["train"]),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
          "launches_per_chunk": r["launches_per_chunk"],

@@ -21,36 +21,24 @@
 // dw written), about 0.67 us at (512, 218) at 3.35 TB/s; at K = 1 the launch
 // itself. One thread per element, 256 a block: nothing to share or reuse.
 //
-// Every operation rounds as the plain torch version's one op at a time does
-// (ops/gblinear_cd.py::coord_update_plain), so the two agree bit for bit:
-// the explicit __fmul_rn / __fadd_rn / __fdiv_rn keep nvcc from contracting
-// a product and a sum into one FMA, and the file is built without
-// --use_fast_math. max and min keep torch's NaN rule (a NaN operand wins);
-// the hessian guard compares with the fp32 constant 1e-5f, as torch and JAX
-// round the Python scalar to fp32.
+// The arithmetic is gblinear_cd.cuh's coord_step, which rounds every
+// operation as the plain version does, so the two agree bit for bit.
 
 #include <cuda_runtime.h>
+
+#include "gblinear_cd.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ float torch_max(float a, float b) { return a != a ? a : (b != b ? b : fmaxf(a, b)); }
-__device__ __forceinline__ float torch_min(float a, float b) { return a != a ? a : (b != b ? b : fminf(a, b)); }
 
 __global__ void __launch_bounds__(THREADS)
     gblinear_cd_kernel(const float* __restrict__ g, const float* __restrict__ h, float* __restrict__ w,
                        float* __restrict__ dw, int n, float eta, float lam, float alpha) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
-  const float gi = g[i], hi = h[i], wi = w[i];
-  const float gl2 = __fadd_rn(gi, __fmul_rn(lam, wi));
-  const float hl2 = __fadd_rn(hi, lam);
-  const float tmp = __fadd_rn(wi, -__fdiv_rn(gl2, hl2));
-  const float pos = torch_max(__fdiv_rn(-__fadd_rn(gl2, alpha), hl2), -wi);
-  const float neg = torch_min(__fdiv_rn(-__fadd_rn(gl2, -alpha), hl2), -wi);
-  const float delta = hi < 1e-5f ? 0.0f : (tmp >= 0.0f ? pos : neg);
-  const float d = __fmul_rn(eta, delta);
+  const float wi = w[i];
+  const float d = gblinear::coord_step(g[i], h[i], wi, eta, lam, alpha);
   dw[i] = d;
   w[i] = __fadd_rn(wi, d);
 }

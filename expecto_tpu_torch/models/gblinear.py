@@ -11,12 +11,15 @@ Training follows xgboost 0.7's gblinear rule (reference train.py:140-146:
 gradients, a bias step ``db = -eta * sum(g) / (n + lambda_bias)`` before
 each round's feature sweep, and per feature ``dw = eta * delta(G, H, w)``,
 the elastic-net coordinate solution (ops/gblinear_cd.py). The sweep is
-deterministic block coordinate descent: a Python loop over feature blocks
-of ``block_size`` (the JAX package's ``lax.scan``), Jacobi within a block
+deterministic block coordinate descent over feature blocks of
+``block_size`` (the JAX package's ``lax.scan``), Jacobi within a block
 (every feature's gradient from one product ``X_blk @ r``), the residual
-advanced once per block by a second product. A block step is those two
-``torch.matmul`` products and one launch of the coordinate-update kernel
-(``csrc/gblinear_cd.cu``); nothing in a round waits for the host.
+advanced once per block by a second product. :func:`train_gblinear` runs a
+whole round as one launch of the round kernel (``csrc/gblinear_round.cu``
+through ``ops/gblinear_round.py``); the K-model and sharded trainers run a
+Python loop over the blocks, a block step being two ``torch.matmul``
+products and one launch of the coordinate-update kernel
+(``csrc/gblinear_cd.cu``). Nothing in a round waits for the host.
 
 The row-sharded trainers (:func:`train_gblinear_multi_sharded`,
 :func:`train_gblinear_sharded`) run the same sweep in every rank of a
@@ -36,6 +39,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..ops.gblinear_cd import coord_update
+from ..ops.gblinear_round import gblinear_round, round_scratch
 from ..parallel.runner import resolve_device
 
 #: ``GBLinearParams.precision`` -> ``torch.set_float32_matmul_precision`` for
@@ -149,6 +153,12 @@ def train_gblinear(
     The eval sets stay on the device (an eval set that is ``X`` itself is
     not uploaded twice); each round fetches one RMSE per set, and early
     stopping keeps its best weights on the device.
+
+    A round is one call of :func:`gblinear_round` (the module global, so a
+    test can swap in the plain version); on the card that is one launch of
+    the round kernel, whose products are fp32 FFMA whatever
+    ``params.precision`` says: that meets "highest" and is at least as exact
+    as "default" and "high", which still set the watchlist's products.
     """
     hp = params or GBLinearParams()
     device = resolve_device(device)
@@ -169,21 +179,17 @@ def train_gblinear(
         del X_dev
 
         w_blocks = torch.zeros((n_blocks, hp.block_size), dtype=torch.float32, device=device)
-        bias = torch.zeros((), dtype=torch.float32, device=device)
+        bias = torch.zeros(1, dtype=torch.float32, device=device)
         r = _dev(np.full(n, hp.base_score, np.float32) - y, device)
-        denom = torch.tensor(float(n), dtype=torch.float32, device=device) + hp.reg_lambda_bias
+        denom = float(np.float32(n) + np.float32(hp.reg_lambda_bias))  # sum_hess = n for squared error
+        scratch = round_scratch(Xt)
 
         history: dict[str, list[float]] = {name: [] for *_unused, name in evals_dev}
         best_round, best_score, stale, best = None, np.inf, 0, None
         for it in range(hp.num_round):
             with record_function("gblinear_round"):
-                # bias step (sum_hess = n for squared error)
-                db = hp.eta * (-r.sum() / denom)
-                bias += db
-                r += db
-                for Xb, hb, wb in zip(Xt, col_hess, w_blocks):
-                    dw = coord_update(Xb @ r, hb, wb, hp.eta, hp.reg_lambda, hp.reg_alpha)
-                    r += dw @ Xb
+                gblinear_round(Xt, col_hess, w_blocks, bias, r, scratch, denom, hp.eta, hp.reg_lambda, hp.reg_alpha,
+                               update=coord_update)
             if not evals_dev:
                 continue
             w_now = w_blocks.view(-1)[:f]

@@ -35,10 +35,22 @@ def kernel_names() -> list[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every ``csrc`` header it includes with ``#include "x.cuh"``,
+    directly or through another header, each once, in include order."""
+    if path not in seen:
+        seen.append(path)
+        for header in re.findall(r'^\s*#\s*include\s+"([^"]+\.cuh)"', path.read_text(), flags=re.M):
+            _sources(CSRC_DIR / header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(CSRC_DIR / f"{name}.cu", []):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _tool(name: str) -> str:
@@ -103,13 +115,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(name: str, n_ints: int, n_floats: int = 0):
-    """``<name>_launch`` of ``csrc/<name>.cu``, whose C signature is four
-    pointers, ``n_ints`` ints, ``n_floats`` floats and the stream, returning
-    the CUDA error."""
+def launcher(name: str, n_ints: int, n_floats: int = 0, n_ptrs: int = 4):
+    """``<name>_launch`` of ``csrc/<name>.cu``, whose C signature is
+    ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats and the stream,
+    returning the CUDA error."""
     fn = getattr(load(name), f"{name}_launch")
     if fn.argtypes is None:
         vp = ctypes.c_void_p
-        fn.argtypes = [vp] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [vp]
+        fn.argtypes = [vp] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [vp]
         fn.restype = ctypes.c_int
     return fn

@@ -15,7 +15,7 @@ shares over the call and inside the rounds (each round is a
 (the CPU side of the range: the time to issue the round's launches), the
 device time per kernel name inside the rounds, and the time a round
 without the profiler: the trainer the call made (``train_gblinear`` or
-``train_gblinear_multi``, with its arguments) called again at 20 and at 100
+``train_gblinear_multi_sharded``, with its arguments) called again at 20 and at 100
 rounds, three times each in turns, the difference of the median walls over
 80. ``--out DIR`` writes them to ``DIR/profile_train.json``.
 """
@@ -51,7 +51,7 @@ def main(argv=None) -> int:
 
     # the trainer each sweep calls, with its arguments, for the unprofiled round time
     trainers = {}
-    for name in ("train_gblinear", "train_gblinear_multi"):
+    for name in ("train_gblinear", "train_gblinear_multi_sharded"):
         def spy(*a, _fn=getattr(ptrain, name), _name=name, **kw):
             trainers[_name] = (_fn, a, kw)
             return _fn(*a, **kw)
@@ -78,7 +78,7 @@ def main(argv=None) -> int:
         "k1": (lambda: ptrain.train_expression_model(X, geneanno, expression.iloc[:, 1].values, device="cuda"),
                "train_gblinear"),
         "k218": (lambda: ptrain.train_all_tissues(X, geneanno, expression, vectorized=True, device="cuda"),
-                 "train_gblinear_multi"),
+                 "train_gblinear_multi_sharded"),
     }
     results = {}
     for tag, (fn, trainer) in sweeps.items():

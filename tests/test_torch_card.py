@@ -19,9 +19,13 @@ and the CPU on both strands, bit-equal repeat calls and the launch counts; and
 gblinear training: the coordinate-update kernel (``csrc/gblinear_cd.cu``)
 against its plain version bit for bit at (512, 1), (512, 128) and (512, 218)
 with padded rows, the hessian guard, L1 and ties, its wrapper's checks and
-launch count, and the trainers with the kernel against the same trainers
-with the plain version swapped in (bit for bit), against a second run and
-against the CPU; and multi-process runs: the backend and device rule on
+launch count; the round kernel (``csrc/gblinear_round.cu``) against the
+plain round at odd and even row counts, blocks of 16 and 512 and L1, over 1
+and 30 rounds, bit-equal reruns, one launch a round and a planted
+stale-residual fault; and the trainers with the kernels against the same
+trainers with the plain versions swapped in (the round within the
+card-vs-CPU limits, the K-model sweep bit for bit), against a second run
+and against the CPU; and multi-process runs: the backend and device rule on
 this machine's cards, and the row-sharded trainers as a 2-rank torchrun
 group on the card (two ranks share one card over gloo) against the 1-rank
 trainer.
@@ -42,13 +46,14 @@ import torch
 from expecto_tpu_torch.genome.windows import gene_shifts, variant_shifts
 from expecto_tpu_torch.models import gblinear
 from expecto_tpu_torch.ops import conv0, gblinear_cd
+from expecto_tpu_torch.ops import gblinear_round as gr
 from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
 from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
 from expecto_tpu_torch.ops.decay import gene_pos_weights
 from expecto_tpu_torch.ops.spans import conv6_patch_sites_plan, conv6_phases, conv6_phases_patch_sites
 from expecto_tpu_torch.parallel import mesh
 from expecto_tpu_torch.parallel.runner import BelugaRunner
-from torch_port_common import DIST_WORKER, narrow_params, random_codes, sed_atol, torchrun
+from torch_port_common import DIST_WORKER, narrow_params, random_codes, sed_atol, stale_residual_round, torchrun
 
 pytestmark = pytest.mark.gpu
 
@@ -724,6 +729,82 @@ def test_gblinear_cd_wrapper_checks_on_cuda(cuda):
         gblinear_cd.coord_update(g.half(), h, w, 0.01, 100.0, 0.0)
 
 
+def _round_state(n: int, f: int, b: int, seed: int):
+    """The round's inputs on the card: a standard-normal (n, f) X padded to
+    blocks of b (the last block padded when b does not divide f), its
+    column hessians, zero weights and bias, and r = base_score - y for
+    labels from a sparse linear model."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = (2.0 + X @ np.where(rng.random(f) < 0.05, rng.normal(size=f), 0.0) + rng.normal(size=n) * 0.3)
+    Xt, n_blocks = gblinear._pad_blocks(torch.from_numpy(X).cuda().T, b)
+    hess = torch.stack([Xb.double().square().sum(1) for Xb in Xt]).float()
+    w = torch.zeros((n_blocks, b), device="cuda")
+    r = torch.from_numpy((2.0 - y).astype(np.float32)).cuda()
+    return Xt, hess, w, torch.zeros(1, device="cuda"), r
+
+
+def _run_rounds(state, rounds: int, alpha: float, round_fn):
+    """``rounds`` rounds of ``round_fn`` on copies of ``state`` (eta 0.01,
+    lambda 100, lambda_bias 2): the final weights, bias and the training
+    RMSE after each round (sqrt(mean(r^2)): r is the residual)."""
+    Xt, hess, w, bias, r = state
+    w, bias, r = w.clone(), bias.clone(), r.clone()
+    scratch, history = gr.round_scratch(Xt), []
+    denom = float(np.float32(r.numel()) + np.float32(2.0))
+    for _ in range(rounds):
+        round_fn(Xt, hess, w, bias, r, scratch, denom, 0.01, 100.0, alpha)
+        history.append(r.square().mean().sqrt())
+    torch.cuda.synchronize()
+    return w.cpu().numpy(), float(bias), torch.stack(history).cpu().numpy()
+
+
+def _round_gaps(got, want) -> tuple[float, float, float]:
+    """Weights over max|w|, bias and RMSE history: the card-vs-CPU limits
+    are 1e-5, 1e-6 and 1e-5."""
+    return (float(np.abs(got[0] - want[0]).max() / np.abs(want[0]).max()), abs(got[1] - want[1]),
+            float(np.abs(got[2] - want[2]).max()))
+
+
+@pytest.mark.parametrize("rounds", [1, 30])
+@pytest.mark.parametrize("alpha", [0.0, 5.0])
+@pytest.mark.parametrize("b", [16, 512])
+@pytest.mark.parametrize("n", [2000, 2001])
+def test_gblinear_round_kernel_matches_plain(cuda, n, b, alpha, rounds):
+    state = _round_state(n, 1100, b, seed=n + b)
+    gr.reset_launch_counts()
+    got = _run_rounds(state, rounds, alpha, gr.gblinear_round)
+    assert gr.gblinear_round.launches == rounds
+    again = _run_rounds(state, rounds, alpha, gr.gblinear_round)
+    for a, z in zip(got, again):
+        np.testing.assert_array_equal(a, z)  # deterministic: fixed reduction orders
+    want = _run_rounds(state, rounds, alpha, gr.gblinear_round_plain)
+    w_gap, b_gap, h_gap = _round_gaps(got, want)
+    assert w_gap <= 1e-5 and b_gap <= 1e-6 and h_gap <= 1e-5, (w_gap, b_gap, h_gap)
+    assert (got[0].reshape(-1)[1100:] == 0).all()
+
+
+def test_gblinear_round_stale_residual_fault_misses_the_limits(cuda):
+    state = _round_state(2001, 1100, 512, seed=3)
+    kernel = _run_rounds(state, 30, 0.0, gr.gblinear_round)
+    w_gap, b_gap, h_gap = _round_gaps(_run_rounds(state, 30, 0.0, stale_residual_round), kernel)
+    assert w_gap > 1e-5 and h_gap > 1e-5, (w_gap, b_gap, h_gap)
+
+
+def test_gblinear_round_wrapper_checks_on_cuda(cuda):
+    Xt, hess, w, bias, r = _round_state(300, 100, 64, seed=1)
+    with pytest.raises(ValueError, match="scratch"):
+        gr.gblinear_round(Xt, hess, w, bias, r, None, 300.0, 0.01, 100.0, 0.0)
+    with pytest.raises(ValueError, match="scratch"):
+        gr.gblinear_round(Xt, hess, w, bias, r, gr.round_scratch(Xt)[:10], 300.0, 0.01, 100.0, 0.0)
+    with pytest.raises(ValueError, match="one device"):
+        gr.gblinear_round(Xt, hess, w, bias, r.cpu(), gr.round_scratch(Xt), 300.0, 0.01, 100.0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gr.gblinear_round(Xt.transpose(1, 2).contiguous().transpose(1, 2), hess, w, bias, r, gr.round_scratch(Xt),
+                          300.0, 0.01, 100.0, 0.0)
+    assert gr.round_ctas(0, 300, 64) == torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @pytest.fixture(scope="module")
 def train_problem():
     """n 2,000 rows, F 1,100 features (three blocks of 512, the last one
@@ -751,17 +832,30 @@ def _train_multi(problem, device):
 
 
 def test_trainers_with_the_kernel_equal_the_plain_version_and_a_rerun(cuda, train_problem, monkeypatch):
+    """K = 1 launches the round kernel once a round and no coordinate
+    update; with the plain round swapped in it stays within the card-vs-CPU
+    limits (weights 1e-5 of max|w|, bias 1e-6, RMSE 1e-5), and a rerun is
+    equal bit for bit. K = 3 launches the coordinate-update kernel once a
+    block and equals its plain version bit for bit."""
     gblinear_cd.reset_launch_counts()
-    k1, multi = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
-    assert gblinear_cd.coord_update.launches == 2 * 30 * 3  # 3 blocks a round, 30 rounds, two trainers
+    gr.reset_launch_counts()
+    k1 = _train_k1(train_problem, "cuda")
+    assert gr.gblinear_round.launches == 30 and gblinear_cd.coord_update.launches == 0
+    multi = _train_multi(train_problem, "cuda")
+    assert gblinear_cd.coord_update.launches == 30 * 3 and gr.gblinear_round.launches == 30  # 3 blocks, 30 rounds
     k1_again, multi_again = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
+    monkeypatch.setattr(gblinear, "gblinear_round", gr.gblinear_round_plain)
     monkeypatch.setattr(gblinear, "coord_update", gblinear_cd.coord_update_plain)
     gblinear_cd.reset_launch_counts()
+    gr.reset_launch_counts()
     k1_plain, multi_plain = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
-    assert gblinear_cd.coord_update.launches == 0
-    for other in (k1_again, k1_plain):
-        np.testing.assert_array_equal(other.weight, k1.weight)
-        assert other.bias == k1.bias and other.eval_history == k1.eval_history
+    assert gblinear_cd.coord_update.launches == 0 and gr.gblinear_round.launches == 0
+    np.testing.assert_array_equal(k1_again.weight, k1.weight)
+    assert k1_again.bias == k1.bias and k1_again.eval_history == k1.eval_history
+    np.testing.assert_allclose(k1_plain.weight, k1.weight, rtol=0, atol=1e-5 * float(np.abs(k1.weight).max()))
+    assert abs(k1_plain.bias - k1.bias) <= 1e-6
+    for name in ("eval", "train"):
+        np.testing.assert_allclose(k1_plain.eval_history[name], k1.eval_history[name], rtol=0, atol=1e-5)
     for other in (multi_again, multi_plain):
         np.testing.assert_array_equal(other.weights, multi.weights)
         np.testing.assert_array_equal(other.biases, multi.biases)

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from expecto_tpu_torch.ops.gblinear_cd import coord_update_plain
+
 #: (in, out) of the six width-8 convs at test width; fc1 is 106*32 -> 64 and
 #: fc2 keeps the real 2002 tracks (the decay features are N_BASIS*2002 wide)
 NARROW_CONVS = [(4, 16), (16, 16), (16, 24), (24, 24), (24, 32), (32, 32)]
@@ -29,6 +31,21 @@ def single_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def stale_residual_round(Xt, col_hess, w_blocks, bias, r, scratch, denom, eta, lam, alpha, *,
+                         update=coord_update_plain):
+    """A planted fault for the gblinear round checks: the plain round
+    (ops/gblinear_round.py) with r left unadvanced after the first block, so
+    the second block's gradient is stale. Same signature as
+    ``gblinear_round``."""
+    db = eta * (-r.sum() / denom)
+    bias += db
+    r += db
+    for i, (Xb, hb, wb) in enumerate(zip(Xt, col_hess, w_blocks)):
+        dw = update(Xb @ r, hb, wb, eta, lam, alpha)
+        if i != 0:
+            r += dw @ Xb
 
 
 def sed_atol(ref) -> float:
