@@ -61,7 +61,29 @@ Phases (any failure raises, and the script exits non-zero with no result):
    averages a file's halves, so this script needs no h5py; the h5 files
    themselves are written and read by the CPU tests
    (tests/test_torch_chromatin.py, tests/test_torch_predict.py);
-8. gene features (``expecto-compute-features``) on 96 seeded genes, 48 a
+8. entry and exit, the user's way in and out with the port alone: the
+   Beluga weights written back as a reference-layout ``deepsea.beluga.pth``
+   (this script's own inversion of the converter), ``python -m
+   expecto_tpu_torch.models.convert`` on it (timed), every array of its npz
+   equal to beluga.npz bit for bit, ``cli.score --fp32`` on the card with
+   the converted npz held to the fp32 serve phase's table (bit for bit
+   expected), and the same serve on an fc1 converted without the
+   permutation missing that phase's limits; ``python -m
+   expecto_tpu_torch.cli.closest_genes`` (its ``main``) on the fp32 serve's
+   substitutions, plain and ``--all_in_receptive_field``, against the
+   seeded annotation plus the fp32 serve's genes, each table scored by
+   ``cli.score --fp32`` on the card (a row a table row, every variant
+   present, launch counts checked, every row shared with the fp32 serve's
+   table within its limits); ``score_sed_with_clusters`` on the h5 phase's
+   fp32 effects (model 0, seeded labels of the 2,002 marks in 20 clusters,
+   then a seeded RSAT membership): REF and ALT equal to the h5 phase's
+   ``score_sed``, the proportions equal to the contributions computed here
+   and summing to 1 within 1e-5; its sed.tsv split into three chunk
+   directories and ``merge_sed_batches`` equal to the unsplit rows; and
+   ``utils.profiling.trace`` around a projection call and one kernel
+   launch, its Chrome trace holding CUDA kernel events. Each sub-phase's
+   wall is printed with the card;
+9. gene features (``expecto-compute-features``) on 96 seeded genes, 48 a
    strand, three near a contig end (N-padded spans; the plus strand's
    group ships 4 bits a base, the minus strand's 2 bits and an N sideband):
    first every conv of one gene chunk (16 spans of 41,800 bp, both
@@ -80,7 +102,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    contracted in bf16 and the forward half alone both exceed; bf16 vs fp32
    features per gene within a stated limit that the same comparison with
    the gene rows shifted by one exceeds;
-9. GEUVADIS consensus (``expecto-consensus``) on bench.py's four cohort
+10. GEUVADIS consensus (``expecto-consensus``) on bench.py's four cohort
    mixes (generator copied, seeded from ``--seed``; 445 records with 42
    shared sites, 64 with 42 private sites twice, 64 with 4 private sites;
    393,216 bp each, 200 shifts): first every conv shape of the engines on
@@ -100,7 +122,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    at K = 8, 16, 24, 48; the conv1-reusing ``_c1`` patch vs the raw one;
    ``python -m expecto_tpu_torch.cli.consensus ref`` (its ``main``) in
    fp32 and ``--bf16``, its CSV equal to the in-process call;
-10. gblinear training (``expecto-train``) at the published width: a
+11. gblinear training (``expecto-train``) at the published width: a
    seeded gene table of 24,338 genes (about 22,000 train genes, 900 on
    chr8, rRNA genes and NaN labels), 24,338 x 20,020 fp32 features and 218
    tissues, the reference's hyperparameters, 100 rounds of 40 feature
@@ -124,10 +146,14 @@ Phases (any failure raises, and the script exits non-zero with no result):
    profiled once for its time a round, the block sweep's kernels and the
    card's idle share. Then the card against the CPU on 2,048 rows, 8
    tissues and 20 rounds with an L1 weight, within 1e-5 of max|w|, which
-   one round fewer and alpha's sign swapped must exceed. The single-tissue
-   CLI mode (plots) and ``--allTissues`` (``metrics.h5``) run on the CPU
-   tests only;
-11. multi-process runs: each flow's CLI as a 2-rank group, ``python -m
+   one round fewer and alpha's sign swapped must exceed. Then the round
+   kernel's two shared-memory plans: ``train_gblinear`` at 512 features
+   with the rows drawn on the card, at the "shared" plan's row cap (about
+   3.8 million rows) and one row past it (the "streamed" plan), one
+   round-kernel launch a round either way, each within the round limits of
+   the plain round. The single-tissue CLI mode (plots) and
+   ``--allTissues`` (``metrics.h5``) run on the CPU tests only;
+12. multi-process runs: each flow's CLI as a 2-rank group, ``python -m
    torch.distributed.run --standalone --nproc_per_node 2`` on this card
    (the two ranks share it, so the backend is gloo), each rank running
    ``-m expecto_tpu_torch.cli.<flow>`` under ``--rank-worker``, which
@@ -170,6 +196,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
+FP32_SERVE_CSV = WORK / "fp32_serve_output.csv"  # the fp32 serve phase's table
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them, HBM3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -222,6 +249,20 @@ SED_RTOL, REF_RTOL, REF_ATOL = 1e-3, 1e-4, 1e-4
 # swapped, or its variant rows shifted by one, must exceed the limit, so the
 # limit separates a sound run from one whose rows landed in the wrong place
 H5_BF16_GAP = 5e-2
+
+# entry and exit (the .pth converter, cli.closest_genes, cluster-attributed
+# SED, the sed merge, the profiler trace): seeded labels of the 2,002 marks
+# in ENTRY_CLUSTERS clusters and an RSAT-style membership of ENTRY_CLUSTERS
+# clusters (each mark in each with probability ENTRY_RSAT_P); sed.tsv split
+# into ENTRY_SED_CHUNKS chunk directories; the cluster proportions of a row
+# sum to 1 within ENTRY_PROP_TOL wherever the row's contribution sum is not
+# near zero: |sum| > ENTRY_NEAR_ZERO of the sum of the clusters' |contributions|
+# (float64 proportions err by about 1e-16 of that ratio)
+ENTRY_CLUSTERS = 20
+ENTRY_RSAT_P = 0.2
+ENTRY_SED_CHUNKS = 3
+ENTRY_PROP_TOL = 1e-5
+ENTRY_NEAR_ZERO = 1e-6
 
 # gene features (cli.compute_features): the CLI's batch 3,200 at 200 shifts
 # is a chunk of 16 gene spans of 41,800 bp; 48 genes a strand, so each
@@ -913,11 +954,13 @@ def main_path_phase(report: dict, inputs: dict, card: str) -> None:
     report["main_path"]["serve_wall_s"] = walls
 
 
-def serve(vcf: Path, genes: Path, n_rows: int, *, fp32: bool, warmup: int, repeats: int) -> list[float]:
+def serve(vcf: Path, genes: Path, n_rows: int, *, fp32: bool, warmup: int, repeats: int,
+          output_csv: Path | None = None) -> list[float]:
     """Wall times of repeats of the serving call itself on the card, with
     the CLI's settings (bf16 compute and fp16 wire, or ``--fp32``'s fp32 and
     fp32): one runner and its models built once, ``warmup`` calls first,
-    launch counts zeroed just before the timed calls."""
+    launch counts zeroed just before the timed calls. ``output_csv``: the
+    last call's table, written as the score CLI writes ``--output``."""
     import numpy as np
     import pandas as pd
     import torch
@@ -952,6 +995,8 @@ def serve(vcf: Path, genes: Path, n_rows: int, *, fp32: bool, warmup: int, repea
         genome.close()
     if not isinstance(df, pd.DataFrame) or len(df) != n_rows:
         raise AssertionError("warm serving returned the wrong number of rows")
+    if output_csv is not None:
+        df.to_csv(output_csv, header=True, index=False)
     return walls
 
 
@@ -974,9 +1019,10 @@ def subset(inputs: dict, picks, tag: str) -> tuple[Path, Path, int]:
 def fp32_serve_phase(report: dict, inputs: dict, card: str) -> None:
     """One warm fp32 serving call on the first N_FP32_SERVE substitutions
     and their genes: parity mode's end-to-end throughput, its conv1-conv5 on
-    the SIMT kernel."""
+    the SIMT kernel. Its table is FP32_SERVE_CSV, the yardstick of the entry
+    and exit phase."""
     vcf, genes, n_rows = subset(inputs, range(N_FP32_SERVE), "fp32_serve")
-    wall = serve(vcf, genes, n_rows, fp32=True, warmup=1, repeats=1)[0]
+    wall = serve(vcf, genes, n_rows, fp32=True, warmup=1, repeats=1, output_csv=FP32_SERVE_CSV)[0]
     counts = _read_counts("float32")
     if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
         raise AssertionError(f"fp32 serve: conv1-conv5 did not all run on the simt kernel: {counts}")
@@ -1082,10 +1128,12 @@ def _bf16_gap(res16, res32, n: int) -> dict:
     return gap
 
 
-def h5_contract_phase(report: dict, inputs: dict, card: str) -> None:
+def h5_contract_phase(report: dict, inputs: dict, card: str) -> tuple[dict, object]:
     """The h5 contract on every main-path variant, fp32 then bf16, with the
     chromatin CLI's settings; the fp32 effects scored as the predict CLI
-    scores them and checked against the CPU and the fused scorer."""
+    scores them and checked against the CPU and the fused scorer. Returns
+    the fp32 effects as ``load_shift_effects`` returns the files, and
+    ``score_sed``'s table of them (model 0)."""
     import numpy as np
     import torch
 
@@ -1236,6 +1284,345 @@ def h5_contract_phase(report: dict, inputs: dict, card: str) -> None:
     }
     report["h5_contract"] = out
     log(f"h5 contract vs expecto-score --fp32 on {inputs['n_rows']} rows: max |err| {out['vs_score_fp32']}")
+    return eff32, sed
+
+
+# ---- entry and exit: the converter, closest genes, cluster SED, merges --------
+
+def _torch_state_dict(params: dict) -> dict:
+    """The npz pytree written back in the published checkpoint's layout (the
+    keys of models/convert.py's TORCH_CONV_KEYS and TORCH_FC_KEYS): OIHW
+    ``(out, in, 1, 8)`` convs, a channel-major ``(2003, 67840)`` fc1 (input
+    ``c * 106 + l`` from the npz's row ``l * 640 + c``) and ``(out, in)``
+    dense; the inverse of the converter, written here on its own."""
+    import numpy as np
+    import torch
+
+    conv_keys = ["model.0.0", "model.0.2", "model.0.6", "model.0.8", "model.0.12", "model.0.14"]
+    sd = {}
+    for i, key in enumerate(conv_keys):
+        w = params[f"conv{i}"]["w"]  # (8, in, out)
+        sd[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0)[:, :, None, :]))
+        sd[f"{key}.bias"] = torch.from_numpy(params[f"conv{i}"]["b"].copy())
+    w1 = params["fc1"]["w"]  # (106 * 640, 2003), row l * 640 + c
+    sd["model.1.2.1.weight"] = torch.from_numpy(
+        np.ascontiguousarray(w1.reshape(106, 640, w1.shape[1]).transpose(2, 1, 0)).reshape(w1.shape[1], -1))
+    sd["model.1.2.1.bias"] = torch.from_numpy(params["fc1"]["b"].copy())
+    sd["model.1.4.1.weight"] = torch.from_numpy(np.ascontiguousarray(params["fc2"]["w"].T))
+    sd["model.1.4.1.bias"] = torch.from_numpy(params["fc2"]["b"].copy())
+    return sd
+
+
+def _score_fp32(vcf: Path, genes: Path, out_csv: Path, n_rows: int, what: str, *extra: str):
+    """``cli.score --fp32`` on the card, launch counts zeroed just before and
+    checked just after (conv1-conv5 on the SIMT kernel alone, conv0 on the
+    code-gather kernel in fp32): the checked table, the counts and the wall."""
+    from expecto_tpu_torch.cli.score import main as score_main
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    if score_main(score_args(vcf, genes, "--fp32", *extra, "--output", str(out_csv))) != 0:
+        raise AssertionError(f"{what}: cli.score --fp32 returned non-zero")
+    wall = time.perf_counter() - t0
+    counts = _read_counts("float32")
+    if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
+        raise AssertionError(f"{what}: conv1-conv5 did not all run on the simt kernel: {counts}")
+    return check_output(out_csv, n_rows)[0], counts, wall
+
+
+def _entry_converter(out: dict, inputs: dict, card: str) -> None:
+    """The published checkpoint's way in: chip_smoke's Beluga weights written
+    as a reference-layout ``.pth``, ``python -m expecto_tpu_torch.models.
+    convert`` on it (a subprocess, timed), every array of its npz equal to
+    beluga.npz's bit for bit, and ``cli.score --fp32`` on the card with it
+    held to the fp32 serve phase's table (bit for bit expected; else within
+    that phase's limits, and the log says so); the same serve on an fc1
+    converted without the permutation must miss those limits."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.models.convert import load_params_npz, save_params_npz
+
+    d = WORK / "entry"
+    d.mkdir(exist_ok=True)
+    pth, npz, bad_npz = d / "deepsea.beluga.pth", d / "beluga_converted.npz", d / "beluga_unpermuted.npz"
+    params = load_params_npz(WORK / "beluga.npz")
+    t0 = time.perf_counter()
+    sd = _torch_state_dict(params)
+    torch.save(sd, pth)
+    write_s = time.perf_counter() - t0
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "expecto_tpu_torch.models.convert", str(pth), str(npz)], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"python -m expecto_tpu_torch.models.convert exited {res.returncode}: {res.stderr[-3000:]}")
+    pth_bytes = pth.stat().st_size
+    pth.unlink()
+    got = load_params_npz(npz)
+    keys = sorted((layer, name) for layer, dd in params.items() for name in dd)
+    if sorted((layer, name) for layer, dd in got.items() for name in dd) != keys:
+        raise AssertionError("the converted npz holds other arrays than beluga.npz")
+    for layer, name in keys:
+        a, b = got[layer][name], params[layer][name]
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"converted {layer}/{name} differs from beluga.npz ({a.dtype} {a.shape})")
+    out["converter"] = {"pth_bytes": pth_bytes, "fc1_bytes": int(params["fc1"]["w"].nbytes), "write_pth_s": write_s,
+                        "convert_s": convert_s}
+    log(f"entry: .pth ({pth_bytes / 1e6:.1f} MB, fc1 {params['fc1']['w'].nbytes / 1e6:.1f} MB) written in "
+        f"{write_s:.2f} s; python -m expecto_tpu_torch.models.convert in {convert_s:.2f} s (a process: interpreter, "
+        f"torch import, load, convert, savez); all {len(keys)} arrays equal to beluga.npz bit for bit [{card}]")
+
+    vcf, genes, n_rows = subset(inputs, range(N_FP32_SERVE), "fp32_serve")
+    want = check_output(FP32_SERVE_CSV, n_rows)[0]
+    served, counts, wall = _score_fp32(vcf, genes, d / "converted_output.csv", n_rows, "converted weights",
+                                       "--beluga_weights", str(npz))
+    bit_equal = served.equals(want)
+    gaps = _serve_check(served, want, "converted weights vs the fp32 serve")
+    out["converted_serve"] = {"rows": n_rows, "wall_s": wall, "bit_equal": bit_equal, "gaps": gaps, "launches": counts}
+    log(f"entry: cli.score --fp32 on the converted npz, {n_rows} rows x {N_MODELS} models in {wall:.3f} s (weights "
+        f"loaded): " + ("equal bit for bit to the fp32 serve phase's table" if bit_equal else
+                        f"NOT bit-equal to the fp32 serve phase's table (the CLI and the in-process serve differ in "
+                        f"their calls, not their weights), within its limits: {gaps}") + f"; launches {counts} [{card}]")
+    npz.unlink()
+
+    # the planted fault: fc1 transposed without the channel-major -> length-major permutation
+    bad = {layer: dict(dd) for layer, dd in params.items()}
+    bad["fc1"]["w"] = np.ascontiguousarray(sd["model.1.2.1.weight"].numpy().T)
+    save_params_npz(bad, bad_npz)
+    del sd, bad
+    served_bad, _counts, _wall = _score_fp32(vcf, genes, d / "unpermuted_output.csv", n_rows, "unpermuted fc1",
+                                             "--beluga_weights", str(bad_npz))
+    bad_npz.unlink()
+    try:
+        _serve_check(served_bad, want, "unpermuted fc1")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("an fc1 converted without fc1_permutation stays within the fp32 serve's limits")
+    names = [f"Tissue{j:03d}" for j in range(N_MODELS)]
+    out["unpermuted_fault_gaps"] = _serve_gaps(
+        *[[f[[f"{p}{m}" for m in names]].to_numpy(np.float64) for p in ("REF_", "ALT_", "")] for f in (served_bad, want)])
+    log(f"entry: the same serve on an fc1 converted without the permutation misses the limits: max |err| "
+        f"{out['unpermuted_fault_gaps']}")
+
+
+def _entry_closest_genes(out: dict, card: str) -> None:
+    """The way from a VCF to scored rows: ``cli.closest_genes`` on the fp32
+    serve's 256 substitutions, plain and with ``--all_in_receptive_field``,
+    against the seeded ``geneanno.csv`` extended by the fp32 serve table's
+    genes (so that its rows can turn up); each table scored by ``cli.score
+    --fp32`` on the card (its VCF the CLI's ``snps_hg19.vcf``): a row a table
+    row, finite, every variant present, the field's table at least the
+    plain one, every row also in the fp32 serve's table within that phase's
+    limits, the conv kernels' launch counts."""
+    import numpy as np
+    import pandas as pd
+
+    from expecto_tpu_torch.cli.closest_genes import main as cg_main
+
+    d = WORK / "entry"
+    d.mkdir(exist_ok=True)
+    anno = pd.read_csv(WORK / "geneanno.csv", index_col=0)
+    serve_genes = pd.read_csv(WORK / "fp32_serve_genes.tsv", sep="\t", header=None)
+    extra = pd.DataFrame({"symbol": serve_genes[9].values, "seqnames": "chr" + serve_genes[5].astype(str).values,
+                          "strand": serve_genes[8].values, "TSS": serve_genes[7].values,
+                          "CAGE_representative_TSS": serve_genes[7].values, "type": "protein_coding"},
+                         index=pd.Index(serve_genes[9].values, name=anno.index.name))
+    pd.concat([anno, extra[~extra.index.duplicated()]]).to_csv(d / "geneanno.csv")
+    variants = pd.read_csv(WORK / "fp32_serve.vcf", sep="\t", header=None)
+    want_keys = set(zip(variants[0], variants[1], variants[3], variants[4]))
+    want = check_output(FP32_SERVE_CSV, len(serve_genes))[0]
+    key_cols = ["0", "1", "3", "4", "gene", "dist", "strand"]
+    want_pos = {k: i for i, k in enumerate(zip(*(want[c] for c in key_cols)))}
+    rows = {}
+    for mode, flags in (("closest", []), ("receptive_field", ["--all_in_receptive_field"])):
+        odir = d / f"closest_{mode}"
+        t0 = time.perf_counter()
+        if cg_main([str(WORK / "fp32_serve.vcf"), "--annoFile", str(d / "geneanno.csv"), "-o", str(odir), *flags]) != 0:
+            raise AssertionError(f"cli.closest_genes ({mode}) returned non-zero")
+        cg_s = time.perf_counter() - t0
+        n_table = len(pd.read_csv(odir / "closest_genes.tsv", sep="\t", header=None))
+        got, counts, wall = _score_fp32(odir / "snps_hg19.vcf", odir / "closest_genes.tsv", odir / "output.csv", n_table,
+                                        f"closest genes ({mode})")
+        if set(zip(got["0"], got["1"], got["3"], got["4"])) != want_keys:
+            raise AssertionError(f"closest genes ({mode}): the scored rows miss variants of the VCF")
+        common = [(i, want_pos[k]) for i, k in enumerate(zip(*(got[c] for c in key_cols))) if k in want_pos]
+        if not common:
+            raise AssertionError(f"closest genes ({mode}): no row in common with the fp32 serve's table")
+        gi, wi = (list(t) for t in zip(*common))
+        gaps = _serve_check(got.iloc[gi].reset_index(drop=True), want.iloc[wi].reset_index(drop=True),
+                            f"closest genes ({mode}) vs the fp32 serve")
+        rows[mode] = n_table
+        out[f"closest_{mode}"] = {"variants": len(variants), "rows": n_table, "closest_genes_s": cg_s,
+                                  "score_wall_s": wall, "rows_in_fp32_serve": len(common), "gaps": gaps,
+                                  "launches": counts}
+        log(f"entry: cli.closest_genes ({mode}) on {len(variants)} variants x {len(anno) + len(extra)} genes in "
+            f"{cg_s:.3f} s: {n_table} rows; cli.score --fp32 on them in {wall:.3f} s ({N_MODELS} models, weights "
+            f"loaded), every variant present, {len(common)} rows also in the fp32 serve's table, within its "
+            f"limits: {gaps}; launches {counts} [{card}]")
+    if rows["receptive_field"] < rows["closest"]:
+        raise AssertionError(f"the receptive-field table has fewer rows than the closest-gene one: {rows}")
+    # every fp32 serve gene lies within 20 kb of its variant: inside the receptive field
+    if out["closest_receptive_field"]["rows_in_fp32_serve"] != len(serve_genes):
+        raise AssertionError(f"the receptive-field table holds {out['closest_receptive_field']['rows_in_fp32_serve']} "
+                             f"of the fp32 serve's {len(serve_genes)} rows")
+
+
+def _cluster_contribs(eff: dict, vcf, gene, model, labels, membership):
+    """The clusters' SED contributions of every row, computed here in
+    float64 from the scorer's features: labels -> (rows, clusters) sums over
+    each label's marks, membership -> per-mark sums @ membership."""
+    import numpy as np
+
+    from expecto_tpu_torch.pipeline.sed import _project, align_variants_with_genes
+
+    feats = _project(align_variants_with_genes(vcf, gene, eff), MAXSHIFT, None, 2002, keys=("ref", "alt"))
+    contrib = np.asarray(model.weight, np.float64) * (feats["alt"].astype(np.float64) - feats["ref"])
+    per_mark = contrib.reshape(len(contrib), 10, -1).sum(axis=1)
+    by_label = np.stack([per_mark[:, labels == k].sum(axis=1) for k in np.unique(labels)], axis=1)
+    return by_label, per_mark @ membership
+
+
+def _entry_clusters(out: dict, eff: dict, sed_table, card: str, seed: int) -> None:
+    """Cluster-attributed SED on the h5 phase's fp32 effects, in memory:
+    ``score_sed_with_clusters`` with model 0, seeded labels and a seeded
+    RSAT membership; REF and ALT equal to the h5 phase's ``score_sed``; the
+    proportions against the contributions computed here, summing to 1 where
+    a row's sum is not near zero; sed.tsv split into chunk directories and
+    ``merge_sed_batches`` equal to the unsplit rows."""
+    import numpy as np
+    import pandas as pd
+
+    from expecto_tpu_torch.genome.vcf import read_vcf, standardize_chroms
+    from expecto_tpu_torch.io.tables import load_closest_genes, load_modellist
+    from expecto_tpu_torch.io.xgb import load_expression_model
+    from expecto_tpu_torch.pipeline.merge import merge_sed_batches
+    from expecto_tpu_torch.pipeline.sed import score_sed_with_clusters
+
+    d = WORK / "entry"
+    d.mkdir(exist_ok=True)
+    vcf = standardize_chroms(read_vcf(WORK / "variants.vcf"))
+    gene = load_closest_genes(WORK / "genes.tsv")
+    model = load_expression_model(load_modellist(WORK / "modellist").iloc[0, 0])
+    rng = np.random.default_rng(seed + 3)
+    labels = rng.permutation(np.arange(2002) % ENTRY_CLUSTERS)  # every cluster has marks
+    membership = (rng.random((2002, ENTRY_CLUSTERS)) < ENTRY_RSAT_P).astype(np.float64)
+    rsat_names = [f"rsat_{j}" for j in range(ENTRY_CLUSTERS)]
+    tables, walls = {}, {}
+    for kind, clusters, member in (("labels", labels, None), ("rsat", rsat_names, membership)):
+        t0 = time.perf_counter()
+        tables[kind] = score_sed_with_clusters(eff, vcf, gene, model, clusters, maxshift=MAXSHIFT,
+                                               out_dir=d / f"clusters_{kind}", membership=member)
+        walls[kind] = time.perf_counter() - t0
+    want = dict(zip(("labels", "rsat"), _cluster_contribs(eff, vcf, gene, model, labels, membership)))
+    res = {"rows": len(sed_table), "walls_s": walls}
+    for kind, df in tables.items():
+        for col in ("REF", "ALT"):
+            if not np.array_equal(df[col].to_numpy(), sed_table[col].to_numpy()):
+                raise AssertionError(f"score_sed_with_clusters ({kind}) {col} differs from the h5 phase's score_sed")
+        names = [f"cluster_{k}" for k in range(ENTRY_CLUSTERS)] if kind == "labels" else rsat_names
+        if list(df.columns[-ENTRY_CLUSTERS:]) != names or len(df) != len(sed_table):
+            raise AssertionError(f"score_sed_with_clusters ({kind}): columns or rows are not the expected ones")
+        got, c = df[names].to_numpy(np.float64), want[kind]
+        total = c.sum(axis=1)
+        sound = np.abs(total) > ENTRY_NEAR_ZERO * np.abs(c).sum(axis=1)
+        sum_gap = float(np.abs(got[sound].sum(axis=1) - 1.0).max())
+        np.testing.assert_allclose(got[sound], (c / total[:, None])[sound], rtol=1e-6, atol=1e-9,
+                                   err_msg=f"cluster proportions ({kind}) vs the contributions")
+        if sum_gap > ENTRY_PROP_TOL or sound.sum() < 0.9 * len(sound):
+            raise AssertionError(f"cluster proportions ({kind}): sums off 1 by {sum_gap} on {int(sound.sum())} rows")
+        res[kind] = {"rows_checked": int(sound.sum()), "rows_near_zero": int((~sound).sum()), "sum_gap": sum_gap}
+    out["clusters"] = res
+    log(f"entry: score_sed_with_clusters on the h5 phase's fp32 effects, model 0, {len(sed_table)} rows: labels "
+        f"({ENTRY_CLUSTERS} clusters) {walls['labels']:.3f} s, RSAT membership {walls['rsat']:.3f} s (host numpy); "
+        f"REF and ALT equal to score_sed's; proportions sum to 1 within {ENTRY_PROP_TOL}: {res['labels']} and "
+        f"{res['rsat']} [{card}]")
+
+    # the file's own lines split into chunks (no float is rewritten), each
+    # chunk with the header, as a chunked run's per-job sed.tsv files
+    header, *lines = (d / "clusters_labels" / "sed.tsv").read_text().splitlines(keepends=True)
+    unsplit = pd.read_csv(d / "clusters_labels" / "sed.tsv", sep="\t")
+    batches = d / "sed_batches"
+    for i, part in enumerate(np.array_split(np.arange(len(lines)), ENTRY_SED_CHUNKS)):
+        (batches / f"chunk_{i}").mkdir(parents=True, exist_ok=True)
+        (batches / f"chunk_{i}" / "sed.tsv").write_text(header + "".join(lines[j] for j in part))
+    t0 = time.perf_counter()
+    merged = merge_sed_batches(str(batches), str(d / "sed_merged"), ENTRY_SED_CHUNKS)
+    merge_s = time.perf_counter() - t0
+    # the merged file holds the merged values' shortest round-trip text
+    reread = pd.read_csv(d / "sed_merged" / "sed.tsv", sep="\t", index_col=0, float_precision="round_trip")
+    if not (merged.reset_index(drop=True).equals(unsplit) and reread.reset_index(drop=True).equals(unsplit)):
+        raise AssertionError("merge_sed_batches of the split sed.tsv differs from the unsplit rows")
+    out["sed_merge"] = {"chunks": ENTRY_SED_CHUNKS, "rows": len(unsplit), "merge_s": merge_s}
+    log(f"entry: sed.tsv split into {ENTRY_SED_CHUNKS} chunk directories, merge_sed_batches in {merge_s:.3f} s: "
+        f"equal to the unsplit {len(unsplit)} rows")
+
+
+def _entry_trace(out: dict, eff: dict, card: str) -> None:
+    """``utils.profiling.trace`` around one projection call of
+    ``score_sed_with_clusters`` (``_project``) and one card step (the SIMT
+    kernel on a chunk's conv1): its Chrome trace must hold CUDA kernel
+    events, the conv kernel's among them."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.genome.vcf import read_vcf, standardize_chroms
+    from expecto_tpu_torch.io.tables import load_closest_genes
+    from expecto_tpu_torch.ops.conv8 import conv8_relu
+    from expecto_tpu_torch.pipeline.sed import _project, align_variants_with_genes
+    from expecto_tpu_torch.utils.profiling import trace
+
+    vcf = standardize_chroms(read_vcf(WORK / "variants.vcf"))
+    inputs = align_variants_with_genes(vcf, load_closest_genes(WORK / "genes.tsv"), eff)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = torch.randn((CHUNK, 120, 320), device=DEVICE, generator=gen)
+    w = torch.randn((8, 320, 480), device=DEVICE, generator=gen) / 40
+    b = torch.zeros(480, device=DEVICE)
+    log_dir = WORK / "entry" / "trace"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(str(log_dir)):
+        _project(inputs, MAXSHIFT, None, 2002, keys=("ref", "alt"))
+        conv8_relu(x, w, b)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    files = sorted(log_dir.glob("trace_*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {len(files)} trace files under {log_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels or not any("conv8_relu" in e.get("name", "") for e in kernels):
+        raise AssertionError(f"the trace holds no CUDA kernel event of conv8_relu: {len(kernels)} kernel events")
+    out["trace"] = {"events": len(events), "kernel_events": len(kernels), "wall_s": wall,
+                    "bytes": files[0].stat().st_size,
+                    "kernel_us": float(np.sum([e.get("dur", 0) for e in kernels]))}
+    log(f"entry: utils.profiling.trace around a projection call and one conv8_relu launch: {len(events)} events, "
+        f"{len(kernels)} CUDA kernel events ({out['trace']['kernel_us']:.1f} us), {wall:.3f} s with the export "
+        f"[{card}]")
+
+
+def entry_exit_phase(report: dict, inputs: dict, eff32: dict, sed_table, card: str, seed: int) -> None:
+    """The user's way in and out with the port alone: the ``.pth``
+    converter, ``cli.closest_genes`` into ``cli.score``, cluster-attributed
+    SED and the sed merge on the h5 phase's effects, and a profiler trace;
+    each sub-phase's wall logged with the card."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out = {}
+    for name, fn in (("converter", lambda: _entry_converter(out, inputs, card)),
+                     ("closest_genes", lambda: _entry_closest_genes(out, card)),
+                     ("clusters_and_merge", lambda: _entry_clusters(out, eff32, sed_table, card, seed)),
+                     ("trace", lambda: _entry_trace(out, eff32, card))):
+        t0 = time.perf_counter()
+        fn()
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        log(f"entry and exit: {name} {out[f'{name}_wall_s']:.1f} s [{card}]")
+    report["entry_exit"] = out
 
 
 def _gene_route_plan(runner, genes, genome) -> list[dict]:
@@ -2485,7 +2872,108 @@ def train_phase(report: dict, card: str, seed: int) -> None:
     del boot
 
     train_cpu_check(out, X, expression)
+    del X, inp
+    train_row_cap_check(out, card, seed)
     report["train"] = out
+
+
+def train_row_cap_check(out: dict, card: str, seed: int) -> None:
+    """The round kernel's two shared-memory plans (csrc/gblinear_round.cu's
+    ``plan``): the most rows its "shared" plan takes at F = B = 512 on this
+    card (one block), then ``train_gblinear`` with the rows drawn on the card
+    and passed as the user's numpy X, at that cap (the "shared" plan) and
+    one row past it (the "streamed" plan): one round-kernel launch a round
+    either way and no coordinate update, each held to the plain round
+    (``gblinear_round_plain`` with ``coord_update_plain`` swapped in) within
+    TRAIN_ROUND_LIMITS. Each plan's round is also timed alone on the drawn
+    X against the plain round and its bound (as in
+    :func:`train_round_phase`)."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.models import gblinear
+    from expecto_tpu_torch.ops import gblinear_cd
+    from expecto_tpu_torch.ops import gblinear_round as gr
+
+    b = 512
+    lo, hi = 1, 1 << 26
+    while lo < hi:  # the most rows of the "shared" plan
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if gr.round_plan(0, mid, b) == "shared" else (lo, mid - 1)
+    cap = lo
+    rounds = 3
+    hp = gblinear.GBLinearParams(num_round=rounds, block_size=b)
+    res = {"block": b, "cap_rows": cap, "rounds": rounds}
+    for n, plan in ((cap, "shared"), (cap + 1, "streamed")):
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + n % 1009)
+        t0 = time.perf_counter()
+        X_dev = torch.randn((n, b), device=DEVICE, generator=gen)
+        y_dev = 2.0 + X_dev[:, :16] @ torch.randn(16, device=DEVICE, generator=gen) + 0.3 * torch.randn(
+            n, device=DEVICE, generator=gen)
+        X, y = X_dev.cpu().numpy(), y_dev.cpu().numpy()
+        draw_s = time.perf_counter() - t0
+        timed = _row_cap_round_ms(X_dev, y_dev)
+        del X_dev, y_dev
+        torch.cuda.empty_cache()
+
+        def fit():
+            return gblinear.train_gblinear(X, y, hp, evals=[(X, y, "train")], device=DEVICE)
+
+        got, wall = _launch_checked(fit, f"train_gblinear at {n} rows", rounds=rounds)
+        by_plan = dict(gr.gblinear_round.launches_by_plan)
+        if by_plan[plan] != rounds:
+            raise AssertionError(f"train_gblinear at {n} rows: round-kernel launches by plan {by_plan}, expected "
+                                 f"{rounds} in the {plan} plan")
+        torch.cuda.empty_cache()
+        gblinear.gblinear_round, gblinear.coord_update = gr.gblinear_round_plain, gblinear_cd.coord_update_plain
+        try:
+            want, wall_plain = _launch_checked(fit, f"train_gblinear at {n} rows, plain round")
+        finally:
+            gblinear.gblinear_round, gblinear.coord_update = gr.gblinear_round, gblinear_cd.coord_update
+        gaps = _model_gaps(want, got)
+        if not (_within_train_limits(gaps) and np.isfinite(got.weight).all()):
+            raise AssertionError(f"train_gblinear at {n} rows ({plan} plan) vs the plain round: {gaps}")
+        res[plan] = {"rows": n, "x_gb": X.nbytes / 1e9, "draw_s": draw_s, "wall_s": wall, "wall_plain_s": wall_plain,
+                     "launches_by_plan": by_plan, "gaps": gaps, **timed}
+        log(f"round row cap: train_gblinear at {n:,} rows x {b} features ({X.nbytes / 1e9:.2f} GB, drawn on the card "
+            f"and fetched in {draw_s:.1f} s), {rounds} rounds, {rounds} launches of the round kernel's {plan} plan, "
+            f"in {wall:.2f} s (plain round {wall_plain:.2f} s): " + _gaps_text(gaps) + f"; one round alone "
+            f"{timed['ms']:.3f} ms, bound {timed['bound_ms']:.3f} ms ({timed['bound_by']}, "
+            f"{100 * timed['bound_ms'] / timed['ms']:.1f} % of it), plain round {timed['plain_ms']:.3f} ms [{card}]")
+        del X, y, got, want
+    out["row_cap"] = res
+
+
+def _row_cap_round_ms(X_dev, y_dev) -> dict:
+    """One round of the round kernel and of the plain round on ``X_dev``
+    (n, B) as one block of B features (r = 2 - y, the trainer's hyper-
+    parameters), ms a round by CUDA events (the least of two), and the
+    round's bound: X, the hessians and weights read once, the weights, bias
+    and r written once, 4 flops an element of X."""
+    import torch
+
+    from expecto_tpu_torch.models import gblinear
+    from expecto_tpu_torch.ops.gblinear_cd import coord_update
+    from expecto_tpu_torch.ops.gblinear_round import gblinear_round, gblinear_round_plain, round_scratch
+
+    n, b = X_dev.shape
+    hp = gblinear.GBLinearParams(block_size=b)
+    Xt = X_dev.T.contiguous().view(1, b, n)
+    hess = torch.linalg.vector_norm(Xt[0], dim=1).square().view(1, b)
+    w, bias, r = torch.zeros((1, b), device=DEVICE), torch.zeros(1, device=DEVICE), 2.0 - y_dev
+    scratch, args = round_scratch(Xt), (float(n), hp.eta, hp.reg_lambda, hp.reg_alpha)
+    calls = {"ms": lambda: gblinear_round(Xt, hess, w, bias, r, scratch, *args),
+             "plain_ms": lambda: gblinear_round_plain(Xt, hess, w, bias, r, None, *args, update=coord_update)}
+    times = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            times[k].append(cuda_ms(calls[k], reps=3, warmup=1))
+    if not bool(torch.isfinite(w).all() and torch.isfinite(r).all()):
+        raise AssertionError(f"the timed rounds at {n} rows left non-finite weights or residuals")
+    row = {k: min(v) for k, v in times.items()}
+    row.update(_bound(4.0 * (Xt.numel() + 3 * b + 2 * n + 2), 4.0 * Xt.numel(), "fp32"))
+    return row
 
 
 def train_cpu_check(out: dict, X, expression) -> None:
@@ -3067,6 +3555,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
     from expecto_tpu_torch.ops import cuda_build
 
@@ -3115,10 +3604,16 @@ def main(argv=None) -> int:
     parity_phase(report, inputs)
     log(f"parity phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    h5_contract_phase(report, inputs, card)
+    eff32, sed_table = h5_contract_phase(report, inputs, card)
     log(f"h5 contract phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    make_gene_inputs(args.seed)
+    make_gene_inputs(args.seed)  # before the entry phase, which reads their geneanno.csv
+    log(f"gene inputs {time.perf_counter() - t0:.1f} s (not in the gene phase's wall)")
+    t0 = time.perf_counter()
+    entry_exit_phase(report, inputs, eff32, sed_table, card, args.seed)
+    del eff32, sed_table
+    log(f"entry and exit phase {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
     gene_phase(report, card)
     log(f"gene phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3132,6 +3627,8 @@ def main(argv=None) -> int:
     log(f"multi-process phase {time.perf_counter() - t0:.1f} s")
 
     table = kernel_table(report)
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke.py: every phase passed in {report['total_s']:.1f} s [{card}]")
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         (Path(args.out) / "chip_smoke.json").write_text(json.dumps({**report, **table}, indent=1))

@@ -38,7 +38,15 @@
 //    are kept there for (C); the others are read last in (A) and again in
 //    (C), which the 50 MB L2 may still hold. Loads are 4 bytes a lane (an
 //    odd n leaves a row unaligned; TMA or 16-byte loads would need 16-byte
-//    row strides), coalesced along the rows.
+//    row strides), coalesced along the rows;
+//  - two shared-memory plans, picked by `plan` from n, B and the device's
+//    SMs and opt-in: "shared" above, while a CTA's rows of r and their
+//    per-group sums fit (up to 3,799,356 rows at B = 512 on an H100), else
+//    "streamed" (STREAM = true): each CTA advances its rows of r in place in
+//    global memory, no row of Xb is cached, and (C) sums a column's
+//    features in one group, so only dw and the warp sums stay in shared
+//    memory and any n below 2^31 launches. X is then read twice a round
+//    and r's slice goes through L2.
 //
 // fp32 throughout: the products are fp32 FFMA (no tensor-core instruction),
 // summed in another order than cuBLAS's or the CPU's, so the round agrees
@@ -70,12 +78,17 @@ __host__ __device__ __forceinline__ int row_lo(int cta, int ctas, int n) {
   return static_cast<int>(static_cast<long long>(cta) * n / ctas);
 }
 
-// floats of shared memory besides the Xb cache: r's slice, the block's dw,
-// the residual's per-group sums and the warp sums (+ db)
-__host__ __device__ __forceinline__ int base_floats(int len_max, int B) {
-  return len_max + B + (len_max > THREADS ? len_max : THREADS) + WARPS + 1;
+// floats of shared memory besides the Xb cache in the "shared" plan: r's
+// slice, the block's dw, the residual's per-group sums and the warp sums (+ db)
+__host__ __device__ __forceinline__ long long base_floats(int len_max, int B) {
+  return len_max + B + (len_max > THREADS ? len_max : THREADS) + WARPS + 1LL;
 }
 
+// floats of shared memory in the "streamed" plan: the block's dw and the
+// warp sums (+ db)
+__host__ __device__ __forceinline__ long long streamed_floats(int B) { return B + WARPS + 1LL; }
+
+template <bool STREAM>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
     gblinear_round_kernel(const float* __restrict__ Xt, const float* __restrict__ hess, float* __restrict__ w,
                           float* __restrict__ bias, float* __restrict__ r, float* __restrict__ scratch, int n_blocks,
@@ -84,21 +97,23 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
   const int G = gridDim.x, cta = blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int lo = row_lo(cta, G, n), len = row_lo(cta + 1, G, n) - lo;
-  const int len_max = (n + G - 1) / G;
+  const int len_max = static_cast<int>((static_cast<long long>(n) + G - 1) / G);
 
   extern __shared__ float smem[];
-  float* r_s = smem;                // [len_max]
-  float* dw_s = r_s + len_max;      // [B]
-  float* red = dw_s + B;            // [max(THREADS, len_max)]
-  float* wsum = red + (len_max > THREADS ? len_max : THREADS);  // [WARPS + 1]
-  float* cache = wsum + WARPS + 1;  // [cache_rows][len]
+  float* r_s = STREAM ? r + lo : smem;              // [len_max]; r itself when streamed
+  float* dw_s = STREAM ? smem : r_s + len_max;      // [B]
+  float* red = dw_s + B;                            // [max(THREADS, len_max)]; not when streamed
+  float* wsum = STREAM ? red : red + (len_max > THREADS ? len_max : THREADS);  // [WARPS + 1]
+  float* cache = wsum + WARPS + 1;                  // [cache_rows][len]; cache_rows = 0 when streamed
 
   float* part = scratch;                          // [G][B] partial gradients
   float* bias_part = part + (size_t)G * B;        // [G] partial sums of r
   float* dw_g = bias_part + G;                    // [B] the block's updates
 
-  for (int c = threadIdx.x; c < len; c += THREADS) r_s[c] = r[lo + c];
-  __syncthreads();
+  if (!STREAM) {
+    for (int c = threadIdx.x; c < len; c += THREADS) r_s[c] = r[lo + c];
+    __syncthreads();
+  }
 
   // bias step: db = eta * (-sum(r) / denom), bias += db, r += db
   {
@@ -129,7 +144,7 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
   }
 
   const int tiles = (len + 31) / 32;
-  const int groups = tiles ? (WARPS / tiles > 1 ? WARPS / tiles : 1) : 1;
+  const int groups = STREAM || !tiles ? 1 : (WARPS / tiles > 1 ? WARPS / tiles : 1);
   for (int b = 0; b < n_blocks; ++b) {
     const float* Xb = Xt + (size_t)b * B * n + lo;
 
@@ -178,6 +193,7 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
 
     // (C) r += dw^T Xb over this CTA's rows: each column tile's features
     // split into `groups` strided groups, their sums added in group order
+    // (streamed: one group, added to r at once)
     for (int j = threadIdx.x; j < B; j += THREADS) dw_s[j] = __ldcg(dw_g + j);
     __syncthreads();
     for (int item = warp; item < tiles * groups; item += WARPS) {
@@ -189,25 +205,32 @@ __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
         const float* col = Xb + c;
 #pragma unroll 8
         for (; j < B; j += groups) acc = fmaf(dw_s[j], col[(size_t)j * n], acc);
-        red[jg * len + c] = acc;
+        if (STREAM)
+          r_s[c] = __fadd_rn(r_s[c], acc);
+        else
+          red[jg * len + c] = acc;
       }
     }
     __syncthreads();
-    for (int c = threadIdx.x; c < len; c += THREADS) {
-      float s = red[c];
-      for (int jg = 1; jg < groups; ++jg) s += red[jg * len + c];
-      r_s[c] = __fadd_rn(r_s[c], s);
+    if (!STREAM) {
+      for (int c = threadIdx.x; c < len; c += THREADS) {
+        float s = red[c];
+        for (int jg = 1; jg < groups; ++jg) s += red[jg * len + c];
+        r_s[c] = __fadd_rn(r_s[c], s);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
-  for (int c = threadIdx.x; c < len; c += THREADS) r[lo + c] = r_s[c];
+  if (!STREAM)
+    for (int c = threadIdx.x; c < len; c += THREADS) r[lo + c] = r_s[c];
 }
 
-// The grid's size, its dynamic shared memory and the cached rows of Xb, for
-// n rows and blocks of B features on the current device; a CUDA error if the
-// device cannot launch it cooperatively.
-cudaError_t plan(int n, int B, int* ctas, size_t* smem, int* cache_rows) {
+// The grid's size, its dynamic shared memory, the cached rows of Xb and
+// whether the "streamed" plan runs, for n rows and blocks of B features on
+// the current device; a CUDA error if the device cannot launch it
+// cooperatively.
+cudaError_t plan(int n, int B, int* ctas, size_t* smem, int* cache_rows, bool* streamed) {
   int dev, sms, coop, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -218,17 +241,24 @@ cudaError_t plan(int n, int B, int* ctas, size_t* smem, int* cache_rows) {
   // one CTA an SM: the occupancy query at that CTA's shared memory decides
   // whether it fits, and the grid is that many CTAs an SM (at most one)
   const int G = sms * CTAS_PER_SM;
-  const int len_max = (n + G - 1) / G;
+  const int len_max = static_cast<int>((static_cast<long long>(n) + G - 1) / G);
   const long long base = 4LL * base_floats(len_max, B);
-  if (base > optin) return cudaErrorInvalidValue;
-  const long long rows = len_max ? (optin - base) / (4LL * len_max) : B;
-  *cache_rows = static_cast<int>(rows < B ? rows : B);
-  *smem = static_cast<size_t>(base + 4LL * *cache_rows * len_max);
-  err = cudaFuncSetAttribute(gblinear_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(*smem));
+  *streamed = base > optin;
+  if (*streamed) {
+    *cache_rows = 0;
+    *smem = static_cast<size_t>(4LL * streamed_floats(B));
+    if (static_cast<long long>(*smem) > optin) return cudaErrorInvalidValue;
+  } else {
+    const long long rows = len_max ? (optin - base) / (4LL * len_max) : B;
+    *cache_rows = static_cast<int>(rows < B ? rows : B);
+    *smem = static_cast<size_t>(base + 4LL * *cache_rows * len_max);
+  }
+  const void* fn = *streamed ? reinterpret_cast<const void*>(gblinear_round_kernel<true>)
+                             : reinterpret_cast<const void*>(gblinear_round_kernel<false>);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
   if (err != cudaSuccess) return err;
   int occ = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gblinear_round_kernel, THREADS, *smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, THREADS, *smem);
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
   *ctas = sms * (occ < CTAS_PER_SM ? occ : CTAS_PER_SM);
@@ -243,8 +273,21 @@ extern "C" int gblinear_round_ctas(int n, int B) {
   if (n <= 0 || B <= 0) return -(int)cudaErrorInvalidValue;
   int ctas, cache_rows;
   size_t smem;
-  const cudaError_t err = plan(n, B, &ctas, &smem, &cache_rows);
+  bool streamed;
+  const cudaError_t err = plan(n, B, &ctas, &smem, &cache_rows, &streamed);
   return err == cudaSuccess ? ctas : -(int)err;
+}
+
+// 1 if the kernel runs n rows and blocks of B features on the current device
+// in its "streamed" plan (r's rows in global memory), 0 in its "shared"
+// plan, or minus the CUDA error.
+extern "C" int gblinear_round_streamed(int n, int B) {
+  if (n <= 0 || B <= 0) return -(int)cudaErrorInvalidValue;
+  int ctas, cache_rows;
+  size_t smem;
+  bool streamed;
+  const cudaError_t err = plan(n, B, &ctas, &smem, &cache_rows, &streamed);
+  return err == cudaSuccess ? (int)streamed : -(int)err;
 }
 
 // The dynamic shared memory of one CTA of the kernel (bytes) for n rows and
@@ -253,7 +296,8 @@ extern "C" int gblinear_round_smem(int n, int B) {
   if (n <= 0 || B <= 0) return -(int)cudaErrorInvalidValue;
   int ctas, cache_rows;
   size_t smem;
-  const cudaError_t err = plan(n, B, &ctas, &smem, &cache_rows);
+  bool streamed;
+  const cudaError_t err = plan(n, B, &ctas, &smem, &cache_rows, &streamed);
   return err == cudaSuccess ? static_cast<int>(smem) : -(int)err;
 }
 
@@ -268,7 +312,8 @@ extern "C" int gblinear_round_launch(const void* Xt, const void* hess, void* w, 
   if (n <= 0 || B <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
   int want, cache_rows;
   size_t smem;
-  cudaError_t err = plan(n, B, &want, &smem, &cache_rows);
+  bool streamed;
+  cudaError_t err = plan(n, B, &want, &smem, &cache_rows, &streamed);
   if (err != cudaSuccess) return (int)err;
   if (ctas != want) return (int)cudaErrorInvalidConfiguration;
   const float* xt = static_cast<const float*>(Xt);
@@ -276,7 +321,8 @@ extern "C" int gblinear_round_launch(const void* Xt, const void* hess, void* w, 
   float *wp = static_cast<float*>(w), *bp = static_cast<float*>(bias), *rp = static_cast<float*>(r);
   float* sp = static_cast<float*>(scratch);
   void* args[] = {&xt, &h, &wp, &bp, &rp, &sp, &n_blocks, &B, &n, &cache_rows, &denom, &eta, &lam, &alpha};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gblinear_round_kernel), dim3(ctas), dim3(THREADS),
-                                    args, smem, static_cast<cudaStream_t>(stream));
+  const void* fn = streamed ? reinterpret_cast<const void*>(gblinear_round_kernel<true>)
+                            : reinterpret_cast<const void*>(gblinear_round_kernel<false>);
+  err = cudaLaunchCooperativeKernel(fn, dim3(ctas), dim3(THREADS), args, smem, static_cast<cudaStream_t>(stream));
   return (int)err;
 }

@@ -31,10 +31,13 @@ def read_vcf(path: str | os.PathLike, chunk_size: int | None = None, chunk_i: in
 
 
 def standardize_chroms(vcf: pd.DataFrame) -> pd.DataFrame:
-    """'chr'-prefix chrom names and filter to canonical chromosomes."""
+    """'chr'-prefix chrom names and filter to canonical chromosomes. The
+    column is replaced, not written in place: a VCF of bare numeric names
+    reads as an int64 column, which cannot hold the prefixed strings."""
     vcf = vcf.copy()
-    vcf.iloc[:, 0] = "chr" + vcf.iloc[:, 0].map(str).str.replace("chr", "")
-    return vcf[vcf.iloc[:, 0].isin(CHRS)]
+    col = vcf.columns[0]
+    vcf[col] = "chr" + vcf[col].map(str).str.replace("chr", "")
+    return vcf[vcf[col].isin(CHRS)]
 
 
 def write_vcf_hg19(vcf: pd.DataFrame, path: str | os.PathLike) -> None:

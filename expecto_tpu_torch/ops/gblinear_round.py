@@ -13,7 +13,10 @@ B), ``col_hess`` and ``w_blocks`` (n_blocks, B), ``bias`` (1,) and ``r``
 ``csrc/gblinear_round.cu`` (one cooperative launch a round, in place of two
 GEMVs, the coordinate-update kernel and an add a block) for CUDA tensors and
 takes :func:`gblinear_round_plain` for CPU tensors. A CUDA tensor launches
-the kernel or raises.
+the kernel or raises. The kernel picks one of two shared-memory plans from
+(n, B) and the card (:func:`round_plan`): "shared" keeps each CTA's rows of
+r in shared memory, "streamed" (past about 3.8 million rows at B = 512 on an
+H100) advances them in global memory.
 """
 
 from __future__ import annotations
@@ -71,6 +74,21 @@ def round_ctas(device_index: int, n: int, b: int) -> int:
     return ctas
 
 
+@functools.lru_cache(maxsize=None)
+def round_plan(device_index: int, n: int, b: int) -> str:
+    """The kernel's shared-memory plan on card ``device_index`` for n rows
+    and blocks of ``b`` features: "shared" while one CTA's rows of r fit its
+    opt-in shared memory, else "streamed" (csrc/gblinear_round.cu's
+    ``plan``)."""
+    fn = cuda_build.load("gblinear_round").gblinear_round_streamed
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    with torch.cuda.device(device_index):
+        streamed = fn(n, b)
+    if streamed < 0:
+        raise RuntimeError(f"gblinear_round cannot plan {n} rows x blocks of {b}: CUDA error {-streamed}")
+    return "streamed" if streamed else "shared"
+
+
 def round_scratch(Xt: torch.Tensor) -> torch.Tensor | None:
     """The kernel's scratch for a (n_blocks, B, n) ``Xt`` on its device,
     allocated once a training call; None for a CPU tensor (the plain
@@ -126,11 +144,14 @@ def gblinear_round(Xt: torch.Tensor, col_hess: torch.Tensor, w_blocks: torch.Ten
     if err != 0:
         raise RuntimeError(f"gblinear_round kernel launch failed: CUDA error {err}")
     gblinear_round.launches += 1
+    gblinear_round.launches_by_plan[round_plan(Xt.device.index, n, b)] += 1
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch count of :func:`gblinear_round`."""
+    """Zero the launch counts of :func:`gblinear_round`: in all and by
+    shared-memory plan."""
     gblinear_round.launches = 0
+    gblinear_round.launches_by_plan = {"shared": 0, "streamed": 0}
 
 
 #: kernel launches since the last reset (CPU calls do not count)

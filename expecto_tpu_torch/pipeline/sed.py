@@ -15,7 +15,9 @@ Two contracts:
   into 20,020 decay features, apply the track keep-mask and predict.
   ``sed.tsv`` holds ``SED = pred(alt) - pred(ref)``; the ``--modelList``
   output holds the original ExPecto effect ``pred(0) - pred(diff)``, the
-  opposite sign of the fused scorer's SED.
+  opposite sign of the fused scorer's SED. ``score_sed_with_clusters``
+  (``expecto-predict-by-cluster``) appends each feature cluster's share of
+  the SED to ``sed.tsv``.
 
 In a multi-process run (parallel/mesh.py) every scorer takes its rank's
 ``host_row_range`` block of the aligned (variant, gene) rows, the ranks
@@ -308,6 +310,66 @@ def score_sed_multimodel(
         df[name] = sed_all[:, j]
     if output_csv is not None:
         _primary_write(distributed, "sed_multimodel.written", lambda: df.to_csv(output_csv, header=True, index=False))
+    return df
+
+
+def score_sed_with_clusters(
+    effects: dict[str, np.ndarray],
+    coor: pd.DataFrame,
+    gene: pd.DataFrame,
+    model: GBLinearModel,
+    clusters,
+    *,
+    maxshift: int = 800,
+    n_tracks: int = 2002,
+    keep_mask: np.ndarray | None = None,
+    fixeddist: int = 0,
+    out_dir: str | os.PathLike | None = None,
+    membership: np.ndarray | None = None,
+) -> pd.DataFrame:
+    """SED scoring with per-cluster attribution columns appended (reference
+    predict_by_cluster.py:165-290; the RSAT multi-membership variant when
+    ``membership`` is given, predict_by_cluster_rsat.py). Writes
+    ``out_dir/sed.tsv``.
+
+    ``clusters``: one label per (kept) mark, or the cluster names when
+    ``membership`` (n_marks, n_clusters) is given. Host numpy, one process.
+    """
+    from ..analysis.interpret import interpret_model_multi_membership, interpret_model_with_clusters
+
+    inputs = align_variants_with_genes(coor, gene, effects, fixeddist)
+    if "ref" not in inputs.effects or "alt" not in inputs.effects:
+        raise ValueError("cluster attribution requires ref/alt datasets (fork h5 schema)")
+    feats = _project(inputs, maxshift, keep_mask, n_tracks, keys=("ref", "alt"))
+
+    def predict(X):
+        return model.predict(_match_model_features(X, model, n_tracks))
+
+    ref = predict(feats["ref"])
+    alt = predict(feats["alt"])
+    if membership is not None:
+        proportions = interpret_model_multi_membership(model, feats["ref"], feats["alt"], membership)
+        names = list(clusters)
+    else:
+        proportions = interpret_model_with_clusters(model, feats["ref"], feats["alt"], pd.Series(clusters))
+        names = [f"cluster_{c}" for c in sorted(pd.Series(clusters).unique())]
+
+    df = inputs.coor.copy()
+    df["dist"] = inputs.dist
+    df["gene"] = inputs.genename
+    df["strand"] = inputs.strand
+    sed = alt - ref
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sed_prop = np.abs(sed / ((ref + alt) / 2))  # predict_by_cluster_rsat.py:377
+    df = pd.concat(
+        [df.reset_index(), pd.DataFrame(ref, columns=["REF"]), pd.DataFrame(alt, columns=["ALT"]),
+         pd.DataFrame(sed, columns=["SED"]), pd.DataFrame(sed_prop, columns=["SED_PROPORTION"]),
+         pd.DataFrame(proportions, columns=names)],
+        axis=1, ignore_index=False,
+    )
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        df.to_csv(os.path.join(out_dir, "sed.tsv"), header=True, sep="\t", index=False)
     return df
 
 

@@ -28,7 +28,11 @@ card-vs-CPU limits, the K-model sweep bit for bit), against a second run
 and against the CPU; and multi-process runs: the backend and device rule on
 this machine's cards, and the row-sharded trainers as a 2-rank torchrun
 group on the card (two ranks share one card over gloo) against the 1-rank
-trainer.
+trainer; and the round kernel's two shared-memory plans: one round on both
+sides of the "shared" plan's row cap (one launch of the kernel either way),
+held to the plain round, and ``train_gblinear`` past the cap; and Beluga weights from
+the ``.pth`` converter (models/convert.py) served on the card against the
+torch oracle on the CPU.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -37,6 +41,7 @@ so it runs where JAX is absent; on such a machine pass ``--noconftest``
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_card.py
 """
 
+import functools
 import json
 
 import numpy as np
@@ -44,8 +49,8 @@ import pytest
 import torch
 
 from expecto_tpu_torch.genome.windows import gene_shifts, variant_shifts
-from expecto_tpu_torch.models import gblinear
-from expecto_tpu_torch.ops import conv0, gblinear_cd
+from expecto_tpu_torch.models import convert, gblinear
+from expecto_tpu_torch.ops import conv0, cuda_build, gblinear_cd
 from expecto_tpu_torch.ops import gblinear_round as gr
 from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
 from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
@@ -53,6 +58,7 @@ from expecto_tpu_torch.ops.decay import gene_pos_weights
 from expecto_tpu_torch.ops.spans import conv6_patch_sites_plan, conv6_phases, conv6_phases_patch_sites
 from expecto_tpu_torch.parallel import mesh
 from expecto_tpu_torch.parallel.runner import BelugaRunner
+from torch_oracle import TorchBeluga
 from torch_port_common import DIST_WORKER, narrow_params, random_codes, sed_atol, stale_residual_round, torchrun
 
 pytestmark = pytest.mark.gpu
@@ -916,3 +922,92 @@ def test_two_rank_sharded_trainer_on_the_card_matches_one_rank(cuda, train_probl
     single = gblinear.train_gblinear(X, y, hp, evals=[(Xe, ye, "eval"), (X, y, "train")], device="cuda")
     for name in ("eval", "train"):
         np.testing.assert_allclose(got[f"k1_hist_{name}"], single.eval_history[name], rtol=0, atol=1e-5)
+
+
+# ---- the round kernel's two shared-memory plans ---------------------------------
+
+def _shared_plan_cap(b: int) -> int:
+    """The most rows the round kernel runs in its "shared" plan at blocks of
+    ``b`` on this card (about 3.8 million on an H100)."""
+    lo, hi = 1, 1 << 26
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if gr.round_plan(0, mid, b) == "shared" else (lo, mid - 1)
+    return lo
+
+
+def test_round_plan_turns_streamed_one_row_past_the_shared_cap(cuda):
+    """Past the "shared" plan's cap the kernel still plans a cooperative
+    grid of one CTA an SM, in a few hundred bytes of shared memory."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem = cuda_build.load("gblinear_round").gblinear_round_smem
+    for b in (16, 512):
+        cap = _shared_plan_cap(b)
+        assert 3_000_000 < cap < 1 << 26
+        assert (gr.round_plan(0, cap + 1, b), gr.round_plan(0, 2**31 - 1, b)) == ("streamed", "streamed")
+        assert gr.round_ctas(0, cap + 1, b) == sms
+        assert smem(cap + 1, b) == 4 * (b + 33)
+
+
+@pytest.mark.parametrize("past", [0, 1], ids=["at_cap", "past_cap"])
+def test_round_kernel_on_both_sides_of_the_shared_cap(cuda, past):
+    """At the "shared" plan's cap and one row past it (the "streamed" plan)
+    a round is one launch of the round kernel, no coordinate-update launch,
+    within the card-vs-CPU limits of the plain round."""
+    n = _shared_plan_cap(16) + past
+    state = _round_state(n, 40, 16, seed=n % 97)  # three blocks, the last one padded
+    gr.reset_launch_counts()
+    gblinear_cd.reset_launch_counts()
+    got = _run_rounds(state, 2, 0.0, functools.partial(gr.gblinear_round, update=gblinear_cd.coord_update))
+    assert gblinear_cd.coord_update.launches == 0
+    assert gr.gblinear_round.launches_by_plan == {"shared": 0 if past else 2, "streamed": 2 if past else 0}
+    want = _run_rounds(state, 2, 0.0, gr.gblinear_round_plain)
+    w_gap, b_gap, h_gap = _round_gaps(got, want)
+    assert w_gap <= 1e-5 and b_gap <= 1e-6 and h_gap <= 1e-5, (w_gap, b_gap, h_gap)
+
+
+def test_train_gblinear_past_the_shared_cap(cuda, monkeypatch):
+    """train_gblinear one row past the "shared" plan's cap trains through the
+    round kernel's "streamed" plan, one launch a round, within the limits of
+    the plain round swapped in."""
+    rng = np.random.default_rng(41)
+    n = _shared_plan_cap(16) + 1
+    X = rng.normal(size=(n, 16)).astype(np.float32)
+    y = (2.0 + X @ rng.normal(size=16) + rng.normal(size=n) * 0.3).astype(np.float32)
+    hp = gblinear.GBLinearParams(num_round=3, block_size=16)
+    gr.reset_launch_counts()
+    gblinear_cd.reset_launch_counts()
+    got = gblinear.train_gblinear(X, y, hp, evals=[(X[:5000], y[:5000], "train")], device="cuda")
+    assert gr.gblinear_round.launches_by_plan["streamed"] == 3 and gblinear_cd.coord_update.launches == 0
+    monkeypatch.setattr(gblinear, "gblinear_round", gr.gblinear_round_plain)
+    monkeypatch.setattr(gblinear, "coord_update", gblinear_cd.coord_update_plain)
+    want = gblinear.train_gblinear(X, y, hp, evals=[(X[:5000], y[:5000], "train")], device="cuda")
+    np.testing.assert_allclose(got.weight, want.weight, rtol=0, atol=1e-5 * float(np.abs(want.weight).max()))
+    assert abs(got.bias - want.bias) <= 1e-6
+    np.testing.assert_allclose(got.eval_history["train"], want.eval_history["train"], rtol=0, atol=1e-5)
+
+
+# ---- converted weights ----------------------------------------------------------
+
+def test_converted_weights_serve_on_card_as_the_oracle(cuda):
+    """The oracle's state dict (published widths, He-scaled seeded weights)
+    through state_dict_to_params, served in fp32 on the card: the tracks
+    within 1e-5 (the h5 contract's card-vs-CPU limit) of the torch oracle on
+    the CPU; an fc1 converted without fc1_permutation misses it."""
+    torch.manual_seed(5)
+    net = TorchBeluga().eval()
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.normal_(0.0, float(np.sqrt(2.0 / p[0].numel())) if name.endswith("weight") else 0.05)
+    params = convert.state_dict_to_params(net.state_dict_reference_keys())
+    codes = random_codes(np.random.default_rng(6), 6, 2000, n_frac=0.02)
+    before = conv0_codes_relu.launches_by_kind["float32"]
+    got = BelugaRunner(params, batch_size=16, device="cuda").predict_codes(codes)
+    assert conv0_codes_relu.launches_by_kind["float32"] > before
+    x = np.eye(5, 4, dtype=np.float32)[codes]  # code 4 (N) is all zeros
+    with torch.no_grad():
+        want = net(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1)))[:, :, None, :]).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    params["fc1"]["w"] = np.ascontiguousarray(net.fc1.weight.detach().numpy().T)
+    bad = BelugaRunner(params, batch_size=16, device="cuda").predict_codes(codes)
+    assert np.abs(bad - want).max() > 1e-3

@@ -201,6 +201,18 @@ def test_row_plan_covers_every_row_once_in_order_for_1_to_264_ctas(n):
         assert np.array_equal(np.concatenate([np.arange(a, z) for a, z in zip(lo, hi)]), np.arange(n))
 
 
+# the row-cap cells of the kernel's two shared-memory plans (the last row of the
+# "shared" plan at B = 512 and the first of the "streamed" one) and the most rows
+# the kernel takes: every CTA's range fits the kernel's int row indices
+@pytest.mark.parametrize("n", [3_799_356, 3_799_357, 2**31 - 1])
+def test_row_plan_at_the_streamed_plans_row_counts(n):
+    for ctas in (132, 264):
+        lo, hi = gr.row_plan(n, ctas)
+        assert lo[0] == 0 and hi[-1] == n and np.array_equal(lo[1:], hi[:-1])
+        assert (hi - lo).min() >= n // ctas and (hi - lo).max() <= -(-n // ctas)
+        assert hi.max() < 2**31
+
+
 def test_scratch_holds_partials_bias_sums_and_updates():
     assert gr.scratch_floats(132, 512) == 132 * 512 + 132 + 512
 

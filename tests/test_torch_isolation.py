@@ -30,7 +30,12 @@ def test_every_port_module_imports_without_jax():
                 "expecto_tpu_torch.cli.consensus", "expecto_tpu_torch.models.gblinear",
                 "expecto_tpu_torch.ops.gblinear_cd", "expecto_tpu_torch.pipeline.train",
                 "expecto_tpu_torch.utils.plotting", "expecto_tpu_torch.cli.train",
-                "expecto_tpu_torch.parallel.dist", "expecto_tpu_torch.parallel.mesh"]
+                "expecto_tpu_torch.parallel.dist", "expecto_tpu_torch.parallel.mesh",
+                "expecto_tpu_torch.models.convert", "expecto_tpu_torch.cli.merge",
+                "expecto_tpu_torch.genome.closest_genes", "expecto_tpu_torch.cli.closest_genes",
+                "expecto_tpu_torch.analysis.interpret", "expecto_tpu_torch.cli.predict_by_cluster",
+                "expecto_tpu_torch.utils.timing", "expecto_tpu_torch.utils.profiling",
+                "expecto_tpu_torch.utils.manifest"]
     assert set(required) <= set(mods)
     code = (
         "import sys, importlib\n"
