@@ -153,7 +153,34 @@ Phases (any failure raises, and the script exits non-zero with no result):
    round-kernel launch a round either way, each within the round limits of
    the plain round. The single-tissue CLI mode (plots) and
    ``--allTissues`` (``metrics.h5``) run on the CPU tests only;
-12. multi-process runs: each flow's CLI as a 2-rank group, ``python -m
+12. analysis (``expecto-analysis``), host code over the card's own outputs:
+   each subcommand of ANALYSIS_ON_CARD through ``cli.analysis``'s ``main``
+   in process under build/chip_smoke/analysis, each wall logged with the
+   card: ``bootstrap-coefficients --no_plots`` on the training phase's 128
+   bootstrap ``.save`` files (20,020 weights) with its one-tissue model as
+   the main model and an ``all_feature_clusters.tsv`` from the port's
+   ``feature_clusters_table`` over a seeded 2,002-mark table (``se_weight``
+   equal to ``np.std(ddof=1)`` of the models as loaded, every z-score row
+   its own feature's, which the reference's positional assignment fails);
+   ``fimo-query --fimo_engine builtin`` on the first 256 substitutions of
+   the VCF against the genome with 24 seeded motifs of widths 6-20 (each
+   record the +-30-bp window around its variant, each window's sequence
+   the record's slice, its score the log-odds sum within the text's 4
+   digits, p-values in (0, 1], a row for every window without an N less
+   those the scanner leaves out at a motif's lowest score);
+   ``fimo-enrich --no_plots`` with and without ``--rank_int`` on the entry
+   phase's RSAT table (seven tables of 15 finite p-values in [0, 1]);
+   ``enriched-motifs`` (exactly the motifs under q 0.01); ``rank-int`` on
+   the entry phase's sed.tsv by gene in both modes (the closed form of
+   the Blom ranks); ``make-profile --rank_match_col`` on the training
+   genes (every column's sorted values the reference column's);
+   ``collect-pwms`` with and without Lambert/HGNC files (the motifs of the
+   kept TF symbols); ``cluster-viz --method louvain`` on a seeded (2,002 x
+   20) embedding (the 11 planted groups back). No kernel may launch in the
+   phase. ANALYSIS_CPU_ONLY lists the subcommands this machine's packages
+   do not allow (no scikit-learn, joblib, matplotlib or h5py): the CPU
+   tests prove those;
+13. multi-process runs: each flow's CLI as a 2-rank group, ``python -m
    torch.distributed.run --standalone --nproc_per_node 2`` on this card
    (the two ranks share it, so the backend is gloo), each rank running
    ``-m expecto_tpu_torch.cli.<flow>`` under ``--rank-worker``, which
@@ -361,6 +388,33 @@ TRAIN_ROUND_LIMITS = {"w_over_max_w": 1e-5, "bias": 1e-6, "rmse": 1e-5}
 # predictions of the 900 chr8 genes would read about 0 +- 0.03 (a model at
 # a tenth of the width, trained on the CPU, read 0.37)
 TRAIN_MIN_SPEARMAN = 0.1
+
+# the analysis toolkit (cli.analysis) on the card's machine, over the
+# earlier phases' outputs. The subcommands run here, fixed; the rest need
+# packages that machine lacks and are proven by the CPU tests only
+# (tests/test_torch_cli_analysis.py), each with the package it needs
+ANALYSIS_ON_CARD = (
+    "bootstrap-coefficients --no_plots", "fimo-query --fimo_engine builtin", "fimo-enrich --no_plots",
+    "fimo-enrich --no_plots --rank_int", "enriched-motifs", "rank-int --group_by gene",
+    "rank-int --group_by gene --deterministic", "make-profile --rank_match_col", "collect-pwms (Lambert/HGNC)",
+    "collect-pwms", "cluster-viz --method louvain",
+)
+ANALYSIS_CPU_ONLY = {
+    "interpret-features": "scikit-learn, joblib", "svd": "scikit-learn, joblib",
+    "svd-transform": "scikit-learn, joblib", "cluster-viz --method kmeans": "scikit-learn, joblib",
+    "cluster-viz --tsne": "scikit-learn, matplotlib", "extract-consensus": "h5py", "extract-dataset": "h5py",
+    "plot-metrics": "h5py, matplotlib", "plot-distributions": "matplotlib",
+    "every subcommand's plots (without --no_plots)": "matplotlib",
+}
+ANALYSIS_SUBS = 256  # the first substitutions of the phase inputs' VCF, queried for motifs
+ANALYSIS_MOTIFS = 24  # seeded MEME motifs, widths 6-20
+ANALYSIS_MOTIF_WIDTHS = (6, 20)
+ANALYSIS_BP_PAD = 30  # fimo-query's default: the +-30-bp window around the variant
+ANALYSIS_NEG_CLUSTERS = 5  # of the entry phase's 20 RSAT clusters: 15 rank cutoffs
+ANALYSIS_QVAL = 0.01  # enriched-motifs' default threshold
+ANALYSIS_EMB_GROUPS = 11  # planted groups of the (2,002 x 20) Louvain embedding
+ANALYSIS_EMB_DIM = 20
+ANALYSIS_TF_POOL = 160  # TF symbols the seeded features table, JASPAR files and Lambert list draw from
 
 # multi-process runs (torchrun, this card shared by every rank over gloo):
 # ranks a group, host threads a rank, and each group's time limit
@@ -2748,7 +2802,7 @@ def train_round_phase(out: dict, X, n_rows: int, card: str) -> None:
         f"{row['smem_bytes']} bytes of dynamic shared memory [{card}]")
 
 
-def train_phase(report: dict, card: str, seed: int) -> None:
+def train_phase(report: dict, card: str, seed: int):
     """gblinear training at the published width: the coordinate-update
     kernel's checks; three timed calls (one tissue with its watchlist, K =
     1, on the round kernel; all 218 tissues in one sweep; 128 bootstrap
@@ -2757,7 +2811,8 @@ def train_phase(report: dict, card: str, seed: int) -> None:
     plain round swapped in (within TRAIN_ROUND_LIMITS) and a planted stale
     residual (beyond them); the round kernel at the published shape
     (:func:`train_round_phase`); the CLI's models against the in-process
-    sweep; card vs CPU on a reduced problem with two planted faults."""
+    sweep; card vs CPU on a reduced problem with two planted faults. Returns
+    the one-tissue (K = 1) model, the analysis phase's main model."""
     import numpy as np
     import torch
 
@@ -2875,6 +2930,7 @@ def train_phase(report: dict, card: str, seed: int) -> None:
     del X, inp
     train_row_cap_check(out, card, seed)
     report["train"] = out
+    return k1.model
 
 
 def train_row_cap_check(out: dict, card: str, seed: int) -> None:
@@ -3016,6 +3072,412 @@ def train_cpu_check(out: dict, X, expression) -> None:
         f"{TRAIN_SMALL_ROUNDS} rounds, alpha {TRAIN_SMALL_ALPHA}): weights {gaps['card']:.3g} (limit {limit:.3g} = "
         f"{TRAIN_CPU_RTOL:g} x max|w|), biases {bias_gap:.3g}; planted faults: one round fewer {fewer:.3g}, "
         f"alpha's sign swapped {swapped:.3g}")
+
+
+def make_analysis_inputs(seed: int, main_model) -> dict:
+    """The analysis phase's seeded inputs under build/chip_smoke/analysis
+    beside the earlier phases' outputs: a 2,002-mark features table
+    (``features.tsv``: TF, DNase and histone marks over a pool of TF
+    symbols), its ``all_feature_clusters.tsv`` (the port's
+    ``feature_clusters_table`` over seeded labels, plus each row's mark),
+    the training phase's K = 1 model as ``main.save`` (the port's writer),
+    the first substitutions of the phase inputs' VCF with IDs, a MEME file
+    of seeded motifs, an RSAT cluster -> motif table over the entry phase's
+    20 clusters, the entry phase's RSAT table with those IDs, an enrichment
+    table over the motifs, a counts table over the training genes, JASPAR
+    and HOCOMOCO files with a Lambert list and an HGNC mapping, and a
+    (2,002 x 20) embedding of planted groups."""
+    import numpy as np
+    import pandas as pd
+
+    from expecto_tpu_torch.analysis.cluster import feature_clusters_table
+    from expecto_tpu_torch.io.tables import load_beluga_features
+    from expecto_tpu_torch.io.xgb import save_expression_model
+
+    d = WORK / "analysis"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed + 12)
+    n_marks = TRAIN_FEATURES // 10
+    tfs = [f"TF{i}" if i % 3 else f"Tf{i}" for i in range(ANALYSIS_TF_POOL)] + ["Pol2", "POLR2A"]
+    kinds = rng.choice(["TF", "DNase", "Histone"], size=n_marks, p=[0.7, 0.1, 0.2])
+    assays = np.where(kinds == "TF", rng.choice(tfs, size=n_marks),
+                      np.where(kinds == "DNase", "DNase", rng.choice(["H3K4me3", "H3K27ac", "H3K36me3"], size=n_marks)))
+    pd.DataFrame({"Cell type": [f"cell{i % 97}" for i in range(n_marks)], "Assay": assays, "Treatment": "None",
+                  "Assay type": kinds, "Source": "ENCODE"}).to_csv(d / "features.tsv", sep="\t")
+    features = load_beluga_features(d / "features.tsv")
+    table = feature_clusters_table(features, rng.integers(0, 10, size=(n_marks, 10)))
+    table["mark"] = np.repeat(np.arange(n_marks), 10)
+    table.to_csv(d / "all_feature_clusters.tsv", sep="\t")
+    save_expression_model(main_model, d / "main.save")
+
+    # the first substitutions, each with an ID, for fimo-query
+    subs = [line.split("\t") for line in (WORK / "variants.vcf").read_text().splitlines()]
+    subs = [r for r in subs if len(r[3]) == len(r[4]) == 1][:ANALYSIS_SUBS]
+    ids = {(r[0], int(r[1]), r[3], r[4]): f"rs{i}" for i, r in enumerate(subs)}
+    (d / "subs.vcf").write_text("".join(f"{c}\t{p}\t{ids[(c, int(p), ref, alt)]}\t{ref}\t{alt}\t.\t.\t.\n"
+                                        for c, p, _id, ref, alt in subs))
+
+    lines = ["MEME version 4", "", "ALPHABET= ACGT", "", "strands: + -", "", "Background letter frequencies",
+             "A 0.29 C 0.21 G 0.21 T 0.29", ""]
+    motif_alt = []
+    for m in range(ANALYSIS_MOTIFS):
+        w = int(rng.integers(ANALYSIS_MOTIF_WIDTHS[0], ANALYSIS_MOTIF_WIDTHS[1] + 1))
+        motif_alt.append(tfs[int(rng.integers(len(tfs) - 2))])
+        lines += [f"MOTIF MA{m:04d}.1 {motif_alt[-1]}",
+                  f"letter-probability matrix: alength= 4 w= {w} nsites= {int(rng.integers(8, 60))} E= 0"]
+        lines += [" " + " ".join(f"{p:.6f}" for p in row) for row in rng.dirichlet([0.3] * 4, size=w)] + [""]
+    (d / "motifs.meme").write_text("\n".join(lines) + "\n")
+
+    # the entry phase's 20 RSAT clusters, each holding 2-5 of the motifs' TF names
+    (d / "rsat_motifs.tsv").write_text("".join(
+        f"rsat_{k}\t{','.join(sorted(set(rng.choice(motif_alt, int(rng.integers(2, 6))))))}\n"
+        for k in range(ENTRY_CLUSTERS)))
+    contribs = pd.read_csv(WORK / "entry" / "clusters_rsat" / "sed.tsv", sep="\t")
+    contribs["2"] = [ids.get((c, int(p), ref, alt), ".") for c, p, ref, alt in
+                     zip(contribs["0"], contribs["1"], contribs["3"], contribs["4"])]
+    contribs.to_csv(d / "contribs.tsv", sep="\t", index=False)
+    q = rng.random(ANALYSIS_MOTIFS) * 0.05
+    pd.DataFrame({"hypergeom_qval": q}, index=pd.Index([f"MA{m:04d}.1" for m in range(ANALYSIS_MOTIFS)],
+                                                       name="motif")).to_csv(d / "enrichment.tsv", sep="\t")
+
+    genes = pd.read_csv(WORK / "train" / "geneanno.csv", usecols=["id"])["id"].to_numpy()
+    picked = rng.permutation(genes)[: int(0.95 * len(genes))]
+    pd.DataFrame({f"t{j}": rng.gamma(1.0 + j, 4.0, len(picked)) for j in range(1, 5)},
+                 index=pd.Index(picked, name="gene")).to_csv(d / "counts.tsv", sep="\t")
+
+    jdir = d / "jaspar"
+    jdir.mkdir(exist_ok=True)
+    for i, name in enumerate(rng.choice(tfs[:-2], 60, replace=False)):
+        name = f"{name}::TF{i}" if i % 11 == 0 else str(name)  # heterodimers are skipped
+        counts = rng.integers(0, 40, size=(4, int(rng.integers(6, 15))))
+        (jdir / f"MA{i:04d}.1.jaspar").write_text(f">MA{i:04d}.1 {name}\n" + "".join(
+            f"{b} [ {' '.join(map(str, row))} ]\n" for b, row in zip("ACGT", counts)))
+    hoco = []
+    for i, name in enumerate(rng.choice(tfs[:-2], 40, replace=False)):
+        counts = rng.integers(0, 40, size=(4, 8))
+        hoco.append(f">H{i} {str(name).upper()}_HUMAN.H11MO.0.A\n" + "".join(
+            f"{b} [ {' '.join(map(str, row))} ]\n" for b, row in zip("ACGT", counts)))
+    (d / "hocomoco.jaspar").write_text("".join(hoco))
+    pd.DataFrame({"Approved symbol": sorted({t.upper() for t in rng.choice(tfs, 90, replace=False)})}).to_csv(
+        d / "lambert.csv")
+    pd.DataFrame({"assay": tfs, "Match type": "Approved symbol", "Approved symbol": [t.upper() for t in tfs]}
+                 ).set_index("assay").to_csv(d / "hgnc_mapping.csv")
+
+    sizes = rng.multinomial(n_marks - 10 * ANALYSIS_EMB_GROUPS, [1 / ANALYSIS_EMB_GROUPS] * ANALYSIS_EMB_GROUPS) + 10
+    planted = np.repeat(np.arange(ANALYSIS_EMB_GROUPS), sizes)
+    centers = rng.normal(0, 10.0, size=(ANALYSIS_EMB_GROUPS, ANALYSIS_EMB_DIM))
+    np.save(d / "embedding.npy", centers[planted] + rng.normal(0, 0.5, size=(n_marks, ANALYSIS_EMB_DIM)))
+    return {"dir": d, "planted": planted, "contrib_rows": len(contribs)}
+
+
+def _analysis_cli(argv: list, what: str, walls: dict, card: str) -> None:
+    """One subcommand through ``cli.analysis.main`` in process, timed; it
+    must exit 0."""
+    from expecto_tpu_torch.cli.analysis import main as analysis_main
+
+    t0 = time.perf_counter()
+    rc = analysis_main([str(a) for a in argv])
+    walls[what] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.analysis {what} exited {rc}")
+    log(f"analysis: {what} {walls[what]:.3f} s [{card}]")
+
+
+def _check_bootstrap(d: Path, out: Path, boot_dir: Path) -> dict:
+    """se_weight.npy against np.std(ddof=1) over the trainer's models as
+    loaded, and every z-score row against its own feature's (weight index
+    coeff_idx * marks + mark); the reference's positional assignment must
+    fail that check."""
+    import numpy as np
+    import pandas as pd
+
+    from expecto_tpu_torch.io.xgb import load_expression_model
+
+    weights = np.vstack([load_expression_model(boot_dir / f"bootstrap_seed{j}.save").weight
+                         for j in range(TRAIN_BOOT_SEEDS)])
+    se = np.std(weights, axis=0, ddof=1)
+    got = np.load(out / "se_weight.npy")
+    if got.shape != (TRAIN_FEATURES,) or not np.array_equal(got, se):
+        raise AssertionError("bootstrap-coefficients: se_weight.npy is not np.std(ddof=1) of the 128 models")
+    z = load_expression_model(d / "main.save").weight / se
+    n_marks = TRAIN_FEATURES // 10
+    table = pd.read_csv(out / "input_features_sorted_by_zscore.csv", sep="\t", index_col=0,
+                        float_precision="round_trip")
+    want = z[table["coeff_idx"].to_numpy() * n_marks + table["mark"].to_numpy()]
+    # z is float32; the table holds each value's shortest float32 text
+    if len(table) != TRAIN_FEATURES or not np.array_equal(table["z_score"].to_numpy(np.float32), want,
+                                                          equal_nan=True):
+        raise AssertionError("bootstrap-coefficients: a row's z_score is not its own feature's")
+    absz = np.abs(table["z_score"].to_numpy())
+    if not (absz[:-1] >= absz[1:]).all():
+        raise AssertionError("bootstrap-coefficients: rows not sorted by |z|")
+    rows = pd.read_csv(d / "all_feature_clusters.tsv", sep="\t", index_col=0)
+    positional = z  # the reference: basis-major z assigned to mark-major rows in order
+    wrong = int((positional != z[rows["coeff_idx"].to_numpy() * n_marks + rows["mark"].to_numpy()]).sum())
+    if wrong == 0:
+        raise AssertionError("the planted positional z-score assignment passed the per-feature check")
+    return {"models": TRAIN_BOOT_SEEDS, "features": TRAIN_FEATURES, "se_max": float(se.max()),
+            "max_abs_z": float(absz[0]), "positional_fault_rows_wrong": wrong}
+
+
+def _log_odds(probs, nsites: float, bg):
+    """MEME's pseudocount-smoothed log2 odds (pseudo 0.1), written out here
+    to check the scanner's scores."""
+    import numpy as np
+
+    return np.log2(((probs * nsites + 0.1 * bg) / (nsites + 0.1)) / bg)
+
+
+def _check_fimo_query(out: Path, d: Path) -> dict:
+    """Every query record is the +-30-bp genome window around its variant;
+    every printed window's matched_sequence is the slice of its record at
+    start/stop (reverse complemented on '-'), its score the log-odds sum of
+    that sequence within the text's 4 significant digits, its p-value in
+    (0, 1]; the rows are every window without an N over motifs, records and
+    strands, less the windows at a motif's lowest score where the scanner's
+    float survival function reads above 1 (the scanner leaves those out)."""
+    import numpy as np
+    import pandas as pd
+
+    from expecto_tpu_torch.analysis.motif_scan import log_odds, parse_meme, pvalue_lookup
+    from expecto_tpu_torch.genome.fasta import FastaIndex
+    from expecto_tpu_torch.pipeline.consensus import parse_fasta
+
+    genome = FastaIndex(WORK / "genome.fa")
+    records = dict(parse_fasta(out / "fimo_in.fasta"))
+    pad = ANALYSIS_BP_PAD
+    for line in (d / "subs.vcf").read_text().splitlines():
+        chrom, pos, rid, ref = line.split("\t")[:4]
+        seq = records[rid]
+        if len(seq) != 2 * pad + 1 or seq[pad] != ref or seq != genome.sequence(chrom, int(pos) - pad, int(pos) + pad):
+            raise AssertionError(f"fimo-query: record {rid} is not the +-{pad}-bp genome window around its variant")
+    lut = np.full(256, -1, dtype=np.int64)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    comp = str.maketrans("ACGT", "TGCA")
+    strands = [lut[np.frombuffer(s.upper().encode(), np.uint8)] for seq in records.values()
+               for s in (seq, seq.upper().translate(comp)[::-1])]
+    motifs, bg = parse_meme(str(d / "motifs.meme"))
+    df = pd.read_csv(out / "fimo_out.txt", sep="\t", keep_default_na=False, dtype={"q-value": str})
+    want_rows, left_out = 0, 0
+    for m in motifs:
+        q, lookup = pvalue_lookup(log_odds(m, bg), bg)
+        drop_lowest = lookup(np.array([q.min(axis=1).sum()]))[0] > 1.0
+        for codes in strands:
+            wins = np.lib.stride_tricks.sliding_window_view(codes, m.width)
+            clean = wins[(wins >= 0).all(axis=1)]
+            lowest = int((q[np.arange(m.width), clean] == q.min(axis=1)).all(axis=1).sum()) if drop_lowest else 0
+            want_rows += len(clean) - lowest
+            left_out += lowest
+        sub = df[df["motif_id"] == m.motif_id]
+        pieces = [records[r][a - 1 : b].upper() for r, a, b in zip(sub["sequence_name"], sub["start"], sub["stop"])]
+        pieces = [x if s == "+" else x.translate(comp)[::-1] for x, s in zip(pieces, sub["strand"])]
+        if pieces != list(sub["matched_sequence"]):
+            raise AssertionError(f"fimo-query: {m.motif_id}: a matched_sequence is not its record's slice")
+        codes = lut[np.frombuffer("".join(pieces).encode(), np.uint8)].reshape(len(sub), m.width)
+        scores = _log_odds(m.probs, m.nsites, bg)[np.arange(m.width), codes].sum(axis=1)
+        step = 10.0 ** (np.floor(np.log10(np.maximum(np.abs(scores), 1e-300))) - 3)
+        if (np.abs(sub["score"].to_numpy(np.float64) - scores) > 0.5 * step * (1 + 1e-9) + 1e-12).any():
+            raise AssertionError(f"fimo-query: {m.motif_id}: a score is not its log-odds sum to 4 digits")
+    p = df["p-value"].to_numpy(np.float64)
+    if not ((p > 0) & (p <= 1)).all():
+        raise AssertionError("fimo-query: a p-value outside (0, 1]")
+    if len(df) != want_rows:
+        raise AssertionError(f"fimo-query: {len(df)} rows, expected {want_rows} windows without N")
+    filtered = pd.read_csv(out / "fimo_filtered.tsv", sep="\t", index_col=0)
+    return {"records": len(records), "motifs": len(motifs), "rows": len(df),
+            "lowest_score_windows_left_out": left_out, "filtered_rows": len(filtered)}
+
+
+def _check_enrichment(out: Path, sed_column: str) -> dict:
+    """Every hypergeom*.tsv has one row a rank cutoff (20 clusters less 5
+    negatives) of finite p-values in [0, 1], the four percentile tables
+    among them."""
+    import numpy as np
+    import pandas as pd
+
+    tables = sorted(p.name for p in out.glob("hypergeom*.tsv"))
+    want = {"hypergeom.tsv", "hypergeom_shuffled_clusters.tsv", "hypergeom_shuffled_variants.tsv",
+            *(f"hypergeom_percentile_{p}_{p + 25}.tsv" for p in (0, 25, 50, 75))}
+    if set(tables) != want:
+        raise AssertionError(f"fimo-enrich ({sed_column}): tables {tables}, expected {sorted(want)}")
+    res = {}
+    for name in tables:
+        df = pd.read_csv(out / name, sep="\t")
+        pv = df["hypergeom_pval"].to_numpy(np.float64)
+        if list(df["top_cluster_idx"]) != list(range(ENTRY_CLUSTERS - ANALYSIS_NEG_CLUSTERS)) or not (
+                np.isfinite(pv).all() and ((pv >= 0) & (pv <= 1)).all()):
+            raise AssertionError(f"fimo-enrich ({sed_column}) {name}: rows or p-values out of range")
+        res[name] = float(pv.min())
+    return res
+
+
+def _check_rank_int(stoch: Path, det: Path) -> dict:
+    """--deterministic: per gene, norm.ppf of the Blom average ranks; the
+    stochastic mode: per gene, the sorted values are norm.ppf of ranks 1..n
+    (ties broken at random)."""
+    import numpy as np
+    import pandas as pd
+    from scipy.stats import norm, rankdata
+
+    c = 3.0 / 8
+    for path, average in ((det, True), (stoch, False)):
+        df = pd.read_csv(path, sep="\t", float_precision="round_trip")
+        for _gene, g in df.groupby("gene"):
+            sed, got = g["SED"].to_numpy(), g["SED_RINT"].to_numpy()
+            n = len(sed)
+            if average:
+                want = norm.ppf((rankdata(sed, method="average") - c) / (n - 2 * c + 1))
+                if not np.array_equal(got, want):
+                    raise AssertionError("rank-int --deterministic differs from norm.ppf of the Blom average ranks")
+            else:
+                want = norm.ppf((np.arange(1, n + 1) - c) / (n - 2 * c + 1))
+                order = np.argsort(sed, kind="stable")
+                rises = np.diff(sed[order]) > 0
+                if not np.array_equal(np.sort(got), want) or not (np.diff(got[order])[rises] > 0).all():
+                    raise AssertionError("rank-int: a gene's values are not norm.ppf of its SED ranks 1..n")
+    return {"rows": len(df), "genes": int(df["gene"].nunique())}
+
+
+def _check_collect(out: Path, d: Path, lambert: bool) -> dict:
+    """The written JASPAR file holds exactly the motifs of the TF assays the
+    features table names (with Lambert/HGNC: mapped, Pol marks and non-TF
+    marks dropped, and kept where the Lambert list holds the symbol):
+    single-TF JASPAR files and HOCOMOCO motifs by the name before '_'."""
+    import pandas as pd
+
+    from expecto_tpu_torch.analysis.pwm import parse_jaspar
+
+    feats = pd.read_csv(d / "features.tsv", sep="\t", index_col=0)
+    tf = feats[feats["Assay type"] == "TF"]["Assay"]
+    if lambert:
+        listed = set(pd.read_csv(d / "lambert.csv", index_col=0)["Approved symbol"])
+        included = {a.upper() for a in tf if not a.startswith("Pol") and a.upper() in listed}
+    else:
+        included = {a.upper() for a in tf}
+    want = []
+    for f in sorted((d / "jaspar").glob("*.jaspar")):
+        head = f.read_text().splitlines()[0][1:].split(None, 1)
+        if "::" not in head[1] and head[1].upper() in included:
+            want.append(head[0])
+    want += [m.matrix_id for m in parse_jaspar((d / "hocomoco.jaspar").read_text())
+             if m.name.split("_")[0].upper() in included]
+    got = [m.matrix_id for m in parse_jaspar((out / "cluster_motifs.jaspar").read_text())]
+    if sorted(got) != sorted(want) or not got:
+        raise AssertionError(f"collect-pwms (lambert={lambert}): motifs {sorted(got)} != {sorted(want)}")
+    return {"motifs": len(got), "tf_symbols": len(included)}
+
+
+def analysis_phase(report: dict, card: str, seed: int, main_model) -> None:
+    """The analysis toolkit (``python -m expecto_tpu_torch.cli.analysis``,
+    each subcommand's ``main`` in process under build/chip_smoke/analysis)
+    over the card's own outputs: the training phase's 128 bootstrap
+    ``.save`` files and K = 1 model, the phase inputs' genome and VCF, the
+    entry-and-exit phase's cluster tables and sed.tsv, the training genes.
+    The subcommands of ANALYSIS_ON_CARD run, fixed, each wall logged with
+    the card; ANALYSIS_CPU_ONLY need packages this machine lacks. No kernel
+    may launch in the phase."""
+    import numpy as np
+    import pandas as pd
+
+    from expecto_tpu_torch.ops import conv0, conv8, gblinear_cd, gblinear_round
+
+    log("analysis: subcommands run here: " + "; ".join(ANALYSIS_ON_CARD))
+    log("analysis: proven by the CPU tests only (the packages this machine lacks): "
+        + "; ".join(f"{k} ({v})" for k, v in ANALYSIS_CPU_ONLY.items()))
+    for mod in (conv8, conv0, gblinear_cd, gblinear_round):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    inp = make_analysis_inputs(seed, main_model)
+    d, walls, out = inp["dir"], {}, {"inputs_s": time.perf_counter() - t0}
+    boot_dir = WORK / "train" / "boot"
+
+    o = d / "bootstrap"
+    _analysis_cli(["bootstrap-coefficients", "--bootstrap_model_dir", boot_dir, "--pattern", "bootstrap_seed*.save",
+                   "--main_model", d / "main.save", "--input_features_file", d / "all_feature_clusters.tsv",
+                   "--no_plots", "-o", o], "bootstrap-coefficients --no_plots", walls, card)
+    out["bootstrap"] = _check_bootstrap(d, o, boot_dir)
+    log(f"analysis: bootstrap SEs of {TRAIN_BOOT_SEEDS} card-trained models equal np.std(ddof=1); every z-score row "
+        f"its own feature's; the positional assignment puts {out['bootstrap']['positional_fault_rows_wrong']} of "
+        f"{TRAIN_FEATURES} rows wrong (caught)")
+
+    o = d / "fimo_query"
+    _analysis_cli(["fimo-query", "--vcf_file", d / "subs.vcf", "--motif_file", d / "motifs.meme", "--hg19_fasta",
+                   WORK / "genome.fa", "--fimo_engine", "builtin", "-o", o], "fimo-query --fimo_engine builtin",
+                  walls, card)
+    out["fimo_query"] = _check_fimo_query(o, d)
+    log(f"analysis: fimo-query {out['fimo_query']}: windows, scores and p-values checked")
+
+    # fimo-enrich reads a FIMO table without a header row or with MEME 4.x's
+    # '#'-commented one (both packages); the scanner writes MEME 5's plain
+    # header, so it is commented here
+    header, rows = (o / "fimo_out.txt").read_text().split("\n", 1)
+    (d / "fimo_out_meme4.txt").write_text(f"#{header}\n{rows}")
+    for rank_int in (False, True):
+        o = d / ("fimo_enrich_rint" if rank_int else "fimo_enrich")
+        what = "fimo-enrich --no_plots" + (" --rank_int" if rank_int else "")
+        _analysis_cli(["fimo-enrich", "--cluster_contribs_file", d / "contribs.tsv", "--rsat_clusters_file",
+                       d / "rsat_motifs.tsv", "--fimo_out_file", d / "fimo_out_meme4.txt",
+                       "--n_neg_clusters", ANALYSIS_NEG_CLUSTERS, "--no_plots", *(["--rank_int"] if rank_int else []),
+                       "-o", o], what, walls, card)
+        out[what] = _check_enrichment(o, "SED_RINT" if rank_int else "SED_PROPORTION")
+    log(f"analysis: fimo-enrich on the entry phase's RSAT table ({inp['contrib_rows']} rows, {ENTRY_CLUSTERS} "
+        f"clusters): 7 tables of {ENTRY_CLUSTERS - ANALYSIS_NEG_CLUSTERS} finite p-values in [0, 1] each, with and "
+        "without --rank_int")
+
+    o = d / "enriched"
+    _analysis_cli(["enriched-motifs", "--hypergeom_enrichment_tsv", d / "enrichment.tsv", "--motif_db_file",
+                   d / "motifs.meme", "-o", o], "enriched-motifs", walls, card)
+    q = pd.read_csv(d / "enrichment.tsv", sep="\t", index_col=0)["hypergeom_qval"]
+    got = {ln.split()[1] for ln in (o / "enriched_motifs.meme").read_text().splitlines() if ln.startswith("MOTIF")}
+    if got != set(q.index[q < ANALYSIS_QVAL]):
+        raise AssertionError(f"enriched-motifs: {sorted(got)} are not the motifs under q {ANALYSIS_QVAL}")
+    out["enriched_motifs"] = len(got)
+
+    sed_tsv = WORK / "entry" / "clusters_labels" / "sed.tsv"
+    for det in (False, True):
+        what = "rank-int --group_by gene" + (" --deterministic" if det else "")
+        _analysis_cli(["rank-int", sed_tsv, "--column", "SED", "--group_by", "gene",
+                       *(["--deterministic"] if det else []), "-o", d / f"rank_int_{'det' if det else 'stoch'}.tsv"],
+                      what, walls, card)
+    out["rank_int"] = _check_rank_int(d / "rank_int_stoch.tsv", d / "rank_int_det.tsv")
+
+    o = d / "profile.csv"
+    _analysis_cli(["make-profile", "--annoFile", WORK / "train" / "geneanno.csv", "--countsFile", d / "counts.tsv",
+                   "--rank_match_col", "t1", "-o", o], "make-profile --rank_match_col", walls, card)
+    prof = pd.read_csv(o, index_col=0, float_precision="round_trip")
+    ref = np.sort(prof["t1"].dropna().to_numpy())
+    if len(prof) != TRAIN_GENES or any(not np.array_equal(np.sort(prof[c].dropna().to_numpy()), ref)
+                                       for c in prof.columns):
+        raise AssertionError("make-profile: a column's sorted values are not the reference column's")
+    out["make_profile"] = {"genes": len(prof), "matched_genes": len(ref), "columns": list(prof.columns)}
+
+    for lambert in (True, False):
+        o = d / ("pwms_lambert" if lambert else "pwms")
+        extra = ["--lambert_hgnc", d / "lambert.csv", "--hgnc_mapping", d / "hgnc_mapping.csv"] if lambert else []
+        _analysis_cli(["collect-pwms", "--belugaFeatures", d / "features.tsv", "--jaspar_motif_db", d / "jaspar",
+                       "--hocomoco_jaspar_motif_file", d / "hocomoco.jaspar", *extra, "--out_dir", o],
+                      "collect-pwms" + (" (Lambert/HGNC)" if lambert else ""), walls, card)
+        out[f"collect_pwms{'_lambert' if lambert else ''}"] = _check_collect(o, d, lambert)
+
+    o = d / "louvain"
+    _analysis_cli(["cluster-viz", d / "embedding.npy", "--method", "louvain", "--out_dir", o],
+                  "cluster-viz --method louvain", walls, card)
+    labels = pd.read_csv(o / "clusters.tsv", sep="\t", index_col=0)["cluster"].to_numpy()
+    pairs = set(zip(inp["planted"], labels))
+    if len(pairs) != ANALYSIS_EMB_GROUPS or len(set(labels)) != ANALYSIS_EMB_GROUPS:
+        raise AssertionError(f"cluster-viz --method louvain: {len(set(labels))} clusters do not recover the "
+                             f"{ANALYSIS_EMB_GROUPS} planted groups")
+    out["louvain_clusters"] = int(len(set(labels)))
+
+    launches = {"conv8_relu": conv8.conv8_relu.launches, "conv0_codes": conv0.conv0_codes_relu.launches,
+                "gblinear_cd": gblinear_cd.coord_update.launches,
+                "gblinear_round": gblinear_round.gblinear_round.launches}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched in the analysis phase: {launches}")
+    out.update(walls_s=walls, launches=launches, on_card=list(ANALYSIS_ON_CARD), cpu_only=ANALYSIS_CPU_ONLY)
+    report["analysis"] = out
+    log(f"analysis: no kernel launched in the phase {launches}; {len(walls)} subcommand runs, "
+        f"{sum(walls.values()):.1f} s of CLI walls [{card}]")
 
 
 def gblinear_cd_entry(train: dict, mp_train: dict) -> dict:
@@ -3620,8 +4082,11 @@ def main(argv=None) -> int:
     consensus_phase(report, card, args.seed)
     log(f"consensus phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_phase(report, card, args.seed)
+    k1_model = train_phase(report, card, args.seed)
     log(f"train phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    analysis_phase(report, card, args.seed, k1_model)
+    log(f"analysis phase {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
     multiprocess_phase(report, inputs, card)
     log(f"multi-process phase {time.perf_counter() - t0:.1f} s")

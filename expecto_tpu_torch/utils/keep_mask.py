@@ -22,7 +22,13 @@ def get_keep_mask(
     *,
     lambert_hgnc_path: str | None = None,
     hgnc_mapping_path: str | None = None,
-) -> np.ndarray:
+    return_hgnc_df: bool = False,
+):
+    """The keep mask over the rows of ``beluga_features_df``; with
+    ``return_hgnc_df``, ``(mask, hgnc_df)``, where ``hgnc_df`` is a copy of
+    the table with ``Assay`` mapped to HGNC symbols (None unless
+    ``intersect_with_lambert``)."""
+    hgnc_df = None
     keep_mask = np.ones(beluga_features_df.shape[0], dtype=bool)
 
     if no_tf_features:
@@ -49,13 +55,14 @@ def get_keep_mask(
                     approved = match[match["Match type"] == "Approved symbol"]
                     match = (approved if len(approved) else match).iloc[0]
                 hgnc_assays[i] = match["Approved symbol"].upper()
-        hgnc_assays = pd.Series(hgnc_assays)
+        hgnc_df = beluga_features_df.copy()
+        hgnc_df["Assay"] = hgnc_assays
         # one-sided .upper(): mapped assay symbols are uppercased while the
         # Lambert list is compared verbatim, as the reference does
         # (cluster_utils.py:35,40); the shipped Lambert table stores
         # uppercase approved symbols, so this matches in practice
-        keep_mask &= hgnc_assays.isin(lambert_df["Approved symbol"].values).values
-        keep_mask &= (~hgnc_assays.isnull()).values
+        keep_mask &= hgnc_df["Assay"].isin(lambert_df["Approved symbol"].values).values
+        keep_mask &= (~hgnc_df["Assay"].isnull()).values
 
     if no_pol2:
         # startswith('Pol') as the reference (cluster_utils.py:46): despite
@@ -63,6 +70,8 @@ def get_keep_mask(
         # with reference-trained models
         keep_mask &= (~beluga_features_df["Assay"].str.startswith("Pol")).values
 
+    if return_hgnc_df:
+        return keep_mask, hgnc_df
     return keep_mask
 
 

@@ -10,6 +10,14 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 
+#: the analysis toolkit's modules: the nine ported last and the two extended
+ANALYSIS_MODULES = ["expecto_tpu_torch.analysis.rank_int", "expecto_tpu_torch.analysis.pwm",
+                    "expecto_tpu_torch.analysis.motif_scan", "expecto_tpu_torch.analysis.fimo",
+                    "expecto_tpu_torch.analysis.bootstrap", "expecto_tpu_torch.analysis.cluster",
+                    "expecto_tpu_torch.analysis.extract", "expecto_tpu_torch.pipeline.profiles",
+                    "expecto_tpu_torch.cli.analysis", "expecto_tpu_torch.utils.keep_mask",
+                    "expecto_tpu_torch.utils.plotting"]
+
 
 def _port_modules() -> list[str]:
     pkg = REPO / "expecto_tpu_torch"
@@ -35,7 +43,7 @@ def test_every_port_module_imports_without_jax():
                 "expecto_tpu_torch.genome.closest_genes", "expecto_tpu_torch.cli.closest_genes",
                 "expecto_tpu_torch.analysis.interpret", "expecto_tpu_torch.cli.predict_by_cluster",
                 "expecto_tpu_torch.utils.timing", "expecto_tpu_torch.utils.profiling",
-                "expecto_tpu_torch.utils.manifest"]
+                "expecto_tpu_torch.utils.manifest", *ANALYSIS_MODULES]
     assert set(required) <= set(mods)
     code = (
         "import sys, importlib\n"
@@ -46,6 +54,30 @@ def test_every_port_module_imports_without_jax():
         "             if v is not None and (m == 'expecto_tpu' or m.startswith(('expecto_tpu.', 'jax'))))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_analysis_modules_import_without_the_card_machines_missing_packages():
+    """The card's machine has no h5py, matplotlib, scikit-learn or joblib:
+    every analysis module (and the CLI) imports with them, tqdm and jax
+    blocked, and none of them is imported on the way."""
+    blocked = ["jax", "h5py", "matplotlib", "sklearn", "joblib", "tqdm"]
+    mods = [m for m in _port_modules() if m.startswith("expecto_tpu_torch.analysis")]
+    mods += ["expecto_tpu_torch.pipeline.profiles", "expecto_tpu_torch.cli.analysis",
+             "expecto_tpu_torch.utils.keep_mask", "expecto_tpu_torch.utils.plotting"]
+    assert set(ANALYSIS_MODULES) <= set(mods)
+    code = (
+        "import sys, importlib\n"
+        f"for b in {blocked!r}:\n"
+        "    sys.modules[b] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m, v in sys.modules.items() if v is not None and m.split('.')[0] in {blocked!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
