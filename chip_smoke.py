@@ -122,7 +122,19 @@ Phases (any failure raises, and the script exits non-zero with no result):
    at K = 8, 16, 24, 48; the conv1-reusing ``_c1`` patch vs the raw one;
    ``python -m expecto_tpu_torch.cli.consensus ref`` (its ``main``) in
    fp32 and ``--bf16``, its CSV equal to the in-process call;
-11. gblinear training (``expecto-train``) at the published width: a
+11. pipeline: each flow at depth 1 and at its CLI's ``pipeline_depth``
+   (the runner's default 4, or ``cli.compute_features``' 6) on one runner,
+   in turns, PIPE_REPEATS timed calls a depth after a warm-up: serving in
+   bf16 on every row and in fp32 on the fp32 serve's rows, the chromatin
+   CLI's streaming h5 step in fp32, the gene call in bf16 on 768 seeded
+   genes (one full gene block a strand, 24 chunks a runner call) and the
+   consensus private mix's track predictions in bf16; the chunks of each
+   runner call; the outputs of the two depths equal bit for bit and every
+   call's launch counts equal; each depth's median wall, peak device
+   memory, and the card's idle share in one
+   profiled call, run under torch's sync debug mode "warn", which must
+   report no synchronizing operation;
+12. gblinear training (``expecto-train``) at the published width: a
    seeded gene table of 24,338 genes (about 22,000 train genes, 900 on
    chr8, rRNA genes and NaN labels), 24,338 x 20,020 fp32 features and 218
    tissues, the reference's hyperparameters, 100 rounds of 40 feature
@@ -153,7 +165,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    round-kernel launch a round either way, each within the round limits of
    the plain round. The single-tissue CLI mode (plots) and
    ``--allTissues`` (``metrics.h5``) run on the CPU tests only;
-12. analysis (``expecto-analysis``), host code over the card's own outputs:
+13. analysis (``expecto-analysis``), host code over the card's own outputs:
    each subcommand of ANALYSIS_ON_CARD through ``cli.analysis``'s ``main``
    in process under build/chip_smoke/analysis, each wall logged with the
    card: ``bootstrap-coefficients --no_plots`` on the training phase's 128
@@ -180,7 +192,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    phase. ANALYSIS_CPU_ONLY lists the subcommands this machine's packages
    do not allow (no scikit-learn, joblib, matplotlib or h5py): the CPU
    tests prove those;
-13. multi-process runs: each flow's CLI as a 2-rank group, ``python -m
+14. multi-process runs: each flow's CLI as a 2-rank group, ``python -m
    torch.distributed.run --standalone --nproc_per_node 2`` on this card
    (the two ranks share it, so the backend is gloo), each rank running
    ``-m expecto_tpu_torch.cli.<flow>`` under ``--rank-worker``, which
@@ -356,6 +368,16 @@ CONS_PRED_ATOL = 1e-5
 # splice read 6.9e-3 at least, on an H100 80GB HBM3 at 700 W), so the fp32
 # checks at 1e-5 of max|feature| carry the patch's contract
 CONS_BF16_GAP = GENE_BF16_GAP
+
+# pipeline: each flow at depth 1 and at its CLI's depth (BelugaRunner's
+# default, or GENE_CLI_DEPTH, cli/compute_features.py's), PIPE_REPEATS timed
+# calls a depth in turns; the median is reported. The gene flow runs
+# PIPE_GENES_PER_STRAND seeded genes a strand: one gene block a strand at the
+# CLI's depth (GENE_ROWS x GENE_CLI_DEPTH x 4), so each of its two runner
+# calls carries 24 chunks, as every block of a genome-wide run does
+GENE_CLI_DEPTH = 6
+PIPE_REPEATS = 3
+PIPE_GENES_PER_STRAND = GENE_ROWS * GENE_CLI_DEPTH * 4
 
 
 # gblinear training (cli.train) at the published width: 24,338 genes of
@@ -2384,11 +2406,11 @@ def _consensus_sweep(out: dict, params, seed: int, card: str) -> None:
         sf, _sr = _patch_starts(bb, rows, offsets, max_ranges=8)
         phases = {(o // 4) % 4 for o in offsets}
         p = runner.params
-        x = runner._dev(rows)
-        base_x = runner._dev(bb[None])
+        x = torch.from_numpy(np.ascontiguousarray(rows)).to(DEVICE)
+        base_x = torch.from_numpy(np.ascontiguousarray(bb[None])).to(DEVICE)
         base = conv6_phases(p, base_x, phases)
         base_c1 = conv1_acts(p, base_x)
-        w0, d0 = runner._dev(sf[..., 0]), runner._dev(sf[..., 1])
+        w0, d0 = (torch.from_numpy(np.ascontiguousarray(sf[..., i])).to(DEVICE) for i in (0, 1))
         c1 = conv6_phases_patch_sites_c1(p, base_c1, base, x, w0, d0, phases)
         raw = conv6_phases_patch_sites(p, base, x, w0, phases)
         c1_err = max(float((c1[ph].float() - raw[ph].float()).abs().max()) for ph in phases)
@@ -2465,6 +2487,215 @@ def _consensus_ref_cli(out: dict, seed: int, card: str) -> None:
         del runner
         torch.cuda.empty_cache()
     out["ref_cli"] = res
+
+
+# ---- pipeline: each flow at depth 1 and at its CLI's depth --------------------
+
+
+def pipeline_gene_records(seed: int) -> list:
+    """PIPE_GENES_PER_STRAND seeded genes a strand on make_inputs' genome,
+    plus-strand genes first, as ``records_from_geneanno`` reads them."""
+    import numpy as np
+    import pandas as pd
+
+    from expecto_tpu_torch.pipeline.features import records_from_geneanno
+
+    rng = np.random.default_rng(seed + 2)  # apart from make_inputs' and make_gene_inputs' streams
+    n = 2 * PIPE_GENES_PER_STRAND
+    tss = rng.integers(21000, CONTIG_LEN - 21000, n)
+    return records_from_geneanno(pd.DataFrame({
+        "id": [f"ENSG9{i:06d}" for i in range(n)], "seqnames": np.array(["chr1", "chr2"])[rng.integers(0, 2, n)],
+        "strand": ["+"] * PIPE_GENES_PER_STRAND + ["-"] * PIPE_GENES_PER_STRAND, "CAGE_representative_TSS": tss}))
+
+
+def _pipeline_flows(seed: int):
+    """([(name, dtype, batch, CLI depth, call(runner), equal(a, b))], close)
+    of the pipeline phase's flows on the earlier phases' inputs: serving
+    (``cli.score``'s runner, default depth) in bf16 on every row and in fp32
+    on the fp32 serve's rows; the chromatin CLI's streaming h5 step (fp32,
+    default depth); the gene call (bf16, ``cli.compute_features``' depth 6)
+    on :func:`pipeline_gene_records`; the consensus private mix's track
+    predictions (bf16, default depth); ``close`` closes their genome."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.genome.fasta import FastaIndex
+    from expecto_tpu_torch.genome.vcf import read_vcf, standardize_chroms
+    from expecto_tpu_torch.io.tables import load_closest_genes, load_modellist
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+    from expecto_tpu_torch.pipeline.features import compute_gene_features
+    from expecto_tpu_torch.pipeline.sed import score_sed_serving
+
+    default = inspect.signature(BelugaRunner).parameters["pipeline_depth"].default
+    genome = FastaIndex(WORK / "genome.fa")
+    ml = load_modellist(WORK / "modellist")
+    vcf = standardize_chroms(read_vcf(WORK / "variants.vcf"))
+
+    def serving(vcf_path, genes_path):
+        vcf_df, gene = standardize_chroms(read_vcf(vcf_path)), load_closest_genes(genes_path)
+        return lambda runner: score_sed_serving(vcf_df, gene, genome, runner, ml.iloc[:, 0].tolist(),
+                                                maxshift=MAXSHIFT, model_names=ml.iloc[:, 1].tolist())
+
+    def arrays_equal(a, b):
+        return all(np.array_equal(x[k], y[k]) for x, y in zip(a, b, strict=True) for k in x)
+
+    genes = pipeline_gene_records(seed)
+    private = consensus_cohort(seed, 64, private=True, n_sites=42)
+    flows = [
+        ("serve_bf16", torch.bfloat16, BATCH, default, serving(WORK / "variants.vcf", WORK / "genes.tsv"),
+         lambda a, b: a.equals(b)),
+        ("serve_fp32", torch.float32, BATCH, default,
+         serving(WORK / "fp32_serve.vcf", WORK / "fp32_serve_genes.tsv"), lambda a, b: a.equals(b)),
+        ("h5_stream_fp32", torch.float32, H5_BATCH, default, lambda runner: _chromatin_streaming(runner, vcf, genome),
+         arrays_equal),
+        ("gene_bf16", torch.bfloat16, GENE_BATCH, GENE_CLI_DEPTH,
+         lambda runner: compute_gene_features(genes, genome, runner), np.array_equal),
+        ("consensus_private_bf16", torch.bfloat16, CONS_BATCH, default,
+         lambda runner: _consensus_call(runner, private, "preds"), np.array_equal),
+    ]
+    return flows, genome.close
+
+
+def _chunks_per_call(runner, call) -> list:
+    """The chunks of each runner call that ``call(runner)`` makes, counted
+    as ``_run_pipelined`` draws them (the runner is left as it was)."""
+    counts, run = [], runner._run_pipelined
+
+    def counted(jobs, write):
+        n = 0
+
+        def each():
+            nonlocal n
+            for job in jobs:
+                n += 1
+                yield job
+
+        try:
+            run(each(), write)
+        finally:
+            counts.append(n)
+
+    runner._run_pipelined = counted
+    try:
+        call(runner)
+    finally:
+        del runner._run_pipelined
+    return counts
+
+
+def _pipeline_call(runner, call, depth: int, kind: str) -> tuple:
+    """One call at ``depth``: (output, wall s, launch counts, peak device MiB
+    over what was resident before it)."""
+    import torch
+
+    runner.pipeline_depth = depth
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = call(runner)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, _read_counts(kind), (torch.cuda.max_memory_allocated() - resident) / 2**20
+
+
+def _runs(counts: list) -> str:
+    """``[24, 24, 1]`` as "2 x 24, 1"."""
+    import itertools
+
+    return ", ".join(f"{len(g)} x {k}" if len(g) > 1 else str(k)
+                     for k, g in ((k, list(g)) for k, g in itertools.groupby(counts)))
+
+
+def _pipeline_profiled(runner, call, depth: int) -> dict:
+    """One call at ``depth`` under ``torch.profiler`` and torch's sync debug
+    mode "warn": its wall, the card's busy time (the union of the kernel
+    and copy intervals, as scripts/profile_serving_torch.py takes it), the
+    idle share, the synchronizing operations torch reported (its prototype
+    notice aside) and the chunks of each runner call."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.pipeline_depth = depth
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                chunks = _chunks_per_call(runner, call)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    busy_us = _union_us([(start, end) for start, end, _name in profiled_events(prof)])
+    syncs = [str(w.message).splitlines()[0] for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    return {"profiled_wall_s": wall, "busy_ms": busy_us / 1e3, "idle_share": 1 - busy_us / 1e6 / wall,
+            "syncs": len(syncs), "sync_kinds": sorted(set(syncs)), "chunks_per_call": chunks}
+
+
+def pipeline_phase(report: dict, card: str, seed: int) -> None:
+    """Each flow of :func:`_pipeline_flows` on one runner, at depth 1 and at
+    its CLI's depth: a warm-up call, then PIPE_REPEATS timed calls a depth
+    in turns (1, N, 1, N, ...), launch counts zeroed just before each and
+    read just after (equal across every call of the flow), the outputs of
+    the two depths equal bit for bit, the peak device memory a depth, and
+    one profiled call a depth for the card's idle share and the
+    synchronizing operations (none allowed)."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.models.convert import load_params_npz
+    from expecto_tpu_torch.parallel.runner import BelugaRunner
+
+    params = load_params_npz(WORK / "beluga.npz")
+    flows, close = _pipeline_flows(seed)
+    out = {}
+    try:
+        for name, dtype, batch, depth, call, equal in flows:
+            t_flow = time.perf_counter()
+            kind = str(dtype).removeprefix("torch.")
+            wire = np.float16 if dtype == torch.bfloat16 else np.float32
+            runner = BelugaRunner(params, batch_size=batch, device=DEVICE, compute_dtype=dtype, out_dtype=wire)
+            call(runner)  # warm-up
+            depths = (1, depth)
+            walls, peaks, counts, outs = {d: [] for d in depths}, dict.fromkeys(depths, 0.0), [], {}
+            for _ in range(PIPE_REPEATS):
+                for d in depths:
+                    outs[d], wall, c, peak = _pipeline_call(runner, call, d, kind)
+                    walls[d].append(wall)
+                    peaks[d] = max(peaks[d], peak)
+                    counts.append(c)
+            if any(c != counts[0] for c in counts):
+                raise AssertionError(f"pipeline {name}: launch counts differ between calls or depths: {counts}")
+            if not equal(outs[1], outs[depth]):
+                raise AssertionError(f"pipeline {name}: the output at depth {depth} differs from depth 1")
+            prof = {d: _pipeline_profiled(runner, call, d) for d in depths}
+            if any(p["syncs"] for p in prof.values()):
+                raise AssertionError(f"pipeline {name}: synchronizing operations in a call: {prof}")
+            if name.startswith("gene") and prof[depth]["chunks_per_call"] != [GENE_CLI_DEPTH * 4] * 2:
+                raise AssertionError(f"pipeline {name}: runner calls of {prof[depth]['chunks_per_call']} chunks at "
+                                     f"depth {depth}, not one full gene block a strand")
+            out[name] = {"cli_depth": depth, "dtype": kind, "batch": batch, "launches": counts[0],
+                         **{f"depth{d}": {"wall_s": statistics.median(walls[d]), "walls_s": walls[d],
+                                          "peak_over_resident_mib": peaks[d], **prof[d]} for d in depths},
+                         "phase_s": time.perf_counter() - t_flow}
+            log(f"pipeline {name}: " + "; ".join(
+                f"depth {d} median {statistics.median(walls[d]):.3f} s of {[round(w, 3) for w in walls[d]]}, idle "
+                f"{100 * prof[d]['idle_share']:.1f} % (profiled {prof[d]['profiled_wall_s']:.3f} s), peak +{peaks[d]:.0f} MiB"
+                f", runner calls of {_runs(prof[d]['chunks_per_call'])} chunks"
+                for d in depths) + f"; outputs bit-equal, launches equal {counts[0]} [{card}]")
+            del runner
+            torch.cuda.empty_cache()
+    finally:
+        close()
+    report["pipeline"] = out
 
 
 def make_train_inputs(seed: int) -> dict:
@@ -2561,6 +2792,17 @@ def profiled_events(prof, device: str = "cuda") -> list:
             for e in prof.profiler.kineto_results.events() if e.device_type() == kind]
 
 
+def _union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: the card's busy
+    time over its kernel and copy events."""
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    return busy
+
+
 def train_kernel_phase(out: dict) -> None:
     """The coordinate-update kernel against its plain version, bit for bit,
     at each (block, models) shape of the three training calls, with alpha
@@ -2614,15 +2856,6 @@ def _round_trace(prof, rounds: int) -> dict:
     if len(ranges) != rounds:
         raise AssertionError(f"the profile holds {len(ranges)} gblinear_round ranges on the card, not {rounds}")
     ranges.sort()
-
-    def union(ivs):
-        busy, last = 0.0, float("-inf")
-        for s, e in sorted(ivs):
-            if e > last:
-                busy += e - max(s, last)
-                last = e
-        return busy
-
     by_kind = {"gblinear_round": 0.0, "gblinear_cd": 0.0, "elementwise": 0.0, "products": 0.0, "copies": 0.0}
     inside = []
     j = 0
@@ -2637,10 +2870,10 @@ def _round_trace(prof, rounds: int) -> dict:
                 else "products")
             by_kind[kind] += (e - s) / 1e3
     sweep_ms = sum(e - s for s, e, _ in ranges) / 1e3
-    busy_ms = union(inside) / 1e3
+    busy_ms = _union_us(inside) / 1e3
     return {"rounds": rounds, "ms_per_round": (ranges[-1][1] - ranges[0][0]) / 1e3 / rounds,
             "sweep_ms_per_round": sweep_ms / rounds, "sweep_idle_share": 1 - busy_ms / sweep_ms,
-            "kernel_ms_by_kind": by_kind, "call_busy_ms": union([(s, e) for s, e, _ in dev]) / 1e3}
+            "kernel_ms_by_kind": by_kind, "call_busy_ms": _union_us([(s, e) for s, e, _ in dev]) / 1e3}
 
 
 def _profiled_train_call(fn, rounds: int):
@@ -3896,14 +4129,17 @@ def kernel_table(report: dict) -> dict:
     h5-contract chromatin runs', ``h5_chunk_ms`` the kernel's time in one
     full pair chunk of them; ``launches_gene_*`` are the timed gene-feature
     calls', ``gene_chunk_ms`` the kernel's time in one gene chunk of them
-    (16 spans of 41,800 bp); ``max_abs_err`` covers every path's shapes.
-    Per-shape numbers in ``layers``, ``h5_layers`` and ``gene_layers``."""
+    (16 spans of 41,800 bp); ``launches_pipeline`` are a call's launches in
+    each pipeline-phase flow that runs the kernel (the same at both depths);
+    ``max_abs_err`` covers every path's shapes. Per-shape numbers in
+    ``layers``, ``h5_layers`` and ``gene_layers``."""
     conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
     h5_full = [r for r in report["h5_layers"] if r["N"] == H5_CHUNK_N[0]]
     serve, parity = report["main_path"]["launches"], report["parity"]["launches"]
     h5 = {t: report["h5_contract"][t]["launches"] for t in ("fp32", "bf16")}
     gene = {t: report["genes"][t]["launches"] for t in ("fp32", "bf16")}
     mixes = report["consensus"]["mixes"].values()
+    pipe = report["pipeline"]
     cons_cases = ["backbone"] + [f"patch N={n} K={k}" for n, k in CONS_PATCH_SHAPES]
 
     def cons_launches(tag: str, route: str) -> int:
@@ -3916,6 +4152,12 @@ def kernel_table(report: dict) -> dict:
         """{case: launch-weighted ms} of the backbone forward and each patch batch."""
         return {c: _weighted([r for r in report["consensus_layers"] if r["case"] == c and (r["layer"] == "conv0") == conv0],
                              tag, key) for c in cons_cases}
+
+    def pipe_launches(route: str) -> dict:
+        """{pipeline flow: launches a call} of the flows that launch the kernel."""
+        got = {f: p["launches"]["conv0_codes"] if route == "codes" else p["launches"]["conv8_relu_by_route"][route]
+               for f, p in pipe.items()}
+        return {f: n for f, n in got.items() if n}
 
     def entry(name, source, rows, tag, launches, **extra):
         """``tag``'s numbers on the main path's route of each shape."""
@@ -3942,14 +4184,14 @@ def kernel_table(report: dict) -> dict:
               launches_gene_bf16=gene["bf16"]["conv8_relu_by_route"]["tc"],
               launches_consensus_bf16=cons_launches("bf16", "tc"), consensus_ms=cons_ms("bf16", False),
               consensus_bound_ms=cons_ms("bf16", False, "bound_ms"),
-              consensus_library_ms=cons_ms("bf16", False, "library_ms")),
+              consensus_library_ms=cons_ms("bf16", False, "library_ms"), launches_pipeline=pipe_launches("tc")),
         entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
               parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
               launches_h5_fp32=h5["fp32"]["conv8_relu_by_route"]["simt"],
               launches_gene_fp32=gene["fp32"]["conv8_relu_by_route"]["simt"],
               launches_consensus_fp32=cons_launches("fp32", "simt"), consensus_ms=cons_ms("fp32", False),
               consensus_bound_ms=cons_ms("fp32", False, "bound_ms"),
-              consensus_library_ms=cons_ms("fp32", False, "library_ms"),
+              consensus_library_ms=cons_ms("fp32", False, "library_ms"), launches_pipeline=pipe_launches("simt"),
               bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
               min_shape_bound_share=report["simt_fp32_chunk"]["min_shape_share"],
               sass_ffma=report["sass_simt"]["FFMA"], sass_lds=report["sass_simt"]["LDS"],
@@ -3971,7 +4213,7 @@ def kernel_table(report: dict) -> dict:
               consensus_ms=cons_ms("bf16", True), consensus_fp32_ms=cons_ms("fp32", True),
               consensus_fp32_bound_ms=cons_ms("fp32", True, "bound_ms"),
               consensus_fp32_library_ms=cons_ms("fp32", True, "library_ms"),
-              simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms")),
+              simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms"), launches_pipeline=pipe_launches("codes")),
         gblinear_cd_entry(report["train"], report["multiprocess"]["train"]),
         gblinear_round_entry(report["train"]),
     ], "layers": [
@@ -4081,6 +4323,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     consensus_phase(report, card, args.seed)
     log(f"consensus phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipeline_phase(report, card, args.seed)
+    log(f"pipeline phase {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
     k1_model = train_phase(report, card, args.seed)
     log(f"train phase {time.perf_counter() - t0:.1f} s")

@@ -103,6 +103,7 @@ def main(argv=None) -> int:
         # features are contracted in fp32 on the device; the fp16 wire
         # rounds them at about 5e-4 relative, host arrays stay fp32
         out_dtype=np.float16 if args.bf16 else np.float32,
+        pipeline_depth=6,
     )
     os.makedirs(args.out_dir, exist_ok=True)
     geneanno = pd.read_csv(args.annoFile)

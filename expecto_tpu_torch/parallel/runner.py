@@ -26,15 +26,25 @@ expecto_tpu/parallel/runner.py).
   into copies of the backbone's conv6 buffers, before the same dense layers
   and projection.
 
-Chunks run one after another (upload, compute, fetch); overlapping them with
-CUDA streams and pinned host buffers is later work.
+Chunks are pipelined, as the JAX runner pipelines them (``_run_pipelined``):
+up to ``pipeline_depth`` chunks are in flight, and ``FETCH_WORKERS`` threads
+take each chunk's result to the host. On a CUDA device every host array a
+chunk needs goes up from pinned memory without blocking, compute stays on the
+caller's current stream, and each result comes back on a side stream into a
+pinned buffer (``_up``, ``_fetch``); the workers wait on that copy's event and
+do numpy work only. On the CPU the chunks compute in the calling thread and the
+workers write them out.
 """
 
 from __future__ import annotations
 
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
+from ..genome.encode import reverse_complement_codes
 from ..models.beluga import beluga_forward
 from ..models.convert import params_from_jax
 from ..ops.conv0 import onehot_from_codes, rc_codes  # noqa: F401 (onehot_from_codes: public, as in the JAX runner)
@@ -87,11 +97,16 @@ def unpack_codes2(packed: torch.Tensor, length: int, n_rows: torch.Tensor, n_col
     the (N, length) block are dropped, as the JAX scatter's ``mode="drop"``
     drops them (``index_put_`` would raise on them)."""
     b = packed
+    n = b.shape[0]
     c = torch.stack([(b >> 6) & 3, (b >> 4) & 3, (b >> 2) & 3, b & 3], dim=-1)
-    c = c.reshape(b.shape[0], -1)[:, :length].to(torch.int8)
-    keep = (n_rows >= 0) & (n_rows < c.shape[0]) & (n_cols >= 0) & (n_cols < length)
-    c[n_rows[keep].long(), n_cols[keep].long()] = 4
-    return c
+    # one spare element past the end takes the dropped entries, and the 4
+    # goes in as a fill value: a boolean mask, or a value tensor copied from
+    # the host, would make the host wait for the device
+    flat = torch.empty(n * length + 1, dtype=torch.int8, device=b.device)
+    flat[: n * length] = c.reshape(n, -1)[:, :length].reshape(-1)
+    keep = (n_rows >= 0) & (n_rows < n) & (n_cols >= 0) & (n_cols < length)
+    flat.index_fill_(0, torch.where(keep, n_rows.long() * length + n_cols.long(), n * length), 4)
+    return flat[: n * length].view(n, length)
 
 
 def rc_onehot(x: torch.Tensor) -> torch.Tensor:
@@ -126,6 +141,28 @@ def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.float16 if np.dtype(np_dtype) == np.float16 else torch.float32
 
 
+def _pinned_like(y: torch.Tensor) -> torch.Tensor:
+    """A pinned host tensor of ``y``'s shape and dtype from torch's caching
+    host allocator: a non-blocking copy into it records an event on its
+    block, and the block is handed out again only after that event and
+    after the tensor, and every numpy view of it, is gone."""
+    return torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+
+
+class _Landing:
+    """One chunk's results on their way to the host: the host tensors and,
+    on a CUDA device, the event recorded after their copies."""
+
+    def __init__(self, host: tuple, copied):
+        self.host, self.copied = host, copied
+
+    def wait(self) -> tuple:
+        """The results as numpy arrays, once their copies have finished."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        return tuple(t.numpy() for t in self.host)
+
+
 class BelugaRunner:
     """Beluga serving engine on one device.
 
@@ -139,17 +176,26 @@ class BelugaRunner:
             torch.bfloat16 (production).
         out_dtype: dtype fetched to host (np.float32 parity / np.float16
             production).
+        pipeline_depth: most chunks in flight before the oldest one's
+            result is written out (at least 1).
     """
 
     #: per-chunk N-sideband budget of the 2-bit wire; denser batches ship
     #: 4 bits per base instead (N-padded contig-edge spans hit this)
     PACK2_SIDE_BUDGET = 16384
 
+    #: threads that wait for a chunk's results and write them out (the fp32
+    #: cast, ALT = REF + SED, the h5 row layout, a caller's sink): three, as
+    #: in the JAX runner. On an H100 one writer (the in-order path of
+    #: ``_run_pipelined``) kept the card as busy at the CLIs' depths
+    FETCH_WORKERS = 3
+
     def __init__(self, params, batch_size: int = 1024, *, device="cuda", compute_dtype=torch.float32,
-                 out_dtype=np.float32):
+                 out_dtype=np.float32, pipeline_depth: int = 4):
         self.device = resolve_device(device)
         self.batch_size = max(int(batch_size), 1)
         self.out_dtype = np.dtype(out_dtype)
+        self.pipeline_depth = max(int(pipeline_depth), 1)
         if compute_dtype == torch.float32:
             # parity mode: full fp32 products everywhere, never TF32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,11 +203,74 @@ class BelugaRunner:
             torch.set_float32_matmul_precision("highest")
         self.params = params_from_jax(params, device=self.device, dtype=compute_dtype)
         self._wire = _torch_dtype(self.out_dtype)
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    # ---- pipelined execution ------------------------------------------------
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device. On CUDA it is staged in pinned memory from
+        torch's caching host allocator and sent up without blocking on the
+        current stream; the copy records an event on the block, and the
+        allocator hands the block out again only after that event."""
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        if self._copy_stream is None:
+            return src
+        return src.pin_memory().to(self.device, non_blocking=True)
+
+    def _fetch(self, *ys: torch.Tensor) -> _Landing:
+        """``ys`` on their way to the host. On CUDA the copy stream waits for
+        the chunk's last kernel on the current stream and copies each result
+        into a pinned host tensor (``_pinned_like``)."""
+        if self._copy_stream is None:
+            return _Landing(ys, None)
+        ys = [y.contiguous() for y in ys]
+        computed = torch.cuda.Event()
+        computed.record(torch.cuda.current_stream(self.device))
+        self._copy_stream.wait_event(computed)
+        host = []
+        with torch.cuda.stream(self._copy_stream):
+            for y in ys:
+                h = _pinned_like(y)
+                h.copy_(y, non_blocking=True)
+                y.record_stream(self._copy_stream)  # the allocator keeps y until the copy ran
+                host.append(h)
+        copied = torch.cuda.Event(blocking=True)  # a waiting worker sleeps instead of spinning on a core
+        copied.record(self._copy_stream)
+        return _Landing(tuple(host), copied)
+
+    def _run_pipelined(self, jobs, write) -> None:
+        """Drain a stream of ``(start, real, landing)`` jobs with up to
+        ``pipeline_depth`` of them in flight: ``write(start, real, host)``
+        gets each job's results as numpy arrays (``_Landing.wait``) on a
+        pool of ``FETCH_WORKERS`` threads, possibly out of order, once per
+        job. Writers must touch disjoint rows. Exceptions propagate in
+        submission order, after the jobs already submitted have finished.
+        With one worker the writes run in this thread, in order. Either way,
+        at depth 1 each write returns before the next job is produced."""
+
+        def land(start, real, landing):
+            write(start, real, landing.wait())
+
+        if self.FETCH_WORKERS <= 1:
+            in_flight = deque()
+            for job in jobs:
+                in_flight.append(job)
+                if len(in_flight) >= self.pipeline_depth:
+                    land(*in_flight.popleft())
+            for job in in_flight:
+                land(*job)
+            return
+
+        with ThreadPoolExecutor(max_workers=self.FETCH_WORKERS) as ex:
+            pending = deque()
+            for job in jobs:
+                pending.append(ex.submit(land, *job))
+                if len(pending) >= self.pipeline_depth:
+                    pending.popleft().result()
+            while pending:
+                pending.popleft().result()
 
     # ---- host <-> device -------------------------------------------------
-
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     @property
     def _basis_wire_dtype(self):
@@ -170,15 +279,26 @@ class BelugaRunner:
         return np.float16 if self.out_dtype == np.float16 else np.float32
 
     @staticmethod
-    def _write_ref_sed(REF, ALT, SED, start: int, ref_t: torch.Tensor, sed_t: torch.Tensor) -> None:
-        """Fetch one chunk of the (REF, SED) wire: SED is stored exactly as
-        the device computed it and ALT is rebuilt as REF + SED in fp32."""
-        ref = ref_t.cpu().numpy().astype(np.float32)
-        sed = sed_t.cpu().numpy().astype(np.float32)
-        stop = start + ref.shape[0]
-        REF[start:stop] = ref
-        SED[start:stop] = sed
-        ALT[start:stop] = ref + sed
+    def _write_ref_sed(REF, ALT, SED):
+        """A writer of (REF, SED) wire chunks: SED is stored exactly as the
+        device computed it and ALT is rebuilt as REF + SED in fp32."""
+
+        def write(start, real, host):
+            ref, sed = (a.astype(np.float32) for a in host)
+            REF[start : start + real] = ref
+            SED[start : start + real] = sed
+            ALT[start : start + real] = ref + sed
+
+        return write
+
+    @staticmethod
+    def _write_rows(out):
+        """A writer of chunks that fill ``out[start : start + real]``."""
+
+        def write(start, real, host):
+            out[start : start + real] = host[0]
+
+        return write
 
     def _span_rows(self, n_offsets: int) -> int:
         return max(self.batch_size // n_offsets, 1)
@@ -205,8 +325,8 @@ class BelugaRunner:
         packed, n_rows, n_cols, starts, bounds = plan
         for start, (i0, i1) in zip(starts, bounds):
             end = min(start + rows, n)
-            yield (start, end - start, self._dev(packed[start:end]),
-                   self._dev(n_rows[i0:i1] - start), self._dev(n_cols[i0:i1]))
+            yield (start, end - start, self._up(packed[start:end]),
+                   self._up(n_rows[i0:i1] - start), self._up(n_cols[i0:i1]))
 
     def _code_chunks(self, span_codes: np.ndarray, rows: int):
         """Yield (start, (real, L) int8 device codes) per chunk of ``rows``
@@ -220,7 +340,7 @@ class BelugaRunner:
         else:
             packed = pack_codes(span_codes)
             for start in range(0, n, rows):
-                yield start, unpack_codes(self._dev(packed[start : start + rows]), span_len)
+                yield start, unpack_codes(self._up(packed[start : start + rows]), span_len)
 
     def _pair_chunks(self, ref_spans: np.ndarray, alt_spans: np.ndarray, rows: int):
         """Yield (start, (2 * real, L) device codes interleaved per pair,
@@ -233,16 +353,16 @@ class BelugaRunner:
         for start2, codes in self._code_chunks(inter, 2 * rows):
             yield start2 // 2, codes
 
-    def _pair_diff_chunks(self, ref_spans, alt_spans, offsets, with_ref: bool):
-        """Yield (start, :meth:`_pair_diff_wire` on the host) per chunk of
-        (ref, alt) span pairs."""
+    def _pair_diff_jobs(self, ref_spans, alt_spans, offsets, with_ref: bool):
+        """Jobs of (start, real, :meth:`_pair_diff_wire` on its way to the
+        host) per chunk of (ref, alt) span pairs."""
         offsets = tuple(int(o) for o in offsets)
         ref_spans = np.asarray(ref_spans, dtype=np.int8)
         alt_spans = np.asarray(alt_spans, dtype=np.int8)
         for start, codes in self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets))):
-            yield start, self._pair_diff_wire(codes, offsets, with_ref)
+            yield start, codes.shape[0] // 2, self._fetch(self._pair_diff_wire(codes, offsets, with_ref))
 
-    def _pair_diff_wire(self, codes: torch.Tensor, offsets, with_ref: bool) -> np.ndarray:
+    def _pair_diff_wire(self, codes: torch.Tensor, offsets, with_ref: bool) -> torch.Tensor:
         """h5-contract wire of one interleaved pair chunk: ``(ref, diff)``
         stacked as (P, 2, 2[fwd|rc], S, M), or ``diff`` alone as
         (P, 2[fwd|rc], S, M), at the fetch dtype. ``diff = alt - ref`` is
@@ -251,7 +371,7 @@ class BelugaRunner:
         p = self._span_preds_fwd_rc(codes, offsets)
         ref, diff = p[0::2], p[1::2] - p[0::2]
         y = torch.stack([ref, diff], dim=1) if with_ref else diff
-        return y.to(self._wire).cpu().numpy()
+        return y.to(self._wire)
 
     @staticmethod
     def _row_chunk_plan(row_uidx: np.ndarray, n_u: int, rows: int):
@@ -265,8 +385,7 @@ class BelugaRunner:
         return starts, r_bounds
 
     def _model_tensors(self, W: np.ndarray, bias: np.ndarray):
-        return (torch.as_tensor(W, dtype=torch.float32, device=self.device),
-                torch.as_tensor(bias, dtype=torch.float32, device=self.device))
+        return self._up(np.asarray(W, dtype=np.float32)), self._up(np.asarray(bias, dtype=np.float32))
 
     @staticmethod
     def _outputs(n: int, k: int):
@@ -354,6 +473,13 @@ class BelugaRunner:
         ALT = feats(p_alt) @ W + bias
         return REF.to(self._wire), (ALT - REF).to(self._wire)
 
+    def _project(self, preds: torch.Tensor, pos_weights: torch.Tensor) -> torch.Tensor:
+        """(G, S, M) fp32 predictions against (B, S) decay weights -> (G,
+        B*M) features, contracted in fp32 on the device, at the wire dtype
+        (an fp16 wire rounds at about 5e-4 relative; the host stores fp32)."""
+        feats = torch.einsum("bs,nsm->nbm", pos_weights, preds).reshape(preds.shape[0], -1)
+        return feats.to(self._wire)
+
     # ---- public API ----------------------------------------------------------
 
     @torch.inference_mode()
@@ -366,11 +492,21 @@ class BelugaRunner:
         codes = np.asarray(codes, dtype=np.int8)
         fetch = self.out_dtype if out_dtype is None else np.dtype(out_dtype)
         out = np.empty((codes.shape[0], 2002), dtype=fetch)
-        for start in range(0, codes.shape[0], self.batch_size):
-            chunk = self._dev(codes[start : start + self.batch_size])
-            y = self._forward(chunk, average_rc, _torch_dtype(fetch))
-            out[start : start + chunk.shape[0]] = y.cpu().numpy()
+
+        def jobs():
+            for start in range(0, codes.shape[0], self.batch_size):
+                chunk = self._up(codes[start : start + self.batch_size])
+                yield start, chunk.shape[0], self._fetch(self._forward(chunk, average_rc, _torch_dtype(fetch)))
+
+        self._run_pipelined(jobs(), self._write_rows(out))
         return out
+
+    def predict_codes_fwd_rc_concat(self, codes: np.ndarray) -> np.ndarray:
+        """Reference-layout output: rows [0:N] forward, [N:2N] reverse
+        complement (the encodeSeqs concat order of the reference's
+        expecto_utils.py)."""
+        codes = np.asarray(codes, dtype=np.int8)
+        return self.predict_codes(np.concatenate([codes, reverse_complement_codes(codes)], axis=0))
 
     @torch.inference_mode()
     def predict_span_codes(self, span_codes: np.ndarray, offsets, *, rc_mode: str = "none") -> np.ndarray:
@@ -388,22 +524,19 @@ class BelugaRunner:
         n = span_codes.shape[0]
         shape = (n, 2, len(offsets), 2002) if rc_mode == "concat" else (n, len(offsets), 2002)
         out = np.empty(shape, dtype=self.out_dtype)
-        for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
-            if rc_mode == "none":
-                y = beluga_forward_spans(self.params, codes, offsets).float()
-            else:
-                y = self._span_preds_fwd_rc(codes, offsets)
-                if rc_mode == "average":
-                    y = (y[:, 0] + y[:, 1]) * 0.5
-            out[start : start + codes.shape[0]] = y.to(self._wire).cpu().numpy()
-        return out
 
-    def _project(self, preds: torch.Tensor, pos_weights: torch.Tensor) -> np.ndarray:
-        """(G, S, M) fp32 predictions against (B, S) decay weights -> (G,
-        B*M) features, contracted in fp32 on the device and fetched at the
-        wire dtype (an fp16 wire rounds at about 5e-4 relative), stored fp32."""
-        feats = torch.einsum("bs,nsm->nbm", pos_weights, preds).reshape(preds.shape[0], -1)
-        return feats.to(self._wire).cpu().numpy().astype(np.float32)
+        def jobs():
+            for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
+                if rc_mode == "none":
+                    y = beluga_forward_spans(self.params, codes, offsets).float()
+                else:
+                    y = self._span_preds_fwd_rc(codes, offsets)
+                    if rc_mode == "average":
+                        y = (y[:, 0] + y[:, 1]) * 0.5
+                yield start, codes.shape[0], self._fetch(y.to(self._wire))
+
+        self._run_pipelined(jobs(), self._write_rows(out))
+        return out
 
     @torch.inference_mode()
     def predict_spans_project(self, span_codes: np.ndarray, offsets, pos_weights: np.ndarray) -> np.ndarray:
@@ -414,10 +547,15 @@ class BelugaRunner:
         packed, or 4-bit for N-dense chunks."""
         span_codes = np.asarray(span_codes, dtype=np.int8)
         offsets = tuple(int(o) for o in offsets)
-        pw = torch.as_tensor(np.asarray(pos_weights, dtype=np.float32), device=self.device)
-        out = np.empty((span_codes.shape[0], pw.shape[0] * 2002), dtype=np.float32)
-        for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
-            out[start : start + codes.shape[0]] = self._project(self._pair_span_preds(codes, offsets), pw)
+        pos_weights = np.asarray(pos_weights, dtype=np.float32)
+        out = np.empty((span_codes.shape[0], pos_weights.shape[0] * 2002), dtype=np.float32)
+
+        def jobs():
+            pw = self._up(pos_weights)
+            for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
+                yield start, codes.shape[0], self._fetch(self._project(self._pair_span_preds(codes, offsets), pw))
+
+        self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
     @torch.inference_mode()
@@ -454,20 +592,25 @@ class BelugaRunner:
         # bucket: an inactive slot still convolves real bases
         k_pad = -(-max(starts_f.shape[1], starts_r.shape[1], 1) // 8) * 8
         starts_f, starts_r = (np.pad(s, ((0, 0), (0, k_pad - s.shape[1]), (0, 0))) for s in (starts_f, starts_r))
-        pw = torch.as_tensor(np.asarray(pos_weights, dtype=np.float32), device=self.device)
+        pos_weights = np.asarray(pos_weights, dtype=np.float32)
         rc_offsets = tuple(sample_spans.shape[1] - 2000 - o for o in offsets)
         phases_f = {(o // 4) % 4 for o in offsets}
         phases_r = {(o // 4) % 4 for o in rc_offsets}
-        ph_f, ph_r = self._backbone_phases(self._dev(backbone_span[None]), offsets)
-        out = np.empty((sample_spans.shape[0], pw.shape[0] * 2002), dtype=np.float32)
-        for start, codes in self._code_chunks(sample_spans, self._span_rows(len(offsets))):
-            stop = start + codes.shape[0]
-            pf = conv6_phases_patch_sites(self.params, ph_f, codes, self._dev(starts_f[start:stop, :, 0]), phases_f)
-            pr = conv6_phases_patch_sites(self.params, ph_r, rc_codes(codes), self._dev(starts_r[start:stop, :, 0]),
-                                          phases_r)
-            y = fc_from_phases(self.params, pf, offsets).float()
-            y_rc = fc_from_phases(self.params, pr, rc_offsets).float()
-            out[start:stop] = self._project((y + y_rc) * 0.5, pw)
+        out = np.empty((sample_spans.shape[0], pos_weights.shape[0] * 2002), dtype=np.float32)
+
+        def jobs():
+            pw = self._up(pos_weights)
+            ph_f, ph_r = self._backbone_phases(self._up(backbone_span[None]), offsets)
+            for start, codes in self._code_chunks(sample_spans, self._span_rows(len(offsets))):
+                stop = start + codes.shape[0]
+                pf = conv6_phases_patch_sites(self.params, ph_f, codes, self._up(starts_f[start:stop, :, 0]), phases_f)
+                pr = conv6_phases_patch_sites(self.params, ph_r, rc_codes(codes), self._up(starts_r[start:stop, :, 0]),
+                                              phases_r)
+                y = fc_from_phases(self.params, pf, offsets).float()
+                y_rc = fc_from_phases(self.params, pr, rc_offsets).float()
+                yield start, stop - start, self._fetch(self._project((y + y_rc) * 0.5, pw))
+
+        self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
     @torch.inference_mode()
@@ -479,14 +622,19 @@ class BelugaRunner:
         codes = np.asarray(codes, dtype=np.int8)
         if codes.shape[0] % n_shifts != 0:
             raise ValueError("codes rows must be a multiple of n_shifts")
-        pw = torch.as_tensor(np.asarray(pos_weights, dtype=np.float32), device=self.device)
+        pos_weights = np.asarray(pos_weights, dtype=np.float32)
         genes_per_batch = max(self.batch_size // n_shifts, 1)
         n_genes = codes.shape[0] // n_shifts
-        out = np.empty((n_genes, pw.shape[0] * 2002), dtype=np.float32)
-        for g0 in range(0, n_genes, genes_per_batch):
-            g1 = min(g0 + genes_per_batch, n_genes)
-            y = self._forward(self._dev(codes[g0 * n_shifts : g1 * n_shifts]), True, torch.float32)
-            out[g0:g1] = self._project(y.reshape(g1 - g0, n_shifts, -1), pw)
+        out = np.empty((n_genes, pos_weights.shape[0] * 2002), dtype=np.float32)
+
+        def jobs():
+            pw = self._up(pos_weights)
+            for g0 in range(0, n_genes, genes_per_batch):
+                g1 = min(g0 + genes_per_batch, n_genes)
+                y = self._forward(self._up(codes[g0 * n_shifts : g1 * n_shifts]), True, torch.float32)
+                yield g0, g1 - g0, self._fetch(self._project(y.reshape(g1 - g0, n_shifts, -1), pw))
+
+        self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
     @torch.inference_mode()
@@ -504,23 +652,27 @@ class BelugaRunner:
         With ``sink``, chunks stream instead of filling the three arrays:
         ``sink(start, real, ref, alt, diff)`` receives fp32 arrays of shape
         (real, 2[fwd|rc], S, M) for variant rows [start, start + real), and
-        the method returns None. The sink is called synchronously, in chunk
-        order, from the calling thread, while the card waits."""
+        the method returns None. The sink is called from the fetch workers,
+        once per chunk, in any order and possibly from several threads at
+        once: a sink that writes shared state takes a lock."""
         n = len(ref_spans)
         if sink is None:
             REF, ALT, DIFF = (np.empty((2 * n, len(offsets), 2002), dtype=np.float32) for _ in range(3))
-        for start, y in self._pair_diff_chunks(ref_spans, alt_spans, offsets, with_ref=True):
-            r = y.shape[0]  # y: (r, 2[ref|diff], 2[fwd|rc], S, M) at the wire dtype
+
+        def write(start, r, host):
+            y = host[0]  # (r, 2[ref|diff], 2[fwd|rc], S, M) at the wire dtype
             if sink is not None:
                 ref = y[:, 0].astype(np.float32)
                 diff = y[:, 1].astype(np.float32)
                 sink(start, r, ref, ref + diff, diff)
-                continue
+                return
             for orient, s0 in ((0, start), (1, n + start)):  # fwd rows, then rc rows
                 ref, diff = REF[s0 : s0 + r], DIFF[s0 : s0 + r]
                 ref[...] = y[:, 0, orient]  # an fp16 wire converts in place
                 diff[...] = y[:, 1, orient]
                 np.add(ref, diff, out=ALT[s0 : s0 + r])
+
+        self._run_pipelined(self._pair_diff_jobs(ref_spans, alt_spans, offsets, with_ref=True), write)
         return None if sink is not None else (REF, ALT, DIFF)
 
     @torch.inference_mode()
@@ -536,13 +688,16 @@ class BelugaRunner:
         n = len(ref_spans)
         if sink is None:
             DIFF = np.empty((2 * n, len(offsets), 2002), dtype=np.float32)
-        for start, y in self._pair_diff_chunks(ref_spans, alt_spans, offsets, with_ref=False):
-            r = y.shape[0]  # y: (r, 2[fwd|rc], S, M) at the wire dtype
+
+        def write(start, r, host):
+            y = host[0]  # (r, 2[fwd|rc], S, M) at the wire dtype
             if sink is not None:
                 sink(start, r, y.astype(np.float32))
-                continue
+                return
             DIFF[start : start + r] = y[:, 0]
             DIFF[n + start : n + start + r] = y[:, 1]
+
+        self._run_pipelined(self._pair_diff_jobs(ref_spans, alt_spans, offsets, with_ref=False), write)
         return None if sink is not None else DIFF
 
     @torch.inference_mode()
@@ -555,15 +710,19 @@ class BelugaRunner:
         alt_spans = np.asarray(alt_spans, dtype=np.int8)
         offsets = tuple(int(o) for o in offsets)
         n, span_len = ref_spans.shape
-        W_dev, bias_dev = self._model_tensors(W, bias)
         REF, ALT, SED = self._outputs(n, W.shape[1])
         basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
-        for start, codes in self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets))):
-            pair = codes.reshape(-1, 2, span_len)
-            p_ref = self._pair_span_preds(pair[:, 0], offsets)
-            p_alt = self._pair_span_preds(pair[:, 1], offsets)
-            basis_t = self._dev(basis_wire[:, start : start + pair.shape[0]])
-            self._write_ref_sed(REF, ALT, SED, start, *self._ref_sed(p_ref, p_alt, basis_t, W_dev, bias_dev))
+
+        def jobs():
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            for start, codes in self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets))):
+                pair = codes.reshape(-1, 2, span_len)
+                basis_t = self._up(basis_wire[:, start : start + pair.shape[0]])
+                p_ref = self._pair_span_preds(pair[:, 0], offsets)
+                p_alt = self._pair_span_preds(pair[:, 1], offsets)
+                yield start, pair.shape[0], self._fetch(*self._ref_sed(p_ref, p_alt, basis_t, W_dev, bias_dev))
+
+        self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED
 
     @torch.inference_mode()
@@ -576,14 +735,18 @@ class BelugaRunner:
         alt_alleles = np.asarray(alt_alleles, dtype=np.int8)
         offsets = tuple(int(o) for o in offsets)
         n, span_len = ref_spans.shape
-        W_dev, bias_dev = self._model_tensors(W, bias)
         REF, ALT, SED = self._outputs(n, W.shape[1])
         basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
-        for start, ref in self._code_chunks(ref_spans, self._span_rows(len(offsets))):
-            stop = start + ref.shape[0]
-            p_ref, p_alt = self._preds_from_ref(ref, self._dev(alt_alleles[start:stop]), offsets, span_len, int(mutpos))
-            basis_t = self._dev(basis_wire[:, start:stop])
-            self._write_ref_sed(REF, ALT, SED, start, *self._ref_sed(p_ref, p_alt, basis_t, W_dev, bias_dev))
+
+        def jobs():
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            for start, ref in self._code_chunks(ref_spans, self._span_rows(len(offsets))):
+                stop = start + ref.shape[0]
+                alt_a, basis_t = self._up(alt_alleles[start:stop]), self._up(basis_wire[:, start:stop])
+                p_ref, p_alt = self._preds_from_ref(ref, alt_a, offsets, span_len, int(mutpos))
+                yield start, stop - start, self._fetch(*self._ref_sed(p_ref, p_alt, basis_t, W_dev, bias_dev))
+
+        self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED
 
     @torch.inference_mode()
@@ -607,17 +770,20 @@ class BelugaRunner:
             return self.score_variant_spans_packed(
                 ref_spans_u[row_uidx], mutpos, alt_alleles_u[row_uidx], offsets, basis_rows, W, bias
             )
-        W_dev, bias_dev = self._model_tensors(W, bias)
         REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
         basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
         _starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
-        for (r0, r1), (start, real_u, p, rl, cl) in zip(r_bounds, self._pack2_chunks(plan, rows, n_u)):
-            ref = unpack_codes2(p, span_len, rl, cl)
-            alt_a = self._dev(alt_alleles_u[start : start + real_u])
-            p_ref, p_alt = self._preds_from_ref(ref, alt_a, offsets, span_len, int(mutpos))
-            idx = self._dev(row_uidx[r0:r1] - start)
-            basis_t = self._dev(basis_wire[:, r0:r1])
-            self._write_ref_sed(REF, ALT, SED, r0, *self._ref_sed(p_ref[idx], p_alt[idx], basis_t, W_dev, bias_dev))
+
+        def jobs():
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            for (r0, r1), (start, real_u, p, rl, cl) in zip(r_bounds, self._pack2_chunks(plan, rows, n_u)):
+                alt_a = self._up(alt_alleles_u[start : start + real_u])
+                idx, basis_t = self._up(row_uidx[r0:r1] - start), self._up(basis_wire[:, r0:r1])
+                ref = unpack_codes2(p, span_len, rl, cl)
+                p_ref, p_alt = self._preds_from_ref(ref, alt_a, offsets, span_len, int(mutpos))
+                yield r0, r1 - r0, self._fetch(*self._ref_sed(p_ref[idx], p_alt[idx], basis_t, W_dev, bias_dev))
+
+        self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED
 
     @torch.inference_mode()
@@ -642,17 +808,20 @@ class BelugaRunner:
             return self.score_variant_spans(
                 ref_spans_u[row_uidx], alt_spans_u[row_uidx], offsets, basis_rows, W, bias
             )
-        W_dev, bias_dev = self._model_tensors(W, bias)
         REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
         basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
         starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
-        for start, (r0, r1), (_s2, _r2, p, rl, cl) in zip(
-            starts, r_bounds, self._pack2_chunks(plan, 2 * rows, 2 * n_u)
-        ):
-            pair = unpack_codes2(p, span_len, rl, cl).reshape(-1, 2, span_len)
-            p_ref = self._pair_span_preds(pair[:, 0], offsets)
-            p_alt = self._pair_span_preds(pair[:, 1], offsets)
-            idx = self._dev(row_uidx[r0:r1] - start)
-            basis_t = self._dev(basis_wire[:, r0:r1])
-            self._write_ref_sed(REF, ALT, SED, r0, *self._ref_sed(p_ref[idx], p_alt[idx], basis_t, W_dev, bias_dev))
+
+        def jobs():
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            for start, (r0, r1), (_s2, _r2, p, rl, cl) in zip(
+                starts, r_bounds, self._pack2_chunks(plan, 2 * rows, 2 * n_u)
+            ):
+                idx, basis_t = self._up(row_uidx[r0:r1] - start), self._up(basis_wire[:, r0:r1])
+                pair = unpack_codes2(p, span_len, rl, cl).reshape(-1, 2, span_len)
+                p_ref = self._pair_span_preds(pair[:, 0], offsets)
+                p_alt = self._pair_span_preds(pair[:, 1], offsets)
+                yield r0, r1 - r0, self._fetch(*self._ref_sed(p_ref[idx], p_alt[idx], basis_t, W_dev, bias_dev))
+
+        self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED

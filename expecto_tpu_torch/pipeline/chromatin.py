@@ -26,6 +26,7 @@ read.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -294,10 +295,11 @@ def stream_span_rows(genome, runner, chroms, positions, refs, alts, shifts, maxs
     """Stream pair-diff chunks into preallocated per-shift datasets:
     ``dsets[si]`` maps "diff", "ref", "alt" and/or "pred" to a (2N, M)
     float32 target that takes row writes (h5py datasets, numpy arrays).
-    Peak host memory is one chunk instead of the 3 x (2N, S, M) float32
-    arrays (~43 GB at the reference's default 1e5-variant chunk size). The
-    runner calls the sink in chunk order from this thread, so the writes
-    take turns with the device work.
+    Peak host memory is the runner's chunks in flight instead of the 3 x
+    (2N, S, M) float32 arrays (~43 GB at the reference's default
+    1e5-variant chunk size). The runner calls the sink from its fetch
+    workers, in any chunk order, while the device computes later chunks;
+    the writes take one lock, since h5py is not thread-safe.
 
     Rows failing ``span_ok`` (contig edges, beyond-slack alleles) are
     computed through the per-window path afterwards, so a handful of edge
@@ -309,6 +311,7 @@ def stream_span_rows(genome, runner, chroms, positions, refs, alts, shifts, maxs
     offsets = tuple(s + maxshift for s in shifts)
     sub = np.nonzero(span_ok)[0]
     ind = np.nonzero(~span_ok)[0]
+    lock = threading.Lock()  # the sink runs on the runner's fetch workers
 
     def write_rows(global_rows, si, ref2, alt2, diff2):
         # ref2/alt2/diff2: (r, 2[fwd|rc], M) for this shift's rows;
@@ -316,12 +319,13 @@ def stream_span_rows(genome, runner, chroms, positions, refs, alts, shifts, maxs
         d = dsets[si]
         for orient in (0, 1):
             sel = _h5_rows_selector(global_rows + orient * n)
-            if "ref" in d:
-                d["ref"][sel] = ref2[:, orient]
-                d["alt"][sel] = alt2[:, orient]
-                d["diff"][sel] = diff2[:, orient]
-            if "pred" in d:
-                d["pred"][sel] = diff2[:, orient]
+            with lock:
+                if "ref" in d:
+                    d["ref"][sel] = ref2[:, orient]
+                    d["alt"][sel] = alt2[:, orient]
+                    d["diff"][sel] = diff2[:, orient]
+                if "pred" in d:
+                    d["pred"][sel] = diff2[:, orient]
 
     def sink(s, r, ref, alt, diff):
         # ref/alt/diff: (r, 2[fwd|rc], S, M) fp32 for eligible-subset rows

@@ -136,8 +136,9 @@ def compute_gene_features(
     Genes are grouped by strand (the window-offset signature) and each group
     runs through ``runner.predict_spans_project`` a block at a time: spans
     are fetched per block (about 42 KB a gene), not for the whole gene list.
-    ``genes_per_chunk`` sets the block (default: 16 of the runner's device
-    chunks, at least 64 genes); it changes host memory, not the result.
+    ``genes_per_chunk`` sets the block (default: 4 x ``pipeline_depth`` of
+    the runner's device chunks, at least 64 genes, as the JAX package sizes
+    it); it changes host memory, not the result.
 
     In a multi-process run (``distribute`` and ``out_path`` set) each rank
     computes its ``host_row_range`` gene slice into a shard ``.npy``, the
@@ -155,7 +156,7 @@ def compute_gene_features(
     shifts = gene_shifts()
     pos_weights = gene_pos_weights(shifts)  # (10, 200)
     features = np.empty((len(genes), pos_weights.shape[0] * 2002), dtype=np.float32)
-    block = genes_per_chunk or max(16 * runner._span_rows(len(shifts)), 64)
+    block = genes_per_chunk or max(runner._span_rows(len(shifts)) * runner.pipeline_depth * 4, 64)
     done = 0
     for offsets, idxs in _offset_groups(genes, shifts, windowsize).items():
         for bstart in range(0, len(idxs), block):

@@ -10,10 +10,11 @@ Builds chip_smoke.py's seeded main-path inputs (full Beluga widths, maxshift
 in place of the h5 datasets) with the CLI's settings (batch 1,024; fp32
 compute and wire, or ``--bf16``'s bf16 compute and fp16 wire): once to warm
 up, once timed, once under ``torch.profiler`` with a span around the span
-assembly, the pair-diff forward (``predict_span_pairs_diff``), each chunk's
-forward and fetch inside it (``pair_diff_wire``; the rest of the pair-diff
-span is the host's fp32 cast and the sink's row writes) and the per-window
-fallback (``predict_codes``). Prints per dtype the wall time (unprofiled and
+assembly, the pair-diff forward (``predict_span_pairs_diff``), the host
+time to queue each chunk's forward inside it (``pair_diff_wire``; the
+results come back on the runner's copy stream, and the fp32 cast and the
+sink's row writes run on its fetch workers) and the per-window fallback
+(``predict_codes``). Prints per dtype the wall time (unprofiled and
 profiled), variants/s, the device's busy and idle shares, device time per
 kernel name and host time per span; ``--out DIR`` writes them to
 ``DIR/profile_chromatin.json``. The rows go to numpy arrays, not h5 files,

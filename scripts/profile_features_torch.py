@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's gene-feature step goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_features_torch.py [--out DIR] [--seed N] [--dtype fp32|bf16|both]
+    python3 scripts/profile_features_torch.py [--out DIR] [--seed N] [--dtype fp32|bf16|both] [--pipeline-genes]
 
 Builds chip_smoke.py's seeded genome, full-width Beluga weights and 96 genes
-(48 a strand, three near a contig end) and runs ``compute_gene_features``
+(48 a strand, three near a contig end; or, with ``--pipeline-genes``, the
+pipeline phase's 768 genes, one full gene block a strand, on a runner at
+``cli.compute_features``' pipeline depth 6) and runs ``compute_gene_features``
 with the compute_features CLI's settings (batch 3,200: chunks of 16 spans of
 41,800 bp; fp32 compute and wire, or ``--bf16``'s bf16 compute and fp16
 wire): once to warm up, once timed, once under ``torch.profiler`` with a
@@ -19,6 +21,7 @@ them to ``DIR/profile_features.json``.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 import time
@@ -33,6 +36,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=("fp32", "bf16", "both"), default="both")
+    ap.add_argument("--pipeline-genes", action="store_true",
+                    help="chip_smoke.py's pipeline genes (768) at the compute_features CLI's pipeline depth")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -61,8 +66,12 @@ def main(argv=None) -> int:
 
     card = cs.card_line()
     cs.make_inputs(args.seed)
-    cs.make_gene_inputs(args.seed)
-    genes = features.records_from_geneanno(pd.read_csv(cs.WORK / "geneanno.csv"))
+    if args.pipeline_genes:
+        genes, depth = cs.pipeline_gene_records(args.seed), cs.GENE_CLI_DEPTH
+    else:
+        cs.make_gene_inputs(args.seed)
+        genes = features.records_from_geneanno(pd.read_csv(cs.WORK / "geneanno.csv"))
+        depth = inspect.signature(BelugaRunner).parameters["pipeline_depth"].default
     params = load_params_npz(cs.WORK / "beluga.npz")
     genome = FastaIndex(cs.WORK / "genome.fa")
     # the span forward's two halves, as the runner module calls them, and
@@ -76,7 +85,7 @@ def main(argv=None) -> int:
         for tag in ("fp32", "bf16") if args.dtype == "both" else (args.dtype,):
             runner = BelugaRunner(params, batch_size=cs.GENE_BATCH, device="cuda",
                                   compute_dtype=torch.float32 if tag == "fp32" else torch.bfloat16,
-                                  out_dtype=np.float32 if tag == "fp32" else np.float16)
+                                  out_dtype=np.float32 if tag == "fp32" else np.float16, pipeline_depth=depth)
             runner.predict_spans_project = spanned(runner.predict_spans_project, "predict_spans_project")
 
             def run():
@@ -99,12 +108,13 @@ def main(argv=None) -> int:
             for e in prof.events():
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.name in SPANS:
                     annotated[e.name] = annotated.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-            r = {"dtype": tag, "genes": len(genes), "wall_s": wall, "wall_unprofiled_s": wall_off,
+            r = {"dtype": tag, "genes": len(genes), "pipeline_depth": depth, "wall_s": wall,
+                 "wall_unprofiled_s": wall_off,
                  "genes_per_s": len(genes) / wall_off, "device_busy_ms": busy_ms,
                  "device_busy_share": busy_ms / (wall * 1e3), "device_ms_by_span": annotated,
                  "host_ms_by_span": spans, "kernels": kernels[:25]}
             results[tag] = r
-            print(f"card: {card}; {tag} compute, {len(genes)} genes, batch {cs.GENE_BATCH}")
+            print(f"card: {card}; {tag} compute, {len(genes)} genes, batch {cs.GENE_BATCH}, pipeline depth {depth}")
             print(f"gene features call: {wall_off:.3f} s unprofiled ({len(genes) / wall_off:.2f} genes/s), {wall:.3f} s "
                   f"profiled; device busy {busy_ms:.1f} ms ({100 * r['device_busy_share']:.1f}% of wall), idle "
                   f"{100 * (1 - r['device_busy_share']):.1f}%")

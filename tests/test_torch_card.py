@@ -32,7 +32,11 @@ trainer; and the round kernel's two shared-memory plans: one round on both
 sides of the "shared" plan's row cap (one launch of the kernel either way),
 held to the plain round, and ``train_gblinear`` past the cap; and Beluga weights from
 the ``.pth`` converter (models/convert.py) served on the card against the
-torch oracle on the CPU.
+torch oracle on the CPU; and the runner's pipelined execution: depth 4
+against depth 1 bit for bit, depth 2 over 40 chunks with a slowed writer, a
+landing buffer reused a chunk early (a planted fault that must miss), dispatch
+running ahead of the first write by the launch counts, and every public
+method through a warm call under torch's sync debug mode "error".
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -43,6 +47,7 @@ so it runs where JAX is absent; on such a machine pass ``--noconftest``
 
 import functools
 import json
+import time
 
 import numpy as np
 import pytest
@@ -401,25 +406,26 @@ def test_h5_runner_methods_fp32_on_card_match_cpu(cuda, budget):
 
 
 def test_h5_runner_sinks_on_card(cuda):
-    """The sinks get every chunk in order, fp32 (real, 2, S, M), and rebuild
-    the arrays the sink-less calls return."""
+    """The sinks get every chunk once, in any order (the fetch workers call
+    them), fp32 (real, 2, S, M), and rebuild the arrays the sink-less calls
+    return."""
     runner = BelugaRunner(narrow_params(9), batch_size=16, device="cuda")
     ref, alt = _h5_pairs(3, seed=10)
-    calls, parts, diffs = [], [], []
+    calls, parts, diffs = [], {}, {}
 
     def sink(start, real, r, a, d):
         calls.append((start, real))
         assert r.dtype == a.dtype == d.dtype == np.float32 and r.shape == (real, 2, len(H5_OFFSETS), 2002)
-        parts.append((r, a, d))
+        parts[start] = (r, a, d)
 
     assert runner.predict_span_pairs_diff(ref, alt, H5_OFFSETS, sink=sink) is None
-    assert runner.predict_span_pair_diffs_only(ref, alt, H5_OFFSETS, sink=lambda s, n, d: diffs.append(d)) is None
-    assert calls == [(0, 1), (1, 1), (2, 1)]
+    assert runner.predict_span_pair_diffs_only(ref, alt, H5_OFFSETS, sink=lambda s, n, d: diffs.update({s: d})) is None
+    assert sorted(calls) == [(0, 1), (1, 1), (2, 1)]
     whole = runner.predict_span_pairs_diff(ref, alt, H5_OFFSETS)
     for k in range(3):
-        a = np.concatenate([p[k] for p in parts])
+        a = np.concatenate([parts[s][k] for s in sorted(parts)])
         np.testing.assert_array_equal(np.concatenate([a[:, 0], a[:, 1]]), whole[k])
-    d = np.concatenate(diffs)
+    d = np.concatenate([diffs[s] for s in sorted(diffs)])
     np.testing.assert_array_equal(np.concatenate([d[:, 0], d[:, 1]]), whole[2])
 
 
@@ -1011,3 +1017,182 @@ def test_converted_weights_serve_on_card_as_the_oracle(cuda):
     params["fc1"]["w"] = np.ascontiguousarray(net.fc1.weight.detach().numpy().T)
     bad = BelugaRunner(params, batch_size=16, device="cuda").predict_codes(codes)
     assert np.abs(bad - want).max() > 1e-3
+
+
+# ---- pipelined execution --------------------------------------------------------
+
+PIPE_MUT = H5_MAXSHIFT + 999
+PIPE_BATCH = 2 * len(H5_OFFSETS)  # two spans, or one pair, a chunk
+
+
+def _pipe_inputs(n, seed):
+    """Inputs of every public runner method at the h5 tests' span: ``n``
+    spans, pairs, unique variants (two rows each) or genes."""
+    rng = np.random.default_rng(seed)
+    ref, alt = _h5_pairs(n, seed)
+    alleles = ((ref[:, PIPE_MUT : PIPE_MUT + 1] + 1) % 4).astype(np.int8)
+    backbone = random_codes(rng, 1, H5_SPAN, n_frac=0.0)[0]
+    samples = np.repeat(backbone[None], n, axis=0)
+    for i in range(1, n):
+        sites = rng.choice(np.arange(1200, 1600), size=1 + i % 3, replace=False)
+        samples[i, sites] = (samples[i, sites] + 1) % 4
+    phases_f = {(o // 4) % 4 for o in H5_OFFSETS}
+    phases_r = {((H5_SPAN - 2000 - o) // 4) % 4 for o in H5_OFFSETS}
+    sf, sr = (np.zeros((n, 8, 2), np.int32) for _ in range(2))
+    for m, row in enumerate(samples):
+        dp = np.nonzero(row != backbone)[0]
+        for starts, plan in ((sf, conv6_patch_sites_plan(dp, H5_SPAN, phases_f, max_ranges=8)),
+                             (sr, conv6_patch_sites_plan((H5_SPAN - 1 - dp)[::-1], H5_SPAN, phases_r, max_ranges=8))):
+            if plan:
+                starts[m, : len(plan)] = plan
+    return {"ref": ref, "alt": alt, "alleles": alleles, "row_uidx": np.repeat(np.arange(n), 2),
+            "basis": rng.random((len(H5_OFFSETS), n, 10)).astype(np.float32),
+            "basis_rows": rng.random((len(H5_OFFSETS), 2 * n, 10)).astype(np.float32),
+            "W": (rng.standard_normal((10 * 2002, 3)) * 0.05).astype(np.float32),
+            "bias": np.array([2.0, 2.1, 1.9], np.float32),
+            "pw": rng.random((10, len(H5_OFFSETS))).astype(np.float32),
+            "codes": random_codes(rng, 4 * n, 2000), "backbone": backbone, "samples": samples, "starts": (sf, sr)}
+
+
+def _sunk(call, n_arrays):
+    """What ``call(sink)`` streamed, assembled in row order."""
+    got = {}
+    assert call(lambda start, real, *arrays: got.__setitem__(start, arrays)) is None
+    return tuple(np.concatenate([got[s][k] for s in sorted(got)]) for k in range(n_arrays))
+
+
+PIPE_CALLS = {
+    "predict_codes": lambda r, d: r.predict_codes(d["codes"]),
+    "predict_codes_fwd_rc_concat": lambda r, d: r.predict_codes_fwd_rc_concat(d["codes"]),
+    "predict_span_codes": lambda r, d: r.predict_span_codes(d["ref"], H5_OFFSETS, rc_mode="concat"),
+    "predict_spans_project": lambda r, d: r.predict_spans_project(d["ref"], H5_OFFSETS, d["pw"]),
+    "project_spans_backbone_patch": lambda r, d: r.project_spans_backbone_patch(
+        d["backbone"], d["samples"], *d["starts"], H5_OFFSETS, d["pw"]),
+    "predict_and_project": lambda r, d: r.predict_and_project(d["codes"][: 5 * (len(d["codes"]) // 5)], d["pw"][:, :5],
+                                                              5),
+    "predict_span_pairs_diff": lambda r, d: r.predict_span_pairs_diff(d["ref"], d["alt"], H5_OFFSETS),
+    "predict_span_pairs_diff_sink": lambda r, d: _sunk(
+        lambda sink: r.predict_span_pairs_diff(d["ref"], d["alt"], H5_OFFSETS, sink=sink), 3),
+    "predict_span_pair_diffs_only_sink": lambda r, d: _sunk(
+        lambda sink: r.predict_span_pair_diffs_only(d["ref"], d["alt"], H5_OFFSETS, sink=sink), 1),
+    "score_variant_spans": lambda r, d: r.score_variant_spans(
+        d["ref"], d["alt"], H5_OFFSETS, d["basis"], d["W"], d["bias"]),
+    "score_variant_spans_packed": lambda r, d: r.score_variant_spans_packed(
+        d["ref"], PIPE_MUT, d["alleles"], H5_OFFSETS, d["basis"], d["W"], d["bias"]),
+    "score_variant_spans_packed_rows": lambda r, d: r.score_variant_spans_packed_rows(
+        d["ref"], PIPE_MUT, d["alleles"], H5_OFFSETS, d["basis_rows"], d["row_uidx"], d["W"], d["bias"]),
+    "score_variant_span_pairs_rows": lambda r, d: r.score_variant_span_pairs_rows(
+        d["ref"], d["alt"], H5_OFFSETS, d["basis_rows"], d["row_uidx"], d["W"], d["bias"]),
+}
+
+
+def _pipe_runner(dtype, depth, batch=PIPE_BATCH):
+    return BelugaRunner(narrow_params(17, convs=TC_WIDTHS), batch_size=batch, device="cuda", compute_dtype=dtype,
+                        out_dtype=np.float32 if dtype == torch.float32 else np.float16, pipeline_depth=depth)
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _assert_bit_equal(got, want):
+    for g, w in zip(_as_tuple(got), _as_tuple(want), strict=True):
+        assert np.isfinite(w).all()
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("method", ["score_variant_spans_packed_rows", "predict_span_pairs_diff_sink",
+                                    "predict_spans_project"])
+def test_pipeline_depth_4_equals_depth_1_on_card(cuda, method, dtype):
+    """12 spans (6 span chunks, 12 pair chunks): compute stays on one stream
+    in the same order at every depth, so the outputs are equal bit for bit."""
+    d = _pipe_inputs(12, seed=21)
+    _assert_bit_equal(PIPE_CALLS[method](_pipe_runner(dtype, 4), d), PIPE_CALLS[method](_pipe_runner(dtype, 1), d))
+
+
+def _slowed_landings(monkeypatch, seconds: float):
+    """Every write sleeps ``seconds`` after its copy has landed, before it
+    reads the pinned buffer."""
+    from expecto_tpu_torch.parallel import runner as prunner
+
+    wait = prunner._Landing.wait
+
+    def slow(self):
+        host = wait(self)
+        time.sleep(seconds)
+        return host
+
+    monkeypatch.setattr(prunner._Landing, "wait", slow)
+
+
+def test_pipeline_depth_2_with_a_slowed_writer_over_40_chunks(cuda, monkeypatch):
+    d = _pipe_inputs(40, seed=22)
+    want = PIPE_CALLS["predict_span_pairs_diff_sink"](_pipe_runner(torch.float32, 1), d)
+    _slowed_landings(monkeypatch, 0.005)
+    _assert_bit_equal(PIPE_CALLS["predict_span_pairs_diff_sink"](_pipe_runner(torch.float32, 2), d), want)
+
+
+def test_pipeline_reusing_a_landing_slot_a_chunk_early_misses(cuda, monkeypatch):
+    """A planted fault: one landing buffer a shape for every chunk, so chunk
+    i lands where chunk i - 1 did while i - 1's slowed write still reads it
+    (the caching host allocator would hand that block out only after the
+    write had released it)."""
+    from expecto_tpu_torch.parallel import runner as prunner
+
+    d = _pipe_inputs(12, seed=23)
+    want = PIPE_CALLS["predict_span_pairs_diff_sink"](_pipe_runner(torch.float32, 1), d)
+    _slowed_landings(monkeypatch, 0.02)
+    shared = {}
+
+    def one_buffer(y):
+        key = (tuple(y.shape), y.dtype)
+        if key not in shared:
+            shared[key] = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+        return shared[key]
+
+    monkeypatch.setattr(prunner, "_pinned_like", one_buffer)
+    got = PIPE_CALLS["predict_span_pairs_diff_sink"](_pipe_runner(torch.float32, 2), d)
+    assert not all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_pipeline_dispatch_runs_ahead_of_the_first_write(cuda):
+    """The sink of chunk 0 waits until the launch counts show the conv0
+    launches of ``pipeline_depth`` chunks (two a pair chunk), then the call
+    completes with the rows of an unblocked call; a loop that wrote each
+    chunk before making the next would time out here."""
+    depth = 3
+    d = _pipe_inputs(8, seed=24)
+    runner = _pipe_runner(torch.float32, depth)
+    want = PIPE_CALLS["predict_span_pair_diffs_only_sink"](runner, d)
+    before, seen = conv0_codes_relu.launches, []
+    got = {}
+
+    def sink(start, real, diff):
+        if start == 0:
+            deadline = time.monotonic() + 20
+            while conv0_codes_relu.launches - before < 2 * depth and time.monotonic() < deadline:
+                time.sleep(0.001)
+            seen.append(conv0_codes_relu.launches - before)
+        got[start] = diff
+
+    runner.predict_span_pair_diffs_only(d["ref"], d["alt"], H5_OFFSETS, sink=sink)
+    assert seen and seen[0] >= 2 * depth
+    np.testing.assert_array_equal(np.concatenate([got[s] for s in sorted(got)]), want[0])
+
+
+@pytest.mark.parametrize("method", list(PIPE_CALLS))
+def test_pipelined_calls_never_synchronize(cuda, method):
+    """With torch's sync debug mode set to "error", a warm call of every
+    public method runs through: no pageable upload, no blocking fetch, no
+    ``.item()`` or boolean mask on the host's path through the chunks."""
+    d = _pipe_inputs(6, seed=25)
+    runner = _pipe_runner(torch.float32, 4)
+    want = PIPE_CALLS[method](runner, d)  # warm: kernels built, weights packed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = PIPE_CALLS[method](runner, d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _assert_bit_equal(got, want)
