@@ -212,7 +212,14 @@ Phases (any failure raises, and the script exits non-zero with no result):
    all-reduce swapped for the identity, which must miss those limits. Every rank's convs must run
    on its dtype's kernels. The backend and each run's wall at one and two
    ranks are printed; the ranks share one card, so the walls are the
-   layer's cost, not a scaling.
+   layer's cost, not a scaling;
+15. bench: ``python -m expecto_tpu_torch.bench`` (its ``main``, no
+   arguments: the card, ``bench.py``'s on-card sizes, no h5 writes), every
+   launch count zeroed just before it and read just after: the tc kernel,
+   the code-gather conv0 in bf16 and 520 coordinate updates (13 rounds of
+   40 blocks) must launch, the SIMT kernel and the round kernel must not;
+   its one result line (printed after ``bench result:``) must hold every
+   path key, each finite and above 0; its wall is printed with the card.
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -389,7 +396,9 @@ TRAIN_FEATURES = 20_020
 TRAIN_TISSUES = 218
 TRAIN_ROUNDS = 100
 TRAIN_BOOT_SEEDS = 128
-TRAIN_CD_SHAPES = ((512, 1), (512, 128), (512, 218))  # (block, models) of the coordinate-update kernel
+# (block, models) of the coordinate-update kernel: the three training calls'
+# shapes and the bench's 256-model round
+TRAIN_CD_SHAPES = ((512, 1), (512, 128), (512, 218), (512, 256))
 # genes a chromosome: chr8 is the test split; chrX/chrY (and chr7 for the
 # all-tissue sweep) are held out of training; the rest are spread over the
 # other autosomes
@@ -2803,10 +2812,31 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def _cd_checked(b: int, k: int, alpha: float, gen):
+    """The coordinate-update kernel against its plain version, bit for bit,
+    on :func:`_cd_inputs` of shape (b, k); returns those (g, h, w)."""
+    import torch
+
+    from expecto_tpu_torch.ops.gblinear_cd import coord_update, coord_update_plain
+
+    g, h, w = _cd_inputs(b, k, alpha, gen)
+    w_plain = w.clone()
+    dw = coord_update(g, h, w, 0.01, 100.0, alpha)
+    want = coord_update_plain(g, h, w_plain, 0.01, 100.0, alpha)
+    torch.cuda.synchronize()
+    if not (torch.equal(dw.view(torch.int32), want.view(torch.int32))
+            and torch.equal(w.view(torch.int32), w_plain.view(torch.int32))):
+        raise AssertionError(f"gblinear_cd ({b}, {k}) alpha {alpha}: the kernel and the plain version differ "
+                             f"(max |dw - plain| {float((dw - want).abs().max())})")
+    if bool((dw[h < 1e-5] != 0).any()):
+        raise AssertionError(f"gblinear_cd ({b}, {k}): a hessian below 1e-5 gave a nonzero update")
+    return g, h, w
+
+
 def train_kernel_phase(out: dict) -> None:
     """The coordinate-update kernel against its plain version, bit for bit,
-    at each (block, models) shape of the three training calls, with alpha
-    0 and > 0; then timed beside the plain version and its bound (g, h and
+    at each (block, models) shape of the three training calls and the
+    bench's round, with alpha 0 and > 0; then timed beside the plain version and its bound (g, h and
     w read once, w and dw written once: 20 bytes an element): the card's
     time a call (the kernel, or the plain version's kernels) and the
     time a call back to back, which the host's issue rate sets."""
@@ -2818,17 +2848,7 @@ def train_kernel_phase(out: dict) -> None:
     rows = []
     for b, k in TRAIN_CD_SHAPES:
         for alpha in (0.0, 0.7, 25.0):
-            g, h, w = _cd_inputs(b, k, alpha, gen)
-            w_plain = w.clone()
-            dw = coord_update(g, h, w, 0.01, 100.0, alpha)
-            want = coord_update_plain(g, h, w_plain, 0.01, 100.0, alpha)
-            torch.cuda.synchronize()
-            if not (torch.equal(dw.view(torch.int32), want.view(torch.int32))
-                    and torch.equal(w.view(torch.int32), w_plain.view(torch.int32))):
-                raise AssertionError(f"gblinear_cd ({b}, {k}) alpha {alpha}: the kernel and the plain version differ "
-                                     f"(max |dw - plain| {float((dw - want).abs().max())})")
-            if bool((dw[h < 1e-5] != 0).any()):
-                raise AssertionError(f"gblinear_cd ({b}, {k}): a hessian below 1e-5 gave a nonzero update")
+            g, h, w = _cd_checked(b, k, alpha, gen)
         kernel, plain = (lambda: coord_update(g, h, w, 0.01, 100.0, 25.0),
                          lambda: coord_update_plain(g, h, w, 0.01, 100.0, 25.0))
         row = {"B": b, "K": k, "max_abs_err": 0.0, **_bound(20.0 * b * k, 0.0, "fp32"),
@@ -3718,8 +3738,8 @@ def gblinear_cd_entry(train: dict, mp_train: dict) -> dict:
     the card, its plain version's and its bound at the all-tissue call's
     shape (512, 218), whose timed run gives ``launches``; the times a call
     back to back (``call_ms``); the same at K = 1 (the shape of the per-block
-    loop that the round kernel replaced, now the plain round's) and 128, and
-    the launches of the bootstrap call and of each rank of the 2-rank
+    loop that the round kernel replaced, now the plain round's), 128 and 256
+    (the bench's round), and the launches of the bootstrap call and of each rank of the 2-rank
     bootstrap run. The K = 1 call launches it no more."""
     cd = {r["K"]: r for r in train["cd_layers"]}
     return {
@@ -3731,7 +3751,7 @@ def gblinear_cd_entry(train: dict, mp_train: dict) -> dict:
         "ms": cd[218]["ms"], "plain_ms": cd[218]["plain_ms"], "bound_ms": cd[218]["bound_ms"],
         "bound_by": cd[218]["bound_by"], "library_ms": None, "shape": [cd[218]["B"], 218],
         "call_ms": cd[218]["call_ms"], "plain_call_ms": cd[218]["plain_call_ms"],
-        **{f"{key}_k{k}": cd[k][key] for k in (1, 128) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
+        **{f"{key}_k{k}": cd[k][key] for k in (1, 128, 256) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
         "launches_k1": train["k1"]["launches_gblinear_cd"], "launches_bootstrap_k128": train["boot"]["launches"],
         "launches_bootstrap_k128_per_rank_of_2": [r["gblinear_cd"] for r in mp_train["sound"]["ranks"]],
     }
@@ -4119,6 +4139,128 @@ def rank_worker(args) -> int:
     return rc
 
 
+#: the launches the bench's training path makes: 3 warm and 10 timed rounds
+#: of the K-model sweep, one coordinate update a feature block (40 blocks of
+#: 512 over 20,020 features)
+BENCH_CD_LAUNCHES = 13 * 40
+
+
+def bench_phase(report: dict, card: str) -> None:
+    """``python -m expecto_tpu_torch.bench`` (its ``main``) at full size, with
+    every launch count zeroed just before it and read just after: the tc
+    kernel, the code-gather conv0 in bf16 and the coordinate update must
+    launch (the SIMT kernel and the round kernel must not: the bench is bf16
+    and its training path is the K-model sweep); its one result line must
+    hold every path key, finite and positive."""
+    import contextlib
+    import math
+
+    from expecto_tpu_torch import bench
+    from expecto_tpu_torch.ops import gblinear_cd, gblinear_round
+    from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
+    from expecto_tpu_torch.ops.conv8 import conv8_relu
+
+    _reset_counts()
+    gblinear_cd.reset_launch_counts()
+    gblinear_round.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    wall = time.perf_counter() - t0
+    counts = {"conv8_relu_by_route": dict(conv8_relu.launches_by_route),
+              "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in
+                                     sorted(conv8_relu.launches_by_kind.items())},
+              "conv0_codes": conv0_codes_relu.launches, "conv0_codes_by_kind": dict(conv0_codes_relu.launches_by_kind),
+              "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches}
+    shapes = {"conv8_relu": dict(conv8_relu.launches_by_shape), "conv0_codes": dict(conv0_codes_relu.launches_by_shape),
+              "gblinear_cd": dict(gblinear_cd.coord_update.launches_by_shape)}
+    lines = [line for line in out.getvalue().splitlines() if line.strip()]
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"the bench returned {rc} and printed {len(lines)} lines: {lines[-3:]}")
+    record = json.loads(lines[0])
+    keys = {"metric", "value", "unit", "vs_baseline", "paths", "device"}
+    if set(record) != keys or set(record["paths"]) != set(bench.PATH_KEYS):
+        raise AssertionError(f"the bench's result keys {sorted(record)}, paths {sorted(record.get('paths', {}))}")
+    for key, v in [("value", record["value"]), ("vs_baseline", record["vs_baseline"]), *record["paths"].items()]:
+        if not (isinstance(v, float) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"bench {key} = {v!r}: not a finite number above 0")
+    by_route, by_kind0 = counts["conv8_relu_by_route"], counts["conv0_codes_by_kind"]
+    if by_route["tc"] <= 0 or by_route["simt"] != 0:
+        raise AssertionError(f"the bench's convs must run on the tc kernel alone: {by_route}")
+    if counts["conv0_codes"] <= 0 or by_kind0 != {"bfloat16": counts["conv0_codes"]}:
+        raise AssertionError(f"the bench's conv0 must run on the code-gather kernel in bf16: {by_kind0}")
+    if counts["gblinear_cd"] != BENCH_CD_LAUNCHES or counts["gblinear_round"] != 0:
+        raise AssertionError(f"the bench's training path: {counts['gblinear_cd']} coordinate updates (expected "
+                             f"{BENCH_CD_LAUNCHES}), {counts['gblinear_round']} round-kernel launches (expected 0)")
+    report["bench"] = {"record": record, "wall_s": wall, "launches": counts,
+                       "shape_checks": bench_shape_checks(shapes)}
+    log(f"bench launches: tc {by_route['tc']}, simt {by_route['simt']}, conv0_codes bf16 {counts['conv0_codes']}, "
+        f"gblinear_cd {counts['gblinear_cd']}, gblinear_round {counts['gblinear_round']}")
+    log(f"bench result: {lines[0]}")
+    log(f"bench wall {wall:.1f} s [{card}]")
+
+
+def bench_shape_checks(shapes: dict) -> dict:
+    """Each kernel held against its plain version at every shape the bench's
+    run launched it at (``shapes``: the wrappers' ``launches_by_shape``),
+    on seeded inputs: the conv kernels against the fp32 plain version with
+    the earlier phases' tolerances, the coordinate update bit for bit
+    (alpha 0, the bench's, and 0.7). Returns {kernel: {"shapes", "launches",
+    "max_abs_err"}}; the checks' own launches come after the bench's counts
+    were read."""
+    import torch
+
+    from expecto_tpu_torch.models.beluga import CONV_SPECS
+    from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
+    from expecto_tpu_torch.ops.conv8 import _route, conv8_relu, conv8_relu_plain
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(7)
+    out = {}
+
+    def tally(kernel: str, launches: int, err: float) -> None:
+        row = out.setdefault(kernel, {"shapes": 0, "launches": 0, "max_abs_err": 0.0})
+        row["shapes"] += 1
+        row["launches"] += launches
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    for (route, dtype, n, length, cin, cout), launches in sorted(shapes["conv8_relu"].items()):
+        dt = getattr(torch, dtype)
+        x = torch.randn((n, length, cin), generator=gen, device=gen.device).to(dt)
+        w = (torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5).to(dt)
+        b = (torch.randn((cout,), generator=gen, device=gen.device) * 0.1).to(dt)
+        if _route("cuda", dt, cin, x.data_ptr()) != route:
+            raise AssertionError(f"bench shape N={n} L={length} {cin}->{cout} {dtype} would not take the {route} route")
+        atol, rtol = (FP32_ATOL, FP32_RTOL) if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        name = "conv8_relu_tc" if route == "tc" else "conv8_relu"
+        err = _check_close(conv8_relu(x, w, b, route=route), conv8_relu_plain(x.float(), w.float(), b.float()),
+                           atol, rtol, f"bench shape {name} {dtype} N={n} L={length} {cin}->{cout}")
+        tally(name, launches, err)
+        del x
+    for (dtype, n, length, cout), launches in sorted(shapes["conv0_codes"].items()):
+        dt = getattr(torch, dtype)
+        _kw, cin, _cout = CONV_SPECS[0]
+        codes = _conv0_codes(n, length, gen)
+        w = (torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5).to(dt)
+        b = (torch.randn((cout,), generator=gen, device=gen.device) * 0.1).to(dt)
+        tol = CONV0_FP32_TOL if dt == torch.float32 else BF16_ATOL
+        err = _check_close(conv0_codes_relu(codes, w, b), conv0_codes_relu_plain(codes, w.float(), b.float()), tol, tol,
+                           f"bench shape conv0_codes {dtype} N={n} L={length}")
+        tally("conv0_codes", launches, err)
+        del codes
+    for (b, k), launches in sorted(shapes["gblinear_cd"].items()):
+        for alpha in (0.0, 0.7):
+            _cd_checked(b, k, alpha, gen)
+        tally("gblinear_cd", launches, 0.0)
+    torch.cuda.empty_cache()
+    for name, row in out.items():
+        log(f"bench shapes: {name} held against its plain version at {row['shapes']} shapes ({row['launches']} of the "
+            f"bench's launches), max |err| {row['max_abs_err']:.3g}")
+    log(f"bench shape checks {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_table(report: dict) -> dict:
     """The kernel line: one entry per hand-written kernel, over the launches
     of one substitution chunk that its main path gives it (each shape
@@ -4131,7 +4273,9 @@ def kernel_table(report: dict) -> dict:
     calls', ``gene_chunk_ms`` the kernel's time in one gene chunk of them
     (16 spans of 41,800 bp); ``launches_pipeline`` are a call's launches in
     each pipeline-phase flow that runs the kernel (the same at both depths);
-    ``max_abs_err`` covers every path's shapes. Per-shape numbers in
+    ``launches_bench`` are every kernel's launches in the bench phase's run,
+    ``shapes_bench`` the distinct shapes of those, each held against the
+    plain version; ``max_abs_err`` covers every path's shapes. Per-shape numbers in
     ``layers``, ``h5_layers`` and ``gene_layers``."""
     conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
     h5_full = [r for r in report["h5_layers"] if r["N"] == H5_CHUNK_N[0]]
@@ -4177,7 +4321,11 @@ def kernel_table(report: dict) -> dict:
             "gene_chunk_library_ms": _weighted(gene_rows, tag, "library_ms"), **extra,
         }
 
-    return {"kernels": [
+    bench = report["bench"]["launches"]
+    launches_bench = {"conv8_relu_tc": bench["conv8_relu_by_route"]["tc"],
+                      "conv8_relu": bench["conv8_relu_by_route"]["simt"], "conv0_codes": bench["conv0_codes"],
+                      "gblinear_cd": bench["gblinear_cd"], "gblinear_round": bench["gblinear_round"]}
+    table = {"kernels": [
         entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
               serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"],
               launches_h5_bf16=h5["bf16"]["conv8_relu_by_route"]["tc"],
@@ -4236,6 +4384,13 @@ def kernel_table(report: dict) -> dict:
                              | {f"{t}_{k}": r[t].get(k) for t in ("fp32", "bf16")
                                 for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                              for r in report["consensus_layers"]]}
+    checked = report["bench"]["shape_checks"]
+    for k in table["kernels"]:
+        k["launches_bench"] = launches_bench[k["name"]]
+        if k["name"] in checked:
+            k["max_abs_err"] = max(k["max_abs_err"], checked[k["name"]]["max_abs_err"])
+            k["shapes_bench"] = checked[k["name"]]["shapes"]
+    return table
 
 
 def main(argv=None) -> int:
@@ -4335,6 +4490,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     multiprocess_phase(report, inputs, card)
     log(f"multi-process phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bench_phase(report, card)
+    log(f"bench phase {time.perf_counter() - t0:.1f} s [{card}]")
 
     table = kernel_table(report)
     report["total_s"] = time.perf_counter() - t_start

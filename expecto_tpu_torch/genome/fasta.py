@@ -162,6 +162,11 @@ class FastaIndex:
     def contig_length(self, chrom: str) -> int:
         return self._index[chrom][1]
 
+    @property
+    def contigs(self) -> list[str]:
+        """Contig names in file order."""
+        return list(self._index)
+
     def sequence(self, chrom: str, start: int, stop: int) -> str:
         """1-based inclusive fetch, clamped to the contig bounds."""
         off, length = self._index[chrom]
@@ -170,6 +175,10 @@ class FastaIndex:
         if hi <= lo:
             return ""
         return self._mmap[off + lo : off + hi].decode("ascii")
+
+    def sequence_dict(self, d: dict) -> str:
+        """pyfasta-style call: ``sequence({'chr': c, 'start': a, 'stop': b})``."""
+        return self.sequence(d["chr"], d["start"], d["stop"])
 
     def window_codes(self, chrom: str, starts_1based, window_len: int) -> "np.ndarray":
         """(n, window_len) int8 base codes for fixed-length windows; positions

@@ -21,6 +21,8 @@ built), conv0 over a one-hot and conv1-conv5 on
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..ops.conv0 import conv0_codes_relu
@@ -36,6 +38,29 @@ FC1_OUT = 2003
 FC2_OUT = BELUGA_N_TRACKS
 
 BelugaParams = dict[str, dict[str, torch.Tensor]]
+
+
+def init_beluga_params(generator: torch.Generator, dtype=torch.float32, device=None) -> BelugaParams:
+    """He-style random init (for tests and benchmarks; production weights come
+    from the converted DeepSEA checkpoint, see convert.py): each weight drawn
+    from N(0, 2 / fan_in) with ``generator``, on its device, biases zero.
+    The same generator state gives the same tensors; no torch generator
+    gives ``jax.random``'s numbers. ``device`` defaults to the generator's."""
+    device = generator.device if device is None else torch.device(device)
+
+    def layer(shape, fan_in: int, n_out: int) -> dict:
+        w = torch.randn(shape, generator=generator, device=generator.device) * math.sqrt(2.0 / fan_in)
+        return {"w": w.to(device=device, dtype=dtype), "b": torch.zeros(n_out, dtype=dtype, device=device)}
+
+    params = {f"conv{i}": layer((w, cin, cout), w * cin, cout) for i, (w, cin, cout) in enumerate(CONV_SPECS)}
+    params["fc1"] = layer((FC1_IN, FC1_OUT), FC1_IN, FC1_OUT)
+    params["fc2"] = layer((FC1_OUT, FC2_OUT), FC1_OUT, FC2_OUT)
+    return params
+
+
+def count_params(params: BelugaParams) -> int:
+    """Number of scalars in a Beluga pytree (tensors or numpy arrays)."""
+    return sum(math.prod(a.shape) for layer in params.values() for a in layer.values())
 
 
 def _conv_relu(x: torch.Tensor, p: dict) -> torch.Tensor:

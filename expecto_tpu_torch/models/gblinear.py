@@ -254,6 +254,62 @@ def train_gblinear_multi(
     return _multi_sweep(X, Y, row_weights, hp, resolve_device(device), reduce=lambda t: t, verbose=verbose)
 
 
+@dataclass
+class MultiState:
+    """The K-model sweep's state on the device. Read by every round:
+    ``Xt`` (n_blocks, B, n) the padded feature blocks, ``rw`` (n, K) row
+    weights, ``denom`` (K,) effective row counts plus ``reg_lambda_bias``,
+    ``hess`` (n_blocks, B, K) the loop-invariant hessians. Updated in place:
+    ``w_blocks`` (n_blocks, B, K), ``bias`` (K,), the residual ``r`` (n, K)."""
+
+    Xt: torch.Tensor
+    rw: torch.Tensor
+    denom: torch.Tensor
+    hess: torch.Tensor
+    w_blocks: torch.Tensor
+    bias: torch.Tensor
+    r: torch.Tensor
+
+
+def multi_state(X: np.ndarray, Y: np.ndarray, row_weights, hp: GBLinearParams, device: torch.device, *,
+                reduce=lambda t: t) -> MultiState:
+    """The sweep's state before its first round from float32 ``X`` (n, f)
+    and ``Y`` (n, K); ``row_weights`` (n, K), or None for ones. ``reduce`` as
+    in :func:`_multi_sweep`."""
+    n, k = Y.shape
+    if row_weights is None:
+        row_weights = np.ones((n, k), np.float32)
+    row_weights = np.asarray(row_weights, dtype=np.float32)
+    with _matmul_precision(hp.precision):
+        Xt, n_blocks = _pad_blocks(_dev(X, device).T, hp.block_size)
+        rw = _dev(row_weights, device)
+        denom = reduce(_dev(row_weights.sum(axis=0), device)) + hp.reg_lambda_bias  # effective row counts
+        # per-(feature, model) hessians are loop-invariant: once, block by
+        # block to bound the X*X temporary
+        hess = reduce(torch.stack([(Xb * Xb) @ rw for Xb in Xt]))
+    return MultiState(Xt=Xt, rw=rw, denom=denom, hess=hess,
+                      w_blocks=torch.zeros((n_blocks, hp.block_size, k), dtype=torch.float32, device=device),
+                      bias=torch.zeros(k, dtype=torch.float32, device=device),
+                      r=_dev(np.full((n, k), hp.base_score, np.float32) - Y, device))
+
+
+def multi_round(hp: GBLinearParams, s: MultiState, *, reduce=lambda t: t) -> None:
+    """One boosting round of the K-model sweep (the JAX package's
+    ``_multi_round_body``) on ``s``, in place: the bias step, then per
+    feature block the gradient ``Xb @ (rw * r)``, one coordinate update of
+    the block's (B, K) weights and the residual advanced by ``Xb.T @ dw``.
+    ``reduce`` as in :func:`_multi_sweep`. The coordinate update is the
+    module global ``coord_update`` (a test may swap in the plain version)."""
+    with _matmul_precision(hp.precision):
+        # bias step: sum_g / sum_h per model
+        db = hp.eta * (-reduce((s.rw * s.r).sum(0)) / s.denom)
+        s.bias += db
+        s.r += db
+        for Xb, hb, wb in zip(s.Xt, s.hess, s.w_blocks):
+            dw = coord_update(reduce(Xb @ (s.rw * s.r)), hb, wb, hp.eta, hp.reg_lambda, hp.reg_alpha)
+            s.r += Xb.T @ dw
+
+
 def _multi_sweep(X, Y, row_weights, hp: GBLinearParams, device: torch.device, *, reduce, evals=None,
                  verbose: bool = False) -> MultiTrainResult:
     """The K-model block sweep of :func:`train_gblinear_multi` and
@@ -266,51 +322,34 @@ def _multi_sweep(X, Y, row_weights, hp: GBLinearParams, device: torch.device, *,
     Y = np.asarray(Y, dtype=np.float32)
     if Y.ndim == 1:
         Y = Y[:, None]
-    n, f = X.shape
+    f = X.shape[1]
     k = Y.shape[1]
-    if row_weights is None:
-        row_weights = np.ones((n, k), np.float32)
-    row_weights = np.asarray(row_weights, dtype=np.float32)
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
+    s = multi_state(X, Y, row_weights, hp, device, reduce=reduce)
     with _matmul_precision(hp.precision):
-        Xt, n_blocks = _pad_blocks(_dev(X, device).T, hp.block_size)
-        rw = _dev(row_weights, device)
-        denom = reduce(_dev(row_weights.sum(axis=0), device)) + hp.reg_lambda_bias  # effective row counts
-        # per-(feature, model) hessians are loop-invariant: once, block by
-        # block to bound the X*X temporary
-        hess = reduce(torch.stack([(Xb * Xb) @ rw for Xb in Xt]))
         evals_dev = []
         for Xe, ye, name in evals or []:
             ye = np.asarray(ye, dtype=np.float32)
             evals_dev.append((_dev(Xe, device), _dev(ye[:, None] if ye.ndim == 1 else ye, device), name))
 
-        w_blocks = torch.zeros((n_blocks, hp.block_size, k), dtype=torch.float32, device=device)
-        bias = torch.zeros(k, dtype=torch.float32, device=device)
-        r = _dev(np.full((n, k), hp.base_score, np.float32) - Y, device)
         history: dict[str, list] = {name: [] for *_unused, name in evals_dev}
         for it in range(hp.num_round):
             with record_function("gblinear_round"):
-                # bias step: sum_g / sum_h per model
-                db = hp.eta * (-reduce((rw * r).sum(0)) / denom)
-                bias += db
-                r += db
-                for Xb, hb, wb in zip(Xt, hess, w_blocks):
-                    dw = coord_update(reduce(Xb @ (rw * r)), hb, wb, hp.eta, hp.reg_lambda, hp.reg_alpha)
-                    r += Xb.T @ dw
+                multi_round(hp, s, reduce=reduce)
             if evals_dev:
-                w_now = w_blocks.view(-1, k)[:f]
-                offset = hp.base_score + bias
+                w_now = s.w_blocks.view(-1, k)[:f]
+                offset = hp.base_score + s.bias
                 rmse = torch.stack([((offset + Xe @ w_now - ye) ** 2).mean(0).sqrt() for Xe, ye, _ in evals_dev])
                 for (*_unused, name), value in zip(evals_dev, rmse.cpu().numpy()):
                     history[name].append(float(value[0]) if k == 1 else value)
                     if verbose and rank0:
                         print(f"[{it}]\t{name}-rmse:" + ",".join(f"{v:.6f}" for v in value))
             elif verbose and rank0 and it % 10 == 0:
-                print(f"[{it}] mean|r| = {float(r.abs().mean()):.5f}")
+                print(f"[{it}] mean|r| = {float(s.r.abs().mean()):.5f}")
 
-    weights = w_blocks.view(-1, k)[:f].cpu().numpy()
-    return MultiTrainResult(weights=weights, biases=bias.cpu().numpy(), base_score=hp.base_score,
+    weights = s.w_blocks.view(-1, k)[:f].cpu().numpy()
+    return MultiTrainResult(weights=weights, biases=s.bias.cpu().numpy(), base_score=hp.base_score,
                             eval_history=history)
 
 

@@ -98,6 +98,7 @@ def conv0_codes_relu(codes: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> t
         raise RuntimeError(f"conv0_codes kernel launch failed: error {err}")
     conv0_codes_relu.launches += 1
     conv0_codes_relu.launches_by_kind[str(w.dtype).removeprefix("torch.")] += 1
+    conv0_codes_relu.launches_by_shape[(str(w.dtype).removeprefix("torch."), n, l, cout)] += 1
     return y
 
 
@@ -105,8 +106,9 @@ def reset_launch_counts() -> None:
     """Zero every launch count of :func:`conv0_codes_relu`."""
     conv0_codes_relu.launches = 0
     conv0_codes_relu.launches_by_kind = Counter()
+    conv0_codes_relu.launches_by_shape = Counter()
 
 
 #: kernel launches since the last reset (CPU calls do not count): all of
-#: them, and by dtype ("float32", "bfloat16")
+#: them, by dtype ("float32", "bfloat16") and by (dtype, N, L, Cout)
 reset_launch_counts()

@@ -185,6 +185,7 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
     conv8_relu.launches += 1
     conv8_relu.launches_by_route[route] += 1
     conv8_relu.launches_by_kind[(route, str(x.dtype).removeprefix("torch."), cin)] += 1
+    conv8_relu.launches_by_shape[(route, str(x.dtype).removeprefix("torch."), n, l, cin, cout)] += 1
     return y
 
 
@@ -193,8 +194,10 @@ def reset_launch_counts() -> None:
     conv8_relu.launches = 0
     conv8_relu.launches_by_route = dict.fromkeys(ROUTES, 0)
     conv8_relu.launches_by_kind = Counter()
+    conv8_relu.launches_by_shape = Counter()
 
 
 #: kernel launches since the last reset (CPU calls do not count): all of
-#: them, by route, and by (route, dtype, Cin)
+#: them, by route, by (route, dtype, Cin) and by (route, dtype, N, L, Cin,
+#: Cout)
 reset_launch_counts()

@@ -15,6 +15,8 @@ for CPU tensors. A CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from . import cuda_build
@@ -65,13 +67,16 @@ def coord_update(g: torch.Tensor, h: torch.Tensor, w: torch.Tensor, eta: float, 
     if err != 0:
         raise RuntimeError(f"gblinear_cd kernel launch failed: error {err}")
     coord_update.launches += 1
+    coord_update.launches_by_shape[tuple(w.shape)] += 1
     return dw
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch count of :func:`coord_update`."""
+    """Zero the launch counts of :func:`coord_update`."""
     coord_update.launches = 0
+    coord_update.launches_by_shape = Counter()
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: kernel launches since the last reset (CPU calls do not count): all of
+#: them, and by the shape of w
 reset_launch_counts()

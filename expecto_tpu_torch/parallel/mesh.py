@@ -16,6 +16,7 @@ Launch contract (torchrun's environment): ``WORLD_SIZE``, ``RANK``,
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import sys
@@ -80,6 +81,12 @@ def local_device(device="cuda") -> torch.device:
     return device
 
 
+def _destroy_group() -> None:
+    """Destroy this process's default group, if it is still up."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def maybe_initialize_distributed(device="cuda") -> None:
     """Join the process group when launched as one rank of several (a no-op
     when ``WORLD_SIZE`` is unset or 1, or the group is already up).
@@ -87,7 +94,13 @@ def maybe_initialize_distributed(device="cuda") -> None:
     Decides from torchrun's environment alone and runs before any CUDA work
     on ``device``: the backend follows :func:`choose_backend` for the device
     type, the local ranks and the cards, and is printed. An init failure
-    raises; nothing is retried on another backend."""
+    raises; nothing is retried on another backend.
+
+    The group is destroyed when the interpreter exits (an ``atexit``
+    handler, which runs before the interpreter tears its modules down): a
+    gloo group left to that teardown can abort a rank at exit ("terminate
+    called without an active exception", SIGABRT) while its peer still
+    runs, which fails the whole torchrun group after its work is done."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1 or dist.is_initialized():
         return
@@ -99,5 +112,6 @@ def maybe_initialize_distributed(device="cuda") -> None:
     dev = local_device(device)
     dist.init_process_group(backend=backend, init_method="env://", world_size=world, rank=rank,
                             timeout=GROUP_TIMEOUT)
+    atexit.register(_destroy_group)
     print(f"torch.distributed: rank {rank} of {world}, backend {backend} ({local_ranks} local ranks, {cards} "
           f"cards), device {dev}", file=sys.stderr, flush=True)

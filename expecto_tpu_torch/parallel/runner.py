@@ -451,6 +451,15 @@ class BelugaRunner:
 
         return preds(h_ref_f, h_ref_r), preds(h_ref_f + d_f, h_ref_r + d_r)
 
+    def _score_spans_chunk(self, ref: torch.Tensor, alt_allele: torch.Tensor, basis, W, bias, offsets,
+                           span_len: int, mutpos: int):
+        """(REF, SED) of one serving chunk of :meth:`score_variant_spans_packed`
+        from its (N, L) device codes: :meth:`_preds_from_ref`, then
+        :meth:`_ref_sed` (the JAX runner's ``_score_spans_packed2`` after its
+        unpack)."""
+        p_ref, p_alt = self._preds_from_ref(ref, alt_allele, offsets, span_len, mutpos)
+        return self._ref_sed(p_ref, p_alt, basis, W, bias)
+
     def _backbone_phases(self, backbone: torch.Tensor, offsets):
         """(1, L) int8 backbone codes -> (fwd, rc) conv6 phase-buffer dicts
         of the windows at ``offsets``, computed once per call and shared by
@@ -743,8 +752,8 @@ class BelugaRunner:
             for start, ref in self._code_chunks(ref_spans, self._span_rows(len(offsets))):
                 stop = start + ref.shape[0]
                 alt_a, basis_t = self._up(alt_alleles[start:stop]), self._up(basis_wire[:, start:stop])
-                p_ref, p_alt = self._preds_from_ref(ref, alt_a, offsets, span_len, int(mutpos))
-                yield start, stop - start, self._fetch(*self._ref_sed(p_ref, p_alt, basis_t, W_dev, bias_dev))
+                yield start, stop - start, self._fetch(*self._score_spans_chunk(
+                    ref, alt_a, basis_t, W_dev, bias_dev, offsets, span_len, int(mutpos)))
 
         self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED

@@ -102,6 +102,32 @@ def case_fasta_numpy_fallback(tmp_path, genome, monkeypatch=None):
         fa_t.close()
 
 
+def case_fasta_contigs_and_sequence_dict(tmp_path, genome):
+    """``contigs`` and the pyfasta-style ``sequence_dict`` on a seeded FASTA
+    with a lower-case run and an N run, fetched across both contig edges."""
+    rng = np.random.default_rng(7)
+    contigs = {}
+    for name, n in (("chrB", 1500), ("chr10", 700), ("chrA", 900)):
+        seq = "".join(rng.choice(list("ACGT"), n))
+        contigs[name] = seq[:200] + seq[200:260].lower() + "N" * 40 + seq[300:]
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    t_fasta.write_fasta(tmp_path / "t" / "g.fa", contigs)
+    j_fasta.write_fasta(tmp_path / "j" / "g.fa", contigs)
+    fa_t, fa_j = t_fasta.FastaIndex(tmp_path / "t" / "g.fa"), j_fasta.FastaIndex(tmp_path / "j" / "g.fa")
+    try:
+        assert fa_t.contigs == fa_j.contigs == ["chrB", "chr10", "chrA"]
+        for chrom, seq in contigs.items():
+            for start, stop in ((-20, 30), (1, 1), (190, 320), (250, 250), (len(seq) - 10, len(seq) + 50),
+                                (len(seq) + 5, len(seq) + 9), (40, 20)):
+                query = {"chr": chrom, "start": start, "stop": stop}
+                got = fa_t.sequence_dict(query)
+                assert got == fa_j.sequence_dict(query) == seq[max(start - 1, 0) : max(stop, 0)], (chrom, start, stop)
+    finally:
+        fa_t.close()
+        fa_j.close()
+
+
 def case_vcf(tmp_path, genome):
     path = tmp_path / "in.vcf"
     path.write_text("##fileformat=VCFv4.3\n#CHROM\tPOS\n1\t100\t.\tA\tT\nchr2\t200\trs1\tAC\tA\n"

@@ -9,6 +9,8 @@ npz), each rank on its ``host_row_range`` rows on ``cfg["device"]`` (default
 the CPU; ``cuda``: the rank's card), every case also with ``_all_reduce``
 swapped for the identity; rank 0 writes ``cfg["out"]``.
 ``exchange2``: two exchanges with the same tag into one directory.
+``linger``: 50 all-reduces, then rank 0 stays ``cfg["linger_s"]`` seconds
+(as the train CLI's rank 0 writes its files) while the other rank exits.
 """
 
 import json
@@ -76,12 +78,27 @@ def exchange2(cfg: dict) -> None:
         np.savez(cfg["out"], x1=m1["x"], x2=m2["x"])
 
 
+def linger(cfg: dict) -> None:
+    """Rank 1 leaves the group's last collective for interpreter exit while
+    rank 0 still runs."""
+    import time
+
+    import torch
+    import torch.distributed
+
+    t = torch.ones(1000)
+    for _ in range(50):
+        torch.distributed.all_reduce(t)
+    if torch.distributed.get_rank() == 0:
+        time.sleep(float(cfg.get("linger_s", 0.5)))
+
+
 def main() -> int:
     from expecto_tpu_torch.parallel.mesh import maybe_initialize_distributed
 
     mode, cfg = sys.argv[1], json.loads(sys.argv[2])
     maybe_initialize_distributed(cfg.get("device", "cpu"))
-    {"train": train, "exchange2": exchange2}[mode](cfg)
+    {"train": train, "exchange2": exchange2, "linger": linger}[mode](cfg)
     return 0
 
 
