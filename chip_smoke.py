@@ -8,9 +8,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
 1. card: name and power limit as nvidia-smi reports them;
 2. build: nvcc compiles every kernel of ``expecto_tpu_torch/csrc`` for
    sm_90a, one process per source, all at once (ptxas registers and spills
-   printed); the tensor-core kernel's SASS must hold HGMMA instructions, and
-   the SIMT kernel's FFMA and no HMMA or HGMMA (``cuobjdump -sass``; its
-   FFMA-to-LDS ratio is printed);
+   printed); the two tensor-core kernels' SASS (conv1-conv5 and fc1) must
+   hold HGMMA instructions, and the SIMT kernel's FFMA and no HMMA or HGMMA
+   (``cuobjdump -sass``; its FFMA-to-LDS ratio is printed);
 3. kernels, at every shape they run in one substitution chunk of the main
    path (227 variants; maxshift 800: the six Beluga layers over the 3,600-bp
    span and over the alt allele's patch sub-span), each held against its
@@ -30,8 +30,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
    substitutions, ~128 indels and 4 contig-edge rows of a seeded genome;
    launch counts are zeroed just before and read just after (every conv0 on
    the code-gather kernel, conv1-conv5 on the tensor-core kernel, no SIMT
-   launch and no conv8_relu launch at Cin 4, the counts adding up); then
-   warm repeats of the same serving call give the throughput;
+   launch and no conv8_relu launch at Cin 4, the counts adding up, fc1 on
+   its tensor-core kernel); then warm repeats of the same serving call give
+   the throughput. Every later flow's counts are read the same way: an
+   fp32 flow must launch no fc1 kernel (its fc1 is the cuBLAS product), the
+   h5, gene and consensus span flows in bf16 exactly 4 a chunk (two
+   orientations x two pool-2 phases), every other bf16 flow (the pipeline's,
+   each rank of the 2-rank bf16 serve, the bench) at least one;
 5. fp32 serve: the same serving call with ``--fp32``'s settings on the first
    256 substitutions and their genes, warm (one call first), its launch
    counts checked (conv1-conv5 on the SIMT kernel, conv0 on the code-gather
@@ -219,7 +224,17 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the code-gather conv0 in bf16 and 520 coordinate updates (13 rounds of
    40 blocks) must launch, the SIMT kernel and the round kernel must not;
    its one result line (printed after ``bench result:``) must hold every
-   path key, each finite and above 0; its wall is printed with the card.
+   path key, each finite and above 0; its wall is printed with the card;
+16. fc1: the tensor-core kernel of fc1's strided product
+   (``csrc/fc1_strided_tc.cu``) at every shape that the bf16 flows, the
+   2-rank bf16 serve and the bench launched it at (the wrapper's
+   ``launches_by_shape``), on seeded inputs at Beluga's widths: held against
+   its plain version within FC1_TOL_STEPS bf16 steps of max|y|, a limit that
+   the plain version with the first window read one frame late must miss;
+   two calls equal bit for bit; timed beside its bound, the plain version,
+   the ``unfold`` + 2003-column ``torch.matmul`` it replaced and one
+   ``torch.matmul`` of the same windows by the weight zero-padded to 2,048
+   columns (a yardstick only: the port never calls it).
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -267,6 +282,16 @@ DEVICE = "cuda"
 FP32_ATOL, FP32_RTOL = 1e-4, 1e-4
 BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
 CONV0_FP32_TOL = 1e-5
+#  fc1 (bf16 only): the kernel and the plain version both round an fp32 sum
+#        of the same 67,840 bf16 products, taken in another order, to bf16:
+#        within FC1_TOL_STEPS bf16 steps (2^-8 relative) of max|y|
+FC1_TOL_STEPS = 2
+
+#: every shape (N, F, C, s0, stride, n_win, Nout) that the fc1 kernel ran at
+#: in a bf16 flow or the bench, with its launches there: filled by
+#: _read_counts, the 2-rank groups' rank files and the bench phase, held
+#: against the plain version by fc1_phase
+FC1_SHAPES: Counter = Counter()
 
 # fp32 end-to-end parity, card vs CPU: REF/ALT rtol 1e-4; SED differences two
 # separately rounded 20,020-term fp32 products, so its absolute noise scales
@@ -972,10 +997,19 @@ def check_output(csv: Path, n_rows: int):
 
 
 def _reset_counts() -> None:
-    from expecto_tpu_torch.ops import conv0, conv8
+    from expecto_tpu_torch.ops import conv0, conv8, fc1
 
     conv8.reset_launch_counts()
     conv0.reset_launch_counts()
+    fc1.reset_launch_counts()
+
+
+def _fc1_shapes_now() -> list:
+    """The fc1 kernel's launches by shape since the last _reset_counts, as
+    JSON: [[[N, F, C, s0, stride, n_win, Nout], launches], ...]."""
+    from expecto_tpu_torch.ops.fc1 import fc1_strided
+
+    return [[list(shape), n] for shape, n in sorted(fc1_strided.launches_by_shape.items())]
 
 
 def _read_counts(dtype: str) -> dict:
@@ -983,15 +1017,21 @@ def _read_counts(dtype: str) -> dict:
     route counts add up, no float one-hot reached conv8_relu (no launch at
     Cin 4), every conv0 ran on the code-gather kernel in ``dtype``, and each
     conv stack ran its conv0 there (conv1 and conv2, the two Cin-320 convs
-    of a stack, launch twice as often as conv0)."""
+    of a stack, launch twice as often as conv0), and an fp32 flow never
+    launched the fc1 kernel (its fc1 is the cuBLAS product); a bf16 flow's
+    fc1 shapes join FC1_SHAPES."""
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
     from expecto_tpu_torch.ops.conv8 import conv8_relu
+    from expecto_tpu_torch.ops.fc1 import fc1_strided
 
     by_route, kinds = dict(conv8_relu.launches_by_route), Counter(conv8_relu.launches_by_kind)
     n0, kind0 = conv0_codes_relu.launches, dict(conv0_codes_relu.launches_by_kind)
     counts = {"conv8_relu": conv8_relu.launches, "conv8_relu_by_route": by_route,
               "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in sorted(kinds.items())},
-              "conv0_codes": n0, "conv0_codes_by_kind": kind0}
+              "conv0_codes": n0, "conv0_codes_by_kind": kind0, "fc1_strided": fc1_strided.launches}
+    if dtype != "bfloat16" and fc1_strided.launches:
+        raise AssertionError(f"a {dtype} flow launched the bf16 fc1 kernel {fc1_strided.launches} times")
+    FC1_SHAPES.update(fc1_strided.launches_by_shape)
     if sum(by_route.values()) != conv8_relu.launches:
         raise AssertionError(f"route counts {by_route} do not add up to {conv8_relu.launches} launches")
     if n0 <= 0 or kind0 != {dtype: n0}:
@@ -1021,11 +1061,14 @@ def main_path_phase(report: dict, inputs: dict, card: str) -> None:
     by_route = counts["conv8_relu_by_route"]
     if by_route["tc"] <= 0 or by_route["simt"] != 0:
         raise AssertionError(f"bf16 conv1-conv5 did not all run on the tc kernel: {by_route}")
+    if counts["fc1_strided"] <= 0:
+        raise AssertionError(f"the bf16 serve launched no fc1 kernel: {counts}")
+    fc1_shapes = _fc1_shapes_now()
     _df, ref, _alt, sed = check_output(out_csv, inputs["n_rows"])
     n_var = len(inputs["variants"])
     report["main_path"] = {
         "variants": n_var, "rows": inputs["n_rows"], "models": N_MODELS, "maxshift": MAXSHIFT,
-        "cli_wall_s": wall, "launches": counts,
+        "cli_wall_s": wall, "launches": counts, "fc1_launches_by_shape": fc1_shapes,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
         "sed_abs_max": float(np.abs(sed).max()), "ref_abs_max": float(np.abs(ref).max()),
     }
@@ -1273,6 +1316,10 @@ def h5_contract_phase(report: dict, inputs: dict, card: str) -> tuple[dict, obje
             by_route = counts["conv8_relu_by_route"]
             if (counts["conv0_codes"], by_route[route], by_route[other]) != (want0, want8, 0):
                 raise AssertionError(f"h5 {tag}: launches {counts}, expected {want0} conv0 and {want8} {route}")
+            # fc1 over both orientations' two pool-2 phases a pair chunk, in
+            # bf16 on the kernel; the window rows' fc1 is the per-window matmul
+            if counts["fc1_strided"] != (4 * chunks if tag == "bf16" else 0):
+                raise AssertionError(f"h5 {tag}: {counts['fc1_strided']} fc1 kernel launches for {chunks} pair chunks")
             # the streamed rows land where the in-memory path puts them, bit
             # for bit; on the span rows alt = ref + diff exactly (rebuilt on
             # the host in fp32), and with an fp16 wire ref and diff are fp16
@@ -1734,13 +1781,15 @@ def _gene_route_plan(runner, genes, genome) -> list[dict]:
 def _gene_counts_checked(dtype: str, chunks: int, what: str) -> dict:
     """The launch counts since the last _reset_counts, checked for a gene
     run of ``chunks`` chunks: 16 launches a chunk, 2 conv0 on the
-    code-gather kernel and 14 conv8_relu on the dtype's route only."""
+    code-gather kernel and 14 conv8_relu on the dtype's route only; in bf16
+    4 fc1 kernel launches a chunk (two orientations x two pool-2 phases)."""
     counts = _read_counts(dtype)
     route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
     by_route = counts["conv8_relu_by_route"]
-    if (counts["conv0_codes"], by_route[route], by_route[other]) != (2 * chunks, 14 * chunks, 0):
-        raise AssertionError(f"{what}: launches {counts}, expected {2 * chunks} conv0 and {14 * chunks} {route} "
-                             f"for {chunks} gene chunks of 16 launches")
+    want = (2 * chunks, 14 * chunks, 0, 4 * chunks if dtype == "bfloat16" else 0)
+    if (counts["conv0_codes"], by_route[route], by_route[other], counts["fc1_strided"]) != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {2 * chunks} conv0, {14 * chunks} {route} and "
+                             f"{want[3]} fc1 for {chunks} gene chunks of 16 launches")
     return counts
 
 
@@ -2115,21 +2164,27 @@ def _consensus_counts_checked(kind: str, calls: list, runner, what: str) -> dict
     windows) is 1 conv0 + 5 conv8 an orientation, a span chunk
     (``_span_rows(200)`` spans) 1 conv0 + 7 conv8 an orientation
     (conv4/conv5 at pool-2 phases 0 and 2), and the patch method adds the
-    backbone's span forward once."""
-    want0 = want8 = 0
+    backbone's span forward once. In bf16 each span chunk (not the
+    backbone) launches the fc1 kernel 4 times (two orientations x two
+    pool-2 phases); a window batch's fc1 is the per-window matmul."""
+    want0 = want8 = want_fc1 = 0
     span_rows = runner._span_rows(GENE_SHIFTS)
     for name, rows, _k in calls:
         if name == "predict_codes":
             c = -(-rows // runner.batch_size)
             want0, want8 = want0 + 2 * c, want8 + 10 * c
         else:
-            c = -(-rows // span_rows) + (name == "project_spans_backbone_patch")
+            c = -(-rows // span_rows)
+            want_fc1 += 4 * c if kind == "bfloat16" else 0
+            c += name == "project_spans_backbone_patch"
             want0, want8 = want0 + 2 * c, want8 + 14 * c
     counts = _read_counts(kind)
     route, other = ("simt", "tc") if kind == "float32" else ("tc", "simt")
     by_route = counts["conv8_relu_by_route"]
-    if (counts["conv0_codes"], by_route[route], by_route[other]) != (want0, want8, 0):
-        raise AssertionError(f"{what}: launches {counts}, expected {want0} conv0 and {want8} {route} for {calls}")
+    if (counts["conv0_codes"], by_route[route], by_route[other], counts["fc1_strided"]) != (want0, want8, 0,
+                                                                                            want_fc1):
+        raise AssertionError(f"{what}: launches {counts}, expected {want0} conv0, {want8} {route} and {want_fc1} "
+                             f"fc1 for {calls}")
     return {"launches": counts, "engine_calls": [list(c) for c in calls]}
 
 
@@ -2683,6 +2738,8 @@ def pipeline_phase(report: dict, card: str, seed: int) -> None:
                     counts.append(c)
             if any(c != counts[0] for c in counts):
                 raise AssertionError(f"pipeline {name}: launch counts differ between calls or depths: {counts}")
+            if kind == "bfloat16" and counts[0]["fc1_strided"] <= 0:
+                raise AssertionError(f"pipeline {name}: a bf16 flow launched no fc1 kernel: {counts[0]}")
             if not equal(outs[1], outs[depth]):
                 raise AssertionError(f"pipeline {name}: the output at depth {depth} differs from depth 1")
             prof = {d: _pipeline_profiled(runner, call, d) for d in depths}
@@ -3837,18 +3894,21 @@ def _group(module: str, argv: list[str], what: str, *, identity_all_reduce: bool
 def _rank_routes(ranks: list, dtype: str, what: str) -> None:
     """Every rank ran its convs on the kernels of ``dtype``'s routes: conv1-
     conv5 on the SIMT kernel (fp32) or the tc kernel (bf16) alone, conv0 on
-    the code-gather kernel in ``dtype``."""
+    the code-gather kernel in ``dtype``, and fc1 on its kernel in bf16 (never
+    in fp32); a bf16 rank's fc1 shapes join FC1_SHAPES."""
     route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
     for r in ranks:
         by = r["conv8_relu_by_route"]
         if not (by[route] > 0 and by[other] == 0 and r["conv0_codes"] > 0
-                and r["conv0_codes_by_kind"] == {dtype: r["conv0_codes"]}):
-            raise AssertionError(f"{what} rank {r['rank']}: convs not on the {dtype} kernels: {r}")
+                and r["conv0_codes_by_kind"] == {dtype: r["conv0_codes"]}
+                and (r["fc1_strided"] > 0) == (dtype == "bfloat16")):
+            raise AssertionError(f"{what} rank {r['rank']}: convs or fc1 not on the {dtype} kernels: {r}")
+        FC1_SHAPES.update({tuple(shape): n for shape, n in r["fc1_strided_by_shape"]})
 
 
 def _launches(ranks: list) -> list:
-    return [{"conv8_relu": r["conv8_relu_by_route"], "conv0_codes": r["conv0_codes"], "gblinear_cd": r["gblinear_cd"],
-             "gblinear_round": r["gblinear_round"]}
+    return [{"conv8_relu": r["conv8_relu_by_route"], "conv0_codes": r["conv0_codes"], "fc1_strided": r["fc1_strided"],
+             "gblinear_cd": r["gblinear_cd"], "gblinear_round": r["gblinear_round"]}
             for r in ranks]
 
 
@@ -4100,7 +4160,7 @@ def rank_worker(args) -> int:
 
     sys.path.insert(0, str(REPO))
     from expecto_tpu_torch.models import gblinear
-    from expecto_tpu_torch.ops import conv0, conv8, gblinear_cd, gblinear_round
+    from expecto_tpu_torch.ops import conv0, conv8, fc1, gblinear_cd, gblinear_round
     from expecto_tpu_torch.parallel import dist
 
     if args.cli_args[:1] != ["-m"] or len(args.cli_args) < 2:
@@ -4134,6 +4194,7 @@ def rank_worker(args) -> int:
         "conv8_relu_by_route": dict(conv8.conv8_relu.launches_by_route),
         "conv0_codes": conv0.conv0_codes_relu.launches,
         "conv0_codes_by_kind": dict(conv0.conv0_codes_relu.launches_by_kind),
+        "fc1_strided": fc1.fc1_strided.launches, "fc1_strided_by_shape": _fc1_shapes_now(),
         "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
         **stats}))
     return rc
@@ -4159,6 +4220,7 @@ def bench_phase(report: dict, card: str) -> None:
     from expecto_tpu_torch.ops import gblinear_cd, gblinear_round
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
     from expecto_tpu_torch.ops.conv8 import conv8_relu
+    from expecto_tpu_torch.ops.fc1 import fc1_strided
 
     _reset_counts()
     gblinear_cd.reset_launch_counts()
@@ -4172,7 +4234,9 @@ def bench_phase(report: dict, card: str) -> None:
               "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in
                                      sorted(conv8_relu.launches_by_kind.items())},
               "conv0_codes": conv0_codes_relu.launches, "conv0_codes_by_kind": dict(conv0_codes_relu.launches_by_kind),
+              "fc1_strided": fc1_strided.launches,
               "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches}
+    FC1_SHAPES.update(fc1_strided.launches_by_shape)
     shapes = {"conv8_relu": dict(conv8_relu.launches_by_shape), "conv0_codes": dict(conv0_codes_relu.launches_by_shape),
               "gblinear_cd": dict(gblinear_cd.coord_update.launches_by_shape)}
     lines = [line for line in out.getvalue().splitlines() if line.strip()]
@@ -4190,13 +4254,16 @@ def bench_phase(report: dict, card: str) -> None:
         raise AssertionError(f"the bench's convs must run on the tc kernel alone: {by_route}")
     if counts["conv0_codes"] <= 0 or by_kind0 != {"bfloat16": counts["conv0_codes"]}:
         raise AssertionError(f"the bench's conv0 must run on the code-gather kernel in bf16: {by_kind0}")
+    if counts["fc1_strided"] <= 0:
+        raise AssertionError(f"the bench launched no fc1 kernel: {counts}")
     if counts["gblinear_cd"] != BENCH_CD_LAUNCHES or counts["gblinear_round"] != 0:
         raise AssertionError(f"the bench's training path: {counts['gblinear_cd']} coordinate updates (expected "
                              f"{BENCH_CD_LAUNCHES}), {counts['gblinear_round']} round-kernel launches (expected 0)")
     report["bench"] = {"record": record, "wall_s": wall, "launches": counts,
                        "shape_checks": bench_shape_checks(shapes)}
     log(f"bench launches: tc {by_route['tc']}, simt {by_route['simt']}, conv0_codes bf16 {counts['conv0_codes']}, "
-        f"gblinear_cd {counts['gblinear_cd']}, gblinear_round {counts['gblinear_round']}")
+        f"fc1_strided {counts['fc1_strided']}, gblinear_cd {counts['gblinear_cd']}, "
+        f"gblinear_round {counts['gblinear_round']}")
     log(f"bench result: {lines[0]}")
     log(f"bench wall {wall:.1f} s [{card}]")
 
@@ -4259,6 +4326,110 @@ def bench_shape_checks(shapes: dict) -> dict:
             f"bench's launches), max |err| {row['max_abs_err']:.3g}")
     log(f"bench shape checks {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def _fc1_tol(want) -> float:
+    return FC1_TOL_STEPS * 2.0**-8 * float(want.float().abs().max())
+
+
+def fc1_phase(report: dict, card: str) -> None:
+    """The fc1 kernel (csrc/fc1_strided_tc.cu) at every shape of FC1_SHAPES
+    (what the bf16 flows, the 2-rank bf16 serve and the bench launched it
+    at), on seeded inputs at Beluga's widths: held against the plain version
+    (fp32 sum) within FC1_TOL_STEPS bf16 steps of max|y|, which the plain
+    version with the first window read one frame late must miss; two calls
+    equal bit for bit; timed beside its bound, the plain version, today's
+    ``unfold`` + 2003-column ``torch.matmul`` (the path the kernel replaced)
+    and the library yardstick, one ``torch.matmul`` of the same windows by
+    the weight zero-padded to 2,048 columns (the port never calls it). These
+    launches come after every flow's counts were read."""
+    import torch
+    import torch.nn.functional as F
+
+    from expecto_tpu_torch.ops import fc1
+
+    t0 = time.perf_counter()
+    if not FC1_SHAPES:
+        raise AssertionError("no bf16 flow launched the fc1 kernel")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    weights = {}
+    rows = []
+    for (n, f, c, s0, stride, n_win, n_out), launches in sorted(FC1_SHAPES.items()):
+        k = fc1.FC1_FRAMES * c
+        if (k, n_out) not in weights:
+            w = (torch.randn((k, n_out), generator=gen, device=dev) / k**0.5).bfloat16()
+            weights[(k, n_out)] = (w, F.pad(w, (0, -(-n_out // 256) * 256 - n_out)))
+        w, w_pad = weights[(k, n_out)]
+        buf = torch.rand((n, f, c), generator=gen, device=dev).bfloat16()
+        shape = f"N={n} F={f} C={c} s0={s0} stride={stride} n_win={n_win} Nout={n_out}"
+        y = fc1.fc1_strided(buf, w, s0, stride, n_win)
+        bit_equal = torch.equal(y, fc1.fc1_strided(buf, w, s0, stride, n_win))
+        want = fc1.fc1_strided_plain(buf, w, s0, stride, n_win)
+        tol = _fc1_tol(want)
+        err = float((y.float() - want.float()).abs().max())
+        late_s0 = s0 + 1 if s0 + 1 + fc1.FC1_FRAMES <= f else s0 - 1  # one frame off, inside the buffer
+        late = want.clone()
+        late[:, 0] = fc1.fc1_strided_plain(buf, w, late_s0, stride, 1)[:, 0]
+        fault_err = float((y.float() - late.float()).abs().max())
+        if not bit_equal or err > tol or fault_err <= tol:
+            raise AssertionError(f"fc1 kernel at {shape}: bit-equal repeat {bit_equal}, max |err| {err} (limit {tol}), "
+                                 f"planted late window {fault_err} (must exceed the limit)")
+        a = fc1._windows(buf, s0, stride, n_win)
+        span = (n_win - 1) * stride + fc1.FC1_FRAMES  # the frames the windows cover
+        nbytes = 2 * (n * span * c + k * n_out + n * n_win * n_out)
+        row = {"N": n, "F": f, "C": c, "s0": s0, "stride": stride, "n_win": n_win, "Nout": n_out, "M": n * n_win,
+               "launches": launches, "max_abs_err": err, "tol": tol, "planted_fault_err": fault_err,
+               **_bound(nbytes, 2.0 * n * n_win * k * n_out, "bf16"),
+               "ms": cuda_ms(lambda: fc1.fc1_strided(buf, w, s0, stride, n_win)),
+               "plain_ms": cuda_ms(lambda: fc1.fc1_strided_plain(buf, w, s0, stride, n_win), reps=3, warmup=1),
+               "unfold_matmul_ms": cuda_ms(lambda: fc1._windows(buf, s0, stride, n_win) @ w, reps=3, warmup=1),
+               "library_ms": cuda_ms(lambda: a @ w_pad, reps=3, warmup=1)}
+        rows.append(row)
+        log(f"fc1 kernel {shape} (M={n * n_win}) x{launches}: {row['ms']:.3f} ms (err {err:.3g}, limit {tol:.3g}, "
+            f"late window {fault_err:.3g}; bit-equal) bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+            f"{100 * row['bound_ms'] / row['ms']:.1f} % of it) plain {row['plain_ms']:.3f} ms unfold+matmul "
+            f"{row['unfold_matmul_ms']:.3f} ms padded matmul {row['library_ms']:.3f} ms [{card}]")
+        del buf, a, y, want, late
+    torch.cuda.empty_cache()
+    report["fc1"] = {"shapes": rows, "phase_s": time.perf_counter() - t0}
+    log(f"fc1 phase: {len(rows)} shapes, {sum(r['launches'] for r in rows)} launches of the flows and the bench, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def fc1_entry(report: dict) -> dict:
+    """The kernel line's fc1 entry: every number launch-weighted over the
+    bf16 serve's (the main path's) fc1 shapes, a mean per launch;
+    ``launches`` are that run's, ``launches_*`` the other flows'."""
+    shapes = {tuple(k): n for k, n in report["main_path"]["fc1_launches_by_shape"]}
+    by_shape = {(r["N"], r["F"], r["C"], r["s0"], r["stride"], r["n_win"], r["Nout"]): r for r in report["fc1"]["shapes"]}
+    total = sum(shapes.values())
+
+    def mean(key: str) -> float:
+        return sum(n * by_shape[s][key] for s, n in shapes.items()) / total
+
+    rows = report["fc1"]["shapes"]
+    pipe = {f: p["launches"]["fc1_strided"] for f, p in report["pipeline"].items() if p["launches"]["fc1_strided"]}
+    mixes = report["consensus"]["mixes"].values()
+    return {
+        "name": "fc1_strided_tc", "route": "cuda", "source": "expecto_tpu_torch/csrc/fc1_strided_tc.cu",
+        "replaces": "expecto_tpu/ops/spans.py:421", "launches": report["main_path"]["launches"]["fc1_strided"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"), "bound_by": "operations" if mean("ops_ms") >= mean("bytes_ms") else "bytes",
+        "library_ms": mean("library_ms"), "dtype": "bf16", "unfold_matmul_ms": mean("unfold_matmul_ms"),
+        "min_planted_fault_err_over_tol": min(r["planted_fault_err"] / r["tol"] for r in rows),
+        "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in rows), "shapes_checked": len(rows),
+        "sass_hgmma": report["sass_fc1_hgmma"],
+        "launches_h5_bf16": report["h5_contract"]["bf16"]["launches"]["fc1_strided"],
+        "launches_gene_bf16": report["genes"]["bf16"]["launches"]["fc1_strided"],
+        "launches_consensus_bf16": sum(m["bf16"]["launches"]["fc1_strided"] for m in mixes),
+        "launches_pipeline": pipe,
+        "launches_fp32_flows": sum(c["fc1_strided"] for c in (
+            report["fp32_serve"]["launches"], report["parity"]["launches"], report["h5_contract"]["fp32"]["launches"],
+            report["genes"]["fp32"]["launches"], *(m["fp32"]["launches"] for m in mixes),
+            *(p["launches"] for p in report["pipeline"].values() if p["dtype"] == "float32"))),
+        "launches_2rank_bf16": [r["fc1_strided"] for r in report["multiprocess"]["score_bf16"]["launches_per_rank"]],
+    }
 
 
 def kernel_table(report: dict) -> dict:
@@ -4324,7 +4495,8 @@ def kernel_table(report: dict) -> dict:
     bench = report["bench"]["launches"]
     launches_bench = {"conv8_relu_tc": bench["conv8_relu_by_route"]["tc"],
                       "conv8_relu": bench["conv8_relu_by_route"]["simt"], "conv0_codes": bench["conv0_codes"],
-                      "gblinear_cd": bench["gblinear_cd"], "gblinear_round": bench["gblinear_round"]}
+                      "gblinear_cd": bench["gblinear_cd"], "gblinear_round": bench["gblinear_round"],
+                      "fc1_strided_tc": bench["fc1_strided"]}
     table = {"kernels": [
         entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
               serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"],
@@ -4364,6 +4536,7 @@ def kernel_table(report: dict) -> dict:
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms"), launches_pipeline=pipe_launches("codes")),
         gblinear_cd_entry(report["train"], report["multiprocess"]["train"]),
         gblinear_round_entry(report["train"]),
+        fc1_entry(report),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
          "launches_per_chunk": r["launches_per_chunk"],
@@ -4440,6 +4613,10 @@ def main(argv=None) -> int:
         f"FFMA per LDS), {sass['HMMA']} HMMA, {sass['HGMMA']} HGMMA")
     if sass["FFMA"] == 0 or sass["HMMA"] or sass["HGMMA"]:
         raise AssertionError(f"the SIMT kernel's SASS must hold FFMA and no tensor-core instruction: {sass}")
+    report["sass_fc1_hgmma"] = cuda_build.sass_count("fc1_strided_tc", "HGMMA")
+    log(f"csrc/fc1_strided_tc.cu SASS: {report['sass_fc1_hgmma']} HGMMA instructions")
+    if report["sass_fc1_hgmma"] == 0:
+        raise AssertionError("the fc1 kernel's SASS holds no HGMMA (tensor-core) instruction")
     log(f"build phase {report['build_s']:.1f} s")
 
     t0 = time.perf_counter()
@@ -4493,6 +4670,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     bench_phase(report, card)
     log(f"bench phase {time.perf_counter() - t0:.1f} s [{card}]")
+    fc1_phase(report, card)
 
     table = kernel_table(report)
     report["total_s"] = time.perf_counter() - t_start

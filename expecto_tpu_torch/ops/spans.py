@@ -31,7 +31,7 @@ frames into copies of the backbone's phase buffers.
 
 Every conv runs on a CUDA kernel on the card: conv0 on ops/conv0.py when
 the spans are int8 base codes (the serving path), every other conv on
-ops/conv8.py. The span functions take (N, L, 4) one-hot spans, as the JAX
+ops/conv8.py; fc1 over uniformly strided windows on ops/fc1.py. The span functions take (N, L, 4) one-hot spans, as the JAX
 package's do, or (N, L) int8 codes of them. All indices are Python ints:
 the serving path centres every variant at the same ``mutpos``.
 """
@@ -41,11 +41,11 @@ from __future__ import annotations
 import torch
 
 from ..models.beluga import BelugaParams, _conv0, _conv_relu
+from .fc1 import FC1_FRAMES, fc1_strided
 
 #: conv6 frame f (phase ph) reads span inputs [16f + 4ph, 16f + 4ph + RF)
 CONV6_RF = 310
 CONV6_STRIDE = 16
-FC1_FRAMES = 106
 
 
 def _pool4_from(x: torch.Tensor, phase: int) -> torch.Tensor:
@@ -353,9 +353,9 @@ def fc1_pre_from_phases(params: BelugaParams, phase_conv6: dict[int, torch.Tenso
     """fc1 pre-activations (no bias/relu) per window: (N, n_offsets, 2003).
 
     When the window starts within a phase are uniformly strided (the
-    standard 200-bp shift grids) the windows are one strided ``unfold`` of
-    the phase buffer and fc1 is one matmul over them; other offsets take
-    one matmul per window."""
+    standard 200-bp shift grids) fc1 is one strided product over the phase
+    buffer (ops/fc1.py: the tensor-core kernel in bf16 on the card, which
+    reads the windows in place); other offsets take one matmul per window."""
     offsets = [int(o) for o in offsets]
     first = next(iter(phase_conv6.values()))
     n, dtype = first.shape[0], first.dtype
@@ -369,10 +369,7 @@ def fc1_pre_from_phases(params: BelugaParams, phase_conv6: dict[int, torch.Tenso
         strides = {s_sorted[j + 1] - s_sorted[j] for j in range(len(s_sorted) - 1)}
         buf = phase_conv6[ph]
         if len(s_sorted) > 1 and len(strides) == 1 and min(strides) > 0:
-            stride = strides.pop()
-            # (N, n_win, C, 106) windows -> length-major (N, n_win, 106*C)
-            wins = buf[:, s_sorted[0] :].unfold(1, FC1_FRAMES, stride)[:, : len(s_sorted)]
-            frames = wins.transpose(2, 3).reshape(n, len(s_sorted), -1) @ fc1_w
+            frames = fc1_strided(buf, fc1_w, s_sorted[0], strides.pop(), len(s_sorted))
             for rank, j in enumerate(order):
                 h1_cols[items[j][0]] = frames[:, rank, :]
         else:
