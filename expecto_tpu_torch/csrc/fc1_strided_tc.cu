@@ -13,44 +13,67 @@
 // M = N*n_win windows, N = 2,003 columns, K = 106*640 = 67,840.
 //
 // What bounds it on an H100: 2*M*67,840*2,003 operations at 989 TFLOP/s
-// against the 278 MB of packed weight (and far fewer bytes of windows) at
-// 3.35 TB/s. The two meet near M = 300; serving and the h5 step call fc1 at
-// M = 227-560 rows a GEMM, the gene path at 800-1,600: around the ridge and
-// above it, so the design keeps the tensor cores fed:
+// against the 272 MB of weight (and far fewer bytes of windows) at 3.35
+// TB/s. The two meet near M = 300; serving and the h5 step call fc1 at M =
+// 60-1,135 rows a GEMM, the gene path at 1,600: around the ridge and above
+// it. A 128 x 256 tile needs 48 KB from L2 for each 4.2 MFLOP stage, so the
+// design keeps the tensor cores fed and the shared data in L2:
 //
-// - No window copy. Row m = n*n_win + w of A starts at element
-//   n*ld + (s0 + w*stride)*C of the buffer and is 67,840 contiguous
-//   elements long: the frames of a window are adjacent, channels last.
-//   Every thread loads 16-byte pieces of 4 fixed rows straight from the
-//   buffer with cp.async; overlapping windows only read memory again (from
-//   L2). The (N, n_win, 67,840) tensor that `unfold` + matmul builds is
-//   never made.
-// - wgmma, A and B from shared memory, in the no-swizzle K-major layout of
-//   csrc/conv8_relu_tc.cu: each 8-element K group is a column of 16-byte
-//   rows. A's columns are padded by one row (2,064 bytes) so that the 8
-//   threads that store the 8 groups of one row hit 8 different bank groups.
-//   ops/fc1.py packs W once per weight tensor into (Nout/256, K/64, 8
-//   groups, 256, 8), the columns zero-padded to a multiple of 256 (2,003 ->
-//   2,048), so one stage of B is one contiguous 32 KB block and every row of
-//   it is 16-byte aligned: the unpadded 4,006-byte row stride is what sends
-//   cuBLAS to its align1 tiles.
-// - Tiles. A block owns 128 rows x 256 columns: each of its two warpgroups
-//   runs m64n256k16 over 64 rows (128 fp32 accumulators a thread). Stages
-//   of K = 64 (16.1 KB of A, 32 KB of B), four in a cp.async ring, all 256
-//   threads loading and then multiplying; each thread fences its copies
-//   into the async proxy before the block barrier that hands a stage to
-//   wgmma.
-// - Small M, split K. At M = 560 there are 5 x 8 tiles for 132 SMs, so the
-//   K range is cut into `splits` slices (ops/fc1.py::fc1_splits picks the
-//   count from the SM count): each block writes its fp32 partial tile to a
-//   workspace, and a second pass sums the slices in a fixed order and
-//   rounds to bf16. No atomics: a call gives the same bits every time.
-//   With one slice the block rounds and stores y itself.
-// - The grid walks row tiles fastest, so the blocks that read one block
-//   column of the weight run together and share it in L2: the weight is
-//   read from device memory about once a call.
+// - Warp specialization. Warpgroup 0 is the producer (56 registers a thread
+//   after setmaxnreg): its 128 threads copy A, one of them B, into a ring
+//   of 4 stages with "full" and "empty" mbarriers (a ring of 3 was up to
+//   13 % slower at serving shapes). Warpgroups 1 and 2 are the consumers
+//   (224 registers): each runs m64n256k16 over 64 rows of the 128-row tile
+//   (128 fp32 accumulators a thread).
+// - One wgmma group in flight. A consumer issues a stage's 4 wgmma, commits,
+//   waits until only that group is pending, and only then releases the
+//   previous stage to the producer: the tensor cores never wait on a
+//   barrier, a copy or the next issue.
+// - A in place, by cp.async. Row m = n*n_win + w of A starts at element
+//   n*ld + (s0 + w*stride)*C and is 67,840 contiguous elements long. Each
+//   producer thread owns 2 rows and copies 4 16-byte pieces of each a stage
+//   (two threads cover one 32-byte sector), zero-filling rows past M and K
+//   past 106*C; the copies arrive on the stage's full barrier
+//   (cp.async.mbarrier.arrive.noinc). The windows are never copied out. A
+//   4-D tensor map of the buffer, (channel, frame % stride, frame / stride,
+//   sample), names the same rows without overlapping strides, but its box
+//   is rectangular in (window, sample): its tiles would hold whole samples
+//   (100 of 128 rows at n_win = 100) and its 64 channels one frame (C % 64
+//   == 0 only). PERF.md §6 has what such tiles cost this kernel.
+// - B by the copy engine. ops/fc1.py packs W once per weight tensor and
+//   period into (Nout/256, K/64, 256, 64): one stage of B is one contiguous
+//   32 KB block, which one thread copies with cp.async.bulk, completing on
+//   the same full barrier by its byte count. Columns are zero-padded to a
+//   multiple of 256 (2,003 -> 2,048).
+// - 128-byte swizzle. Both tiles are K-major rows of 128 bytes whose
+//   16-byte pieces are stored at piece ^ (row % 8) (the packer does it for
+//   B, the producer's addresses for A); the wgmma descriptors name that
+//   layout, so the reads of the tensor cores hit 8 banks apart.
+// - The windows' frames in an order that reuses them. Window w+1 reads at
+//   frame f the frame that window w reads at f + stride. Where C is a
+//   multiple of 64 the K chunks are walked by frame in the order r, r+p,
+//   r+2p, ... for r = 0 .. p-1 (p = `period`, the stride of the flows): the
+//   4 reads of a buffer frame by 4 neighbouring windows come 10 stages
+//   apart instead of 250, and hit L2. The packer orders B's chunks the same
+//   way; the sum is the same products in another fixed order.
+// - A persistent grid with a fixed schedule. `groups` x `rows` x `cols`
+//   CTAs, at most as many as the card holds at once. Rows are cut into
+//   tiles of `tile_rows` (at most 128; the rest of a tile's 128 rows are
+//   zero-filled and never stored). The (column block, K chunk) space, P =
+//   (tiles_n / cols) x kt positions, is cut into `groups` equal ranges;
+//   group q's CTAs each own one row tile (of `rows`, row tiles rows apart
+//   past that) and one column of the block, and walk the range in step: the
+//   `rows` CTAs of a column share each B stage in L2, the `cols` CTAs of a
+//   row tile each A stage. A range that covers a whole column tile stores
+//   bf16 directly; a part of one is written as an fp32 partial tile to slot
+//   2q (the range's first column block) or 2q + 1 (its last), and a second
+//   kernel sums the parts of each tile in the order of q and rounds to
+//   bf16. ops/fc1.py::fc1_schedule derives the schedule from (M, Nout, K,
+//   the CTAs the card holds) alone: no atomics and no order that depends on
+//   timing, so a shape gives the same bits on every call.
 //
-// Shared memory: 4 stages x (16,512 B of A + 32,768 B of B) = 197,120 B.
+// Shared memory: 1 KB of alignment, STAGES x (16 KB of A + 32 KB of B),
+// the barriers and the frame order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,30 +81,70 @@
 
 namespace {
 
-constexpr int TM = 128;                         // rows a block (2 warpgroups x 64)
-constexpr int BN = 256;                         // columns a block
-constexpr int KC = 64;                          // K a stage: 8 groups of 8
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;
-constexpr int A_COL = TM * 16 + 16;             // one K group of A, padded one row
-constexpr int A_BYTES = 8 * A_COL;              // 16,512
-constexpr int B_COL = BN * 16;                  // one K group of B
-constexpr int B_BYTES = 8 * B_COL;              // 32,768
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;  // 49,280
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
-constexpr int ACC = BN / 2;                     // fp32 accumulators a thread
-constexpr int A_ROWS_PER_THREAD = TM * 8 / THREADS;     // 4 16-byte pieces of A a stage
-constexpr int B_PIECES_PER_THREAD = B_BYTES / 16 / THREADS;  // 8 of B
+constexpr int TM = 128;                          // rows a tile (2 consumer warpgroups x 64)
+constexpr int BN = 256;                          // columns a tile
+constexpr int KC = 64;                           // K a stage: one 128-byte row
+constexpr int A_BYTES = TM * KC * 2;             // 16,384
+constexpr int B_BYTES = BN * KC * 2;             // 32,768
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;   // 49,152
+constexpr int STAGES = 4;                        // the ring
+constexpr int PRODUCERS = 128;                   // warpgroup 0
+constexpr int THREADS = PRODUCERS + 256;         // + two consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;
+constexpr int ACC = BN / 2;                      // fp32 accumulators a consumer thread
+constexpr int MAX_FRAMES = 256;
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+// registers a thread at launch: the pool setmaxnreg redistributes
+constexpr int LAUNCH_REGS = (PRODUCERS * PRODUCER_REGS + (THREADS - PRODUCERS) * CONSUMER_REGS) / THREADS;  // 168
 
-static_assert(STAGE_BYTES % 128 == 0 && A_BYTES % 16 == 0, "wgmma descriptors need 16-byte aligned tiles");
-static_assert(A_ROWS_PER_THREAD * THREADS / 8 == TM, "every row of A is loaded");
+static_assert(LAUNCH_REGS == 168 && LAUNCH_REGS * THREADS <= 65536, "the register split fills one SM");
+static_assert(STAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0, "swizzled tiles start on 1,024-byte boundaries");
+
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 16 * STAGES + 4 * MAX_FRAMES;
+
+struct Params {
+  long long ld;  // elements between samples
+  long long P;   // positions: (tiles_n / cols) column blocks x kt chunks
+  int M, n_win, C, s0, stride, K, kt, nb, frames, n_out;
+  int tm, tiles_m, rows, cols, groups;  // tm: rows of A a tile holds (at most TM)
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`. A
+// phase that never completes (a lost arrival) traps after 2^26 polls
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
 }
 
 // 16 bytes from `src` when `valid`, else 16 zero bytes (nothing is read)
@@ -89,24 +152,27 @@ __device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+// the barrier's phase counts one arrival of this thread once all of its
+// earlier cp.async have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
 }
 
-// wgmma shared-memory descriptor, no swizzle, K-major: `lbo` is the byte
-// stride between the two 8-element K columns of a k16 slice, `sbo` the byte
-// stride between 8-row groups along M (or N).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+// wgmma shared-memory descriptor, 128-byte swizzle, K-major: rows of 128
+// bytes, 8-row groups 1,024 bytes apart; `addr` on a 1,024-byte boundary
+// plus 32 bytes per k16 step
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous wgmma that owns them.
@@ -115,8 +181,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
   for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 256 fp32, this thread's 128) += A (64 x 16 bf16) * B (16 x 256 bf16)
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da, uint64_t db) {
+// d (64 x 256 fp32, this thread's 128) = (accumulate ? d : 0) + A (64 x 16
+// bf16) * B (16 x 256 bf16)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -173,152 +240,264 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da, u
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// One block: rows [128 bx, +128) x columns [256 by, +256) of the product
-// over K chunks [kt*bz/splits, kt*(bz+1)/splits) of 64. A K that is not a
-// multiple of 64 (Beluga's 67,840 is; narrow test widths need not be) ends
-// in a chunk whose groups past K are zero-filled in A, as they are zero in
-// the packed B.
+// This CTA's place in the schedule: group q, column cc of the block, first
+// row tile i0, and the group's range [start, end) of positions.
+struct Place {
+  long long start, end;
+  int q, cc, i0;
+};
+
+__device__ __forceinline__ Place place(const Params& p) {
+  const int per = p.rows * p.cols;
+  Place pl;
+  pl.q = blockIdx.x / per;
+  const int idx = blockIdx.x - pl.q * per;
+  pl.cc = idx / p.rows;
+  pl.i0 = idx - pl.cc * p.rows;
+  pl.start = (long long)pl.q * p.P / p.groups;
+  pl.end = (long long)(pl.q + 1) * p.P / p.groups;
+  return pl;
+}
+
+// The K chunks [k0, k1) of column block cb that the range takes from x on;
+// returns the position after them.
+__device__ __forceinline__ long long segment(const Params& p, const Place& pl, long long x, int& cb, int& k0,
+                                             int& k1) {
+  cb = (int)(x / p.kt);
+  const long long xe = min(pl.end, (long long)(cb + 1) * p.kt);
+  k0 = (int)(x - (long long)cb * p.kt);
+  k1 = (int)(xe - (long long)cb * p.kt);
+  return xe;
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 fc1_strided_tc_kernel(const __nv_bfloat16* __restrict__ buf, const __nv_bfloat16* __restrict__ wp,
-                      __nv_bfloat16* __restrict__ y, float* __restrict__ ws, int M, int n_win, long long ld, int C,
-                      int s0, int stride, int K, int kt, int splits, int n_out) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t base = smem_addr(smem);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, wg = warp / 4;
-  const int m0 = blockIdx.x * TM, split = blockIdx.z;
-  const int kc0 = (int)((long long)kt * split / splits);
-  const int nk = (int)((long long)kt * (split + 1) / splits) - kc0;
+                      __nv_bfloat16* __restrict__ y, float* __restrict__ ws, const Params p, int period) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t full0 = base + STAGES * STAGE_BYTES;  // STAGES "full" barriers, then STAGES "empty"
+  const uint32_t empty0 = full0 + STAGES * 8;
+  int* frame_of = reinterpret_cast<int*>(smem_raw + (empty0 + STAGES * 8 - raw));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // this thread's pieces of A: K group g of rows tid/8 + 32 i; rows past M
-  // read row M-1 (in bounds) and are never stored
-  const int g = tid % 8;
-  const __nv_bfloat16* arow[A_ROWS_PER_THREAD];
-  uint32_t adst[A_ROWS_PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
-    const int r = tid / 8 + 32 * i;
-    const int m = min(m0 + r, M - 1);
-    const int n = m / n_win, w = m - n * n_win;
-    arow[i] = buf + n * ld + ((long long)s0 + (long long)w * stride) * C + (long long)kc0 * KC + 8 * g;
-    adst[i] = g * A_COL + r * 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, PRODUCERS + 1);      // every producer's cp.async, and the B copy's expect_tx
+      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    // the frames of a window in walk order: r, r + period, ... for r < period
+    int j = 0;
+    for (int r = 0; r < period; ++r)
+      for (int f = r; f < p.frames; f += period) frame_of[j++] = f;
   }
-  // this thread's pieces of B: bytes 16 tid + 4,096 q of each packed block
-  const uint8_t* bsrc = reinterpret_cast<const uint8_t*>(wp) + ((size_t)blockIdx.y * kt + kc0) * B_BYTES + 16 * tid;
+  __syncthreads();
+  const Place pl = place(p);
 
-  auto load = [&](int stage, int j) {
-    const uint32_t sa = base + stage * STAGE_BYTES;
-    const bool in_k = (kc0 + j) * KC + 8 * g < K;
+  if (warp < PRODUCERS / 32) {
+    // producer warpgroup: 128 threads copy A, thread 0 also B
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    const int ra = threadIdx.x >> 1, ha = threadIdx.x & 1;  // rows ra, ra + 64; pieces ha + 2e
+    const uint8_t* wbytes = reinterpret_cast<const uint8_t*>(wp);
+    int it = 0;
+    for (int i = pl.i0; i < p.tiles_m; i += p.rows) {
+      const __nv_bfloat16* rowp[2];
+      bool row_ok[2];
 #pragma unroll
-    for (int i = 0; i < A_ROWS_PER_THREAD; ++i)
-      cp_async16_or_zero(sa + adst[i], in_k ? arow[i] + (size_t)j * KC : arow[i], in_k);
-    const uint8_t* src = bsrc + (size_t)j * B_BYTES;
+      for (int h = 0; h < 2; ++h) {
+        const int r = ra + 64 * h, m = i * p.tm + r;
+        row_ok[h] = r < p.tm && m < p.M;
+        const int mm = row_ok[h] ? m : 0;
+        const int n = mm / p.n_win, w = mm - n * p.n_win;
+        rowp[h] = buf + n * p.ld + ((long long)p.s0 + (long long)w * p.stride) * p.C;
+      }
+      for (long long x = pl.start; x < pl.end;) {
+        int cb, k0, k1;
+        x = segment(p, pl, x, cb, k0, k1);
+        const uint8_t* bsrc = wbytes + (size_t)(cb * p.cols + pl.cc) * p.kt * B_BYTES;
+        for (int j = k0; j < k1; ++j, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
+          const int koff = p.nb ? frame_of[j / p.nb] * p.C + (j % p.nb) * KC : j * KC;
+          const uint32_t sa = base + s * STAGE_BYTES;
 #pragma unroll
-    for (int q = 0; q < B_PIECES_PER_THREAD; ++q) cp_async16(sa + A_BYTES + 16 * tid + q * THREADS * 16, src + q * THREADS * 16);
-  };
-
+          for (int h = 0; h < 2; ++h) {
+            const int r = ra + 64 * h;
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();  // an empty group past the end keeps the count
+            for (int e = 0; e < 4; ++e) {
+              const int g = ha + 2 * e, k = koff + 8 * g;
+              const bool ok = row_ok[h] && k < p.K;
+              cp_async16_or_zero(sa + r * 128 + ((g ^ (r & 7)) << 4), ok ? rowp[h] + k : buf, ok);
+            }
+          }
+          cp_async_arrive(full0 + 8 * s);
+          if (threadIdx.x == 0) {
+            mbar_expect_tx(full0 + 8 * s, B_BYTES);
+            bulk_load(sa + A_BYTES, bsrc + (size_t)j * B_BYTES, B_BYTES, full0 + 8 * s);
+          }
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
   }
 
+  // consumer warpgroups: cw owns rows 64 cw .. + 63 of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int cw = warp / 4 - 1;
   float d[ACC];
 #pragma unroll
   for (int i = 0; i < ACC; ++i) d[i] = 0.f;
+  int it = 0;
+  for (int i = pl.i0; i < p.tiles_m; i += p.rows) {
+    for (long long x = pl.start; x < pl.end;) {
+      const bool first = x == pl.start;
+      int cb, k0, k1;
+      x = segment(p, pl, x, cb, k0, k1);
+      for (int j = k0; j < k1; ++j, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the producers' cp.async, to wgmma
+        const uint32_t sa = base + s * STAGE_BYTES;
+        fence_acc(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk)
+          wgmma_m64n256k16(d, sw128_desc(sa + cw * 64 * 128 + 32 * kk), sw128_desc(sa + A_BYTES + 32 * kk),
+                           (j > k0) | (kk > 0));
+        wgmma_commit();
+        wgmma_wait<1>();  // stage it-1's group has read its tiles
+        fence_acc(d);
+        if (j > k0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
 
-  for (int it = 0; it < nk; ++it) {
-    cp_async_wait<STAGES - 2>();  // this thread's pieces of stage `it` have landed
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();  // every thread's pieces landed; stage it-1 is free (its wgmma waited)
-    const int next = it + STAGES - 1;
-    if (next < nk) load(next % STAGES, next);
-    cp_async_commit();
-
-    const uint32_t sa = base + (it % STAGES) * STAGE_BYTES;
-    fence_acc(d);
-    wgmma_fence();
+      // epilogue: accumulator (row, col) of m64nN: row 16 w + lane/4 (+8),
+      // col 8 j + 2 (lane % 4) (+1), register 4 j + 2 half + {0, 1}
+      const int t = cb * p.cols + pl.cc;
+      const bool whole = k0 == 0 && k1 == p.kt;
+      const int c_tile = 2 * (lane % 4);
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk)
-      wgmma_m64n256k16(d, smem_desc(sa + 2 * kk * A_COL + wg * 64 * 16, A_COL, 128),
-                       smem_desc(sa + A_BYTES + 2 * kk * B_COL, B_COL, 128));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(d);
-  }
-  cp_async_wait<0>();
-
-  // epilogue: accumulator (row, col) of m64nN: row 16 w + lane/4 (+8), col
-  // 8 j + 2 (lane % 4) (+1), register 4 j + 2 half + {0, 1}
-  const int c_base = blockIdx.y * BN + 2 * (lane % 4);
-  const int n_pad = gridDim.y * BN;
+      for (int half = 0; half < 2; ++half) {
+        const int r = cw * 64 + (warp % 4) * 16 + lane / 4 + 8 * half, m = i * p.tm + r;
+        if (r >= p.tm || m >= p.M) continue;
+        if (whole) {
+          __nv_bfloat16* yrow = y + (size_t)m * p.n_out + t * BN;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int m = m0 + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * half;
-    if (m >= M) continue;
-    if (splits > 1) {
-      float* wrow = ws + ((size_t)split * M + m) * n_pad;
+          for (int jj = 0; jj < BN / 8; ++jj) {
+            const int c = c_tile + 8 * jj;
+            if (t * BN + c < p.n_out) yrow[c] = __float2bfloat16(d[4 * jj + 2 * half]);
+            if (t * BN + c + 1 < p.n_out) yrow[c + 1] = __float2bfloat16(d[4 * jj + 2 * half + 1]);
+          }
+        } else {
+          float* wrow = ws + (((size_t)(2 * pl.q + (first ? 0 : 1)) * p.cols + pl.cc) * p.M + m) * BN;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        *reinterpret_cast<float2*>(wrow + c_base + 8 * j) = make_float2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
-    } else {
-      __nv_bfloat16* yrow = y + (size_t)m * n_out;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int c = c_base + 8 * j;
-        if (c < n_out) yrow[c] = __float2bfloat16(d[4 * j + 2 * half]);
-        if (c + 1 < n_out) yrow[c + 1] = __float2bfloat16(d[4 * j + 2 * half + 1]);
+          for (int jj = 0; jj < BN / 8; ++jj)
+            *reinterpret_cast<float2*>(wrow + c_tile + 8 * jj) =
+                make_float2(d[4 * jj + 2 * half], d[4 * jj + 2 * half + 1]);
+        }
       }
     }
   }
 }
 
-// y[m, c] = bf16(sum over the slices s in order of ws[s, m, c]): the split-K
-// partial tiles summed in a fixed order.
-__global__ void fc1_split_sum_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y, int M, int n_out,
-                                     int n_pad, int splits) {
+// the group whose range holds position x: the largest q with q*P/groups <= x
+__device__ __forceinline__ int group_of(long long x, long long P, int groups) {
+  return (int)(((x + 1) * groups - 1) / P);
+}
+
+// y[m, c] = bf16(the parts of column tile c / 256 summed in the order of
+// their groups), for the tiles that more than one group took part in
+__global__ void fc1_partial_sum_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y, int M, int n_out,
+                                       int kt, int cols, int groups, long long P) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)M * n_out) return;
   const int m = (int)(i / n_out), c = (int)(i - (long long)m * n_out);
+  const int t = c / BN, cb = t / cols, cc = t - cb * cols;
+  const long long x0 = (long long)cb * kt;
+  const int qf = group_of(x0, P, groups), ql = group_of(x0 + kt - 1, P, groups);
+  if (qf == ql) return;  // one group's range held the whole tile: stored already
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += ws[((size_t)k * M + m) * n_pad + c];
+  for (int q = qf; q <= ql; ++q) {
+    const int slot = 2 * q + (((long long)q * P / groups) / kt == cb ? 0 : 1);
+    s += ws[(((size_t)slot * cols + cc) * M + m) * BN + (c - t * BN)];
+  }
   y[i] = __float2bfloat16(s);
+}
+
+int launch_main(const __nv_bfloat16* buf, const __nv_bfloat16* wp, __nv_bfloat16* y, float* ws, const Params& p,
+                int period, cudaStream_t st) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, fc1_strided_tc_kernel);
+  if (err != cudaSuccess) return (int)err;
+  // setmaxnreg.inc waits for registers that the CTA was launched with: a
+  // kernel built with fewer than LAUNCH_REGS a thread would wait forever
+  if (fa.numRegs < LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(fc1_strided_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)(p.groups * p.rows * p.cols);
+  fc1_strided_tc_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(buf, wp, y, ws, p, period);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns 0 on success or the cudaError_t of a refused launch. buf: n
-// samples of `ld` elements apart (rows of C channels, 16-byte aligned, C % 8
+// samples `ld` elements apart (rows of C channels, 16-byte aligned, C % 8
 // == 0); window w of sample n reads frames s0 + w*stride .. + frames - 1;
-// wp: the packed weights (ops/fc1.py::pack_weights_fc1) of K = frames * C
-// rows padded to a multiple of 64 and n_out columns padded to a multiple of
-// 256; y (n, n_win, n_out) bf16; ws: splits x n*n_win x the padded columns
-// of fp32 (unused when splits == 1). Launches on `stream`, allocates
-// nothing.
+// wp: the packed weights (ops/fc1.py::pack_weights_fc1 at this `period`,
+// which must be 1 unless C % 64 == 0) of K = frames * C rows padded to a
+// multiple of 64 and n_out columns padded to a multiple of 256; y (n,
+// n_win, n_out) bf16; (tile_rows, rows, cols, groups) the schedule
+// (ops/fc1.py::fc1_schedule); ws: 2 * groups x cols x n*n_win x 256 fp32
+// (unused when groups == 1). Launches on `stream`, allocates nothing.
 extern "C" int fc1_strided_tc_launch(const void* buf, const void* wp, void* y, void* ws, int n, int ld, int C,
-                                     int s0, int stride, int n_win, int frames, int n_out, int splits, void* stream) {
+                                     int s0, int stride, int n_win, int frames, int n_out, int period, int tile_rows,
+                                     int rows, int cols, int groups, void* stream) {
   const long long m = (long long)n * n_win, k = (long long)frames * C, kt = (k + KC - 1) / KC;
-  if (n <= 0 || n_win <= 0 || C <= 0 || C % 8 != 0 || frames <= 0 || k > 0x7fffffffLL || s0 < 0 || stride <= 0 ||
-      ld <= 0 || ld % 8 != 0 || n_out <= 0 || m > 0x7fffffffLL || splits <= 0 || splits > kt ||
-      (splits > 1 && ws == nullptr) || reinterpret_cast<uintptr_t>(buf) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+  if (n <= 0 || n_win <= 0 || C <= 0 || C % 8 != 0 || frames <= 0 || frames > MAX_FRAMES || k > 0x7fffffffLL ||
+      s0 < 0 || stride <= 0 || ld <= 0 || ld % 8 != 0 || n_out <= 0 || m > 0x7fffffffLL || period <= 0 ||
+      period > frames || (period > 1 && C % KC != 0) || reinterpret_cast<uintptr_t>(buf) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wp) % 16 != 0 || tile_rows <= 0 || tile_rows > TM)
     return (int)cudaErrorInvalidValue;
-  const int tiles_n = (n_out + BN - 1) / BN;
-  if (tiles_n > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
+  const long long tiles_m = (m + tile_rows - 1) / tile_rows, tiles_n = (n_out + BN - 1) / BN;
+  if (rows <= 0 || rows > tiles_m || cols <= 0 || tiles_n % cols != 0 || groups <= 0 ||
+      (long long)groups * rows * cols > 0x7fffffffLL || (groups > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.ld = ld;
+  p.P = tiles_n / cols * kt;
+  if (groups > p.P) return (int)cudaErrorInvalidValue;
+  p.M = (int)m;
+  p.n_win = n_win;
+  p.C = C;
+  p.s0 = s0;
+  p.stride = stride;
+  p.K = (int)k;
+  p.kt = (int)kt;
+  p.nb = C % KC == 0 ? C / KC : 0;
+  p.frames = frames;
+  p.n_out = n_out;
+  p.tm = tile_rows;
+  p.tiles_m = (int)tiles_m;
+  p.rows = rows;
+  p.cols = cols;
+  p.groups = groups;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-
-  cudaError_t err = cudaFuncSetAttribute(fc1_strided_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)tiles_n, (unsigned)splits);
-  fc1_strided_tc_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-      static_cast<const __nv_bfloat16*>(buf), static_cast<const __nv_bfloat16*>(wp), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(ws), (int)m, n_win, (long long)ld, C, s0, stride, (int)k, (int)kt, splits, n_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
+  const auto* b = static_cast<const __nv_bfloat16*>(buf);
+  const auto* w = static_cast<const __nv_bfloat16*>(wp);
+  auto* out = static_cast<__nv_bfloat16*>(y);
+  auto* part = static_cast<float*>(ws);
+  const int err = launch_main(b, w, out, part, p, period, st);
+  if (err != 0 || groups == 1) return err;
   const long long total = m * n_out;
-  fc1_split_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(y), (int)m, n_out, tiles_n * BN, splits);
+  fc1_partial_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, p.M, n_out, p.kt, cols, groups,
+                                                                          p.P);
   return (int)cudaGetLastError();
 }

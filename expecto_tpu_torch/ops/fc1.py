@@ -12,8 +12,9 @@ the JAX package. :func:`fc1_strided` picks an implementation by
 
 - ``"tc"``: ``csrc/fc1_strided_tc.cu``, bf16 on the tensor cores (wgmma),
   the production dtype of every CLI: the windows are read straight from the
-  buffer, never copied, and W is packed once per weight tensor
-  (:func:`pack_weights_fc1`);
+  buffer, never copied, W is packed once per weight tensor and frame walk
+  (:func:`pack_weights_fc1`), and a persistent grid walks the fixed
+  schedule of :func:`fc1_schedule`;
 - ``"cublas"``: fp32 on the card (parity mode, TF32 off): the windows
   ``unfold``-ed and one ``torch.matmul``, as the JAX package leaves the
   product to XLA;
@@ -25,9 +26,9 @@ matmul on a failure.
 
 from __future__ import annotations
 
-import math
 import weakref
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,14 +37,11 @@ from . import cuda_build
 
 FC1_FRAMES = 106
 ROUTES = ("tc", "cublas")
-_TM = 128  # rows (windows) per tile of the kernel
+_TM = 128  # the most rows (windows) a tile of the kernel holds
 _BN = 256  # columns per tile; W's columns are zero-padded to a multiple of it
 _KC = 64  # K per stage; W's rows are zero-padded to a multiple of it
-_MIN_SPLITS, _MAX_SPLITS = 4, 16
+_MIN_CHUNKS = 32  # the fewest K chunks a group of the schedule walks
 _MAX_ROWS = 2**31 - 1  # N * n_win: the kernel indexes rows with an int
-# H100 SXM peaks, dense bf16 and HBM3: the split plan's model of the card
-_PEAK_OPS = 989e12
-_PEAK_BYTES = 3.35e12
 
 
 def _windows(buf: torch.Tensor, s0: int, stride: int, n_win: int) -> torch.Tensor:
@@ -64,30 +62,57 @@ def fc1_strided_plain(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, 
     return (a.float() @ w.float()).to(buf.dtype)
 
 
-def pack_weights_fc1(w: torch.Tensor) -> torch.Tensor:
-    """W (K, Nout) in the kernel's layout: (Nout/256, K/64, 8, 256, 8), one
-    contiguous shared-memory stage per (column tile, K chunk), each of its 8
-    K groups a K-major column of 256 output columns; Nout is zero-padded to
-    a multiple of 256 (2,003 -> 2,048) and K to one of 64 (Beluga's 67,840
-    is already)."""
+def frame_order(frames: int, period: int) -> list[int]:
+    """The order in which the kernel walks a window's frames: r, r +
+    period, r + 2 period, ... for r = 0 .. period - 1 (period 1: in order).
+    At period = stride, neighbouring windows read each buffer frame a few
+    stages apart."""
+    return [f for r in range(period) for f in range(r, frames, period)]
+
+
+def walk_period(c: int, stride: int) -> int:
+    """The period of the kernel's frame walk for C channels and this
+    stride: the stride where a 64-deep K chunk lies inside one frame (C %
+    64 == 0) and windows overlap, else 1 (K in order)."""
+    return stride if c % _KC == 0 and 1 < stride < FC1_FRAMES else 1
+
+
+def pack_weights_fc1(w: torch.Tensor, period: int = 1) -> torch.Tensor:
+    """W (K, Nout) in the kernel's layout: (Nout/256, K/64, 256, 8, 8), one
+    contiguous shared-memory stage per (column tile, K chunk), K chunks in
+    the walk order of :func:`frame_order` at ``period`` (1: in order), each
+    output column a 128-byte K-major row of 8 16-byte pieces, piece g stored
+    in slot g ^ (column % 8) (the 128-byte swizzle of the wgmma
+    descriptors). Nout is zero-padded to a multiple of 256 (2,003 -> 2,048)
+    and K to one of 64 (Beluga's 67,840 is already)."""
     k, n_out = w.shape
     tiles, chunks = -(-n_out // _BN), -(-k // _KC)
+    if period > 1:
+        c = k // FC1_FRAMES
+        if k != FC1_FRAMES * c or c % _KC:
+            raise ValueError(f"a frame walk of period {period} needs K = {FC1_FRAMES} * C with C % {_KC} == 0, "
+                             f"got K = {k}")
+        order = torch.tensor(frame_order(FC1_FRAMES, period), device=w.device)
+        w = w.reshape(FC1_FRAMES, c, n_out).index_select(0, order).reshape(k, n_out)
     wp = F.pad(w, (0, tiles * _BN - n_out, 0, chunks * _KC - k))
-    wp = wp.reshape(chunks, 8, 8, tiles, _BN)  # chunk, group, e, tile, n
-    return wp.permute(3, 0, 1, 4, 2).contiguous()
+    wp = wp.reshape(chunks, 8, 8, tiles, _BN // 8, 8)  # chunk, piece, e, tile, column / 8, column % 8
+    wp = wp.permute(3, 0, 4, 5, 1, 2)  # tile, chunk, column / 8, column % 8, piece, e
+    lo = torch.arange(8, device=w.device)
+    wp = wp[:, :, :, lo[:, None], lo[None, :] ^ lo[:, None]]  # slot s of column % 8 = lo holds piece s ^ lo
+    return wp.reshape(tiles, chunks, _BN, 8, 8).contiguous()
 
 
-_PACKED: dict[int, tuple] = {}  # id(W) -> (weakref to W, W._version, packed W)
+_PACKED: dict[tuple[int, int], tuple] = {}  # (id(W), period) -> (weakref to W, W._version, packed W)
 
 
-def _packed(w: torch.Tensor) -> torch.Tensor:
-    """W packed for the kernel, kept while w lives and is not written to: a
-    runner's fc1 weight is packed once, not at every launch."""
-    key = id(w)
+def _packed(w: torch.Tensor, period: int = 1) -> torch.Tensor:
+    """W packed for the kernel at ``period``, kept while w lives and is not
+    written to: a runner's fc1 weight is packed once, not at every launch."""
+    key = (id(w), period)
     hit = _PACKED.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, pack_weights_fc1(w))
+    _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, pack_weights_fc1(w, period))
     return _PACKED[key][2]
 
 
@@ -100,25 +125,84 @@ def _route(device_type: str, dtype: torch.dtype) -> str:
     return "tc" if dtype == torch.bfloat16 else "cublas"
 
 
-def fc1_splits(m: int, n_out: int, k: int, sms: int) -> int:
-    """The kernel's split-K count for M = ``m`` rows on ``sms`` SMs: the
-    slice count that minimises the waves of (row tile, column tile, slice)
-    blocks per slice, plus the split-sum pass's bytes, each in units of one
-    block's whole-K time at the card's peak; at least :data:`_MIN_SPLITS`
-    slices where K has the stages (on the H100 fewer, longer slices never
-    beat four or more at an fc1 shape of the bf16 flows:
-    scripts/probe_fc1_torch.py). A pure function of the shape and the SM
-    count, so a shape gives the same bits every call."""
-    tiles = -(-m // _TM) * -(-n_out // _BN)
-    tile_s = 2.0 * _TM * _BN * k / (_PEAK_OPS / sms)
-    sum_s = m * -(-n_out // _BN) * _BN * 8 / _PEAK_BYTES  # one slice written and read again, fp32
-    most = min(_MAX_SPLITS, -(-k // _KC))
-    best, best_cost = 1, math.inf
-    for s in range(min(_MIN_SPLITS, most), most + 1):
-        cost = math.ceil(tiles * s / sms) / s + (s > 1) * s * sum_s / tile_s
-        if cost < best_cost - 1e-12:
-            best, best_cost = s, cost
-    return best
+class Schedule(NamedTuple):
+    """The kernel's persistent schedule (see :func:`fc1_schedule`)."""
+
+    tile_rows: int  # rows of A a CTA's tile holds (at most 128)
+    rows: int  # CTAs of a group along the row tiles (row tiles ``rows`` apart past that)
+    cols: int  # column tiles a group's block: CTAs of a group along the columns
+    groups: int  # equal ranges of (column block, K chunk) positions
+
+
+def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, groups: int | None = None, cols: int | None = None,
+                 tile_rows: int | None = None) -> Schedule:
+    """The kernel's persistent schedule for M = ``m`` rows on a card that
+    holds ``ctas`` CTAs of it at once (one an SM): ``groups`` x ``rows`` x
+    ``cols`` CTAs. The rows are cut into balanced row tiles of ``tile_rows``
+    (at most 128); the (column block, K chunk) positions, P = (Nout/256 /
+    cols) x K/64, are cut into ``groups`` equal ranges, and each CTA of a
+    group takes one row tile and one column tile of each block of ``cols``
+    over its group's range, in step with the others (see
+    :func:`schedule_units`). Picks the ``cols`` (a divisor of the column
+    tiles) and ``groups`` that keep the most CTAs busy, with at least
+    :data:`_MIN_CHUNKS` K chunks a group; on a tie the larger ``cols`` (the
+    windows read by fewer CTAs). ``groups``, ``cols`` or ``tile_rows`` given
+    are kept (the probe's knobs). A pure function of the shape and the
+    card's CTAs, so a shape gives the same bits every call."""
+    if tile_rows is None:
+        tile_rows = -(-m // -(-m // _TM))
+    elif not 0 < tile_rows <= _TM:
+        raise ValueError(f"tile_rows = {tile_rows}: a tile holds 1 to {_TM} rows")
+    tiles = -(-m // tile_rows)
+    tiles_n, kt = -(-n_out // _BN), -(-k // _KC)
+    rows = min(tiles, ctas)
+    if cols is not None and (cols <= 0 or tiles_n % cols):
+        raise ValueError(f"cols = {cols} does not divide {tiles_n} column tiles")
+    best = None
+    for c in ([cols] if cols is not None else [c for c in range(1, tiles_n + 1) if tiles_n % c == 0]):
+        if cols is None and c > 1 and rows * c > ctas:
+            continue
+        positions = tiles_n // c * kt
+        q = groups if groups is not None else min(max(1, ctas // (rows * c)), max(1, positions // _MIN_CHUNKS))
+        q = max(1, min(q, positions))
+        key = (min(q * rows * c, ctas), c)
+        if best is None or key > best[0]:
+            best = (key, Schedule(tile_rows, rows, c, q))
+    return best[1]
+
+
+def schedule_units(m: int, n_out: int, k: int, sched: Schedule) -> list[tuple]:
+    """The kernel's work list, as its CTAs walk it: (CTA, row tile, column
+    tile, first K chunk, end K chunk, slot), slot None where the CTA stores
+    the whole tile and 2q or 2q + 1 (group q's first or last column block)
+    where it writes an fp32 part for the second pass; in the order that
+    each CTA takes them. Row tile i holds rows i * tile_rows .. + tile_rows
+    - 1 below M."""
+    tile_rows, rows, cols, groups = sched
+    tiles_m = -(-m // tile_rows)
+    tiles_n, kt = -(-n_out // _BN), -(-k // _KC)
+    positions = tiles_n // cols * kt
+    units = []
+    for cta in range(groups * rows * cols):
+        q, idx = divmod(cta, rows * cols)
+        cc, i0 = divmod(idx, rows)
+        start, end = q * positions // groups, (q + 1) * positions // groups
+        for i in range(i0, tiles_m, rows):
+            x = start
+            while x < end:
+                cb = x // kt
+                xe = min(end, (cb + 1) * kt)
+                k0, k1 = x - cb * kt, xe - cb * kt
+                slot = None if (k0, k1) == (0, kt) else 2 * q + (x != start)
+                units.append((cta, i, cb * cols + cc, k0, k1, slot))
+                x = xe
+    return units
+
+
+def resident_ctas(device: torch.device) -> int:
+    """How many CTAs of the kernel ``device`` runs at once: one an SM (its
+    shared memory and registers fill one)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win: int) -> None:
@@ -164,15 +248,16 @@ def fc1_strided(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win:
     n, _f, c = buf.shape
     n_out = w.shape[1]
     m, k = n * n_win, FC1_FRAMES * c
+    period = walk_period(c, stride)
     y = torch.empty((n, n_win, n_out), device=buf.device, dtype=buf.dtype)
     with torch.cuda.device(buf.device):
-        splits = fc1_splits(m, n_out, k, torch.cuda.get_device_properties(buf.device).multi_processor_count)
-        ws = (torch.empty((splits, m, -(-n_out // _BN) * _BN), device=buf.device, dtype=torch.float32)
-              if splits > 1 else None)
+        sched = fc1_schedule(m, n_out, k, resident_ctas(buf.device))
+        ws = (torch.empty((2 * sched.groups, sched.cols, m, _BN), device=buf.device, dtype=torch.float32)
+              if sched.groups > 1 else None)
         stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = cuda_build.launcher("fc1_strided_tc", 9)(
-            buf.data_ptr(), _packed(w).data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(), n,
-            buf.stride(0), c, s0, stride, n_win, FC1_FRAMES, n_out, splits, stream)
+        err = cuda_build.launcher("fc1_strided_tc", 13)(
+            buf.data_ptr(), _packed(w, period).data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(), n,
+            buf.stride(0), c, s0, stride, n_win, FC1_FRAMES, n_out, period, *sched, stream)
     if err != 0:
         raise RuntimeError(f"fc1_strided kernel launch failed: error {err}")
     fc1_strided.launches += 1

@@ -1,27 +1,47 @@
 #!/usr/bin/env python3
 """fc1's strided product on one NVIDIA GPU: the tensor-core kernel against
-its plain version and cuBLAS.
+its plain version and cuBLAS, and the kernel's schedule knobs.
 
-    python3 scripts/probe_fc1_torch.py [--reps N] [--splits 1,2,4,8] [--out DIR]
+    python3 scripts/probe_fc1_torch.py [--reps N] [--groups 0,2,5] [--cols 0,1,2] [--map-tiles]
+                                       [--shapes NAME,...] [--out DIR]
 
 At each fc1 shape of the bf16 flows (a serving chunk, an h5 pair chunk, a
 gene chunk and a consensus chunk, each pool-2 phase; Beluga's published
 widths, seeded inputs) this script holds ``ops/fc1.fc1_strided`` (the kernel
 of ``csrc/fc1_strided_tc.cu``) against ``fc1_strided_plain`` within two
 bf16 steps of max|y|, checks two calls bit for bit, then times, in turns,
-best of ``--reps`` rounds: the kernel at its own split-K count and at each
-count of ``--splits`` (its launcher called directly), the plain version
-(fp32 sum), today's ``unfold`` + 2003-column ``torch.matmul`` and the
-library yardstick, one ``torch.matmul`` of the same windows by the weight
-zero-padded to 2,048 columns (the port never calls it). Prints one JSON line
-a shape with the bound (operations at 989 TFLOP/s against each input read
-once and the output written once at 3.35 TB/s) and the card's name and
+best of ``--reps`` rounds: the kernel at its own schedule
+(``fc1_schedule``: tile rows, rows, cols, groups), the kernel at every
+other combination of ``--groups`` (the schedule's slice count, the K
+ranges; 0 = the schedule's own) and ``--cols`` (column tiles a group's
+block; 0 = the schedule's own), with ``--map-tiles`` also at the row tiles
+that a TMA tensor map of the windows would force (below), each variant
+first held to the plain version like the default, the plain
+version (fp32 sum), the ``unfold`` + 2003-column ``torch.matmul`` that the
+kernel replaced and the library yardstick, one ``torch.matmul`` of the same
+windows by the weight zero-padded to 2,048 columns (the port never calls
+it). Prints one JSON line a shape with the bound (operations at 989
+TFLOP/s against each input read once and the output written once at 3.35
+TB/s), the yardstick's time beside every variant's, and the card's name and
 power limit; ``--out DIR`` also writes them to DIR/probe_fc1.json.
+
+``--map-tiles``: the kernel loads A by ``cp.async``. A TMA tensor map can
+name the windows only as the 4-D tensor (channel, r, a, sample) of frame
+s0 + stride*a + r, dims {C, stride, ceil((F - s0)/stride), N}, byte
+strides {2C, 2*stride*C, 2*ld}; window w's K chunk of frame f and channels
+64j.. is the box {64, 1, bw, bn} at (64j, f % stride, w0 + f // stride,
+n0). A box is rectangular in (window, sample), so a row tile holds bw =
+min(n_win, 128) windows of bn = max(1, 128 // n_win) whole samples. The
+probe encodes that map with the driver's ``cuTensorMapEncodeTiled``
+(128-byte swizzle) and reports its CUresult (0: accepted), and times the
+kernel at row tiles of bw * bn rows: the cost of such tiles, beside
+whatever the copy engine would save.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -32,12 +52,14 @@ PEAK_OPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, dense bf16 and HBM3
 C, N_OUT = 640, 2003
 # name: (N, F, s0, stride, n_win); the phase buffers of 3,600-bp serving and
 # h5 spans have 206 frames, those of 41,800/41,808-bp gene and consensus
-# spans 2,594
+# spans 2,594; the last three are small chunks (M = 60, 640, 200)
 SHAPES = {
     "serve ph0": (227, 206, 0, 25, 5), "serve ph2": (227, 206, 12, 25, 4),
     "h5 ph0": (224, 206, 0, 25, 5), "h5 ph2": (224, 206, 12, 25, 4),
     "gene ph0": (16, 2594, 0, 25, 100), "gene ph2": (16, 2594, 12, 25, 100),
     "consensus ph0": (5, 2594, 0, 25, 100), "consensus ph2": (5, 2594, 12, 25, 100),
+    # small chunks: a serving tail (12 spans), an h5 tail (64 pairs), two gene spans
+    "serve tail ph0": (12, 206, 0, 25, 5), "h5 tail ph0": (128, 206, 0, 25, 5), "gene 2 ph0": (2, 2594, 0, 25, 100),
 }
 
 
@@ -57,10 +79,47 @@ def bound_ms(n: int, f: int, s0: int, stride: int, n_win: int) -> tuple[float, s
     return max(b, o), ("bytes" if b > o else "operations")
 
 
+def _ints(text: str) -> list[int]:
+    return [int(x) for x in text.split(",") if x]
+
+
+def map_box(n_win: int) -> tuple[int, int]:
+    """(bw, bn): the windows and samples of the 4-D map's box (module
+    docstring)."""
+    return min(n_win, 128), max(1, 128 // n_win)
+
+
+def encode_window_map(buf, s0: int, stride: int, n_win: int) -> int:
+    """Encodes the 4-D tensor map of the windows of ``buf`` (N, F, C) bf16
+    on the card; returns the driver's CUresult (0: accepted)."""
+    import ctypes
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    encode = lib.cuTensorMapEncodeTiled
+    encode.restype = ctypes.c_int
+    encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int]
+    n, f, c = buf.shape
+    bw, bn = map_box(n_win)
+    dims = (ctypes.c_uint64 * 4)(c, stride, -(-(f - s0) // stride), n)
+    strides = (ctypes.c_uint64 * 3)(2 * c, 2 * stride * c, 2 * buf.stride(0))
+    box = (ctypes.c_uint32 * 4)(64, 1, bw, bn)
+    ones = (ctypes.c_uint32 * 4)(1, 1, 1, 1)
+    raw = ctypes.create_string_buffer(128 + 64)  # a CUtensorMap: 128 bytes on a 64-byte boundary
+    tmap = (ctypes.addressof(raw) + 63) // 64 * 64
+    bf16, interleave_none, swizzle_128b, l2_128b, oob_zero = 9, 0, 3, 2, 0
+    return encode(tmap, bf16, 4, buf.data_ptr() + 2 * s0 * c, dims, strides, box, ones, interleave_none,
+                  swizzle_128b, l2_128b, oob_zero)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--splits", default="1,2,4,8", help="split-K counts to time beside the kernel's own")
+    ap.add_argument("--groups", default="0", help="schedule slice counts (0: the schedule's own)")
+    ap.add_argument("--cols", default="0", help="column tiles a group's block (0: the schedule's own)")
+    ap.add_argument("--map-tiles", action="store_true", help="also the row tiles of a TMA map (docstring)")
+    ap.add_argument("--shapes", default=",".join(SHAPES), help="names of SHAPES to run")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -76,45 +135,67 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
-    w = (torch.randn((106 * C, N_OUT), generator=gen, device=dev) / (106 * C) ** 0.5).bfloat16()
+    k = 106 * C
+    w = (torch.randn((k, N_OUT), generator=gen, device=dev) / k**0.5).bfloat16()
     w_pad = F.pad(w, (0, 2048 - N_OUT))
-    launch = cuda_build.launcher("fc1_strided_tc", 9)
-    wp = fc1._packed(w)
+    launch = cuda_build.launcher("fc1_strided_tc", 13)
     rows = []
-    for name, (n, f, s0, stride, n_win) in SHAPES.items():
+    for name in args.shapes.split(","):
+        n, f, s0, stride, n_win = SHAPES[name]
         buf = torch.rand((n, f, C), generator=gen, device=dev).bfloat16()
         m = n * n_win
-        own = fc1.fc1_splits(m, N_OUT, 106 * C, sms)
+        period = fc1.walk_period(C, stride)
+        wp = fc1._packed(w, period)
+        own = fc1.fc1_schedule(m, N_OUT, k, fc1.resident_ctas(dev))
         y = fc1.fc1_strided(buf, w, s0, stride, n_win)
         want = fc1.fc1_strided_plain(buf, w, s0, stride, n_win)
         torch.cuda.synchronize()
-        err = float((y.float() - want.float()).abs().max())
         tol = 2 * 2.0**-8 * float(want.float().abs().max())
-        if err > tol or not torch.equal(y, fc1.fc1_strided(buf, w, s0, stride, n_win)):
-            raise AssertionError(f"{name}: the kernel misses the plain version ({err} > {tol}) or repeats unequal")
+
+        def check(got, what):
+            err = float((got.float() - want.float()).abs().max())
+            if err > tol:
+                raise AssertionError(f"{name} {what}: the kernel misses the plain version ({err} > {tol})")
+            return err
+
+        err = check(y, "own schedule")
+        if not torch.equal(y, fc1.fc1_strided(buf, w, s0, stride, n_win)):
+            raise AssertionError(f"{name}: two calls differ")
         a = fc1._windows(buf, s0, stride, n_win)
 
-        def forced(splits, out=torch.empty_like(y)):
-            ws = torch.empty((splits, m, 2048), device=dev) if splits > 1 else None
-            err = launch(buf.data_ptr(), wp.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(), n,
-                         buf.stride(0), C, s0, stride, n_win, 106, N_OUT, splits,
-                         torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"launch failed: {err}")
+        def forced(sched, out=torch.empty_like(y)):
+            ws = torch.empty((2 * sched.groups, sched.cols, m, 256), device=dev) if sched.groups > 1 else None
+            e = launch(buf.data_ptr(), wp.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(), n,
+                       buf.stride(0), C, s0, stride, n_win, 106, N_OUT, period, *sched,
+                       torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"launch failed: {e}")
             return out
 
         fns = {"kernel": lambda: fc1.fc1_strided(buf, w, s0, stride, n_win),
                "plain": lambda: fc1.fc1_strided_plain(buf, w, s0, stride, n_win),
                "unfold_matmul_2003": lambda: fc1._windows(buf, s0, stride, n_win) @ w,
                "library_matmul_2048": lambda: a @ w_pad}
-        for s in (int(x) for x in args.splits.split(",") if x):
-            if s != own:
-                fns[f"kernel_splits{s}"] = lambda s=s: forced(s)
+        schedules = {"kernel": list(own)}
+        variants = [("kernel_t{}_r{}_c{}_g{}", dict(groups=g or None, cols=cc or None))
+                    for g, cc in itertools.product(_ints(args.groups), _ints(args.cols))]
+        extra = {}
+        if args.map_tiles:
+            bw, bn = map_box(n_win)
+            variants.append(("kernel_map_tiles", dict(tile_rows=bw * bn)))
+            extra = {"map_box": [64, 1, bw, bn], "map_encode_result": encode_window_map(buf, s0, stride, n_win)}
+        for name_fmt, knobs in variants:
+            sched = fc1.fc1_schedule(m, N_OUT, k, fc1.resident_ctas(dev), **knobs)
+            key = name_fmt.format(*sched)
+            if key in fns or (list(sched) == schedules["kernel"] and key != "kernel_map_tiles"):
+                continue
+            check(forced(sched), key)
+            fns[key] = lambda s=sched: forced(s)
+            schedules[key] = list(sched)
         for fn in fns.values():
             fn()
-        times = {k: float("inf") for k in fns}
+        times = {key: float("inf") for key in fns}
         for _ in range(args.reps):
             for key, fn in fns.items():
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -125,10 +206,14 @@ def main(argv=None) -> int:
                 end.synchronize()
                 times[key] = min(times[key], start.elapsed_time(end) / 3)
         bound, by = bound_ms(n, f, s0, stride, n_win)
-        row = {"shape": name, "N": n, "F": f, "s0": s0, "stride": stride, "n_win": n_win, "M": m, "splits": own,
-               "max_abs_err": err, "tol": tol, "bound_ms": bound, "bound_by": by,
-               "tflops_kernel": 2.0 * m * 106 * C * N_OUT / times["kernel"] / 1e9,
-               **{f"{k}_ms": v for k, v in times.items()}, "card": card}
+        lib = times["library_matmul_2048"]
+        row = {"shape": name, "N": n, "F": f, "s0": s0, "stride": stride, "n_win": n_win, "M": m,
+               "schedule": schedules["kernel"], "max_abs_err": err, "tol": tol, "bound_ms": bound, "bound_by": by,
+               "tflops_kernel": 2.0 * m * k * N_OUT / times["kernel"] / 1e9,
+               **{f"{key}_ms": v for key, v in times.items()},
+               "vs_library": {key: times[key] / lib for key in schedules},
+               "share_of_bound": {key: bound / times[key] for key in schedules},
+               "schedules": schedules, **extra, "card": card}
         rows.append(row)
         print(json.dumps(row), flush=True)
         del buf, a, y, want

@@ -9,6 +9,8 @@ and skip without a card. They import no JAX, so on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_fc1.py
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +21,14 @@ from expecto_tpu_torch.ops.fc1 import (
     _check,
     _packed,
     _route,
-    fc1_splits,
+    _windows,
+    fc1_schedule,
     fc1_strided,
     fc1_strided_plain,
+    frame_order,
     pack_weights_fc1,
+    schedule_units,
+    walk_period,
 )
 from torch_port_common import single_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -148,40 +154,75 @@ def test_windows_past_the_buffer_raise():
         fc1_strided_plain(torch.from_numpy(buf), torch.from_numpy(w), 0, 25, 2)
 
 
-def _unpack(wp):
-    """The inverse of pack_weights_fc1's permutation: (K, padded Nout)."""
+def _unpack(wp, period=1, k=None):
+    """The inverse of pack_weights_fc1: (K padded to 64, padded Nout), the
+    128-byte swizzle undone (slot s of column n holds piece s ^ (n % 8))
+    and the K chunks put back from the frame walk of ``period``."""
     tiles, chunks = wp.shape[:2]
-    return wp.permute(1, 2, 4, 0, 3).reshape(chunks * 64, tiles * 256)
+    lo = torch.arange(8)
+    x = wp.reshape(tiles, chunks, 32, 8, 8, 8)[:, :, :, lo[:, None], lo[None, :] ^ lo[:, None]]
+    full = x.permute(1, 4, 5, 0, 2, 3).reshape(chunks * 64, tiles * 256)
+    if period > 1:
+        inv = torch.empty(FC1_FRAMES, dtype=torch.long)
+        inv[torch.tensor(frame_order(FC1_FRAMES, period))] = torch.arange(FC1_FRAMES)
+        full = full.reshape(FC1_FRAMES, k // FC1_FRAMES, -1)[inv].reshape(k, -1)
+    return full
+
+
+def test_frame_order_and_walk_period():
+    """The walk visits every frame once, stride apart within a residue; the
+    period is the stride only where a 64-deep K chunk lies in one frame and
+    windows overlap."""
+    for period in (1, 7, 25, 50, 105):
+        order = frame_order(FC1_FRAMES, period)
+        assert sorted(order) == list(range(FC1_FRAMES))
+        residues = [f % period for f in order]
+        assert residues == sorted(residues) and all(
+            b - a == period for a, b in zip(order, order[1:]) if a % period == b % period)
+    assert frame_order(FC1_FRAMES, 25)[:6] == [0, 25, 50, 75, 100, 1]
+    assert frame_order(FC1_FRAMES, 1) == list(range(FC1_FRAMES))
+    assert walk_period(640, 25) == 25 and walk_period(64, 50) == 50
+    assert walk_period(48, 25) == 1 and walk_period(640, 1) == 1 and walk_period(640, 106) == 1
 
 
 # K = 106*C: a multiple of 64 at C = 32, 64 and Beluga's 640; at C = 8, 16
-# and 48 the last stage is part padding
-@pytest.mark.parametrize("c,n_out,dtype", [(32, 19, torch.float32), (64, 256, torch.float32),
-                                           (32, 257, torch.float32), (64, 2003, torch.bfloat16),
-                                           (16, 19, torch.float32), (48, 64, torch.bfloat16), (8, 1, torch.float32)])
-def test_packer_round_trips_and_pads_with_zeros(c, n_out, dtype):
+# and 48 the last stage is part padding; at C % 64 == 0 the frame walk of
+# the stride (period) reorders the chunks
+@pytest.mark.parametrize("c,n_out,dtype,period", [(32, 19, torch.float32, 1), (64, 256, torch.float32, 1),
+                                                  (32, 257, torch.float32, 1), (64, 2003, torch.bfloat16, 25),
+                                                  (16, 19, torch.float32, 1), (48, 64, torch.bfloat16, 1),
+                                                  (8, 1, torch.float32, 1), (128, 300, torch.float32, 7)])
+def test_packer_round_trips_and_pads_with_zeros(c, n_out, dtype, period):
     k = FC1_FRAMES * c
     w = torch.from_numpy(np.random.default_rng(c + n_out).standard_normal((k, n_out)).astype(np.float32)).to(dtype)
-    wp = pack_weights_fc1(w)
-    tiles = -(-n_out // 256)
-    assert wp.shape == (tiles, -(-k // 64), 8, 256, 8) and wp.is_contiguous() and wp.dtype == w.dtype
-    full = _unpack(wp)
+    wp = pack_weights_fc1(w, period)
+    tiles, chunks = -(-n_out // 256), -(-k // 64)
+    assert wp.shape == (tiles, chunks, 256, 8, 8) and wp.is_contiguous() and wp.dtype == w.dtype
+    full = _unpack(wp, period, k)
     assert torch.equal(full[:k, :n_out], w)
     assert not full[:, n_out:].any() and not full[k:].any()
-    # one stage: K group g of column tile t and chunk j is column j*64 + 8g .. + 7 of K, K-major
-    t, j, g = tiles - 1, k // 64 - 1, 5  # a chunk whole inside K
-    cols = slice(t * 256, min((t + 1) * 256, n_out))
-    stage = wp[t, j, g, : cols.stop - cols.start]  # (columns, 8)
-    assert torch.equal(stage, w[j * 64 + 8 * g : j * 64 + 8 * g + 8, cols].T)
+    # one stage: column n of tile t and chunk j is a 128-byte row whose slot
+    # s holds K group s ^ (n % 8) of the chunk's 64 K rows, K-major
+    nb, order = c // 64, frame_order(FC1_FRAMES, period)
+    t, j, n = tiles - 1, chunks - 2, min(11, n_out - 1 - (tiles - 1) * 256)
+    k0 = order[j // nb] * c + (j % nb) * 64 if period > 1 else j * 64
+    col = t * 256 + n
+    for slot in range(8):
+        g = slot ^ (n % 8)
+        assert torch.equal(wp[t, j, n, slot], w[k0 + 8 * g : k0 + 8 * g + 8, col])
 
 
 def test_packed_is_cached_per_weight_tensor_and_version():
-    w = torch.ones((FC1_FRAMES * 32, 19))
+    """Per weight tensor, frame-walk period and version."""
+    w = torch.ones((FC1_FRAMES * 64, 19))
     first = _packed(w)
-    assert _packed(w) is first
+    assert _packed(w) is first and _packed(w, 1) is first
+    walked = _packed(w, 25)
+    assert walked is not first and _packed(w, 25) is walked
     w.mul_(2.0)  # an in-place write bumps the version: repacked
     again = _packed(w)
     assert again is not first and torch.equal(_unpack(again)[:, :19], w)
+    assert torch.equal(_unpack(_packed(w, 25), 25, w.shape[0])[:, :19], w)
 
 
 def test_route_is_a_pure_function_of_device_and_dtype():
@@ -192,20 +233,140 @@ def test_route_is_a_pure_function_of_device_and_dtype():
     assert set(fc1.ROUTES) == {"tc", "cublas"}
 
 
+K_BELUGA, SMS = FC1_FRAMES * 640, 132
+
+
 def test_split_plan():
-    k, sms = FC1_FRAMES * 640, 132
-    for m in (1, 227, 560, 908, 1120, 1135, 1600, 4096, 20000):
-        s = fc1_splits(m, 2003, k, sms)
-        assert 4 <= s <= 16 and s == fc1_splits(m, 2003, k, sms)
-    # the slice count that fills the last wave: 9 x 8 tiles at 7 slices are
-    # 504 blocks, 3.8 waves of 132 SMs; 4 x 8 at 4 are one wave
-    assert fc1_splits(1135, 2003, k, sms) == 7 and fc1_splits(500, 2003, k, sms) == 4
-    # 33 row tiles x 8 column tiles are two whole waves at any count: the
-    # fewest slices (the split-sum pass costs bytes)
-    assert fc1_splits(33 * 128, 2003, k, sms) == 4
-    # never more slices than K has stages (a part stage counts)
-    assert fc1_splits(1, 2003, 2 * 64, sms) == 2 and fc1_splits(1, 2003, 64, sms) == 1
-    assert fc1_splits(1, 2003, 64 + 16, sms) == 2
+    """The schedule is a pure function of (M, Nout, K, the card's CTAs):
+    never more CTAs than the card holds, every group at least 32 K chunks
+    where K has them, balanced row tiles, and at the flows' shapes the
+    split that keeps the most CTAs busy."""
+    for m in (1, 60, 227, 500, 560, 908, 1120, 1135, 1600, 4096, 20000, 40000):
+        s = fc1_schedule(m, 2003, K_BELUGA, SMS)
+        assert s == fc1_schedule(m, 2003, K_BELUGA, SMS)
+        tiles_m, kt = -(-m // s.tile_rows), K_BELUGA // 64
+        assert s.tile_rows <= 128 and tiles_m == -(-m // 128) and s.tile_rows * tiles_m - m < tiles_m
+        assert s.rows <= tiles_m and 8 % s.cols == 0
+        assert s.rows * s.cols * s.groups <= SMS and (8 // s.cols) * kt // s.groups >= fc1._MIN_CHUNKS
+    # gene chunks (M = 1,600: 13 row tiles of 124) in 5 groups of 13 x 2
+    # CTAs, consensus chunks (M = 500: 4 row tiles of 125) in 33 groups of 4
+    assert fc1_schedule(1600, 2003, K_BELUGA, SMS) == (124, 13, 2, 5)
+    assert fc1_schedule(500, 2003, K_BELUGA, SMS) == (125, 4, 1, 33)
+    assert fc1_schedule(1135, 2003, K_BELUGA, SMS) == (127, 9, 2, 7)
+    # more row tiles than CTAs: one group of whole tiles, rows CTAs apart
+    assert fc1_schedule(20000, 2003, K_BELUGA, SMS)[1:] == (132, 1, 1)
+    # a short K: one group walks it all
+    assert fc1_schedule(1, 2003, 2 * 64, SMS)[1:] == (1, 8, 1)
+    assert fc1_schedule(1, 19, 64 + 16, SMS)[1:] == (1, 1, 1)
+    # the probe's knobs are kept: here the row tiles of a tensor map over
+    # whole samples of 100 windows (16 of 100 rows at M = 1,600)
+    assert fc1_schedule(1600, 2003, K_BELUGA, SMS, groups=3, cols=4)[1:] == (13, 4, 3)
+    assert fc1_schedule(1600, 2003, K_BELUGA, SMS, tile_rows=100)[:2] == (100, 16)
+    with pytest.raises(ValueError, match="does not divide"):
+        fc1_schedule(1600, 2003, K_BELUGA, SMS, cols=3)
+    with pytest.raises(ValueError, match="1 to 128 rows"):
+        fc1_schedule(1600, 2003, K_BELUGA, SMS, tile_rows=129)
+
+
+# (M, Nout, K) of the flows (serving, h5, gene, consensus at Beluga's
+# widths) and of the narrow test widths, and edges: a part stage, one
+# column, more row tiles than SMs
+SCHEDULE_SHAPES = [(1135, 2003, K_BELUGA), (908, 2003, K_BELUGA), (1120, 2003, K_BELUGA), (896, 2003, K_BELUGA),
+                   (60, 2003, K_BELUGA), (1600, 2003, K_BELUGA), (500, 2003, K_BELUGA), (127, 2003, K_BELUGA),
+                   (129, 2003, K_BELUGA), (35, 64, FC1_FRAMES * 48), (35, 1, FC1_FRAMES * 8),
+                   (35, 257, FC1_FRAMES * 32), (20000, 2003, FC1_FRAMES * 64)]
+# the schedule's own choice, and knobs forced as the probe forces them (2
+# groups on one column block, row tiles of 100 rows)
+KNOBS = {"own": {}, "forced": {"groups": 2, "cols": 1, "tile_rows": 100}}
+
+
+@pytest.mark.parametrize("knobs", list(KNOBS))
+@pytest.mark.parametrize("m,n_out,k", SCHEDULE_SHAPES)
+def test_schedule_covers_every_chunk_once(m, n_out, k, knobs):
+    """Each (row tile, column tile, K chunk) is in exactly one unit of the
+    walk; a tile that one unit holds whole is stored, every other tile's
+    parts go to distinct slots of its groups, at most two a group."""
+    sched = fc1_schedule(m, n_out, k, SMS, **KNOBS[knobs])
+    rows, cols, groups = sched.rows, sched.cols, sched.groups
+    tiles_m = -(-m // sched.tile_rows)
+    tiles_n, kt = -(-n_out // 256), -(-k // 64)
+    seen = Counter()
+    parts = {}
+    for cta, i, t, k0, k1, slot in schedule_units(m, n_out, k, sched):
+        assert 0 <= cta < rows * cols * groups and 0 <= i < tiles_m and 0 <= t < tiles_n and 0 <= k0 < k1 <= kt
+        seen.update((i, t, j) for j in range(k0, k1))
+        if slot is not None:
+            assert slot // 2 == cta // (rows * cols)
+            key = (i, t, slot)
+            assert key not in parts
+            parts[key] = (k0, k1)
+    assert set(seen.values()) == {1} and len(seen) == tiles_m * tiles_n * kt
+    by_tile = {}
+    for (i, t, slot), (k0, k1) in parts.items():
+        by_tile.setdefault((i, t), []).append((slot, k0, k1))
+    for pieces in by_tile.values():
+        pieces.sort()  # in slot order = in group order: K order
+        assert len(pieces) >= 2 and pieces[0][1] == 0 and pieces[-1][2] == kt
+        assert all(a[2] == b[1] for a, b in zip(pieces, pieces[1:]))
+
+
+def _group_of(x, positions, groups):
+    return ((x + 1) * groups - 1) // positions
+
+
+def _emulate(buf, w, s0, stride, n_win, sms, knobs):
+    """The kernel's arithmetic on the CPU, as its CTAs walk the schedule:
+    A rows from the buffer at the walk's K offsets, B stages unswizzled
+    from the packed weight, fp32 tiles stored whole or as parts, and the
+    second pass summing each tile's parts in group order."""
+    n, _f, c = buf.shape
+    n_out, m, k = w.shape[1], n * n_win, FC1_FRAMES * c
+    period = walk_period(c, stride)
+    sched = fc1_schedule(m, n_out, k, sms, **knobs)
+    cols, groups, tm = sched.cols, sched.groups, sched.tile_rows
+    kt, tiles_n = -(-k // 64), -(-n_out // 256)
+    a = torch.nn.functional.pad(_windows(buf.float(), s0, stride, n_win).reshape(m, k), (0, kt * 64 - k))
+    lo = torch.arange(8)
+    wp = pack_weights_fc1(w, period).float()
+    b = wp.reshape(tiles_n, kt, 32, 8, 8, 8)[:, :, :, lo[:, None], lo[None, :] ^ lo[:, None]].reshape(
+        tiles_n, kt, 256, 64)
+    nb, order = (c // 64, frame_order(FC1_FRAMES, period)) if c % 64 == 0 else (0, None)
+    y = torch.zeros((m, tiles_n * 256))
+    ws = {}
+    for _cta, i, t, k0, k1, slot in schedule_units(m, n_out, k, sched):
+        r = slice(min(m, i * tm), min(m, (i + 1) * tm))
+        acc = torch.zeros((r.stop - r.start, 256))
+        for j in range(k0, k1):
+            koff = order[j // nb] * c + (j % nb) * 64 if nb else j * 64
+            acc += a[r, koff : koff + 64] @ b[t, j].T
+        if slot is None:
+            y[r, t * 256 : (t + 1) * 256] = acc
+        else:
+            ws.setdefault((slot, t), torch.zeros((m, 256)))[r] = acc
+    positions = tiles_n // cols * kt
+    for t in range(tiles_n):
+        cb = t // cols
+        qf, ql = _group_of(cb * kt, positions, groups), _group_of(cb * kt + kt - 1, positions, groups)
+        if qf != ql:
+            parts = [ws[(2 * q + int(q * positions // groups // kt != cb), t)] for q in range(qf, ql + 1)]
+            y[:, t * 256 : (t + 1) * 256] = sum(parts[1:], parts[0])
+    return y[:, :n_out].reshape(n, n_win, n_out)
+
+
+# (N, F, C, s0, stride, n_win, Nout, SMs): the walk of period 25 and 1, K
+# off the stage, columns off the tile, many groups on few K chunks, one
+# sample of 100 windows
+EMULATED = [(3, 160, 64, 12, 25, 2, 300, 132), (7, 300, 48, 12, 25, 5, 64, 132), (5, 240, 16, 0, 50, 2, 19, 8),
+            (2, 131, 64, 0, 25, 1, 257, 3), (1, 2594, 8, 0, 25, 100, 1, 132), (9, 206, 64, 0, 25, 5, 530, 20)]
+
+
+@pytest.mark.parametrize("knobs", list(KNOBS))
+@pytest.mark.parametrize("n,f,c,s0,stride,n_win,n_out,sms", EMULATED)
+def test_emulated_kernel_walk_matches_plain(n, f, c, s0, stride, n_win, n_out, sms, knobs):
+    buf, w, _b = _inputs(n, f, c, n_out, seed=n + f + c)
+    got = _emulate(torch.from_numpy(buf), torch.from_numpy(w), s0, stride, n_win, sms, KNOBS[knobs])
+    want = fc1_strided_plain(torch.from_numpy(buf), torch.from_numpy(w), s0, stride, n_win)
+    _assert_close(got.numpy(), want.numpy())
 
 
 def _good(f=240, c=32, n_out=19, n=2):
@@ -323,6 +484,10 @@ def _card_tol(want):
 @pytest.mark.parametrize("n,f,s0,stride,n_win", CARD_SHAPES)
 def test_kernel_matches_plain_and_repeats_bit_for_bit(cuda, n, f, s0, stride, n_win):
     buf, w = _card_inputs(n, f, n + f + s0, cuda)
+    _kernel_matches_plain(buf, w, n, f, s0, stride, n_win)
+
+
+def _kernel_matches_plain(buf, w, n, f, s0, stride, n_win):
     before = fc1_strided.launches
     got = fc1_strided(buf, w, s0, stride, n_win)
     again = fc1_strided(buf, w, s0, stride, n_win)
@@ -337,6 +502,31 @@ def test_kernel_matches_plain_and_repeats_bit_for_bit(cuda, n, f, s0, stride, n_
     late = want.clone()
     late[:, 0] = fc1_strided_plain(buf, w, s0 + 1, stride, 1)[:, 0]
     assert float((got.float() - late.float()).abs().max()) > _card_tol(want)
+
+
+# (N, F, C, s0, stride, n_win, Nout) at the edges of the kernel's tiles and
+# schedule: M one below and one above a 128-row tile, one sample of 100
+# windows, a part stage (C = 48), one column and 257 columns
+CARD_EDGE_SHAPES = [(127, 206, 640, 0, 25, 1, 2003), (43, 206, 640, 12, 25, 3, 2003),
+                    (1, 2594, 640, 0, 25, 100, 2003), (7, 300, 48, 12, 25, 5, 2003), (9, 206, 640, 0, 25, 5, 1),
+                    (9, 206, 640, 12, 25, 4, 257)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,c,s0,stride,n_win,n_out", CARD_EDGE_SHAPES)
+def test_kernel_at_tile_edges_repeats_on_a_second_stream(cuda, n, f, c, s0, stride, n_win, n_out):
+    g = torch.Generator(device=cuda).manual_seed(n + c + n_out)
+    buf = torch.rand((n, f, c), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((FC1_FRAMES * c, n_out), generator=g, device=cuda) / (FC1_FRAMES * c) ** 0.5).bfloat16()
+    got = fc1_strided(buf, w, s0, stride, n_win)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = fc1_strided(buf, w, s0, stride, n_win)
+    torch.cuda.synchronize()
+    assert got.shape == (n, n_win, n_out) and torch.equal(got, again)
+    want = fc1_strided_plain(buf, w, s0, stride, n_win)
+    assert float((got.float() - want.float()).abs().max()) <= _card_tol(want)
 
 
 @pytest.mark.gpu
