@@ -8,9 +8,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
 1. card: name and power limit as nvidia-smi reports them;
 2. build: nvcc compiles every kernel of ``expecto_tpu_torch/csrc`` for
    sm_90a, one process per source, all at once (ptxas registers and spills
-   printed); the two tensor-core kernels' SASS (conv1-conv5 and fc1) must
-   hold HGMMA instructions, and the SIMT kernel's FFMA and no HMMA or HGMMA
-   (``cuobjdump -sass``; its FFMA-to-LDS ratio is printed);
+   printed); the three tensor-core kernels' SASS (conv1-conv5, fc1 in bf16
+   and fc1 in fp32) must hold HGMMA instructions, and the SIMT kernel's FFMA
+   and no HMMA or HGMMA (``cuobjdump -sass``; its FFMA-to-LDS ratio is
+   printed);
 3. kernels, at every shape they run in one substitution chunk of the main
    path (227 variants; maxshift 800: the six Beluga layers over the 3,600-bp
    span and over the alt allele's patch sub-span), each held against its
@@ -32,15 +33,18 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the code-gather kernel, conv1-conv5 on the tensor-core kernel, no SIMT
    launch and no conv8_relu launch at Cin 4, the counts adding up, fc1 on
    its tensor-core kernel); then warm repeats of the same serving call give
-   the throughput. Every later flow's counts are read the same way: an
-   fp32 flow must launch no fc1 kernel (its fc1 is the cuBLAS product), the
-   h5, gene and consensus span flows in bf16 exactly 4 a chunk (two
-   orientations x two pool-2 phases), every other bf16 flow (the pipeline's,
-   each rank of the 2-rank bf16 serve, the bench) at least one;
+   the throughput. Every later flow's counts are read the same way: a bf16
+   flow's fc1 runs on the bf16 kernel (``fc1_strided_tc.cu``) and an fp32
+   flow's on the three-pass TF32 kernel (``fc1_strided_tf32x3.cu``), never
+   the other one; the h5, gene and consensus span flows launch it exactly 4
+   times a chunk (two orientations x two pool-2 phases) in either dtype,
+   every other flow (the serves, the pipeline's, each rank of the 2-rank
+   serves, the bench) at least once;
 5. fp32 serve: the same serving call with ``--fp32``'s settings on the first
    256 substitutions and their genes, warm (one call first), its launch
    counts checked (conv1-conv5 on the SIMT kernel, conv0 on the code-gather
-   kernel in fp32): the end-to-end throughput of parity mode;
+   kernel in fp32, fc1 on the three-pass TF32 kernel): the end-to-end
+   throughput of parity mode;
 6. parity: a few of those variants scored with ``--fp32`` on the card and on
    the CPU (plain path), REF/ALT/SED compared; the card run's counts are
    zeroed just before it and read just after (conv1-conv5 on the SIMT
@@ -225,22 +229,28 @@ Phases (any failure raises, and the script exits non-zero with no result):
    40 blocks) must launch, the SIMT kernel and the round kernel must not;
    its one result line (printed after ``bench result:``) must hold every
    path key, each finite and above 0; its wall is printed with the card;
-16. fc1: the tensor-core kernel of fc1's strided product
-   (``csrc/fc1_strided_tc.cu``) at every shape that the bf16 flows, the
-   2-rank bf16 serve and the bench launched it at (the wrapper's
-   ``launches_by_shape``), on seeded inputs at Beluga's widths: held against
-   its plain version within FC1_TOL_STEPS bf16 steps of max|y|, a limit that
-   the plain version with the first window read one frame late must miss;
-   two calls equal bit for bit; timed beside its bound, the plain version,
-   the ``unfold`` + 2003-column ``torch.matmul`` it replaced and one
-   ``torch.matmul`` of the same windows by the weight zero-padded to 2,048
-   columns (a yardstick only: the port never calls it), timed twice. Each
-   shape's row has the kernel's time over the yardstick's (``vs_library``)
-   and its share of the bound; a shape where the kernel is slower than the
-   yardstick by more than the difference of the yardstick's two timings is
-   logged and listed in the report (it does not fail the run: a slow
-   kernel stays, with its times); the kernel line's fc1 entry has the
-   worst ``vs_library``.
+16. fc1: the two kernels of fc1's strided product at every shape that the
+   flows, the 2-rank serves and the bench launched them at (the wrapper's
+   ``launches_by_shape``, keyed by dtype), on seeded inputs at Beluga's
+   widths. bf16 (``csrc/fc1_strided_tc.cu``): held against its plain version
+   within FC1_TOL_STEPS bf16 steps of max|y|. fp32
+   (``csrc/fc1_strided_tf32x3.cu``, three TF32 passes): held against a
+   float64 product of the same inputs within FC1_FP32_REL of max|y|, and
+   against the plain version within FC1_FP32_PLAIN_REL, a limit that the
+   plain version must meet against float64. In both, the plain version with
+   the first window read one frame late must miss the limit, and two calls
+   are equal bit for bit; each is timed beside its bound (bf16: operations
+   at the bf16 peak; fp32: three passes' operations at the TF32 peak, the
+   one pass's share of the FFMA peak beside it), the plain version, the
+   ``unfold`` + 2003-column ``torch.matmul`` it replaced (in fp32 the plain
+   version itself, TF32 off) and one ``torch.matmul`` of the same windows by
+   the weight zero-padded to 2,048 columns (a yardstick only: the port never
+   calls it), timed twice. Each shape's row has the kernel's time over the
+   yardstick's (``vs_library``) and its share of the bound; a shape where
+   the kernel is slower than the yardstick by more than the difference of
+   the yardstick's two timings is logged and listed in the report (it does
+   not fail the run: a slow kernel stays, with its times); each kernel's
+   entry in the kernel line has its worst ``vs_library``.
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -265,8 +275,9 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 FP32_SERVE_CSV = WORK / "fp32_serve_output.csv"  # the fp32 serve phase's table
 
-# H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them, HBM3
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
+# TF32 tensor cores, HBM3
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 MAXSHIFT = 800
@@ -288,13 +299,22 @@ DEVICE = "cuda"
 FP32_ATOL, FP32_RTOL = 1e-4, 1e-4
 BF16_ATOL, BF16_RTOL = 1e-2, 1e-2
 CONV0_FP32_TOL = 1e-5
-#  fc1 (bf16 only): the kernel and the plain version both round an fp32 sum
-#        of the same 67,840 bf16 products, taken in another order, to bf16:
-#        within FC1_TOL_STEPS bf16 steps (2^-8 relative) of max|y|
+#  fc1 bf16: the kernel and the plain version both round an fp32 sum of the
+#        same 67,840 bf16 products, taken in another order, to bf16: within
+#        FC1_TOL_STEPS bf16 steps (2^-8 relative) of max|y|
+#  fc1 fp32: the three-pass TF32 split holds each product within about
+#        2^-21 of it (lo*lo and the parts' rounding left out) and the kernel
+#        adds each stage's 96 products into an fp32 sum rounded to nearest:
+#        within FC1_FP32_REL of max|y| of a float64 product of the same
+#        inputs. The plain SGEMM (TF32 off) carries a running fp32 sum of
+#        67,840 products, about 2^-24 sqrt(K) = 1.6e-5 of max|y| off
+#        float64: it, and the kernel against it, within FC1_FP32_PLAIN_REL
 FC1_TOL_STEPS = 2
+FC1_FP32_REL, FC1_FP32_PLAIN_REL = 1e-5, 4e-5
+FC1_ROUTE = {"bfloat16": "tc", "float32": "tf32x3"}  # each compute dtype's fc1 kernel (ops/fc1.py::_route)
 
-#: every shape (N, F, C, s0, stride, n_win, Nout) that the fc1 kernel ran at
-#: in a bf16 flow or the bench, with its launches there: filled by
+#: every shape (dtype, N, F, C, s0, stride, n_win, Nout) that an fc1 kernel
+#: ran at in a flow or the bench, with its launches there: filled by
 #: _read_counts, the 2-rank groups' rank files and the bench phase, held
 #: against the plain version by fc1_phase
 FC1_SHAPES: Counter = Counter()
@@ -1011,8 +1031,8 @@ def _reset_counts() -> None:
 
 
 def _fc1_shapes_now() -> list:
-    """The fc1 kernel's launches by shape since the last _reset_counts, as
-    JSON: [[[N, F, C, s0, stride, n_win, Nout], launches], ...]."""
+    """The fc1 kernels' launches by shape since the last _reset_counts, as
+    JSON: [[[dtype, N, F, C, s0, stride, n_win, Nout], launches], ...]."""
     from expecto_tpu_torch.ops.fc1 import fc1_strided
 
     return [[list(shape), n] for shape, n in sorted(fc1_strided.launches_by_shape.items())]
@@ -1023,9 +1043,9 @@ def _read_counts(dtype: str) -> dict:
     route counts add up, no float one-hot reached conv8_relu (no launch at
     Cin 4), every conv0 ran on the code-gather kernel in ``dtype``, and each
     conv stack ran its conv0 there (conv1 and conv2, the two Cin-320 convs
-    of a stack, launch twice as often as conv0), and an fp32 flow never
-    launched the fc1 kernel (its fc1 is the cuBLAS product); a bf16 flow's
-    fc1 shapes join FC1_SHAPES."""
+    of a stack, launch twice as often as conv0), and fc1 ran on ``dtype``'s
+    kernel alone (bf16: "tc"; fp32: "tf32x3"); the flow's fc1 shapes join
+    FC1_SHAPES."""
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
     from expecto_tpu_torch.ops.conv8 import conv8_relu
     from expecto_tpu_torch.ops.fc1 import fc1_strided
@@ -1034,9 +1054,11 @@ def _read_counts(dtype: str) -> dict:
     n0, kind0 = conv0_codes_relu.launches, dict(conv0_codes_relu.launches_by_kind)
     counts = {"conv8_relu": conv8_relu.launches, "conv8_relu_by_route": by_route,
               "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in sorted(kinds.items())},
-              "conv0_codes": n0, "conv0_codes_by_kind": kind0, "fc1_strided": fc1_strided.launches}
-    if dtype != "bfloat16" and fc1_strided.launches:
-        raise AssertionError(f"a {dtype} flow launched the bf16 fc1 kernel {fc1_strided.launches} times")
+              "conv0_codes": n0, "conv0_codes_by_kind": kind0, "fc1_strided": fc1_strided.launches,
+              "fc1_strided_by_route": dict(fc1_strided.launches_by_route)}
+    if fc1_strided.launches and counts["fc1_strided_by_route"] != {FC1_ROUTE[dtype]: fc1_strided.launches}:
+        raise AssertionError(f"a {dtype} flow's fc1 did not all run on the {FC1_ROUTE[dtype]} kernel: "
+                             f"{counts['fc1_strided_by_route']}")
     FC1_SHAPES.update(fc1_strided.launches_by_shape)
     if sum(by_route.values()) != conv8_relu.launches:
         raise AssertionError(f"route counts {by_route} do not add up to {conv8_relu.launches} launches")
@@ -1160,8 +1182,10 @@ def fp32_serve_phase(report: dict, inputs: dict, card: str) -> None:
     counts = _read_counts("float32")
     if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
         raise AssertionError(f"fp32 serve: conv1-conv5 did not all run on the simt kernel: {counts}")
+    if counts["fc1_strided"] <= 0:
+        raise AssertionError(f"the fp32 serve launched no fc1 kernel: {counts}")
     report["fp32_serve"] = {"variants": N_FP32_SERVE, "rows": n_rows, "models": N_MODELS, "wall_s": wall,
-                            "rows_per_s": n_rows / wall, "launches": counts}
+                            "rows_per_s": n_rows / wall, "launches": counts, "fc1_launches_by_shape": _fc1_shapes_now()}
     log(f"warm fp32 serve: {N_FP32_SERVE} substitutions, {n_rows} (variant, gene) rows x {N_MODELS} models in "
         f"{wall:.3f} s = {n_rows / wall:.1f} rows/s, {N_FP32_SERVE / wall:.1f} variants/s; launches {counts} [{card}]")
 
@@ -1185,6 +1209,8 @@ def parity_phase(report: dict, inputs: dict) -> None:
             counts = _read_counts("float32")
             if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
                 raise AssertionError(f"fp32 conv1-conv5 did not all run on the simt kernel: {counts}")
+            if counts["fc1_strided"] <= 0:
+                raise AssertionError(f"the fp32 parity run launched no fc1 kernel: {counts}")
         frames[tag] = check_output(out, n_rows)
     _dg, ref_g, alt_g, sed_g = frames["card"]
     _dc, ref_c, alt_c, sed_c = frames["cpu"]
@@ -1322,9 +1348,9 @@ def h5_contract_phase(report: dict, inputs: dict, card: str) -> tuple[dict, obje
             by_route = counts["conv8_relu_by_route"]
             if (counts["conv0_codes"], by_route[route], by_route[other]) != (want0, want8, 0):
                 raise AssertionError(f"h5 {tag}: launches {counts}, expected {want0} conv0 and {want8} {route}")
-            # fc1 over both orientations' two pool-2 phases a pair chunk, in
-            # bf16 on the kernel; the window rows' fc1 is the per-window matmul
-            if counts["fc1_strided"] != (4 * chunks if tag == "bf16" else 0):
+            # fc1 over both orientations' two pool-2 phases a pair chunk, on
+            # the dtype's kernel; the window rows' fc1 is the per-window matmul
+            if counts["fc1_strided"] != 4 * chunks:
                 raise AssertionError(f"h5 {tag}: {counts['fc1_strided']} fc1 kernel launches for {chunks} pair chunks")
             # the streamed rows land where the in-memory path puts them, bit
             # for bit; on the span rows alt = ref + diff exactly (rebuilt on
@@ -1465,6 +1491,8 @@ def _score_fp32(vcf: Path, genes: Path, out_csv: Path, n_rows: int, what: str, *
     counts = _read_counts("float32")
     if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
         raise AssertionError(f"{what}: conv1-conv5 did not all run on the simt kernel: {counts}")
+    if counts["fc1_strided"] <= 0:
+        raise AssertionError(f"{what}: cli.score --fp32 launched no fc1 kernel: {counts}")
     return check_output(out_csv, n_rows)[0], counts, wall
 
 
@@ -1787,12 +1815,13 @@ def _gene_route_plan(runner, genes, genome) -> list[dict]:
 def _gene_counts_checked(dtype: str, chunks: int, what: str) -> dict:
     """The launch counts since the last _reset_counts, checked for a gene
     run of ``chunks`` chunks: 16 launches a chunk, 2 conv0 on the
-    code-gather kernel and 14 conv8_relu on the dtype's route only; in bf16
-    4 fc1 kernel launches a chunk (two orientations x two pool-2 phases)."""
+    code-gather kernel and 14 conv8_relu on the dtype's route only; 4 fc1
+    launches a chunk on the dtype's kernel (two orientations x two pool-2
+    phases)."""
     counts = _read_counts(dtype)
     route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
     by_route = counts["conv8_relu_by_route"]
-    want = (2 * chunks, 14 * chunks, 0, 4 * chunks if dtype == "bfloat16" else 0)
+    want = (2 * chunks, 14 * chunks, 0, 4 * chunks)
     if (counts["conv0_codes"], by_route[route], by_route[other], counts["fc1_strided"]) != want:
         raise AssertionError(f"{what}: launches {counts}, expected {2 * chunks} conv0, {14 * chunks} {route} and "
                              f"{want[3]} fc1 for {chunks} gene chunks of 16 launches")
@@ -2170,9 +2199,9 @@ def _consensus_counts_checked(kind: str, calls: list, runner, what: str) -> dict
     windows) is 1 conv0 + 5 conv8 an orientation, a span chunk
     (``_span_rows(200)`` spans) 1 conv0 + 7 conv8 an orientation
     (conv4/conv5 at pool-2 phases 0 and 2), and the patch method adds the
-    backbone's span forward once. In bf16 each span chunk (not the
-    backbone) launches the fc1 kernel 4 times (two orientations x two
-    pool-2 phases); a window batch's fc1 is the per-window matmul."""
+    backbone's span forward once. Each span chunk (not the backbone)
+    launches the dtype's fc1 kernel 4 times (two orientations x two pool-2
+    phases); a window batch's fc1 is the per-window matmul."""
     want0 = want8 = want_fc1 = 0
     span_rows = runner._span_rows(GENE_SHIFTS)
     for name, rows, _k in calls:
@@ -2181,7 +2210,7 @@ def _consensus_counts_checked(kind: str, calls: list, runner, what: str) -> dict
             want0, want8 = want0 + 2 * c, want8 + 10 * c
         else:
             c = -(-rows // span_rows)
-            want_fc1 += 4 * c if kind == "bfloat16" else 0
+            want_fc1 += 4 * c
             c += name == "project_spans_backbone_patch"
             want0, want8 = want0 + 2 * c, want8 + 14 * c
     counts = _read_counts(kind)
@@ -2744,8 +2773,8 @@ def pipeline_phase(report: dict, card: str, seed: int) -> None:
                     counts.append(c)
             if any(c != counts[0] for c in counts):
                 raise AssertionError(f"pipeline {name}: launch counts differ between calls or depths: {counts}")
-            if kind == "bfloat16" and counts[0]["fc1_strided"] <= 0:
-                raise AssertionError(f"pipeline {name}: a bf16 flow launched no fc1 kernel: {counts[0]}")
+            if counts[0]["fc1_strided"] <= 0:
+                raise AssertionError(f"pipeline {name}: a {kind} flow launched no fc1 kernel: {counts[0]}")
             if not equal(outs[1], outs[depth]):
                 raise AssertionError(f"pipeline {name}: the output at depth {depth} differs from depth 1")
             prof = {d: _pipeline_profiled(runner, call, d) for d in depths}
@@ -3900,14 +3929,14 @@ def _group(module: str, argv: list[str], what: str, *, identity_all_reduce: bool
 def _rank_routes(ranks: list, dtype: str, what: str) -> None:
     """Every rank ran its convs on the kernels of ``dtype``'s routes: conv1-
     conv5 on the SIMT kernel (fp32) or the tc kernel (bf16) alone, conv0 on
-    the code-gather kernel in ``dtype``, and fc1 on its kernel in bf16 (never
-    in fp32); a bf16 rank's fc1 shapes join FC1_SHAPES."""
+    the code-gather kernel in ``dtype``, and fc1 on ``dtype``'s fc1 kernel
+    alone; a rank's fc1 shapes join FC1_SHAPES."""
     route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
     for r in ranks:
         by = r["conv8_relu_by_route"]
         if not (by[route] > 0 and by[other] == 0 and r["conv0_codes"] > 0
                 and r["conv0_codes_by_kind"] == {dtype: r["conv0_codes"]}
-                and (r["fc1_strided"] > 0) == (dtype == "bfloat16")):
+                and r["fc1_strided"] > 0 and r["fc1_strided_by_route"] == {FC1_ROUTE[dtype]: r["fc1_strided"]}):
             raise AssertionError(f"{what} rank {r['rank']}: convs or fc1 not on the {dtype} kernels: {r}")
         FC1_SHAPES.update({tuple(shape): n for shape, n in r["fc1_strided_by_shape"]})
 
@@ -4201,6 +4230,7 @@ def rank_worker(args) -> int:
         "conv0_codes": conv0.conv0_codes_relu.launches,
         "conv0_codes_by_kind": dict(conv0.conv0_codes_relu.launches_by_kind),
         "fc1_strided": fc1.fc1_strided.launches, "fc1_strided_by_shape": _fc1_shapes_now(),
+        "fc1_strided_by_route": dict(fc1.fc1_strided.launches_by_route),
         "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
         **stats}))
     return rc
@@ -4240,7 +4270,7 @@ def bench_phase(report: dict, card: str) -> None:
               "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in
                                      sorted(conv8_relu.launches_by_kind.items())},
               "conv0_codes": conv0_codes_relu.launches, "conv0_codes_by_kind": dict(conv0_codes_relu.launches_by_kind),
-              "fc1_strided": fc1_strided.launches,
+              "fc1_strided": fc1_strided.launches, "fc1_strided_by_route": dict(fc1_strided.launches_by_route),
               "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches}
     FC1_SHAPES.update(fc1_strided.launches_by_shape)
     shapes = {"conv8_relu": dict(conv8_relu.launches_by_shape), "conv0_codes": dict(conv0_codes_relu.launches_by_shape),
@@ -4260,8 +4290,8 @@ def bench_phase(report: dict, card: str) -> None:
         raise AssertionError(f"the bench's convs must run on the tc kernel alone: {by_route}")
     if counts["conv0_codes"] <= 0 or by_kind0 != {"bfloat16": counts["conv0_codes"]}:
         raise AssertionError(f"the bench's conv0 must run on the code-gather kernel in bf16: {by_kind0}")
-    if counts["fc1_strided"] <= 0:
-        raise AssertionError(f"the bench launched no fc1 kernel: {counts}")
+    if counts["fc1_strided"] <= 0 or counts["fc1_strided_by_route"] != {"tc": counts["fc1_strided"]}:
+        raise AssertionError(f"the bench's fc1 must run on the bf16 kernel alone: {counts}")
     if counts["gblinear_cd"] != BENCH_CD_LAUNCHES or counts["gblinear_round"] != 0:
         raise AssertionError(f"the bench's training path: {counts['gblinear_cd']} coordinate updates (expected "
                              f"{BENCH_CD_LAUNCHES}), {counts['gblinear_round']} round-kernel launches (expected 0)")
@@ -4339,62 +4369,87 @@ def _fc1_tol(want) -> float:
 
 
 def fc1_phase(report: dict, card: str) -> None:
-    """The fc1 kernel (csrc/fc1_strided_tc.cu) at every shape of FC1_SHAPES
-    (what the bf16 flows, the 2-rank bf16 serve and the bench launched it
-    at), on seeded inputs at Beluga's widths: held against the plain version
-    (fp32 sum) within FC1_TOL_STEPS bf16 steps of max|y|, which the plain
-    version with the first window read one frame late must miss; two calls
-    equal bit for bit; timed beside its bound, the plain version, today's
-    ``unfold`` + 2003-column ``torch.matmul`` (the path the kernel replaced)
-    and the library yardstick, one ``torch.matmul`` of the same windows by
-    the weight zero-padded to 2,048 columns (the port never calls it), timed
-    twice, before and after a second timing of the kernel; ``vs_library``
-    is the kernel's best time over the yardstick's, and a shape where the
-    kernel is slower than the yardstick by more than the yardstick's two
-    timings differ is logged and listed under ``slower_than_library``.
-    These launches come after every flow's counts were read."""
+    """The fc1 kernels at every shape of FC1_SHAPES (what the flows, the
+    2-rank serves and the bench launched them at), on seeded inputs at
+    Beluga's widths. bf16 (csrc/fc1_strided_tc.cu): held against the plain
+    version (fp32 sum) within FC1_TOL_STEPS bf16 steps of max|y|. fp32
+    (csrc/fc1_strided_tf32x3.cu): held against a float64 product of the same
+    inputs within FC1_FP32_REL of max|y| and against the plain version
+    (SGEMM, TF32 off) within FC1_FP32_PLAIN_REL, which the plain version must
+    meet against float64. In both, the
+    plain version with the first window read one frame late must miss the
+    limit and two calls are equal bit for bit; each is timed beside its
+    bound, the plain version, today's ``unfold`` + 2003-column
+    ``torch.matmul`` (the path the kernel replaced; in fp32 the plain
+    version itself) and the library yardstick, one ``torch.matmul`` of the
+    same windows by the weight zero-padded to 2,048 columns (the port never
+    calls it), timed twice, before and after a second timing of the kernel;
+    ``vs_library`` is the kernel's best time over the yardstick's, and a
+    shape where the kernel is slower than the yardstick by more than the
+    yardstick's two timings differ is logged and listed under
+    ``slower_than_library``. These launches come after every flow's counts
+    were read."""
     import torch
     import torch.nn.functional as F
 
     from expecto_tpu_torch.ops import fc1
 
     t0 = time.perf_counter()
-    if not FC1_SHAPES:
-        raise AssertionError("no bf16 flow launched the fc1 kernel")
+    if {key[0] for key in FC1_SHAPES} != set(FC1_ROUTE):
+        raise AssertionError(f"the flows did not launch both fc1 kernels: {sorted(FC1_SHAPES)}")
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(15)
     weights = {}
     rows = []
-    for (n, f, c, s0, stride, n_win, n_out), launches in sorted(FC1_SHAPES.items()):
+    for (dtype, n, f, c, s0, stride, n_win, n_out), launches in sorted(FC1_SHAPES.items()):
+        dt = getattr(torch, dtype)
         k = fc1.FC1_FRAMES * c
-        if (k, n_out) not in weights:
-            w = (torch.randn((k, n_out), generator=gen, device=dev) / k**0.5).bfloat16()
-            weights[(k, n_out)] = (w, F.pad(w, (0, -(-n_out // 256) * 256 - n_out)))
-        w, w_pad = weights[(k, n_out)]
-        buf = torch.rand((n, f, c), generator=gen, device=dev).bfloat16()
-        shape = f"N={n} F={f} C={c} s0={s0} stride={stride} n_win={n_win} Nout={n_out}"
+        if (dtype, k, n_out) not in weights:
+            w = (torch.randn((k, n_out), generator=gen, device=dev) / k**0.5).to(dt)
+            weights[(dtype, k, n_out)] = (w, F.pad(w, (0, -(-n_out // 256) * 256 - n_out)))
+        w, w_pad = weights[(dtype, k, n_out)]
+        buf = torch.rand((n, f, c), generator=gen, device=dev).to(dt)
+        shape = f"{dtype} N={n} F={f} C={c} s0={s0} stride={stride} n_win={n_win} Nout={n_out}"
         y = fc1.fc1_strided(buf, w, s0, stride, n_win)
         bit_equal = torch.equal(y, fc1.fc1_strided(buf, w, s0, stride, n_win))
         want = fc1.fc1_strided_plain(buf, w, s0, stride, n_win)
-        tol = _fc1_tol(want)
+        a = fc1._windows(buf, s0, stride, n_win)
+        extra = {}
         err = float((y.float() - want.float()).abs().max())
+        ok = True
+        if dtype == "float32":
+            # tol: the limit against the plain version; f64_tol: the
+            # kernel's own against float64
+            exact = (a.double() @ w.double()).float()
+            scale = float(exact.abs().max())
+            tol = FC1_FP32_PLAIN_REL * scale
+            extra = {"err_f64": float((y - exact).abs().max()), "plain_err_f64": float((want - exact).abs().max()),
+                     "f64_tol": FC1_FP32_REL * scale}
+            ok = extra["err_f64"] <= extra["f64_tol"] and extra["plain_err_f64"] <= tol
+            del exact
+        else:
+            tol = _fc1_tol(want)
         late_s0 = s0 + 1 if s0 + 1 + fc1.FC1_FRAMES <= f else s0 - 1  # one frame off, inside the buffer
         late = want.clone()
         late[:, 0] = fc1.fc1_strided_plain(buf, w, late_s0, stride, 1)[:, 0]
         fault_err = float((y.float() - late.float()).abs().max())
-        if not bit_equal or err > tol or fault_err <= tol:
-            raise AssertionError(f"fc1 kernel at {shape}: bit-equal repeat {bit_equal}, max |err| {err} (limit {tol}), "
-                                 f"planted late window {fault_err} (must exceed the limit)")
-        a = fc1._windows(buf, s0, stride, n_win)
+        if not (bit_equal and ok) or err > tol or fault_err <= tol:
+            raise AssertionError(f"fc1 kernel at {shape}: bit-equal repeat {bit_equal}, max |err| {err} (limit {tol}) "
+                                 f"{extra}, planted late window {fault_err} (must exceed the limit)")
         span = (n_win - 1) * stride + fc1.FC1_FRAMES  # the frames the windows cover
-        nbytes = 2 * (n * span * c + k * n_out + n * n_win * n_out)
-        row = {"N": n, "F": f, "C": c, "s0": s0, "stride": stride, "n_win": n_win, "Nout": n_out, "M": n * n_win,
-               "launches": launches, "max_abs_err": err, "tol": tol, "planted_fault_err": fault_err,
-               **_bound(nbytes, 2.0 * n * n_win * k * n_out, "bf16"),
-               "schedule": list(fc1.fc1_schedule(n * n_win, n_out, k, fc1.resident_ctas(dev))),
+        nbytes = buf.element_size() * (n * span * c + k * n_out + n * n_win * n_out)
+        ops = 2.0 * n * n_win * k * n_out
+        route = FC1_ROUTE[dtype]
+        row = {"dtype": dtype, "kernel": fc1.KERNELS[route], "N": n, "F": f, "C": c, "s0": s0, "stride": stride,
+               "n_win": n_win, "Nout": n_out, "M": n * n_win, "launches": launches, "max_abs_err": err, "tol": tol,
+               "planted_fault_err": fault_err, **extra,
+               **(_bound(nbytes, 3 * ops, "tf32") if dtype == "float32" else _bound(nbytes, ops, "bf16")),
+               "schedule": list(fc1.fc1_schedule(n * n_win, n_out, k, fc1.resident_ctas(dev), tiles=fc1.TILES[route])),
                "ms": cuda_ms(lambda: fc1.fc1_strided(buf, w, s0, stride, n_win)),
                "plain_ms": cuda_ms(lambda: fc1.fc1_strided_plain(buf, w, s0, stride, n_win), reps=3, warmup=1),
                "unfold_matmul_ms": cuda_ms(lambda: fc1._windows(buf, s0, stride, n_win) @ w, reps=3, warmup=1)}
+        if dtype == "float32":
+            row["ffma_bound_ms"] = 1e3 * ops / PEAK_FLOPS["fp32"]  # one pass of fp32 operations outside the tensor cores
         # the yardstick timed twice, before and after the kernel's second
         # timing: their difference is the noise that a slower kernel must
         # exceed to count as slower
@@ -4404,12 +4459,18 @@ def fc1_phase(report: dict, card: str) -> None:
         row.update(library_ms=min(lib), library_noise_ms=abs(lib[0] - lib[1]), ms=min(row["ms"], row["ms_again"]))
         row.update(vs_library=row["ms"] / row["library_ms"], share_of_bound=row["bound_ms"] / row["ms"],
                    slower_than_library=row["ms"] > row["library_ms"] + row["library_noise_ms"])
+        ffma = ""
+        if dtype == "float32":
+            row["share_of_ffma_peak"] = row["ffma_bound_ms"] / row["ms"]
+            ffma = f"; {100 * row['share_of_ffma_peak']:.1f} % of the FFMA peak"
         rows.append(row)
+        errs = "".join(f", {key} {v:.3g}" for key, v in extra.items())
         log(f"fc1 kernel {shape} (M={n * n_win}, schedule {row['schedule']}) x{launches}: {row['ms']:.3f} ms (err "
-            f"{err:.3g}, limit {tol:.3g}, late window {fault_err:.3g}; bit-equal) bound {row['bound_ms']:.3f} ms "
-            f"({row['bound_by']}, {100 * row['share_of_bound']:.1f} % of it) plain {row['plain_ms']:.3f} ms "
-            f"unfold+matmul {row['unfold_matmul_ms']:.3f} ms padded matmul {row['library_ms']:.3f} ms (noise "
-            f"{row['library_noise_ms']:.3f}; kernel/yardstick {row['vs_library']:.3f}) [{card}]")
+            f"{err:.3g}{errs}, limit {tol:.3g}, late window {fault_err:.3g}; bit-equal) bound {row['bound_ms']:.3f} "
+            f"ms ({row['bound_by']}, {100 * row['share_of_bound']:.1f} % of it{ffma}) "
+            f"plain {row['plain_ms']:.3f} ms unfold+matmul {row['unfold_matmul_ms']:.3f} ms padded matmul "
+            f"{row['library_ms']:.3f} ms (noise {row['library_noise_ms']:.3f}; kernel/yardstick "
+            f"{row['vs_library']:.3f}) [{card}]")
         if row["slower_than_library"]:
             log(f"fc1 kernel SLOWER than the padded matmul at {shape}: {row['ms']:.3f} ms against "
                 f"{row['library_ms']:.3f} ms (noise {row['library_noise_ms']:.3f} ms) [{card}]")
@@ -4417,52 +4478,68 @@ def fc1_phase(report: dict, card: str) -> None:
     torch.cuda.empty_cache()
     slower = [r for r in rows if r["slower_than_library"]]
     report["fc1"] = {"shapes": rows, "phase_s": time.perf_counter() - t0,
-                     "slower_than_library": [{key: r[key] for key in ("N", "F", "s0", "stride", "n_win", "M", "ms",
-                                                                       "library_ms", "library_noise_ms")}
+                     "slower_than_library": [{key: r[key] for key in ("dtype", "N", "F", "s0", "stride", "n_win", "M",
+                                                                       "ms", "library_ms", "library_noise_ms")}
                                              for r in slower]}
-    log(f"fc1 phase: {len(rows)} shapes, {sum(r['launches'] for r in rows)} launches of the flows and the bench, "
-        f"kernel/yardstick {min(r['vs_library'] for r in rows):.3f}-{max(r['vs_library'] for r in rows):.3f}, "
-        f"{100 * min(r['share_of_bound'] for r in rows):.1f}-{100 * max(r['share_of_bound'] for r in rows):.1f} % "
-        f"of the bound, {len(slower)} shapes slower than the yardstick beyond its noise, "
-        f"{time.perf_counter() - t0:.1f} s")
+    for dtype in FC1_ROUTE:
+        mine = [r for r in rows if r["dtype"] == dtype]
+        log(f"fc1 phase, {dtype}: {len(mine)} shapes, {sum(r['launches'] for r in mine)} launches of the flows and "
+            f"the bench, kernel/yardstick {min(r['vs_library'] for r in mine):.3f}-"
+            f"{max(r['vs_library'] for r in mine):.3f}, {100 * min(r['share_of_bound'] for r in mine):.1f}-"
+            f"{100 * max(r['share_of_bound'] for r in mine):.1f} % of the bound, "
+            f"{sum(r['slower_than_library'] for r in mine)} shapes slower than the yardstick beyond its noise")
+    log(f"fc1 phase {time.perf_counter() - t0:.1f} s")
 
 
-def fc1_entry(report: dict) -> dict:
-    """The kernel line's fc1 entry: every number launch-weighted over the
-    bf16 serve's (the main path's) fc1 shapes, a mean per launch;
+def fc1_entry(report: dict, dtype: str) -> dict:
+    """The kernel line's entry of ``dtype``'s fc1 kernel: every number
+    launch-weighted over the fc1 shapes of that dtype's serve (the bf16
+    serve, the main path; the warm fp32 serve), a mean per launch;
     ``launches`` are that run's, ``launches_*`` the other flows'."""
-    shapes = {tuple(k): n for k, n in report["main_path"]["fc1_launches_by_shape"]}
-    by_shape = {(r["N"], r["F"], r["C"], r["s0"], r["stride"], r["n_win"], r["Nout"]): r for r in report["fc1"]["shapes"]}
+    tag = "bf16" if dtype == "bfloat16" else "fp32"
+    serve = report["main_path"] if dtype == "bfloat16" else report["fp32_serve"]
+    shapes = {tuple(k): n for k, n in serve["fc1_launches_by_shape"]}
+    rows = [r for r in report["fc1"]["shapes"] if r["dtype"] == dtype]
+    by_shape = {(dtype, r["N"], r["F"], r["C"], r["s0"], r["stride"], r["n_win"], r["Nout"]): r for r in rows}
     total = sum(shapes.values())
 
     def mean(key: str) -> float:
         return sum(n * by_shape[s][key] for s, n in shapes.items()) / total
 
-    rows = report["fc1"]["shapes"]
-    pipe = {f: p["launches"]["fc1_strided"] for f, p in report["pipeline"].items() if p["launches"]["fc1_strided"]}
+    pipe = {f: p["launches"]["fc1_strided"] for f, p in report["pipeline"].items()
+            if p["dtype"] == dtype and p["launches"]["fc1_strided"]}
     mixes = report["consensus"]["mixes"].values()
-    return {
-        "name": "fc1_strided_tc", "route": "cuda", "source": "expecto_tpu_torch/csrc/fc1_strided_tc.cu",
-        "replaces": "expecto_tpu/ops/spans.py:421", "launches": report["main_path"]["launches"]["fc1_strided"],
+    route = FC1_ROUTE[dtype]
+    entry = {
+        "name": f"fc1_strided_{route}", "route": "cuda",
+        "source": f"expecto_tpu_torch/csrc/fc1_strided_{route}.cu",
+        "replaces": "expecto_tpu/ops/spans.py:421", "launches": serve["launches"]["fc1_strided"],
+        "launches_run": "bf16 serve (main path)" if dtype == "bfloat16" else "warm fp32 serve",
         "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": "operations" if mean("ops_ms") >= mean("bytes_ms") else "bytes",
-        "library_ms": mean("library_ms"), "dtype": "bf16", "unfold_matmul_ms": mean("unfold_matmul_ms"),
+        "library_ms": mean("library_ms"), "dtype": tag, "unfold_matmul_ms": mean("unfold_matmul_ms"),
         "min_planted_fault_err_over_tol": min(r["planted_fault_err"] / r["tol"] for r in rows),
         "max_err_over_tol": max(r["max_abs_err"] / r["tol"] for r in rows), "shapes_checked": len(rows),
         "max_vs_library": max(r["vs_library"] for r in rows),
         "min_share_of_bound": min(r["share_of_bound"] for r in rows),
-        "shapes_slower_than_library": len(report["fc1"]["slower_than_library"]),
-        "sass_hgmma": report["sass_fc1_hgmma"],
-        "launches_h5_bf16": report["h5_contract"]["bf16"]["launches"]["fc1_strided"],
-        "launches_gene_bf16": report["genes"]["bf16"]["launches"]["fc1_strided"],
-        "launches_consensus_bf16": sum(m["bf16"]["launches"]["fc1_strided"] for m in mixes),
+        "shapes_slower_than_library": sum(r["slower_than_library"] for r in rows),
+        "sass_hgmma": report["sass_fc1_hgmma"][route],
+        f"launches_h5_{tag}": report["h5_contract"][tag]["launches"]["fc1_strided"],
+        f"launches_gene_{tag}": report["genes"][tag]["launches"]["fc1_strided"],
+        f"launches_consensus_{tag}": sum(m[tag]["launches"]["fc1_strided"] for m in mixes),
         "launches_pipeline": pipe,
-        "launches_fp32_flows": sum(c["fc1_strided"] for c in (
-            report["fp32_serve"]["launches"], report["parity"]["launches"], report["h5_contract"]["fp32"]["launches"],
-            report["genes"]["fp32"]["launches"], *(m["fp32"]["launches"] for m in mixes),
-            *(p["launches"] for p in report["pipeline"].values() if p["dtype"] == "float32"))),
-        "launches_2rank_bf16": [r["fc1_strided"] for r in report["multiprocess"]["score_bf16"]["launches_per_rank"]],
     }
+    if dtype == "bfloat16":
+        entry["launches_2rank_bf16"] = [r["fc1_strided"]
+                                        for r in report["multiprocess"]["score_bf16"]["launches_per_rank"]]
+    else:
+        entry.update(
+            launches_fp32_parity=report["parity"]["launches"]["fc1_strided"],
+            max_err_f64=max(r["err_f64"] for r in rows), max_plain_err_f64=max(r["plain_err_f64"] for r in rows),
+            max_err_f64_over_tol=max(r["err_f64"] / r["f64_tol"] for r in rows),
+            ffma_bound_ms=mean("ffma_bound_ms"), min_share_of_ffma_peak=min(r["share_of_ffma_peak"] for r in rows),
+            launches_2rank_fp32=[r["fc1_strided"] for r in report["multiprocess"]["score_fp32"]["launches_per_rank"]])
+    return entry
 
 
 def kernel_table(report: dict) -> dict:
@@ -4529,7 +4606,8 @@ def kernel_table(report: dict) -> dict:
     launches_bench = {"conv8_relu_tc": bench["conv8_relu_by_route"]["tc"],
                       "conv8_relu": bench["conv8_relu_by_route"]["simt"], "conv0_codes": bench["conv0_codes"],
                       "gblinear_cd": bench["gblinear_cd"], "gblinear_round": bench["gblinear_round"],
-                      "fc1_strided_tc": bench["fc1_strided"]}
+                      "fc1_strided_tc": bench["fc1_strided_by_route"].get("tc", 0),
+                      "fc1_strided_tf32x3": bench["fc1_strided_by_route"].get("tf32x3", 0)}
     table = {"kernels": [
         entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
               serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"],
@@ -4569,7 +4647,8 @@ def kernel_table(report: dict) -> dict:
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms"), launches_pipeline=pipe_launches("codes")),
         gblinear_cd_entry(report["train"], report["multiprocess"]["train"]),
         gblinear_round_entry(report["train"]),
-        fc1_entry(report),
+        fc1_entry(report, "bfloat16"),
+        fc1_entry(report, "float32"),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
          "launches_per_chunk": r["launches_per_chunk"],
@@ -4646,10 +4725,12 @@ def main(argv=None) -> int:
         f"FFMA per LDS), {sass['HMMA']} HMMA, {sass['HGMMA']} HGMMA")
     if sass["FFMA"] == 0 or sass["HMMA"] or sass["HGMMA"]:
         raise AssertionError(f"the SIMT kernel's SASS must hold FFMA and no tensor-core instruction: {sass}")
-    report["sass_fc1_hgmma"] = cuda_build.sass_count("fc1_strided_tc", "HGMMA")
-    log(f"csrc/fc1_strided_tc.cu SASS: {report['sass_fc1_hgmma']} HGMMA instructions")
-    if report["sass_fc1_hgmma"] == 0:
-        raise AssertionError("the fc1 kernel's SASS holds no HGMMA (tensor-core) instruction")
+    report["sass_fc1_hgmma"] = {route: cuda_build.sass_count(f"fc1_strided_{route}", "HGMMA")
+                                for route in FC1_ROUTE.values()}
+    log(f"csrc/fc1_strided_*.cu SASS: HGMMA instructions {report['sass_fc1_hgmma']}")
+    if not all(report["sass_fc1_hgmma"].values()):
+        raise AssertionError(f"an fc1 kernel's SASS holds no HGMMA (tensor-core) instruction: "
+                             f"{report['sass_fc1_hgmma']}")
     log(f"build phase {report['build_s']:.1f} s")
 
     t0 = time.perf_counter()

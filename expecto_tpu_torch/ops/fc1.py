@@ -10,18 +10,21 @@ strided valid convolution ``lax.conv_general_dilated`` of
 the JAX package. :func:`fc1_strided` picks an implementation by
 :func:`_route`, a pure function of device and dtype:
 
-- ``"tc"``: ``csrc/fc1_strided_tc.cu``, bf16 on the tensor cores (wgmma),
-  the production dtype of every CLI: the windows are read straight from the
-  buffer, never copied, W is packed once per weight tensor and frame walk
-  (:func:`pack_weights_fc1`), and a persistent grid walks the fixed
-  schedule of :func:`fc1_schedule`;
-- ``"cublas"``: fp32 on the card (parity mode, TF32 off): the windows
-  ``unfold``-ed and one ``torch.matmul``, as the JAX package leaves the
-  product to XLA;
+- ``"tc"``: ``csrc/fc1_strided_tc.cu``, CUDA bf16 on the tensor cores
+  (wgmma), the production dtype of every CLI;
+- ``"tf32x3"``: ``csrc/fc1_strided_tf32x3.cu``, CUDA fp32 (parity mode) on
+  the TF32 tensor cores in three passes: each operand split into a TF32
+  hi and lo (:func:`split_tf32`), lo*hi + hi*lo + hi*hi summed in fp32,
+  held to fp32's limits, as the JAX package runs the product at
+  ``Precision.HIGHEST``;
 - ``"cpu"``: :func:`fc1_strided_plain`, only for tensors on the CPU.
 
-A CUDA bf16 tensor launches the kernel or raises: nothing falls back to the
-matmul on a failure.
+Both kernels read the windows straight from the buffer, never copied, take
+W packed once per weight tensor and frame walk (:func:`pack_weights_fc1`,
+:func:`pack_weights_tf32x3`), and walk the fixed persistent schedule of
+:func:`fc1_schedule` at their own tile constants (:data:`TILES`). A CUDA
+tensor launches its route's kernel or raises (any other CUDA dtype raises):
+nothing falls back to a matmul.
 """
 
 from __future__ import annotations
@@ -36,12 +39,24 @@ import torch.nn.functional as F
 from . import cuda_build
 
 FC1_FRAMES = 106
-ROUTES = ("tc", "cublas")
-_TM = 128  # the most rows (windows) a tile of the kernel holds
-_BN = 256  # columns per tile; W's columns are zero-padded to a multiple of it
-_KC = 64  # K per stage; W's rows are zero-padded to a multiple of it
-_MIN_CHUNKS = 32  # the fewest K chunks a group of the schedule walks
-_MAX_ROWS = 2**31 - 1  # N * n_win: the kernel indexes rows with an int
+ROUTES = ("tc", "tf32x3")
+_TM = 128  # the most rows (windows) a tile of either kernel holds
+_MAX_ROWS = 2**31 - 1  # N * n_win: the kernels index rows with an int
+
+
+class Tiles(NamedTuple):
+    """A kernel's tile constants, which its packing and schedule follow."""
+
+    bn: int  # columns per tile; W's columns are zero-padded to a multiple of it
+    kc: int  # K per stage (one 128-byte row); W's rows are zero-padded to a multiple of it
+    min_chunks: int  # the fewest K chunks a group of the schedule walks
+
+
+#: each route's kernel instance: bf16 128 x 256 tiles 64 deep; fp32 128 x
+#: 128 tiles 32 deep (a group walks at least 2,048 K in both)
+TILES = {"tc": Tiles(256, 64, 32), "tf32x3": Tiles(128, 32, 64)}
+KERNELS = {"tc": "fc1_strided_tc", "tf32x3": "fc1_strided_tf32x3"}
+_KC, _MIN_CHUNKS = TILES["tc"].kc, TILES["tc"].min_chunks  # the bf16 kernel's
 
 
 def _windows(buf: torch.Tensor, s0: int, stride: int, n_win: int) -> torch.Tensor:
@@ -70,59 +85,99 @@ def frame_order(frames: int, period: int) -> list[int]:
     return [f for r in range(period) for f in range(r, frames, period)]
 
 
-def walk_period(c: int, stride: int) -> int:
-    """The period of the kernel's frame walk for C channels and this
-    stride: the stride where a 64-deep K chunk lies inside one frame (C %
-    64 == 0) and windows overlap, else 1 (K in order)."""
-    return stride if c % _KC == 0 and 1 < stride < FC1_FRAMES else 1
+def walk_period(c: int, stride: int, kc: int = _KC) -> int:
+    """The period of a kernel's frame walk for C channels and this stride:
+    the stride where a ``kc``-deep K chunk lies inside one frame (C % kc ==
+    0) and windows overlap, else 1 (K in order)."""
+    return stride if c % kc == 0 and 1 < stride < FC1_FRAMES else 1
 
 
-def pack_weights_fc1(w: torch.Tensor, period: int = 1) -> torch.Tensor:
-    """W (K, Nout) in the kernel's layout: (Nout/256, K/64, 256, 8, 8), one
-    contiguous shared-memory stage per (column tile, K chunk), K chunks in
-    the walk order of :func:`frame_order` at ``period`` (1: in order), each
-    output column a 128-byte K-major row of 8 16-byte pieces, piece g stored
-    in slot g ^ (column % 8) (the 128-byte swizzle of the wgmma
-    descriptors). Nout is zero-padded to a multiple of 256 (2,003 -> 2,048)
-    and K to one of 64 (Beluga's 67,840 is already)."""
+def _layout(w: torch.Tensor, period: int, tiles: Tiles) -> torch.Tensor:
+    """W (K, Nout) as (Nout/bn, K/kc, bn, 8, kc/8), a view of a copy: K
+    chunks in the walk order of :func:`frame_order` at ``period`` (1: in
+    order), each output column of a (column tile, K chunk) a 128-byte K-major
+    row of 8 16-byte pieces, piece g stored in slot g ^ (column % 8) (the
+    128-byte swizzle of the wgmma descriptors), zero-padded to whole tiles
+    and chunks."""
     k, n_out = w.shape
-    tiles, chunks = -(-n_out // _BN), -(-k // _KC)
+    bn, kc = tiles.bn, tiles.kc
+    nt, chunks = -(-n_out // bn), -(-k // kc)
     if period > 1:
         c = k // FC1_FRAMES
-        if k != FC1_FRAMES * c or c % _KC:
-            raise ValueError(f"a frame walk of period {period} needs K = {FC1_FRAMES} * C with C % {_KC} == 0, "
+        if k != FC1_FRAMES * c or c % kc:
+            raise ValueError(f"a frame walk of period {period} needs K = {FC1_FRAMES} * C with C % {kc} == 0, "
                              f"got K = {k}")
         order = torch.tensor(frame_order(FC1_FRAMES, period), device=w.device)
         w = w.reshape(FC1_FRAMES, c, n_out).index_select(0, order).reshape(k, n_out)
-    wp = F.pad(w, (0, tiles * _BN - n_out, 0, chunks * _KC - k))
-    wp = wp.reshape(chunks, 8, 8, tiles, _BN // 8, 8)  # chunk, piece, e, tile, column / 8, column % 8
+    wp = F.pad(w, (0, nt * bn - n_out, 0, chunks * kc - k))
+    wp = wp.reshape(chunks, 8, kc // 8, nt, bn // 8, 8)  # chunk, piece, e, tile, column / 8, column % 8
     wp = wp.permute(3, 0, 4, 5, 1, 2)  # tile, chunk, column / 8, column % 8, piece, e
     lo = torch.arange(8, device=w.device)
     wp = wp[:, :, :, lo[:, None], lo[None, :] ^ lo[:, None]]  # slot s of column % 8 = lo holds piece s ^ lo
-    return wp.reshape(tiles, chunks, _BN, 8, 8).contiguous()
+    return wp.reshape(nt, chunks, bn, 8, kc // 8)
 
 
-_PACKED: dict[tuple[int, int], tuple] = {}  # (id(W), period) -> (weakref to W, W._version, packed W)
+def pack_weights_fc1(w: torch.Tensor, period: int = 1) -> torch.Tensor:
+    """W (K, Nout) bf16 in the tc kernel's layout: (Nout/256, K/64, 256, 8,
+    8), one contiguous shared-memory stage per (column tile, K chunk) (see
+    :func:`_layout`). Nout is zero-padded to a multiple of 256 (2,003 ->
+    2,048) and K to one of 64 (Beluga's 67,840 is already)."""
+    return _layout(w, period, TILES["tc"]).contiguous()
 
 
-def _packed(w: torch.Tensor, period: int = 1) -> torch.Tensor:
-    """W packed for the kernel at ``period``, kept while w lives and is not
-    written to: a runner's fc1 weight is packed once, not at every launch."""
-    key = (id(w), period)
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 ``x``: hi = x rounded to TF32 and lo = (x - hi)
+    rounded to TF32, both to nearest with ties away from zero (the kernel's
+    ``cvt.rna.tf32.f32``), as fp32 tensors whose low 13 mantissa bits are
+    zero; hi + lo is x within 2^-22 |x|. Integer ops on the bits: adding
+    half a TF32 step (2^12) to the magnitude carries into the kept bits
+    exactly when rounding goes up."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def pack_weights_tf32x3(w: torch.Tensor, period: int = 1) -> torch.Tensor:
+    """W (K, Nout) fp32 split (:func:`split_tf32`) into the tf32x3 kernel's
+    layout: (Nout/128, K/32, 2, 128, 8, 4), one contiguous shared-memory
+    stage per (column tile, K chunk) holding hi, then lo, each in the layout
+    of :func:`_layout`. Nout is zero-padded to a multiple of 128 (2,003 ->
+    2,048) and K to one of 32. At Beluga's widths, 1.11 GB."""
+    hi, lo = split_tf32(w)
+    tiles = TILES["tf32x3"]
+    return torch.stack((_layout(hi, period, tiles), _layout(lo, period, tiles)), dim=2).contiguous()
+
+
+_PACKED: dict[tuple[int, int, str], tuple] = {}  # (id(W), period, route) -> (weakref to W, W._version, packed W)
+
+
+def _packed(w: torch.Tensor, period: int = 1, route: str = "tc") -> torch.Tensor:
+    """W packed for ``route``'s kernel at ``period``, kept while w lives and
+    is not written to: a runner's fc1 weight is packed once, not at every
+    launch."""
+    key = (id(w), period, route)
     hit = _PACKED.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, pack_weights_fc1(w, period))
-    return _PACKED[key][2]
+    wp = pack_weights_fc1(w, period) if route == "tc" else pack_weights_tf32x3(w, period)
+    _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, wp)
+    return wp
 
 
 def _route(device_type: str, dtype: torch.dtype) -> str:
     """Which implementation runs a buffer of this device type and dtype:
-    "cpu", "tc" (CUDA bf16) or "cublas" (CUDA, any other dtype; module
-    docstring)."""
+    "cpu", "tc" (CUDA bf16) or "tf32x3" (CUDA fp32; module docstring). No
+    flow computes in another dtype on the card: such a buffer raises."""
     if device_type == "cpu":
         return "cpu"
-    return "tc" if dtype == torch.bfloat16 else "cublas"
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return "tf32x3"
+    raise TypeError(f"fc1's kernels take bfloat16 or float32 on {device_type}, got {dtype}")
 
 
 class Schedule(NamedTuple):
@@ -134,18 +189,19 @@ class Schedule(NamedTuple):
     groups: int  # equal ranges of (column block, K chunk) positions
 
 
-def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, groups: int | None = None, cols: int | None = None,
-                 tile_rows: int | None = None) -> Schedule:
-    """The kernel's persistent schedule for M = ``m`` rows on a card that
-    holds ``ctas`` CTAs of it at once (one an SM): ``groups`` x ``rows`` x
-    ``cols`` CTAs. The rows are cut into balanced row tiles of ``tile_rows``
-    (at most 128); the (column block, K chunk) positions, P = (Nout/256 /
-    cols) x K/64, are cut into ``groups`` equal ranges, and each CTA of a
+def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, tiles: Tiles = TILES["tc"], groups: int | None = None,
+                 cols: int | None = None, tile_rows: int | None = None) -> Schedule:
+    """A kernel's persistent schedule for M = ``m`` rows on a card that
+    holds ``ctas`` CTAs of it at once (one an SM), at the kernel's
+    ``tiles``: ``groups`` x ``rows`` x ``cols`` CTAs. The rows are cut into
+    balanced row tiles of ``tile_rows`` (at most 128); the (column block, K
+    chunk) positions, P = (Nout/bn / cols) x K/kc, are cut into ``groups``
+    equal ranges, and each CTA of a
     group takes one row tile and one column tile of each block of ``cols``
     over its group's range, in step with the others (see
     :func:`schedule_units`). Picks the ``cols`` (a divisor of the column
     tiles) and ``groups`` that keep the most CTAs busy, with at least
-    :data:`_MIN_CHUNKS` K chunks a group; on a tie the larger ``cols`` (the
+    ``tiles.min_chunks`` K chunks a group; on a tie the larger ``cols`` (the
     windows read by fewer CTAs). ``groups``, ``cols`` or ``tile_rows`` given
     are kept (the probe's knobs). A pure function of the shape and the
     card's CTAs, so a shape gives the same bits every call."""
@@ -153,9 +209,8 @@ def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, groups: int | None = 
         tile_rows = -(-m // -(-m // _TM))
     elif not 0 < tile_rows <= _TM:
         raise ValueError(f"tile_rows = {tile_rows}: a tile holds 1 to {_TM} rows")
-    tiles = -(-m // tile_rows)
-    tiles_n, kt = -(-n_out // _BN), -(-k // _KC)
-    rows = min(tiles, ctas)
+    tiles_n, kt = -(-n_out // tiles.bn), -(-k // tiles.kc)
+    rows = min(-(-m // tile_rows), ctas)
     if cols is not None and (cols <= 0 or tiles_n % cols):
         raise ValueError(f"cols = {cols} does not divide {tiles_n} column tiles")
     best = None
@@ -163,7 +218,7 @@ def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, groups: int | None = 
         if cols is None and c > 1 and rows * c > ctas:
             continue
         positions = tiles_n // c * kt
-        q = groups if groups is not None else min(max(1, ctas // (rows * c)), max(1, positions // _MIN_CHUNKS))
+        q = groups if groups is not None else min(max(1, ctas // (rows * c)), max(1, positions // tiles.min_chunks))
         q = max(1, min(q, positions))
         key = (min(q * rows * c, ctas), c)
         if best is None or key > best[0]:
@@ -171,7 +226,7 @@ def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, groups: int | None = 
     return best[1]
 
 
-def schedule_units(m: int, n_out: int, k: int, sched: Schedule) -> list[tuple]:
+def schedule_units(m: int, n_out: int, k: int, sched: Schedule, tiles: Tiles = TILES["tc"]) -> list[tuple]:
     """The kernel's work list, as its CTAs walk it: (CTA, row tile, column
     tile, first K chunk, end K chunk, slot), slot None where the CTA stores
     the whole tile and 2q or 2q + 1 (group q's first or last column block)
@@ -180,7 +235,7 @@ def schedule_units(m: int, n_out: int, k: int, sched: Schedule) -> list[tuple]:
     - 1 below M."""
     tile_rows, rows, cols, groups = sched
     tiles_m = -(-m // tile_rows)
-    tiles_n, kt = -(-n_out // _BN), -(-k // _KC)
+    tiles_n, kt = -(-n_out // tiles.bn), -(-k // tiles.kc)
     positions = tiles_n // cols * kt
     units = []
     for cta in range(groups * rows * cols):
@@ -206,26 +261,29 @@ def resident_ctas(device: torch.device) -> int:
 
 
 def _check(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win: int) -> None:
-    """Raises on an input the kernel does not take: dtype, shape, window
-    range, layout, alignment, then device."""
-    if buf.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"the fc1 kernel takes bfloat16 buf and W, got {buf.dtype}, {w.dtype}")
+    """Raises on an input the kernels do not take: dtype (bf16 or fp32, buf
+    and W alike), shape, window range, layout, alignment (16-byte rows:
+    C % 8 == 0 in bf16, C % 4 == 0 in fp32), then device."""
+    if buf.dtype not in (torch.bfloat16, torch.float32) or w.dtype != buf.dtype:
+        raise TypeError(f"the fc1 kernels take bfloat16 or float32 buf and W of one dtype, got {buf.dtype}, "
+                        f"{w.dtype}")
     if buf.dim() != 3 or w.dim() != 2:
         raise ValueError(f"the fc1 kernel takes buf (N, F, C) and W (106*C, Nout), got {tuple(buf.shape)}, "
                          f"{tuple(w.shape)}")
     n, f, c = buf.shape
     if w.shape[0] != FC1_FRAMES * c or w.shape[1] <= 0:
         raise ValueError(f"W {tuple(w.shape)} does not match {FC1_FRAMES} frames of {c} channels")
-    if c % 8:
-        raise ValueError(f"the fc1 kernel takes C % 8 == 0 (16-byte rows), got C = {c}")
+    per = 16 // buf.element_size()  # elements in 16 bytes
+    if c % per:
+        raise ValueError(f"the {buf.dtype} fc1 kernel takes C % {per} == 0 (16-byte rows), got C = {c}")
     if n <= 0 or n_win <= 0 or stride <= 0 or s0 < 0 or s0 + (n_win - 1) * stride + FC1_FRAMES > f:
         raise ValueError(f"{n_win} windows of {FC1_FRAMES} frames {stride} apart from frame {s0} do not fit "
                          f"{n} samples of {f} frames")
     if n * n_win > _MAX_ROWS:
         raise ValueError(f"the fc1 kernel takes N * n_win <= {_MAX_ROWS}, got {n * n_win}")
-    if buf.stride(2) != 1 or buf.stride(1) != c or buf.stride(0) % 8 or not w.is_contiguous():
+    if buf.stride(2) != 1 or buf.stride(1) != c or buf.stride(0) % per or not w.is_contiguous():
         raise ValueError(f"the fc1 kernel takes buf with contiguous rows of C channels and samples a multiple of "
-                         f"8 elements apart, and contiguous W; got strides {buf.stride()}")
+                         f"{per} elements apart, and contiguous W; got strides {buf.stride()}")
     if buf.data_ptr() % 16:
         raise ValueError(f"the fc1 kernel takes a 16-byte-aligned buf, got data pointer {buf.data_ptr():#x}")
     if buf.device.type != "cuda" or w.device != buf.device:
@@ -236,41 +294,44 @@ def fc1_strided(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win:
     """fc1's pre-activations of ``n_win`` windows of 106 frames ``stride``
     frames apart from frame ``s0`` of each sample of ``buf`` (N, F, C):
     (N, n_win, Nout) in buf's dtype. CPU tensors take the plain version;
-    CUDA bf16 the kernel (raising on anything it does not take, and if a
-    launch fails); CUDA fp32 the cuBLAS product."""
+    CUDA bf16 the tc kernel, CUDA fp32 the tf32x3 kernel (each raising on
+    anything it does not take, and if a launch fails)."""
     s0, stride, n_win = int(s0), int(stride), int(n_win)
     route = _route(buf.device.type, buf.dtype)
     if route == "cpu":
         return fc1_strided_plain(buf, w, s0, stride, n_win)
-    if route == "cublas":
-        return _windows(buf, s0, stride, n_win) @ w
     _check(buf, w, s0, stride, n_win)
+    tiles = TILES[route]
     n, _f, c = buf.shape
     n_out = w.shape[1]
     m, k = n * n_win, FC1_FRAMES * c
-    period = walk_period(c, stride)
+    period = walk_period(c, stride, tiles.kc)
     y = torch.empty((n, n_win, n_out), device=buf.device, dtype=buf.dtype)
     with torch.cuda.device(buf.device):
-        sched = fc1_schedule(m, n_out, k, resident_ctas(buf.device))
-        ws = (torch.empty((2 * sched.groups, sched.cols, m, _BN), device=buf.device, dtype=torch.float32)
+        sched = fc1_schedule(m, n_out, k, resident_ctas(buf.device), tiles=tiles)
+        ws = (torch.empty((2 * sched.groups, sched.cols, m, tiles.bn), device=buf.device, dtype=torch.float32)
               if sched.groups > 1 else None)
         stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = cuda_build.launcher("fc1_strided_tc", 13)(
-            buf.data_ptr(), _packed(w, period).data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(), n,
-            buf.stride(0), c, s0, stride, n_win, FC1_FRAMES, n_out, period, *sched, stream)
+        err = cuda_build.launcher(KERNELS[route], 13)(
+            buf.data_ptr(), _packed(w, period, route).data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            n, buf.stride(0), c, s0, stride, n_win, FC1_FRAMES, n_out, period, *sched, stream)
     if err != 0:
-        raise RuntimeError(f"fc1_strided kernel launch failed: error {err}")
+        raise RuntimeError(f"fc1_strided {route} kernel launch failed: error {err}")
     fc1_strided.launches += 1
-    fc1_strided.launches_by_shape[(n, buf.shape[1], c, s0, stride, n_win, n_out)] += 1
+    fc1_strided.launches_by_route[route] += 1
+    fc1_strided.launches_by_shape[(str(buf.dtype).removeprefix("torch."), n, buf.shape[1], c, s0, stride, n_win,
+                                   n_out)] += 1
     return y
 
 
 def reset_launch_counts() -> None:
     """Zero every launch count of :func:`fc1_strided`."""
     fc1_strided.launches = 0
+    fc1_strided.launches_by_route = Counter()
     fc1_strided.launches_by_shape = Counter()
 
 
-#: kernel launches since the last reset (CPU and cuBLAS calls do not count):
-#: all of them and by (N, F, C, s0, stride, n_win, Nout)
+#: kernel launches since the last reset (CPU calls do not count): all of
+#: them, by route ("tc", "tf32x3") and by (dtype, N, F, C, s0, stride,
+#: n_win, Nout), dtype "bfloat16" or "float32"
 reset_launch_counts()

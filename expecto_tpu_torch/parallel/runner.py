@@ -197,7 +197,8 @@ class BelugaRunner:
         self.out_dtype = np.dtype(out_dtype)
         self.pipeline_depth = max(int(pipeline_depth), 1)
         if compute_dtype == torch.float32:
-            # parity mode: full fp32 products everywhere, never TF32
+            # parity mode: TF32 off in every torch call; the fc1 kernel's
+            # three-pass TF32 split (ops/fc1.py) is held to fp32's limits
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             torch.set_float32_matmul_precision("highest")

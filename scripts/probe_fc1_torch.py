@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""fc1's strided product on one NVIDIA GPU: the tensor-core kernel against
-its plain version and cuBLAS, and the kernel's schedule knobs.
+"""fc1's strided product on one NVIDIA GPU: the tensor-core kernels against
+their plain version and cuBLAS, and the bf16 kernel's schedule knobs.
 
     python3 scripts/probe_fc1_torch.py [--reps N] [--groups 0,2,5] [--cols 0,1,2] [--map-tiles]
+                                       [--shapes NAME,...] [--out DIR]
+    python3 scripts/probe_fc1_torch.py --dtype float32 [--reps N]
                                        [--shapes NAME,...] [--out DIR]
 
 At each fc1 shape of the bf16 flows (a serving chunk, an h5 pair chunk, a
@@ -36,6 +38,19 @@ probe encodes that map with the driver's ``cuTensorMapEncodeTiled``
 (128-byte swizzle) and reports its CUresult (0: accepted), and times the
 kernel at row tiles of bw * bn rows: the cost of such tiles, beside
 whatever the copy engine would save.
+
+``--dtype float32``: the parity-mode kernel of ``csrc/fc1_strided_tf32x3.cu``
+(three TF32 passes) at the same 11 shapes, fp32 inputs. Each shape: the
+kernel (``fc1_strided``), the plain version and a float64 product of the
+same inputs; the kernel within FP32_REL of max|y| of float64 and within
+FP32_PLAIN_REL of the plain version, the plain version within
+FP32_PLAIN_REL of float64, the first window read one frame late outside
+both, two calls bit-equal; then, in turns, best of ``--reps``: the
+kernel, the plain version (``unfold`` + the 2,003-column SGEMM, TF32 off,
+which is also the path the kernel replaced) and the yardstick, one SGEMM
+of the same windows by W zero-padded to 2,048 columns (TF32 off). The
+bound: 3 x 2MKN operations at the TF32 rate (495 TFLOP/s) against the
+bytes at 3.35 TB/s, with the share of the 67 TFLOP/s FFMA peak beside it.
 """
 
 from __future__ import annotations
@@ -49,6 +64,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PEAK_OPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, dense bf16 and HBM3
+PEAK_TF32, PEAK_FFMA = 495e12, 67e12  # H100 SXM, dense TF32 tensor cores and fp32 outside them
+# the fp32 limits of chip_smoke.py, of max|y|: the kernel against float64;
+# the plain SGEMM against float64 and the kernel against the plain version
+FP32_REL, FP32_PLAIN_REL = 1e-5, 4e-5
 C, N_OUT = 640, 2003
 # name: (N, F, s0, stride, n_win); the phase buffers of 3,600-bp serving and
 # h5 spans have 206 frames, those of 41,800/41,808-bp gene and consensus
@@ -113,6 +132,98 @@ def encode_window_map(buf, s0: int, stride: int, n_win: int) -> int:
                   swizzle_128b, l2_128b, oob_zero)
 
 
+def best_times(fns: dict, reps: int) -> dict:
+    """Each callable's best time of ``reps`` rounds, in turns, of 3 calls
+    timed with CUDA events (ms a call), after one warm-up call each."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    times = {key: float("inf") for key in fns}
+    for _ in range(reps):
+        for key, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                fn()
+            end.record()
+            end.synchronize()
+            times[key] = min(times[key], start.elapsed_time(end) / 3)
+    return times
+
+
+def bound_fp32_ms(n: int, s0: int, stride: int, n_win: int) -> tuple[float, str, float]:
+    """The least time for the fp32 product: its inputs (the frames the
+    windows cover, W) read once and the output written once, in fp32, or
+    the three TF32 passes' operations at the TF32 peak; and the one pass of
+    fp32 operations at the FFMA peak."""
+    frames = (n_win - 1) * stride + 106
+    nbytes = 4 * (n * frames * C + 106 * C * N_OUT + n * n_win * N_OUT)
+    ops = 2.0 * n * n_win * 106 * C * N_OUT
+    b, o = 1e3 * nbytes / PEAK_BYTES, 1e3 * 3 * ops / PEAK_TF32
+    return max(b, o), ("bytes" if b > o else "operations"), 1e3 * ops / PEAK_FFMA
+
+
+def probe_fp32(args, card: str) -> list[dict]:
+    """The ``--dtype float32`` probe (module docstring): one row a shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from expecto_tpu_torch.ops import fc1
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = 106 * C
+    w = torch.randn((k, N_OUT), generator=gen, device=dev) / k**0.5
+    w_pad = F.pad(w, (0, 2048 - N_OUT))
+    w64 = w.double()
+    rows = []
+    for name in args.shapes.split(","):
+        n, f, s0, stride, n_win = SHAPES[name]
+        buf = torch.rand((n, f, C), generator=gen, device=dev)
+        m = n * n_win
+        y = fc1.fc1_strided(buf, w, s0, stride, n_win)
+        want = fc1.fc1_strided_plain(buf, w, s0, stride, n_win)
+        a = fc1._windows(buf, s0, stride, n_win)
+        exact = (a.double() @ w64).float()
+        torch.cuda.synchronize()
+        limit = FP32_REL * float(exact.abs().max())
+        late = want.clone()
+        late[:, 0] = fc1.fc1_strided_plain(buf, w, s0 + 1, stride, 1)[:, 0]
+
+        def errs(got):
+            return float((got - want).abs().max()), float((got - exact).abs().max())
+
+        err_plain, err_f64 = errs(y)
+        plain_f64 = float((want - exact).abs().max())
+        late_err = float((y - late).abs().max())
+        bit_equal = torch.equal(y, fc1.fc1_strided(buf, w, s0, stride, n_win))
+        plain_limit = FP32_PLAIN_REL / FP32_REL * limit
+        if err_f64 > limit or max(err_plain, plain_f64) > plain_limit or late_err <= plain_limit or not bit_equal:
+            raise AssertionError(f"{name}: kernel vs plain {err_plain}, vs float64 {err_f64}, plain vs float64 "
+                                 f"{plain_f64}, late window {late_err} (limit {limit}), bit-equal {bit_equal}")
+        fns = {"kernel": lambda: fc1.fc1_strided(buf, w, s0, stride, n_win),
+               "plain": lambda: fc1.fc1_strided_plain(buf, w, s0, stride, n_win),
+               "library_matmul_2048": lambda: a @ w_pad}
+        times = best_times(fns, args.reps)
+        bound, by, ffma_ms = bound_fp32_ms(n, s0, stride, n_win)
+        lib = times["library_matmul_2048"]
+        row = {"shape": name, "dtype": "float32", "N": n, "F": f, "s0": s0, "stride": stride, "n_win": n_win, "M": m,
+               "schedule": list(fc1.fc1_schedule(m, N_OUT, k, fc1.resident_ctas(dev), tiles=fc1.TILES["tf32x3"])),
+               "err_plain": err_plain, "err_f64": err_f64, "plain_err_f64": plain_f64, "late_err": late_err,
+               "limit": limit, "plain_limit": plain_limit, "bound_ms": bound, "bound_by": by, "ffma_bound_ms": ffma_ms,
+               "tflops_kernel": 2.0 * m * k * N_OUT / times["kernel"] / 1e9,
+               **{f"{key}_ms": v for key, v in times.items()},
+               "vs_library": {key: times[key] / lib for key in times},
+               "share_of_bound": bound / times["kernel"], "share_of_ffma_peak": ffma_ms / times["kernel"],
+               "card": card}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del buf, a, y, want, exact, late
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
@@ -120,6 +231,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cols", default="0", help="column tiles a group's block (0: the schedule's own)")
     ap.add_argument("--map-tiles", action="store_true", help="also the row tiles of a TMA map (docstring)")
     ap.add_argument("--shapes", default=",".join(SHAPES), help="names of SHAPES to run")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -134,6 +246,13 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
+    if args.dtype == "float32":
+        rows = probe_fp32(args, card)
+        if args.out:
+            Path(args.out).mkdir(parents=True, exist_ok=True)
+            (Path(args.out) / "probe_fc1_fp32.json").write_text(json.dumps(rows, indent=1))
+        print(card, flush=True)
+        return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     k = 106 * C
@@ -193,18 +312,7 @@ def main(argv=None) -> int:
             check(forced(sched), key)
             fns[key] = lambda s=sched: forced(s)
             schedules[key] = list(sched)
-        for fn in fns.values():
-            fn()
-        times = {key: float("inf") for key in fns}
-        for _ in range(args.reps):
-            for key, fn in fns.items():
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(3):
-                    fn()
-                end.record()
-                end.synchronize()
-                times[key] = min(times[key], start.elapsed_time(end) / 3)
+        times = best_times(fns, args.reps)
         bound, by = bound_ms(n, f, s0, stride, n_win)
         lib = times["library_matmul_2048"]
         row = {"shape": name, "N": n, "F": f, "s0": s0, "stride": stride, "n_win": n_win, "M": m,

@@ -1,10 +1,13 @@
 """fc1's strided product of the port (ops/fc1.py) against the JAX package's
 ``fc1_pre_from_phases`` (its ``lax.conv_general_dilated`` at precision
 HIGHEST), fp32 on the CPU, where the port's wrapper takes the plain
-PyTorch version; the packer's layout, the route rule, the split plan and
-the wrapper's checks. The CUDA kernel (csrc/fc1_strided_tc.cu) runs only on
-the card: the ``gpu`` cases below hold it against the plain version there
-and skip without a card. They import no JAX, so on a machine without it:
+PyTorch version; the packers' layouts, the TF32 split (emulated at
+Beluga's full depth against float64), the route rule, the split plan and
+the wrapper's checks. The CUDA kernels (csrc/fc1_strided_tc.cu, bf16, and
+csrc/fc1_strided_tf32x3.cu, fp32) run only on the card: the ``gpu`` cases
+below hold them against the plain version (and the fp32 one against a
+float64 product) there and skip without a card. They import no JAX, so on
+a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_fc1.py
 """
@@ -19,6 +22,7 @@ from expecto_tpu_torch.ops import fc1, spans
 from expecto_tpu_torch.ops.fc1 import (
     FC1_FRAMES,
     _check,
+    TILES,
     _packed,
     _route,
     _windows,
@@ -27,7 +31,9 @@ from expecto_tpu_torch.ops.fc1 import (
     fc1_strided_plain,
     frame_order,
     pack_weights_fc1,
+    pack_weights_tf32x3,
     schedule_units,
+    split_tf32,
     walk_period,
 )
 from torch_port_common import single_torch_thread  # noqa: F401 (autouse fixture)
@@ -225,12 +231,140 @@ def test_packed_is_cached_per_weight_tensor_and_version():
     assert torch.equal(_unpack(_packed(w, 25), 25, w.shape[0])[:, :19], w)
 
 
+def test_split_tf32_rounds_both_parts_to_nearest():
+    """hi and lo are TF32 values (low 13 mantissa bits zero), hi is x
+    rounded to nearest with ties away from zero (cvt.rna.tf32.f32), and hi +
+    lo holds x within 2^-22 |x|; zeros split into zeros."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(np.concatenate([rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 6, 4096),
+                                         rng.random(1024), [0.0, -0.0, 1.0, -2.5]]).astype(np.float32))
+    hi, lo = split_tf32(x)
+    assert hi.dtype == lo.dtype == torch.float32
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0**-22 * x.double().abs()).all())
+    # hi is the nearest TF32 value: within half a TF32 step (2^-11 of the binade)
+    assert bool(((x - hi).abs() <= 2.0**-11 * x.abs()).all())
+    # a tie (exactly half a step above 1) goes away from zero, as cvt.rna does
+    tie = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11)], dtype=torch.float32)
+    assert split_tf32(tie)[0].tolist() == [1.0 + 2.0**-10, -(1.0 + 2.0**-10)]
+    assert not split_tf32(torch.zeros(3))[1].any()
+
+
+def _unpack_tf32x3(wp, period=1, k=None):
+    """The inverse of pack_weights_tf32x3: (hi, lo), each (K padded to 32,
+    Nout padded to 128), the swizzle and the frame walk undone."""
+    tiles, chunks, _two, bn = wp.shape[:4]
+    lo8 = torch.arange(8)
+    parts = []
+    for part in range(2):
+        x = wp[:, :, part].reshape(tiles, chunks, bn // 8, 8, 8, 4)[:, :, :, lo8[:, None], lo8[None, :] ^ lo8[:, None]]
+        full = x.permute(1, 4, 5, 0, 2, 3).reshape(chunks * 32, tiles * bn)
+        if period > 1:
+            inv = torch.empty(FC1_FRAMES, dtype=torch.long)
+            inv[torch.tensor(frame_order(FC1_FRAMES, period))] = torch.arange(FC1_FRAMES)
+            full = full.reshape(FC1_FRAMES, k // FC1_FRAMES, -1)[inv].reshape(k, -1)
+        parts.append(full)
+    return parts
+
+
+# the fp32 kernel's K chunk is 32 deep: at C = 32 and 640 the frame walk of
+# the stride reorders the chunks; at C = 4 and 12 the last stage is part
+# padding; Nout off the 128-column tile
+@pytest.mark.parametrize("c,n_out,period", [(32, 19, 25), (4, 1, 1), (12, 130, 1), (64, 256, 7), (32, 2003, 1)])
+def test_tf32x3_packer_splits_round_trips_and_pads_with_zeros(c, n_out, period):
+    k = FC1_FRAMES * c
+    w = torch.from_numpy(np.random.default_rng(c + n_out).standard_normal((k, n_out)).astype(np.float32))
+    wp = pack_weights_tf32x3(w, period)
+    tiles, chunks = -(-n_out // 128), -(-k // 32)
+    assert wp.shape == (tiles, chunks, 2, 128, 8, 4) and wp.is_contiguous() and wp.dtype == torch.float32
+    assert not (wp.view(torch.int32) & 0x1FFF).any()  # every stored value a TF32 value
+    hi, lo = _unpack_tf32x3(wp, period, k)
+    want_hi, want_lo = split_tf32(w)
+    assert torch.equal(hi[:k, :n_out], want_hi) and torch.equal(lo[:k, :n_out], want_lo)
+    assert bool(((w.double() - hi[:k, :n_out].double() - lo[:k, :n_out].double()).abs()
+                 <= 2.0**-22 * w.double().abs()).all())
+    for part in (hi, lo):
+        assert not part[:, n_out:].any() and not part[k:].any()
+    # one stage: column n of tile t and chunk j is a 128-byte row whose slot
+    # s holds K group s ^ (n % 8) (4 floats) of the chunk's 32 K rows
+    assert walk_period(c, 25, 32) == (25 if c % 32 == 0 else 1)
+    nb, order = c // 32, frame_order(FC1_FRAMES, period)
+    t, j, n = tiles - 1, chunks - 2, min(11, n_out - 1 - (tiles - 1) * 128)
+    k0 = order[j // nb] * c + (j % nb) * 32 if period > 1 else j * 32
+    for slot in range(8):
+        g = slot ^ (n % 8)
+        assert torch.equal(wp[t, j, 1, n, slot], want_lo[k0 + 4 * g : k0 + 4 * g + 4, t * 128 + n])
+
+
+def test_packed_keys_on_the_route():
+    """One weight tensor packed for each kernel it meets: the bf16 tc layout
+    and the fp32 split, each cached."""
+    w = torch.ones((FC1_FRAMES * 64, 19))
+    tc, split = _packed(w, 1, "tc"), _packed(w, 1, "tf32x3")
+    assert tc.shape == (1, FC1_FRAMES, 256, 8, 8) and split.shape == (1, 2 * FC1_FRAMES, 2, 128, 8, 4)
+    assert _packed(w, 1, "tc") is tc and _packed(w, 1, "tf32x3") is split and _packed(w) is tc
+    assert _packed(w, 25, "tf32x3") is not split
+
+
+# Beluga's full depth, K = 106 * 640 = 67,840. The card check's fp32 limits
+# (chip_smoke.py): the kernel within 1e-5 of max|y| of a float64 product of
+# the same inputs; the plain SGEMM (TF32 off), which rounds a running fp32
+# sum of 67,840 products (about 2^-24 sqrt(K) = 1.6e-5 of max|y| off), within
+# 4e-5 of it, and the kernel within 4e-5 of the plain version
+K_FULL, FP32_REL, FP32_PLAIN_REL = FC1_FRAMES * 640, 1e-5, 4e-5
+
+
+def test_three_pass_split_holds_fp32_limit_at_belugas_depth():
+    """The tf32x3 kernel's products, emulated at K = 67,840: each operand
+    split (split_tf32) and lo*hi + hi*lo + hi*hi summed in float64, for a few
+    windows of non-negative activations (after conv6's ReLU) and 64 columns
+    of W. The split alone stays well inside the card check's limit against
+    float64 (FP32_REL); a single TF32 pass (hi*hi, the planted fault) misses
+    it, and the plain version's looser limit too."""
+    rng = np.random.default_rng(17)
+    a = rng.random((6, K_FULL)).astype(np.float32)
+    w = (rng.standard_normal((K_FULL, 64)) / np.sqrt(K_FULL)).astype(np.float32)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    limit = FP32_REL * float(np.abs(exact).max())
+    (a_hi, a_lo), (w_hi, w_lo) = ((p.double().numpy() for p in split_tf32(torch.from_numpy(x))) for x in (a, w))
+    three = a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
+    err3, err1 = float(np.abs(three - exact).max()), float(np.abs(a_hi @ w_hi - exact).max())
+    assert err3 <= 0.1 * limit, (err3, limit)
+    assert err1 > FP32_PLAIN_REL / FP32_REL * limit, (err1, limit)
+
+
+@pytest.mark.parametrize("m,n_out,k", [(1135, 2003, K_FULL), (1600, 2003, K_FULL), (500, 2003, K_FULL),
+                                       (60, 2003, K_FULL), (35, 19, FC1_FRAMES * 12), (20000, 2003, K_FULL)])
+def test_tf32x3_schedule_covers_every_chunk_once(m, n_out, k):
+    """The fp32 kernel's schedule at its own tiles (128 columns, 32-deep K
+    chunks): never more CTAs than the card holds, every group at least 64
+    chunks (2,048 K) where K has them, and each (row tile, column tile, K
+    chunk) in exactly one unit of the walk."""
+    tiles = TILES["tf32x3"]
+    s = fc1_schedule(m, n_out, k, SMS, tiles=tiles)
+    tiles_m, tiles_n, kt = -(-m // s.tile_rows), -(-n_out // 128), -(-k // 32)
+    assert s.rows * s.cols * s.groups <= SMS and tiles_n % s.cols == 0
+    assert s.groups == 1 or (tiles_n // s.cols) * kt // s.groups >= 64
+    seen = Counter()
+    for _cta, i, t, k0, k1, _slot in schedule_units(m, n_out, k, s, tiles):
+        assert 0 <= i < tiles_m and 0 <= t < tiles_n and 0 <= k0 < k1 <= kt
+        seen.update((i, t, j) for j in range(k0, k1))
+    assert set(seen.values()) == {1} and len(seen) == tiles_m * tiles_n * kt
+
+
 def test_route_is_a_pure_function_of_device_and_dtype():
+    """CUDA bf16 takes the tc kernel, CUDA fp32 the tf32x3 kernel; no flow
+    computes in another dtype on the card, so such a buffer raises."""
     table = {("cpu", torch.float32): "cpu", ("cpu", torch.bfloat16): "cpu", ("cuda", torch.bfloat16): "tc",
-             ("cuda", torch.float32): "cublas"}
+             ("cuda", torch.float32): "tf32x3"}
     for _ in range(2):
         assert {key: _route(*key) for key in table} == table
-    assert set(fc1.ROUTES) == {"tc", "cublas"}
+    assert set(fc1.ROUTES) == {"tc", "tf32x3"} == set(TILES) == set(fc1.KERNELS)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            _route("cuda", dtype)
 
 
 K_BELUGA, SMS = FC1_FRAMES * 640, 132
@@ -314,42 +448,57 @@ def _group_of(x, positions, groups):
     return ((x + 1) * groups - 1) // positions
 
 
-def _emulate(buf, w, s0, stride, n_win, sms, knobs):
+def _emulate(buf, w, s0, stride, n_win, sms, knobs, route="tc"):
     """The kernel's arithmetic on the CPU, as its CTAs walk the schedule:
     A rows from the buffer at the walk's K offsets, B stages unswizzled
     from the packed weight, fp32 tiles stored whole or as parts, and the
-    second pass summing each tile's parts in group order."""
+    second pass summing each tile's parts in group order. ``route``
+    "tf32x3": the fp32 kernel's tiles, each A stage split as its consumers
+    split it and the three products lo*hi + hi*lo + hi*hi a stage."""
     n, _f, c = buf.shape
+    tiles = TILES[route]
+    bn, kc = tiles.bn, tiles.kc
     n_out, m, k = w.shape[1], n * n_win, FC1_FRAMES * c
-    period = walk_period(c, stride)
-    sched = fc1_schedule(m, n_out, k, sms, **knobs)
+    period = walk_period(c, stride, kc)
+    sched = fc1_schedule(m, n_out, k, sms, tiles=tiles, **knobs)
     cols, groups, tm = sched.cols, sched.groups, sched.tile_rows
-    kt, tiles_n = -(-k // 64), -(-n_out // 256)
-    a = torch.nn.functional.pad(_windows(buf.float(), s0, stride, n_win).reshape(m, k), (0, kt * 64 - k))
+    kt, tiles_n = -(-k // kc), -(-n_out // bn)
+    a = torch.nn.functional.pad(_windows(buf.float(), s0, stride, n_win).reshape(m, k), (0, kt * kc - k))
     lo = torch.arange(8)
-    wp = pack_weights_fc1(w, period).float()
-    b = wp.reshape(tiles_n, kt, 32, 8, 8, 8)[:, :, :, lo[:, None], lo[None, :] ^ lo[:, None]].reshape(
-        tiles_n, kt, 256, 64)
-    nb, order = (c // 64, frame_order(FC1_FRAMES, period)) if c % 64 == 0 else (0, None)
-    y = torch.zeros((m, tiles_n * 256))
+
+    def stages(wp):
+        return wp.reshape(tiles_n, kt, bn // 8, 8, 8, kc // 8)[:, :, :, lo[:, None], lo[None, :] ^ lo[:, None]].reshape(
+            tiles_n, kt, bn, kc)
+
+    if route == "tc":
+        b = stages(pack_weights_fc1(w, period).float())
+    else:
+        wp = pack_weights_tf32x3(w, period)
+        b, b_lo = stages(wp[:, :, 0]), stages(wp[:, :, 1])
+    nb, order = (c // kc, frame_order(FC1_FRAMES, period)) if c % kc == 0 else (0, None)
+    y = torch.zeros((m, tiles_n * bn))
     ws = {}
-    for _cta, i, t, k0, k1, slot in schedule_units(m, n_out, k, sched):
+    for _cta, i, t, k0, k1, slot in schedule_units(m, n_out, k, sched, tiles):
         r = slice(min(m, i * tm), min(m, (i + 1) * tm))
-        acc = torch.zeros((r.stop - r.start, 256))
+        acc = torch.zeros((r.stop - r.start, bn))
         for j in range(k0, k1):
-            koff = order[j // nb] * c + (j % nb) * 64 if nb else j * 64
-            acc += a[r, koff : koff + 64] @ b[t, j].T
+            koff = order[j // nb] * c + (j % nb) * kc if nb else j * kc
+            if route == "tc":
+                acc += a[r, koff : koff + kc] @ b[t, j].T
+            else:
+                a_hi, a_lo = split_tf32(a[r, koff : koff + kc])
+                acc += a_lo @ b[t, j].T + a_hi @ b_lo[t, j].T + a_hi @ b[t, j].T
         if slot is None:
-            y[r, t * 256 : (t + 1) * 256] = acc
+            y[r, t * bn : (t + 1) * bn] = acc
         else:
-            ws.setdefault((slot, t), torch.zeros((m, 256)))[r] = acc
+            ws.setdefault((slot, t), torch.zeros((m, bn)))[r] = acc
     positions = tiles_n // cols * kt
     for t in range(tiles_n):
         cb = t // cols
         qf, ql = _group_of(cb * kt, positions, groups), _group_of(cb * kt + kt - 1, positions, groups)
         if qf != ql:
             parts = [ws[(2 * q + int(q * positions // groups // kt != cb), t)] for q in range(qf, ql + 1)]
-            y[:, t * 256 : (t + 1) * 256] = sum(parts[1:], parts[0])
+            y[:, t * bn : (t + 1) * bn] = sum(parts[1:], parts[0])
     return y[:, :n_out].reshape(n, n_win, n_out)
 
 
@@ -369,14 +518,36 @@ def test_emulated_kernel_walk_matches_plain(n, f, c, s0, stride, n_win, n_out, s
     _assert_close(got.numpy(), want.numpy())
 
 
+# (N, F, C, s0, stride, n_win, Nout, SMs) for the fp32 kernel: the walk of
+# period 25 (C % 32 == 0) and 1, K off the 32-deep stage (C = 12), columns
+# off the 128-column tile, many groups on few chunks, one sample of 100
+# windows
+EMULATED_TF32 = [(3, 160, 32, 12, 25, 2, 300, 132), (7, 300, 12, 12, 25, 5, 64, 132), (5, 240, 16, 0, 50, 2, 19, 8),
+                 (2, 131, 64, 0, 25, 1, 257, 3), (1, 2594, 4, 0, 25, 100, 1, 132), (9, 206, 32, 0, 25, 5, 530, 20)]
+
+
+@pytest.mark.parametrize("knobs", list(KNOBS))
+@pytest.mark.parametrize("n,f,c,s0,stride,n_win,n_out,sms", EMULATED_TF32)
+def test_emulated_tf32x3_walk_matches_plain(n, f, c, s0, stride, n_win, n_out, sms, knobs):
+    """The fp32 kernel's walk at its own tiles, with the three-pass split,
+    against the plain fp32 version."""
+    buf, w, _b = _inputs(n, f, c, n_out, seed=n + f + c + 1)
+    got = _emulate(torch.from_numpy(buf), torch.from_numpy(w), s0, stride, n_win, sms, KNOBS[knobs], "tf32x3")
+    want = fc1_strided_plain(torch.from_numpy(buf), torch.from_numpy(w), s0, stride, n_win)
+    _assert_close(got.numpy(), want.numpy())
+
+
 def _good(f=240, c=32, n_out=19, n=2):
     buf = torch.zeros((n, f, c), dtype=torch.bfloat16)
     return buf, torch.zeros((FC1_FRAMES * c, n_out), dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("fp32", TypeError, "bfloat16"),
-    ("w_fp32", TypeError, "bfloat16"),
+    ("fp32", TypeError, "of one dtype"),
+    ("w_fp32", TypeError, "of one dtype"),
+    ("fp16", TypeError, "bfloat16 or float32"),
+    ("c_off_fp32", ValueError, "C % 4"),
+    ("sample_stride_fp32", ValueError, "multiple of 4 elements"),
     ("buf_2d", ValueError, r"buf \(N, F, C\)"),
     ("w_rows", ValueError, "does not match"),
     ("c_off", ValueError, "C % 8"),
@@ -395,6 +566,12 @@ def test_check_refuses(case, exc, match):
         buf = buf.float()
     elif case == "w_fp32":
         w = w.float()
+    elif case == "fp16":
+        buf, w = buf.half(), w.half()
+    elif case == "c_off_fp32":
+        buf, w = (x.float() for x in _good(c=6))
+    elif case == "sample_stride_fp32":
+        buf, w = torch.zeros((2, 241 * 32 + 2), dtype=torch.float32)[:, : 240 * 32].view(2, 240, 32), w.float()
     elif case == "buf_2d":
         buf = buf[0]
     elif case == "w_rows":
@@ -424,6 +601,15 @@ def test_check_takes_k_off_the_stage(c):
     """106*C need not be a multiple of the kernel's 64-deep stage: the last
     stage is zero-padded (here only the device is left to refuse)."""
     buf, w = _good(c=c)
+    with pytest.raises(ValueError, match="CUDA device"):
+        _check(buf, w, 0, 25, 4)
+
+
+@pytest.mark.parametrize("c", [4, 12, 640])
+def test_check_takes_fp32_rows_of_16_bytes(c):
+    """fp32 buf and W, C % 4 == 0 (here only the device is left to
+    refuse)."""
+    buf, w = (x.float() for x in _good(c=c))
     with pytest.raises(ValueError, match="CUDA device"):
         _check(buf, w, 0, 25, 4)
 
@@ -553,14 +739,89 @@ def test_kernel_reads_a_splice_view_in_place(cuda):
     assert float((got.float() - want.float()).abs().max()) <= _card_tol(want)
 
 
+def _card_inputs_fp32(n, f, c, n_out, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    buf = torch.rand((n, f, c), generator=g, device=device)
+    w = torch.randn((FC1_FRAMES * c, n_out), generator=g, device=device) / (FC1_FRAMES * c) ** 0.5
+    return buf, w
+
+
+def _tf32x3_matches_plain_and_float64(buf, w, s0, stride, n_win, got):
+    """The fp32 kernel's output within FP32_REL of max|y| of a float64
+    product and within FP32_PLAIN_REL of the plain version (SGEMM, TF32
+    off); the plain version within FP32_PLAIN_REL of float64; the first
+    window read one frame late outside both limits."""
+    want = fc1_strided_plain(buf, w, s0, stride, n_win)
+    exact = (_windows(buf, s0, stride, n_win).double() @ w.double()).float()
+    scale = float(exact.abs().max())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err_f64 = float((got - exact).abs().max())
+    errs_plain = [float((got - want).abs().max()), float((want - exact).abs().max())]
+    assert err_f64 <= FP32_REL * scale, (err_f64, scale)
+    assert max(errs_plain) <= FP32_PLAIN_REL * scale, (errs_plain, scale)
+    late = want.clone()
+    late[:, 0] = fc1_strided_plain(buf, w, s0 + 1, stride, 1)[:, 0]
+    assert float((got - late).abs().max()) > FP32_PLAIN_REL * scale
+
+
 @pytest.mark.gpu
-def test_fp32_on_the_card_is_the_cublas_product(cuda):
-    buf, w = _card_inputs(4, 206, 3, cuda)
-    buf, w = buf.float(), w.float()
-    before = fc1_strided.launches
+@pytest.mark.parametrize("n,f,s0,stride,n_win", CARD_SHAPES)
+def test_tf32x3_kernel_matches_plain_and_float64(cuda, n, f, s0, stride, n_win):
+    """At the flows' shapes (Beluga's widths): two calls on the fp32 kernel,
+    bit-equal, within the fp32 limit of the plain version and of float64."""
+    buf, w = _card_inputs_fp32(n, f, 640, 2003, n + f + s0, cuda)
+    before = Counter(fc1_strided.launches_by_route)
+    got = fc1_strided(buf, w, s0, stride, n_win)
+    again = fc1_strided(buf, w, s0, stride, n_win)
+    torch.cuda.synchronize()
+    assert fc1_strided.launches_by_route - before == Counter({"tf32x3": 2})
+    assert torch.equal(got, again)
+    _tf32x3_matches_plain_and_float64(buf, w, s0, stride, n_win, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,c,s0,stride,n_win,n_out", CARD_EDGE_SHAPES)
+def test_tf32x3_kernel_at_tile_edges_repeats_on_a_second_stream(cuda, n, f, c, s0, stride, n_win, n_out):
+    buf, w = _card_inputs_fp32(n, f, c, n_out, n + c + n_out, cuda)
+    got = fc1_strided(buf, w, s0, stride, n_win)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = fc1_strided(buf, w, s0, stride, n_win)
+    torch.cuda.synchronize()
+    assert got.shape == (n, n_win, n_out) and torch.equal(got, again)
+    _tf32x3_matches_plain_and_float64(buf, w, s0, stride, n_win, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,n_out", [(4, 1), (12, 19), (48, 64), (32, 257)])
+def test_tf32x3_kernel_takes_narrow_widths(cuda, c, n_out):
+    """Test widths in fp32: 106*C off the 32-deep stage (the last one
+    zero-padded), C down to one 16-byte piece, Nout off the 128-column tile,
+    down to one column."""
+    buf, w = _card_inputs_fp32(7, 300, c, n_out, c, cuda)
+    got = fc1_strided(buf, w, 12, 25, 5)
+    assert got.shape == (7, 5, n_out) and torch.equal(got, fc1_strided(buf, w, 12, 25, 5))
+    _tf32x3_matches_plain_and_float64(buf, w, 12, 25, 5, got)
+
+
+@pytest.mark.gpu
+def test_tf32x3_kernel_reads_a_splice_view_in_place(cuda):
+    base, w = _card_inputs_fp32(5, 207, 640, 2003, 9, cuda)
+    buf = base[:, :206]
+    _tf32x3_matches_plain_and_float64(buf.contiguous(), w, 12, 25, 4, fc1_strided(buf, w, 12, 25, 4))
+
+
+@pytest.mark.gpu
+def test_fp32_on_the_card_is_the_tf32x3_kernel(cuda):
+    """A CUDA fp32 buffer launches the three-pass TF32 kernel: one launch
+    counted on its route and under an fp32 shape, none on the bf16 kernel."""
+    buf, w = _card_inputs_fp32(4, 206, 640, 2003, 3, cuda)
+    fc1.reset_launch_counts()
     got = fc1_strided(buf, w, 0, 25, 5)
-    assert fc1_strided.launches == before
-    assert torch.equal(got, fc1._windows(buf, 0, 25, 5) @ w)
+    assert fc1_strided.launches == 1 and fc1_strided.launches_by_route == Counter({"tf32x3": 1})
+    assert fc1_strided.launches_by_shape == Counter({("float32", 4, 206, 640, 0, 25, 5, 2003): 1})
+    _tf32x3_matches_plain_and_float64(buf, w, 0, 25, 5, got)
 
 
 @pytest.mark.gpu
@@ -571,3 +832,19 @@ def test_kernel_refuses_on_the_card(cuda):
         fc1_strided(flat[1 : 1 + 2 * 206 * 640].view(2, 206, 640), w, 0, 25, 4)
     with pytest.raises(ValueError, match="do not fit"):
         fc1_strided(buf, w, 0, 25, 5 + 1)
+
+
+@pytest.mark.gpu
+def test_tf32x3_kernel_refuses_on_the_card(cuda):
+    """fp32 off the kernel's rules raises; so do mixed dtypes and a dtype no
+    kernel takes: nothing falls back to a matmul."""
+    buf, w = _card_inputs_fp32(2, 206, 640, 2003, 4, cuda)
+    flat = torch.zeros(2 * 206 * 640 + 4, device=cuda)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fc1_strided(flat[1 : 1 + 2 * 206 * 640].view(2, 206, 640), w, 0, 25, 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        fc1_strided(buf, w, 0, 25, 5 + 1)
+    with pytest.raises(TypeError, match="of one dtype"):
+        fc1_strided(buf, w.bfloat16(), 0, 25, 4)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fc1_strided(buf.half(), w.half(), 0, 25, 4)
