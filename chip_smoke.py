@@ -17,9 +17,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
    span and over the alt allele's patch sub-span), each held against its
    plain PyTorch version on the same inputs and timed beside it and cuDNN's
    ``F.conv1d`` (a yardstick only: the port never calls it):
-   ``conv8_relu`` at conv1-conv5, fp32 on the SIMT kernel (with each
-   shape's share of its fp32 bound) and bf16 on the tensor-core kernel and
-   on the SIMT kernel; ``conv0_codes_relu`` at conv0, fp32 and bf16 on the
+   ``conv8_relu`` at conv2, conv4 and conv5 and ``conv8_relu_pool4`` at
+   conv1 and conv3 (their pools fused, as the flows launch them; see 17),
+   fp32 on the SIMT kernel (with each shape's share of its fp32 bound) and
+   bf16 on the tensor-core kernel and on the SIMT kernel (unfused, then
+   the pools); ``conv0_codes_relu`` at conv0, fp32 and bf16 on the
    code-gather kernel, beside the SIMT kernel on the float one-hot; then
    each dtype's chunk total beside ``F.conv1d`` (TF32 off) and the bound;
    then every conv of the h5 path's pair chunks (112 spans, and the 64 of
@@ -250,7 +252,29 @@ Phases (any failure raises, and the script exits non-zero with no result):
    the kernel is slower than the yardstick by more than the difference of
    the yardstick's two timings is logged and listed in the report (it does
    not fail the run: a slow kernel stays, with its times); each kernel's
-   entry in the kernel line has its worst ``vs_library``.
+   entry in the kernel line has its worst ``vs_library``;
+17. pool: the max-pools fused into the conv kernels' epilogue
+   (``conv8_relu_pool4``: conv1 pools phase 0, conv3 each pool-2 phase).
+   The conv phases (3 and the gene and consensus kernel phases) launch
+   conv1 and conv3 pooled at every shape of every flow (the serving chunk's
+   span and patch sub-spans, the h5 pair chunks, the gene chunk, the
+   consensus backbone, patch batches, dedup windows and fallback spans),
+   bf16 on the tc kernel and fp32 on the SIMT kernel: bit-equal to the
+   unfused kernel followed by ``ops/spans._pool4_from``, within the route's
+   limits of the fp32 plain version, which a pool read one row late and
+   another phase's buffer must miss; timed beside the replaced path (kernel
+   + pool), the pools alone, the plain version,
+   ``F.max_pool1d(F.relu(F.conv1d(...)), 4)`` on each phase's slice (TF32
+   off; a yardstick only) and the bound. This phase sums them per chunk
+   into the ``pool4`` fields of the two conv kernels' entries in the kernel
+   line. Every flow's count read (every phase above, each rank of the
+   2-rank groups, the bench) also checks that no pool ran on its own on the
+   card (``ops/spans._pool4_from`` is wrapped to count its calls on CUDA
+   tensors; the one caller left, ``conv6_phases_patch_sites_c1``, runs
+   outside the counted windows) and that each conv stack pooled twice in
+   its convs' epilogue; at the default seed each flow's conv launches by
+   route equal PARENT_CONV_LAUNCHES, the counts before the pools were
+   fused.
 
 The line before the last is the card's name and power limit; the line before
 that is the kernel table as JSON; the last line is
@@ -318,6 +342,16 @@ FC1_ROUTE = {"bfloat16": "tc", "float32": "tf32x3"}  # each compute dtype's fc1 
 #: _read_counts, the 2-rank groups' rank files and the bench phase, held
 #: against the plain version by fc1_phase
 FC1_SHAPES: Counter = Counter()
+
+#: calls of ops/spans._pool4_from on CUDA tensors, the only pool left that
+#: runs on its own (conv6_phases_patch_sites_c1's first; _count_standalone_pools
+#: counts them); zeroed by _reset_counts, and every flow's read must find 0
+STANDALONE_POOLS: Counter = Counter()
+#: conv launches by route of each flow at the default seed before the pools
+#: were fused (that tree's run): the fused epilogue must keep every one.
+#: serve: the bf16 serve (tc) and the fp32 parity run (simt); h5 and gene:
+#: the timed calls; consensus: the last timed call of each mix, summed
+PARENT_CONV_LAUNCHES = {"serve": (201, 61), "h5": (339, 339), "gene": (84, 84), "consensus": (580, 580)}
 
 # fp32 end-to-end parity, card vs CPU: REF/ALT rtol 1e-4; SED differences two
 # separately rounded 20,020-term fp32 products, so its absolute noise scales
@@ -541,24 +575,27 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def conv_stack(span_len: int, phases) -> list[tuple[str, int]]:
-    """(layer, input length) of each conv8_relu launch of
+def conv_stack(span_len: int, phases) -> list[tuple[str, int, tuple]]:
+    """(layer, input length, pool phases) of each conv launch of
     ops/spans.conv6_phases over spans of ``span_len`` bases: conv0..conv3
-    once, conv4/conv5 once per pool-2 phase."""
+    once, conv4/conv5 once per pool-2 phase. conv1 pools phase 0 and conv3
+    each pool-2 phase in their kernel's epilogue (``conv8_relu_pool4``); the
+    others pool nothing (())."""
+    phases = tuple(sorted(phases))
     launches, length = [], span_len
     for i in range(4):
-        launches.append((f"conv{i}", length))
+        launches.append((f"conv{i}", length, {1: (0,), 3: phases}.get(i, ())))
         length -= 7
         if i == 1:
             length //= 4  # pool1
-    for ph in sorted(phases):
+    for ph in phases:
         l4 = (length - ph) // 4  # pool2 from this phase
-        launches += [("conv4", l4), ("conv5", l4 - 7)]
+        launches += [("conv4", l4, ()), ("conv5", l4 - 7, ())]
     return launches
 
 
 def chunk_launches() -> Counter:
-    """{(layer, L): launches} of one substitution chunk of the main path
+    """{(layer, L, pool phases): launches} of one substitution chunk of the main path
     (parallel/runner._preds_from_ref): the ref conv stack over the full
     span, forward and reverse complement, and the alt allele's patch
     sub-span (ops/spans.conv6_phases_patch), forward and reverse complement."""
@@ -571,14 +608,14 @@ def chunk_launches() -> Counter:
     for offs, mut in ((offsets, mutpos), ([2 * MAXSHIFT - o for o in offsets], SPAN_LEN - mutpos - 1)):
         phases = sorted({(o // 4) % 4 for o in offs})
         full = conv_stack(SPAN_LEN, phases)
-        frames = dict(zip(phases, (length - 7 for name, length in full if name == "conv5")))
+        frames = dict(zip(phases, (length - 7 for name, length, _pool in full if name == "conv5")))
         s0, s1 = conv6_patch_subspan(conv6_patch_ranges(mut, 1, phases, frames), SPAN_LEN)
         tally.update(full + conv_stack(s1 - s0, phases))
     return tally
 
 
 def h5_chunk_launches() -> Counter:
-    """{(layer, L): launches} of one pair chunk of the h5 path
+    """{(layer, L, pool phases): launches} of one pair chunk of the h5 path
     (parallel/runner._span_preds_fwd_rc over ref and alt as one batch): the
     full conv stack over the span, forward and reverse complement."""
     from expecto_tpu_torch.genome.windows import variant_shifts
@@ -609,17 +646,119 @@ def _check_close(got, want, atol: float, rtol: float, what: str) -> float:
     return max_err
 
 
-def kernel_phase(report: dict) -> None:
-    """conv1-conv5 at every shape of a substitution chunk: fp32 on the SIMT
-    kernel (the fp32 main path's route); bf16 on the tensor-core kernel (the
-    bf16 main path's route) and on the SIMT kernel too, so the redesign
-    shows shape by shape. Each launch is held against the fp32 plain version
-    on the same inputs."""
+def _misses(got, want, atol: float, rtol: float) -> bool:
+    """Whether ``got`` lies outside atol + rtol·|want| of ``want`` somewhere
+    (over their common frames)."""
+    f = min(got.shape[1], want.shape[1])
+    return not bool(((got[:, :f].float() - want[:, :f]).abs() <= atol + rtol * want[:, :f].abs()).all())
+
+
+def _conv8_cell(x, w, b, pool: tuple, tag: str, what: str, yardsticks: bool) -> dict:
+    """One conv1-conv5 shape in one dtype on its main-path route (fp32 on
+    the SIMT kernel, bf16 on the tc kernel): unpooled (``pool`` ()) on
+    ``conv8_relu``, pooled on ``conv8_relu_pool4``, as the flows launch it.
+    Held against the fp32 plain version within the route's limits; a pooled
+    launch is also bit-equal to the route's unfused kernel followed by
+    ops/spans._pool4_from (the path it replaced), and a pool read one row
+    late and another phase's buffer must miss the limits. Timed (``ms``; a
+    pooled one also the replaced path, ``replaced_ms``, and its pools alone,
+    ``pools_ms``); with ``yardsticks`` (always when pooled) also the plain
+    version in the working dtype, the library call (``F.relu(F.conv1d)``,
+    then ``F.max_pool1d`` on each phase's slice when pooled; TF32 off; the
+    port never calls it) and the bound (the conv's operations; bytes: x, W
+    and b read once, the output or the pooled buffers written once)."""
     import torch
     import torch.nn.functional as F
 
+    from expecto_tpu_torch.ops import spans
+    from expecto_tpu_torch.ops.conv8 import (_route, conv8_relu, conv8_relu_plain, conv8_relu_pool4,
+                                             conv8_relu_pool4_plain)
+
+    n, length, cin = x.shape
+    cout, l_out = w.shape[2], length - 7
+    route = _route("cuda", x.dtype, cin, x.data_ptr())
+    if route != ("simt" if tag == "fp32" else "tc"):
+        raise AssertionError(f"{what} would take the {route} route")
+    atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
+    pool_from = spans._pool4_from
+    if pool:
+        launch = lambda: conv8_relu_pool4(x, w, b, pool)  # noqa: E731
+        plain = lambda: conv8_relu_pool4_plain(x, w, b, pool)  # noqa: E731
+        got, y = launch(), conv8_relu(x, w, b)
+        for ph in pool:
+            if not torch.equal(got[ph], pool_from(y, ph)):
+                raise AssertionError(f"{what}: phase {ph} differs from the unfused kernel + pool")
+        want = conv8_relu_pool4_plain(x.float(), w.float(), b.float(), pool)
+        err = max(_check_close(got[ph], want[ph], atol, rtol, f"{what} phase {ph}") for ph in pool)
+        for i, ph in enumerate(pool):
+            other = got[pool[(i + 1) % len(pool)]] if len(pool) > 1 else pool_from(y, (ph + 1) % 4)
+            if not _misses(pool_from(y[:, 1:], ph), want[ph], atol, rtol):
+                raise AssertionError(f"{what}: the pool read one row late meets the limits at phase {ph}")
+            if not _misses(other, want[ph], atol, rtol):
+                raise AssertionError(f"{what}: another phase's buffer meets the limits of phase {ph}")
+        del got, want, other
+
+        def replaced():
+            yk = conv8_relu(x, w, b)
+            return [pool_from(yk, ph) for ph in pool]
+
+        cell = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch), "replaced_ms": cuda_ms(replaced),
+                "pools_ms": cuda_ms(lambda: [pool_from(y, ph) for ph in pool])}
+        del y
+        out_elems = sum(n * (max(0, l_out - ph) // 4) * cout for ph in pool)
+    else:
+        launch = lambda: conv8_relu(x, w, b)  # noqa: E731
+        plain = lambda: conv8_relu_plain(x, w, b)  # noqa: E731
+        err = _check_close(launch(), conv8_relu_plain(x.float(), w.float(), b.float()), atol, rtol, what)
+        cell = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch)}
+        out_elems = n * l_out * cout
+    if yardsticks or pool:
+        xt = x.transpose(1, 2).contiguous()
+        wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
+
+        def library():
+            yc = F.relu(F.conv1d(xt, wt, b))
+            return [F.max_pool1d(yc[:, :, ph:], 4) for ph in pool] if pool else yc
+
+        nbytes = (x.numel() + w.numel() + b.numel() + out_elems) * x.element_size()
+        cell.update(_bound(nbytes, 2.0 * n * l_out * cin * cout * 8, tag), plain_ms=cuda_ms(plain),
+                    library_ms=cuda_ms(library))
+        del xt, wt
+    return cell
+
+
+def _conv8_simt_bf16(x, w, b, pool: tuple, what: str) -> dict:
+    """The SIMT kernel on a bf16 shape of the tc route, for the tc kernel's
+    comparison: the unfused kernel (and the pools after it when pooled: the
+    same work as the tc launch), held against the fp32 plain version and
+    timed."""
+    from expecto_tpu_torch.ops import spans
+    from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain
+
+    err = _check_close(conv8_relu(x, w, b, route="simt"), conv8_relu_plain(x.float(), w.float(), b.float()),
+                       BF16_ATOL, BF16_RTOL, f"{what} on simt")
+
+    def on_simt():
+        y = conv8_relu(x, w, b, route="simt")
+        return [spans._pool4_from(y, ph) for ph in pool] if pool else y
+
+    return {"ms": cuda_ms(on_simt), "max_abs_err": err}
+
+
+def _pooled_log(c: dict) -> str:
+    """A pooled cell's replaced path, for a log line ('' when unpooled)."""
+    return f", replaced path {c['replaced_ms']:.3f} ms (pools {c['pools_ms']:.3f})" if "replaced_ms" in c else ""
+
+
+def kernel_phase(report: dict) -> None:
+    """conv1-conv5 at every shape of a substitution chunk, conv1 and conv3
+    with their pools fused, as the flows launch them (_conv8_cell): fp32 on
+    the SIMT kernel (the fp32 main path's route); bf16 on the tensor-core
+    kernel (the bf16 main path's route) and on the SIMT kernel too
+    (unfused, the pools after it), so the redesign shows shape by shape."""
+    import torch
+
     from expecto_tpu_torch.models.beluga import CONV_SPECS
-    from expecto_tpu_torch.ops.conv8 import _route, conv8_relu, conv8_relu_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -627,43 +766,29 @@ def kernel_phase(report: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     specs = {f"conv{i}": (cin, cout) for i, (_w, cin, cout) in enumerate(CONV_SPECS)}
     rows, n = [], CHUNK
-    for (name, length), per_chunk in sorted(chunk_launches().items(), key=lambda kv: (kv[0][0], -kv[0][1])):
+    for (name, length, pool), per_chunk in sorted(chunk_launches().items(), key=lambda kv: (kv[0][0], -kv[0][1])):
         if name == "conv0":  # on the code-gather kernel: conv0_phase
             continue
         cin, cout = specs[name]
         x32 = torch.randn((n, length, cin), generator=gen, device=dev)
         w32 = torch.randn((8, cin, cout), generator=gen, device=dev) / (8 * cin) ** 0.5
         b32 = torch.randn((cout,), generator=gen, device=dev) * 0.1
-        l_out = length - 7
-        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
+        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "pool": list(pool),
+               "launches_per_chunk": per_chunk}
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             x, w, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
-            want = conv8_relu_plain(x.float(), w.float(), b.float())
-            atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
-            main_route = _route("cuda", dtype, cin, x.data_ptr())
-            routes = [main_route] + (["simt"] if main_route != "simt" else [])
-            xt = x.transpose(1, 2).contiguous()
-            wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
-            nbytes = (x.numel() + w.numel() + b.numel() + n * l_out * cout) * x.element_size()
-            cell = {"route": main_route, **_bound(nbytes, 2.0 * n * l_out * cin * cout * 8, tag),
-                    "plain_ms": cuda_ms(lambda: conv8_relu_plain(x, w, b)),
-                    "library_ms": cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b)))}
-            for route in routes:
-                y = conv8_relu(x, w, b, route=route)
-                max_err = _check_close(y, want, atol, rtol, f"conv8_relu {route} {tag} {name} L={length}")
-                cell[route] = {"ms": cuda_ms(lambda r=route: conv8_relu(x, w, b, route=r)), "max_abs_err": max_err}
-                del y
-            cell["ms"], cell["max_abs_err"] = cell[main_route]["ms"], cell[main_route]["max_abs_err"]
-            row[tag] = cell
-            del x, w, b, xt, wt, want
-        bf = row["bf16"]
-        log(f"kernel conv8_relu {name} N={n} L={length} {cin}->{cout} x{per_chunk} per chunk: bf16 "
-            f"tc {bf['tc']['ms']:.3f} ms (err {bf['tc']['max_abs_err']:.3g}) "
-            f"simt {bf['simt']['ms']:.3f} ms (err {bf['simt']['max_abs_err']:.3g}) plain {bf['plain_ms']:.3f} ms "
-            f"conv1d {bf['library_ms']:.3f} ms bound {bf['bound_ms']:.3f} ms ({bf['bound_by']}); fp32 simt "
-            f"{row['fp32']['ms']:.3f} ms (err {row['fp32']['max_abs_err']:.3g}) plain {row['fp32']['plain_ms']:.3f} ms "
-            f"conv1d {row['fp32']['library_ms']:.3f} ms bound {row['fp32']['bound_ms']:.3f} ms "
-            f"({100 * row['fp32']['bound_ms'] / row['fp32']['ms']:.1f} % of it)")
+            what = f"conv8 {tag} {name} N={n} L={length} pool {list(pool)}"
+            row[tag] = _conv8_cell(x, w, b, pool, tag, what, yardsticks=True)
+            if tag == "bf16":
+                row[tag]["simt"] = _conv8_simt_bf16(x, w, b, pool, what)
+            del x, w, b
+        bf, fp = row["bf16"], row["fp32"]
+        log(f"kernel {name} N={n} L={length} {cin}->{cout} pool {list(pool)} x{per_chunk} per chunk: bf16 "
+            f"tc {bf['ms']:.3f} ms (err {bf['max_abs_err']:.3g}){_pooled_log(bf)} simt {bf['simt']['ms']:.3f} ms "
+            f"(err {bf['simt']['max_abs_err']:.3g}) plain {bf['plain_ms']:.3f} ms library {bf['library_ms']:.3f} ms "
+            f"bound {bf['bound_ms']:.3f} ms ({bf['bound_by']}); fp32 simt {fp['ms']:.3f} ms (err "
+            f"{fp['max_abs_err']:.3g}){_pooled_log(fp)} plain {fp['plain_ms']:.3f} ms library {fp['library_ms']:.3f} "
+            f"ms bound {fp['bound_ms']:.3f} ms ({100 * fp['bound_ms'] / fp['ms']:.1f} % of it)")
         rows.append(row)
         torch.cuda.empty_cache()
     report["conv8_layers"] = rows
@@ -699,14 +824,15 @@ def conv0_phase(report: dict) -> None:
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(1)
     _kw, cin, cout = CONV_SPECS[0]
     rows, n = [], CHUNK
-    for (name, length), per_chunk in sorted(chunk_launches().items(), key=lambda kv: -kv[0][1]):
+    for (name, length, pool), per_chunk in sorted(chunk_launches().items(), key=lambda kv: -kv[0][1]):
         if name != "conv0":
             continue
         codes = _conv0_codes(n, length, gen)
         w32 = torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5
         b32 = torch.randn((cout,), generator=gen, device=gen.device) * 0.1
         l_out = length - 7
-        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
+        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "pool": list(pool),
+               "launches_per_chunk": per_chunk}
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             w, b = w32.to(dtype), b32.to(dtype)
             want = conv0_codes_relu_plain(codes, w.float(), b.float())
@@ -735,23 +861,23 @@ def conv0_phase(report: dict) -> None:
 
 
 def _chunk_conv_rows(n: int, launches: Counter, gen, what: str, yardsticks: bool) -> tuple[list, dict]:
-    """Every conv of one chunk of ``n`` spans (``launches``: {(layer, L):
-    launches a chunk}) on each dtype's route of the main path (conv0 on the
-    code-gather kernel; conv1-conv5 on the SIMT kernel in fp32 and on the tc
-    kernel in bf16), held against the fp32 plain version on the same inputs
-    and timed; with ``yardsticks`` also the plain version in the working
-    dtype, ``F.conv1d`` (TF32 off) and the bound. Returns the per-shape rows
-    and {dtype: the chunk's launch-weighted kernel ms}."""
+    """Every conv of one chunk of ``n`` spans (``launches``: {(layer, L,
+    pool phases): launches a chunk}) on each dtype's route of the main path:
+    conv0 on the code-gather kernel, conv1-conv5 as _conv8_cell launches,
+    checks and times them (conv1 and conv3 pooled). conv0 is held against
+    the fp32 plain version and timed; with ``yardsticks`` also beside the
+    plain version in the working dtype, ``F.conv1d`` (TF32 off) and the
+    bound. Returns the per-shape rows and {dtype: the chunk's
+    launch-weighted kernel ms}."""
     import torch
     import torch.nn.functional as F
 
     from expecto_tpu_torch.models.beluga import CONV_SPECS
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain, onehot_from_codes
-    from expecto_tpu_torch.ops.conv8 import _route, conv8_relu, conv8_relu_plain
 
     torch.backends.cudnn.allow_tf32 = False
     rows, chunk_ms = [], {"fp32": 0.0, "bf16": 0.0}
-    for (name, length), per_chunk in sorted(launches.items(), key=lambda kv: (kv[0][0], -kv[0][1])):
+    for (name, length, pool), per_chunk in sorted(launches.items(), key=lambda kv: (kv[0][0], -kv[0][1])):
         _kw, cin, cout = CONV_SPECS[int(name[4:])]
         if name == "conv0":
             x32 = _conv0_codes(n, length, gen)
@@ -760,38 +886,31 @@ def _chunk_conv_rows(n: int, launches: Counter, gen, what: str, yardsticks: bool
         w32 = torch.randn((8, cin, cout), generator=gen, device=gen.device) / (8 * cin) ** 0.5
         b32 = torch.randn((cout,), generator=gen, device=gen.device) * 0.1
         l_out = length - 7
-        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "launches_per_chunk": per_chunk}
+        row = {"layer": name, "N": n, "L": length, "Cin": cin, "Cout": cout, "pool": list(pool),
+               "launches_per_chunk": per_chunk}
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             w, b = w32.to(dtype), b32.to(dtype)
-            if name == "conv0":
-                x, route = x32, "codes"
+            if name != "conv0":
+                x = x32.to(dtype)
+                cell = _conv8_cell(x, w, b, pool, tag, f"{what} {name} {tag} N={n} L={length} pool {list(pool)}",
+                                   yardsticks)
+            else:
+                x = x32
                 want = conv0_codes_relu_plain(x, w.float(), b.float())
                 atol = rtol = CONV0_FP32_TOL if tag == "fp32" else BF16_ATOL
                 launch = lambda: conv0_codes_relu(x, w, b)  # noqa: E731
-                plain = lambda: conv0_codes_relu_plain(x, w, b)  # noqa: E731
-                # codes read once, W and b once, the output written once; 8 adds an output
-                nbytes = x.numel() + (w.numel() + b.numel() + n * l_out * cout) * w.element_size()
-                bound = _bound(nbytes, 8.0 * n * l_out * cout, "fp32")
-            else:
-                x = x32.to(dtype)
-                route = _route("cuda", dtype, cin, x.data_ptr())
-                if route != ("simt" if tag == "fp32" else "tc"):
-                    raise AssertionError(f"{what} {name} {tag} N={n} L={length} would take the {route} route")
-                want = conv8_relu_plain(x.float(), w.float(), b.float())
-                atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
-                launch = lambda: conv8_relu(x, w, b, route=route)  # noqa: E731
-                plain = lambda: conv8_relu_plain(x, w, b)  # noqa: E731
-                nbytes = (x.numel() + w.numel() + b.numel() + n * l_out * cout) * x.element_size()
-                bound = _bound(nbytes, 2.0 * n * l_out * cin * cout * 8, tag)
-            err = _check_close(launch(), want, atol, rtol, f"{what} {name} {route} {tag} N={n} L={length}")
-            del want
-            cell = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch)}
-            if yardsticks:
-                xf = onehot_from_codes(x, dtype) if name == "conv0" else x
-                xt = xf.transpose(1, 2).contiguous()
-                wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
-                cell.update(bound, plain_ms=cuda_ms(plain), library_ms=cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b))))
-                del xf, xt, wt
+                err = _check_close(launch(), want, atol, rtol, f"{what} {name} codes {tag} N={n} L={length}")
+                del want
+                cell = {"route": "codes", "max_abs_err": err, "ms": cuda_ms(launch)}
+                if yardsticks:
+                    xt = onehot_from_codes(x, dtype).transpose(1, 2).contiguous()
+                    wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
+                    # codes read once, W and b once, the output written once; 8 adds an output
+                    nbytes = x.numel() + (w.numel() + b.numel() + n * l_out * cout) * w.element_size()
+                    cell.update(_bound(nbytes, 8.0 * n * l_out * cout, "fp32"),
+                                plain_ms=cuda_ms(lambda: conv0_codes_relu_plain(x, w, b)),
+                                library_ms=cuda_ms(lambda: F.relu(F.conv1d(xt, wt, b))))
+                    del xt, wt
             row[tag] = cell
             chunk_ms[tag] += per_chunk * cell["ms"]
             del x
@@ -824,7 +943,7 @@ def h5_kernel_phase(report: dict) -> None:
 
 
 def gene_chunk_launches() -> Counter:
-    """{(layer, L): launches} of one gene chunk (parallel/runner.
+    """{(layer, L, pool phases): launches} of one gene chunk (parallel/runner.
     predict_spans_project: the full conv stack over each 41,800-bp span,
     forward and reverse complement; the 200 window offsets of either strand
     fall on pool-2 phases 0 and 2, and so do their mirrors)."""
@@ -1028,6 +1147,22 @@ def _reset_counts() -> None:
     conv8.reset_launch_counts()
     conv0.reset_launch_counts()
     fc1.reset_launch_counts()
+    STANDALONE_POOLS.clear()
+
+
+def _count_standalone_pools() -> None:
+    """Wrap ops/spans._pool4_from so that each call on a CUDA tensor counts
+    in STANDALONE_POOLS: a flow whose pools all run in the conv kernels'
+    epilogue counts none."""
+    from expecto_tpu_torch.ops import spans
+
+    pool = spans._pool4_from
+
+    def counted(x, phase):
+        STANDALONE_POOLS["calls"] += x.is_cuda
+        return pool(x, phase)
+
+    spans._pool4_from = counted
 
 
 def _fc1_shapes_now() -> list:
@@ -1045,17 +1180,25 @@ def _read_counts(dtype: str) -> dict:
     conv stack ran its conv0 there (conv1 and conv2, the two Cin-320 convs
     of a stack, launch twice as often as conv0), and fc1 ran on ``dtype``'s
     kernel alone (bf16: "tc"; fp32: "tf32x3"); the flow's fc1 shapes join
-    FC1_SHAPES."""
+    FC1_SHAPES. No pool ran on its own, and each conv stack pooled twice in
+    its convs' epilogue (conv1 and conv3), on the route of its convs."""
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
-    from expecto_tpu_torch.ops.conv8 import conv8_relu
+    from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_pool4
     from expecto_tpu_torch.ops.fc1 import fc1_strided
 
     by_route, kinds = dict(conv8_relu.launches_by_route), Counter(conv8_relu.launches_by_kind)
     n0, kind0 = conv0_codes_relu.launches, dict(conv0_codes_relu.launches_by_kind)
+    pooled = dict(conv8_relu_pool4.launches_by_route)
     counts = {"conv8_relu": conv8_relu.launches, "conv8_relu_by_route": by_route,
               "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in sorted(kinds.items())},
               "conv0_codes": n0, "conv0_codes_by_kind": kind0, "fc1_strided": fc1_strided.launches,
-              "fc1_strided_by_route": dict(fc1_strided.launches_by_route)}
+              "fc1_strided_by_route": dict(fc1_strided.launches_by_route), "conv8_relu_pool4_by_route": pooled,
+              "pool4_standalone": STANDALONE_POOLS["calls"]}
+    if counts["pool4_standalone"]:
+        raise AssertionError(f"{counts['pool4_standalone']} standalone pools ran on the card in a {dtype} flow")
+    route = "simt" if dtype == "float32" else "tc"
+    if pooled != {r: 2 * n0 * (r == route) for r in pooled}:
+        raise AssertionError(f"a {dtype} flow's pooled convs: {pooled}, expected {2 * n0} on {route} ({n0} conv stacks)")
     if fc1_strided.launches and counts["fc1_strided_by_route"] != {FC1_ROUTE[dtype]: fc1_strided.launches}:
         raise AssertionError(f"a {dtype} flow's fc1 did not all run on the {FC1_ROUTE[dtype]} kernel: "
                              f"{counts['fc1_strided_by_route']}")
@@ -2011,7 +2154,7 @@ def gene_phase(report: dict, card: str) -> None:
 
 
 def consensus_kernel_launches(span_len: int, phases=(0, 2)) -> Counter:
-    """{(layer, L): launches} of one consensus conv batch over spans of
+    """{(layer, L, pool phases): launches} of one consensus conv batch over spans of
     ``span_len`` bases, forward and reverse complement: the full stack
     (conv4/conv5 once per pool-2 phase; a lone 2,000-bp window has one)."""
     tally = Counter()
@@ -3928,13 +4071,15 @@ def _group(module: str, argv: list[str], what: str, *, identity_all_reduce: bool
 
 def _rank_routes(ranks: list, dtype: str, what: str) -> None:
     """Every rank ran its convs on the kernels of ``dtype``'s routes: conv1-
-    conv5 on the SIMT kernel (fp32) or the tc kernel (bf16) alone, conv0 on
-    the code-gather kernel in ``dtype``, and fc1 on ``dtype``'s fc1 kernel
-    alone; a rank's fc1 shapes join FC1_SHAPES."""
+    conv5 on the SIMT kernel (fp32) or the tc kernel (bf16) alone, conv1 and
+    conv3 pooled in the epilogue (two pooled launches a conv0, no standalone
+    pool), conv0 on the code-gather kernel in ``dtype``, and fc1 on
+    ``dtype``'s fc1 kernel alone; a rank's fc1 shapes join FC1_SHAPES."""
     route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
     for r in ranks:
-        by = r["conv8_relu_by_route"]
-        if not (by[route] > 0 and by[other] == 0 and r["conv0_codes"] > 0
+        by, pooled = r["conv8_relu_by_route"], r["conv8_relu_pool4_by_route"]
+        if not (by[route] > 0 and by[other] == 0 and r["conv0_codes"] > 0 and r["pool4_standalone"] == 0
+                and pooled == {route: 2 * r["conv0_codes"], other: 0}
                 and r["conv0_codes_by_kind"] == {dtype: r["conv0_codes"]}
                 and r["fc1_strided"] > 0 and r["fc1_strided_by_route"] == {FC1_ROUTE[dtype]: r["fc1_strided"]}):
             raise AssertionError(f"{what} rank {r['rank']}: convs or fc1 not on the {dtype} kernels: {r}")
@@ -4212,6 +4357,7 @@ def rank_worker(args) -> int:
         return t
 
     gblinear._all_reduce = counted
+    _count_standalone_pools()
     _reset_counts()
     gblinear_cd.reset_launch_counts()
     gblinear_round.reset_launch_counts()
@@ -4232,7 +4378,8 @@ def rank_worker(args) -> int:
         "fc1_strided": fc1.fc1_strided.launches, "fc1_strided_by_shape": _fc1_shapes_now(),
         "fc1_strided_by_route": dict(fc1.fc1_strided.launches_by_route),
         "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
-        **stats}))
+        "conv8_relu_pool4_by_route": dict(conv8.conv8_relu_pool4.launches_by_route),
+        "pool4_standalone": STANDALONE_POOLS["calls"], **stats}))
     return rc
 
 
@@ -4255,7 +4402,7 @@ def bench_phase(report: dict, card: str) -> None:
     from expecto_tpu_torch import bench
     from expecto_tpu_torch.ops import gblinear_cd, gblinear_round
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
-    from expecto_tpu_torch.ops.conv8 import conv8_relu
+    from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_pool4
     from expecto_tpu_torch.ops.fc1 import fc1_strided
 
     _reset_counts()
@@ -4271,7 +4418,9 @@ def bench_phase(report: dict, card: str) -> None:
                                      sorted(conv8_relu.launches_by_kind.items())},
               "conv0_codes": conv0_codes_relu.launches, "conv0_codes_by_kind": dict(conv0_codes_relu.launches_by_kind),
               "fc1_strided": fc1_strided.launches, "fc1_strided_by_route": dict(fc1_strided.launches_by_route),
-              "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches}
+              "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
+              "conv8_relu_pool4_by_route": dict(conv8_relu_pool4.launches_by_route),
+              "pool4_standalone": STANDALONE_POOLS["calls"]}
     FC1_SHAPES.update(fc1_strided.launches_by_shape)
     shapes = {"conv8_relu": dict(conv8_relu.launches_by_shape), "conv0_codes": dict(conv0_codes_relu.launches_by_shape),
               "gblinear_cd": dict(gblinear_cd.coord_update.launches_by_shape)}
@@ -4292,6 +4441,8 @@ def bench_phase(report: dict, card: str) -> None:
         raise AssertionError(f"the bench's conv0 must run on the code-gather kernel in bf16: {by_kind0}")
     if counts["fc1_strided"] <= 0 or counts["fc1_strided_by_route"] != {"tc": counts["fc1_strided"]}:
         raise AssertionError(f"the bench's fc1 must run on the bf16 kernel alone: {counts}")
+    if counts["pool4_standalone"] or counts["conv8_relu_pool4_by_route"] != {"simt": 0, "tc": 2 * counts["conv0_codes"]}:
+        raise AssertionError(f"the bench's pools must all run in the tc kernel's epilogue, two a conv stack: {counts}")
     if counts["gblinear_cd"] != BENCH_CD_LAUNCHES or counts["gblinear_round"] != 0:
         raise AssertionError(f"the bench's training path: {counts['gblinear_cd']} coordinate updates (expected "
                              f"{BENCH_CD_LAUNCHES}), {counts['gblinear_round']} round-kernel launches (expected 0)")
@@ -4542,6 +4693,81 @@ def fc1_entry(report: dict, dtype: str) -> dict:
     return entry
 
 
+def _flow_conv_launches(report: dict) -> dict:
+    """{flow: (tc launches of its bf16 run, simt launches of its fp32 run)},
+    the runs PARENT_CONV_LAUNCHES counts."""
+    by = lambda c, r: c["conv8_relu_by_route"][r]  # noqa: E731
+    mixes = report["consensus"]["mixes"].values()
+    return {"serve": (by(report["main_path"]["launches"], "tc"), by(report["parity"]["launches"], "simt")),
+            "h5": (by(report["h5_contract"]["bf16"]["launches"], "tc"), by(report["h5_contract"]["fp32"]["launches"], "simt")),
+            "gene": (by(report["genes"]["bf16"]["launches"], "tc"), by(report["genes"]["fp32"]["launches"], "simt")),
+            "consensus": (sum(by(m["bf16"]["launches"], "tc") for m in mixes),
+                          sum(by(m["fp32"]["launches"], "simt") for m in mixes))}
+
+
+def _pooled_flows(report: dict) -> dict:
+    """{chunk: its per-shape rows} of every chunk the conv phases ran, as
+    the flows launch it (conv1 and conv3 pooled): the serving chunk's
+    conv1-conv5, each h5 pair chunk, the gene chunk and each consensus
+    case (the backbone, the patch batches, the dedup windows, the fallback
+    spans)."""
+    cases = dict.fromkeys(r["case"] for r in report["consensus_layers"])
+    return {"serve": report["conv8_layers"],
+            **{f"h5 N={n}": [r for r in report["h5_layers"] if r["N"] == n] for n in H5_CHUNK_N},
+            "gene": report["gene_layers"],
+            **{f"consensus {c}": [r for r in report["consensus_layers"] if r["case"] == c] for c in cases}}
+
+
+POOL_KEYS = ("ms", "replaced_ms", "pools_ms", "plain_ms", "library_ms", "bound_ms")
+
+
+def pool_phase(report: dict, card: str, seed: int) -> None:
+    """The pools fused into conv1's and conv3's kernel launches
+    (``conv8_relu_pool4``) across the flows. The conv phases checked and
+    timed every pooled shape (_conv8_cell); here each chunk's pooled
+    launches are summed, launch-weighted: fused, the replaced path (kernel +
+    pool), the pools alone, the plain version, the library yardstick and
+    the bound. Then every flow's standalone pools (0, read by _read_counts)
+    and, at the default seed, its conv launches by route against the
+    parent's."""
+    chunks = {}
+    for chunk, rows in _pooled_flows(report).items():
+        pooled = [r for r in rows if r["pool"]]
+        for tag in ("bf16", "fp32"):
+            c = chunks[f"{chunk} {tag}"] = {k: _weighted(pooled, tag, k) for k in POOL_KEYS}
+            log(f"pool4 {chunk} {tag} ({sum(r['launches_per_chunk'] for r in pooled)} pooled launches a chunk): "
+                f"fused {c['ms']:.3f} ms, replaced path {c['replaced_ms']:.3f} ms (pools {c['pools_ms']:.3f}), "
+                f"plain {c['plain_ms']:.3f} ms, conv1d+max_pool1d {c['library_ms']:.3f} ms, bound "
+                f"{c['bound_ms']:.3f} ms [{card}]")
+    flows = _flow_conv_launches(report)
+    log(f"conv launches by flow (tc bf16, simt fp32): {flows}; parent's at seed 0: {PARENT_CONV_LAUNCHES}; no "
+        f"standalone pool in any flow (each flow's read)")
+    if seed == 0 and flows != PARENT_CONV_LAUNCHES:
+        raise AssertionError(f"conv launches by flow {flows} differ from the parent's {PARENT_CONV_LAUNCHES}")
+    report["pool4"] = {"chunks": chunks, "conv_launches": flows}
+
+
+def pool4_entry(report: dict, tag: str) -> dict:
+    """The pooled epilogue's fields of a conv kernel's entry in the kernel
+    line: per chunk of each flow (launch-weighted over its pooled launches)
+    and per pooled shape its ms, the replaced path's (kernel + pool), the
+    pools' alone, the plain version's, the yardstick's and the bound; the
+    pooled launches of the kernel's main-path run; the standalone pools of
+    its serve, h5, gene and consensus runs (0: each run's read checks it)."""
+    run = report["main_path" if tag == "bf16" else "parity"]["launches"]
+    flows = [run, report["h5_contract"][tag]["launches"], report["genes"][tag]["launches"],
+             *(m[tag]["launches"] for m in report["consensus"]["mixes"].values())]
+    shapes = {f"{chunk} {r['layer']} N={r['N']} L={r['L']}": {k: r[tag][k] for k in POOL_KEYS} | {"pool": r["pool"]}
+              for chunk, rows in _pooled_flows(report).items() for r in rows if r["pool"]}
+    return {"launches": run["conv8_relu_pool4_by_route"]["tc" if tag == "bf16" else "simt"],
+            "standalone_pool_launches": sum(c["pool4_standalone"] for c in flows),
+            "max_abs_err": max(r[tag]["max_abs_err"] for rows in _pooled_flows(report).values() for r in rows
+                               if r["pool"]),
+            "chunks": {what.removesuffix(f" {tag}"): c for what, c in report["pool4"]["chunks"].items()
+                       if what.endswith(f" {tag}")},
+            "shapes": shapes}
+
+
 def kernel_table(report: dict) -> dict:
     """The kernel line: one entry per hand-written kernel, over the launches
     of one substitution chunk that its main path gives it (each shape
@@ -4556,8 +4782,10 @@ def kernel_table(report: dict) -> dict:
     each pipeline-phase flow that runs the kernel (the same at both depths);
     ``launches_bench`` are every kernel's launches in the bench phase's run,
     ``shapes_bench`` the distinct shapes of those, each held against the
-    plain version; ``max_abs_err`` covers every path's shapes. Per-shape numbers in
-    ``layers``, ``h5_layers`` and ``gene_layers``."""
+    plain version; ``max_abs_err`` covers every path's shapes. conv1 and
+    conv3 are pooled launches everywhere, as the flows make them (their
+    replaced path and the other pool numbers in ``pool4``). Per-shape numbers
+    in ``layers``, ``h5_layers``, ``gene_layers`` and ``consensus_layers``."""
     conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
     h5_full = [r for r in report["h5_layers"] if r["N"] == H5_CHUNK_N[0]]
     serve, parity = report["main_path"]["launches"], report["parity"]["launches"]
@@ -4615,7 +4843,8 @@ def kernel_table(report: dict) -> dict:
               launches_gene_bf16=gene["bf16"]["conv8_relu_by_route"]["tc"],
               launches_consensus_bf16=cons_launches("bf16", "tc"), consensus_ms=cons_ms("bf16", False),
               consensus_bound_ms=cons_ms("bf16", False, "bound_ms"),
-              consensus_library_ms=cons_ms("bf16", False, "library_ms"), launches_pipeline=pipe_launches("tc")),
+              consensus_library_ms=cons_ms("bf16", False, "library_ms"), launches_pipeline=pipe_launches("tc"),
+              pool4=pool4_entry(report, "bf16")),
         entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
               parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
               launches_h5_fp32=h5["fp32"]["conv8_relu_by_route"]["simt"],
@@ -4626,7 +4855,8 @@ def kernel_table(report: dict) -> dict:
               bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
               min_shape_bound_share=report["simt_fp32_chunk"]["min_shape_share"],
               sass_ffma=report["sass_simt"]["FFMA"], sass_lds=report["sass_simt"]["LDS"],
-              sass_hmma=report["sass_simt"]["HMMA"], sass_hgmma=report["sass_simt"]["HGMMA"]),
+              sass_hmma=report["sass_simt"]["HMMA"], sass_hgmma=report["sass_simt"]["HGMMA"],
+              pool4=pool4_entry(report, "fp32")),
         entry("conv0_codes", "expecto_tpu_torch/csrc/conv0_codes.cu", conv0, "bf16", serve["conv0_codes"],
               fp32_ms=_weighted(conv0, "fp32", "ms"), fp32_bound_ms=_weighted(conv0, "fp32", "bound_ms"),
               fp32_plain_ms=_weighted(conv0, "fp32", "plain_ms"),
@@ -4650,7 +4880,7 @@ def kernel_table(report: dict) -> dict:
         fc1_entry(report, "bfloat16"),
         fc1_entry(report, "float32"),
     ], "layers": [
-        {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"],
+        {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"], "pool": r["pool"],
          "launches_per_chunk": r["launches_per_chunk"],
          **{f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms",
                                                                      "bound_by", "max_abs_err")},
@@ -4658,14 +4888,14 @@ def kernel_table(report: dict) -> dict:
          **({"bf16_simt_onehot_ms": r["bf16"]["simt_onehot_ms"], "fp32_simt_onehot_ms": r["fp32"]["simt_onehot_ms"]}
             if "simt_onehot_ms" in r["bf16"] else {})}
         for r in conv0 + conv8],
-        "h5_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
+        "h5_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "pool", "launches_per_chunk")}
                       | {f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("route", "ms", "max_abs_err")}
                       for r in report["h5_layers"]],
-        "gene_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
+        "gene_layers": [{k: r[k] for k in ("layer", "N", "L", "Cin", "Cout", "pool", "launches_per_chunk")}
                         | {f"{t}_{k}": r[t][k] for t in ("fp32", "bf16")
                            for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                         for r in report["gene_layers"]],
-        "consensus_layers": [{k: r[k] for k in ("case", "layer", "N", "L", "Cin", "Cout", "launches_per_chunk")}
+        "consensus_layers": [{k: r[k] for k in ("case", "layer", "N", "L", "Cin", "Cout", "pool", "launches_per_chunk")}
                              | {f"{t}_{k}": r[t].get(k) for t in ("fp32", "bf16")
                                 for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                              for r in report["consensus_layers"]]}
@@ -4707,6 +4937,7 @@ def main(argv=None) -> int:
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "seed": args.seed}
     log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
+    _count_standalone_pools()
     t0 = time.perf_counter()
     built = cuda_build.build(ptxas_info=True)
     report["build_s"] = time.perf_counter() - t0
@@ -4785,6 +5016,9 @@ def main(argv=None) -> int:
     bench_phase(report, card)
     log(f"bench phase {time.perf_counter() - t0:.1f} s [{card}]")
     fc1_phase(report, card)
+    t0 = time.perf_counter()
+    pool_phase(report, card, args.seed)
+    log(f"pool phase {time.perf_counter() - t0:.1f} s [{card}]")
 
     table = kernel_table(report)
     report["total_s"] = time.perf_counter() - t_start

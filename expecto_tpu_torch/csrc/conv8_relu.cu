@@ -50,6 +50,29 @@
 //   stage asynchronously. bf16 x (not on a main path) is loaded through
 //   registers and widened to fp32 when its stage starts; only its W copies
 //   overlap compute.
+// - The pooled epilogue (conv8_relu_pool4_launch), fp32 only: parity mode's
+//   conv1 and conv3 (bf16 pools on the tc kernel). It replaces the JAX
+//   package's XLA reduce-window after them, expecto_tpu/ops/spans.py:47-51
+//   `_pool4_from` (and `_maxpool4` of models/beluga.py), which read the conv's
+//   whole output back from device memory and wrote a quarter of it. With a
+//   phase mask set, the tiles are the unpooled kernel's (TM rows, stepping by
+//   TM: no row is computed twice). After the main loop the threads stage the
+//   post-bias, post-ReLU tile in the ring's shared memory (one barrier), then
+//   take (group, 4-channel piece) items for every pool group with a row in the
+//   tile: flat row n*L + l starts group (l - ph) / 4 of phase ph = l % 4 when
+//   bit ph of the mask is set and the group's 4 rows lie below L-7. The max of
+//   the group's rows in the tile is stored into that phase's buffer; a group
+//   that straddles two tiles is merged by an atomic max from both, on a buffer
+//   the launcher zero-fills first (ReLU outputs are >= +0 and order as their
+//   bit patterns, as unsigned ints; -0 is made +0 first). The tc kernel's
+//   rule, tiles stepping 4 rows short so that each group lies in one tile,
+//   costs this kernel 4/TM more FFMA work on conv1 and conv3, about 3 % of its
+//   fp32 serve; the atomics cost it nothing it can measure, as its blocks run
+//   long (the tc kernel's short blocks lose more to one atomic round trip than
+//   to the recomputed rows: PERF.md's pooled-epilogue findings). The pool adds
+//   no bound of its own: the work stays bound by the conv's operations; the
+//   pool's bytes are gone but the zero fill's (a quarter of the conv's output,
+//   written once).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +90,18 @@ constexpr int CT = 10;                 // output channels per thread: 4tx..+3, 6
 constexpr int TXN = BN / CT;           // threads across a tile's channels
 constexpr int W_STAGE = KW * CK * BN;  // floats of W per stage (20,480 bytes)
 
+constexpr int POOL_W = 4;              // max-pool width and stride
+constexpr int POOL_LD = BN + 4;        // floats a staged row, a multiple of 4 (16-byte pieces)
+
 static_assert(TXN == 16, "two warps of 8 channel threads span the 160 channels");
+
+// Where the epilogue stores: y (N, L-7, Cout) with mask 0; else, for each
+// bit ph of mask, the pooled phase buffer y[ph] (N, (L-7-ph)/4, Cout).
+template <typename T>
+struct Outputs {
+  T* y[POOL_W];
+  int mask;
+};
 
 template <int TM>
 struct Tile {
@@ -81,6 +115,7 @@ struct Tile {
   static constexpr int X_PER_THREAD = (X_STAGE + THREADS - 1) / THREADS;
   static_assert(XR % 32 == 8, "a warp's 4 row threads and 4 staged channels fall on distinct banks");
   static_assert(W_STAGE % (4 * THREADS) == 0, "each thread copies whole 16-byte pieces of W");
+  static_assert(TM * POOL_LD * 4 <= SMEM, "the pooled epilogue's staged tile fits in the ring");
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -169,10 +204,46 @@ __device__ __forceinline__ void compute_stage(float (&acc)[RT][CT], const float*
   }
 }
 
-template <typename T, int TM>
+// The pooled epilogue's second half: the block's fp32 tile of TM rows
+// staged in `tile` (POOL_LD a row). Each (group, 4-channel piece) of the
+// groups with a row in this tile (first rows from 3 before it to its last)
+// takes the max over its rows in the tile; a group wholly inside is stored
+// (one vector where Cout allows), a straddling one merged by atomic max on
+// the bits (*p = max(*p, v) for v >= +0 on a buffer of values >= +0, which
+// order as their bit patterns).
+template <int TM>
+__device__ __forceinline__ void store_pooled(const float* tile, const Outputs<float>& out, long long m0, int M, int L,
+                                             int Cout) {
+  constexpr int PIECES = BN / 4;
+  const int l_out = L - KW + 1;
+  for (int it = threadIdx.x; it < (TM + POOL_W - 1) * PIECES; it += Tile<TM>::THREADS) {
+    const int s = it / PIECES - (POOL_W - 1), p = it % PIECES, c = (int)blockIdx.y * BN + 4 * p;
+    const long long m = m0 + s;  // the group's first flat row
+    if (m < 0 || m >= M || c >= Cout) continue;
+    const int n = (int)(m / L), l = (int)(m - (long long)n * L);
+    const int ph = l % POOL_W, j = l / POOL_W, frames = (l_out - ph) / POOL_W;
+    if (!((out.mask >> ph) & 1) || j >= frames) continue;  // not a group's first row (or not one asked for)
+    const int lo = s < 0 ? 0 : s, hi = s + POOL_W > TM ? TM : s + POOL_W;
+    float4 v = *reinterpret_cast<const float4*>(tile + lo * POOL_LD + 4 * p);
+    for (int r = lo + 1; r < hi; ++r) {
+      const float4 u = *reinterpret_cast<const float4*>(tile + r * POOL_LD + 4 * p);
+      v = make_float4(fmaxf(v.x, u.x), fmaxf(v.y, u.y), fmaxf(v.z, u.z), fmaxf(v.w, u.w));
+    }
+    const float vs[4] = {__fadd_rn(v.x, 0.f), __fadd_rn(v.y, 0.f), __fadd_rn(v.z, 0.f), __fadd_rn(v.w, 0.f)};
+    float* yrow = out.y[ph] + ((size_t)n * frames + j) * Cout;
+    if (lo == s && hi == s + POOL_W) {
+      store_group<4>(yrow, c, vs, Cout);
+    } else {
+      for (int e = 0; e < 4 && c + e < Cout; ++e)
+        atomicMax(reinterpret_cast<unsigned int*>(yrow + c + e), __float_as_uint(vs[e]));
+    }
+  }
+}
+
+template <typename T, int TM, bool POOL>
 __global__ void __launch_bounds__(Tile<TM>::THREADS, Tile<TM>::MIN_BLOCKS)
 conv8_relu_kernel(const T* __restrict__ x, const float* __restrict__ wp, const T* __restrict__ b,
-                  T* __restrict__ y, int M, int L, int Cin, int Cout) {
+                  const Outputs<T> out, int M, int L, int Cin, int Cout) {
   using Tl = Tile<TM>;
   constexpr bool ASYNC_X = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
@@ -245,6 +316,24 @@ conv8_relu_kernel(const T* __restrict__ x, const float* __restrict__ wp, const T
   float bias[CT];
 #pragma unroll
   for (int j = 0; j < CT; ++j) bias[j] = channel(j) < Cout ? to_f32(b[channel(j)]) : 0.f;
+  if constexpr (POOL) {
+    static_assert(std::is_same<T, float>::value, "the pooled epilogue is fp32 only");
+    __syncthreads();  // every thread's last stage is computed: the ring is free to stage in
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float v[CT];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) v[j] = fmaxf(acc[r][j] + bias[j], 0.f);
+      float* row = smem + (RT * ty + r) * POOL_LD;
+      *reinterpret_cast<float4*>(row + 4 * tx) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(row + 64 + 4 * tx) = make_float4(v[4], v[5], v[6], v[7]);
+      *reinterpret_cast<float2*>(row + 128 + 2 * tx) = make_float2(v[8], v[9]);
+    }
+    __syncthreads();
+    store_pooled<TM>(smem, out, m0, M, L, Cout);
+    return;
+  }
+  T* __restrict__ y = out.y[0];
   const int l_out = L - KW + 1;
   long long m = m0 + RT * ty;
   long long n = m / L;
@@ -274,23 +363,22 @@ long long busiest_rows(long long m, long long cols, int sms, int tm) {
   return (blocks + sms - 1) / sms * tm;
 }
 
-template <typename T, int TM>
-int launch(const void* x, const void* wp, const void* b, void* y, long long m, int L, int Cin, int Cout,
-           cudaStream_t stream) {
+template <typename T, int TM, bool POOL>
+int launch(const void* x, const void* wp, const void* b, const Outputs<T>& out, long long m, int L, int Cin,
+           int Cout, cudaStream_t stream) {
   using Tl = Tile<TM>;
   const cudaError_t err =
-      cudaFuncSetAttribute(conv8_relu_kernel<T, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+      cudaFuncSetAttribute(conv8_relu_kernel<T, TM, POOL>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)((Cout + BN - 1) / BN));
-  conv8_relu_kernel<T, TM><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(wp), static_cast<const T*>(b), static_cast<T*>(y),
-      (int)m, L, Cin, Cout);
+  conv8_relu_kernel<T, TM, POOL><<<grid, Tl::THREADS, Tl::SMEM, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(wp), static_cast<const T*>(b), out, (int)m, L, Cin, Cout);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_tile(const void* x, const void* wp, const void* b, void* y, long long m, int L, int Cin, int Cout,
-                cudaStream_t stream) {
+template <typename T, bool POOL>
+int launch_tile(const void* x, const void* wp, const void* b, const Outputs<T>& out, long long m, int L, int Cin,
+                int Cout, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -298,8 +386,37 @@ int launch_tile(const void* x, const void* wp, const void* b, void* y, long long
   // a 64-row tile computes a row at about 0.9 of the 128-row tile's rate
   const long long cols = (Cout + BN - 1) / BN;
   if (10 * busiest_rows(m, cols, sms, 64) <= 9 * busiest_rows(m, cols, sms, 128))
-    return launch<T, 64>(x, wp, b, y, m, L, Cin, Cout, stream);
-  return launch<T, 128>(x, wp, b, y, m, L, Cin, Cout, stream);
+    return launch<T, 64, POOL>(x, wp, b, out, m, L, Cin, Cout, stream);
+  return launch<T, 128, POOL>(x, wp, b, out, m, L, Cin, Cout, stream);
+}
+
+template <typename T>
+int dispatch(const void* x, const void* wp, const void* b, void* const* y, int n, int L, int Cin, int Cout, int mask,
+             void* stream) {
+  const Outputs<T> out = {{static_cast<T*>(y[0]), static_cast<T*>(y[1]), static_cast<T*>(y[2]), static_cast<T*>(y[3])},
+                          mask};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask == 0) return launch_tile<T, false>(x, wp, b, out, (long long)n * L, L, Cin, Cout, s);
+  if constexpr (std::is_same<T, float>::value) {
+    for (int ph = 0; ph < POOL_W; ++ph) {  // the pooled buffers start at +0 for the tile-edge merges
+      if (!((mask >> ph) & 1)) continue;
+      const size_t frames = (size_t)((L - KW + 1 - ph) / POOL_W);
+      const cudaError_t err = cudaMemsetAsync(y[ph], 0, (size_t)n * frames * Cout * sizeof(T), s);
+      if (err != cudaSuccess) return (int)err;
+    }
+    return launch_tile<T, true>(x, wp, b, out, (long long)n * L, L, Cin, Cout, s);
+  }
+  return (int)cudaErrorInvalidValue;  // the pooled epilogue is fp32 only
+}
+
+int checked_dispatch(const void* x, const void* wp, const void* b, void* const* y, int n, int L, int Cin, int Cout,
+                     int dtype, int mask, void* stream) {
+  const long long m = (long long)n * L;
+  if (n <= 0 || L < KW || Cin <= 0 || Cout <= 0 || m > 0x7fffffffLL || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch<float>(x, wp, b, y, n, L, Cin, Cout, mask, stream);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(x, wp, b, y, n, L, Cin, Cout, mask, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -310,11 +427,21 @@ int launch_tile(const void* x, const void* wp, const void* b, void* y, long long
 // success or a cudaError_t of the launch.
 extern "C" int conv8_relu_launch(const void* x, const void* wp, const void* b, void* y, int n, int L, int Cin,
                                  int Cout, int dtype, void* stream) {
-  const long long m = (long long)n * L;
-  if (n <= 0 || L < KW || Cin <= 0 || Cout <= 0 || m > 0x7fffffffLL || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_tile<float>(x, wp, b, y, m, L, Cin, Cout, s);
-  if (dtype == 1) return launch_tile<__nv_bfloat16>(x, wp, b, y, m, L, Cin, Cout, s);
-  return (int)cudaErrorInvalidValue;
+  void* const ys[POOL_W] = {y, nullptr, nullptr, nullptr};
+  return checked_dispatch(x, wp, b, ys, n, L, Cin, Cout, dtype, 0, stream);
+}
+
+// The pooled epilogue, fp32 only (dtype 0): as conv8_relu_launch, but for
+// each bit ph of `mask` (1..15) zero-fills y<ph> (n, (L-7-ph)/4, Cout),
+// 16-byte aligned, and stores the 4-wide max-pool from phase ph there, and the
+// conv's output nowhere.
+extern "C" int conv8_relu_pool4_launch(const void* x, const void* wp, const void* b, void* y0, void* y1, void* y2,
+                                       void* y3, int n, int L, int Cin, int Cout, int dtype, int mask,
+                                       void* stream) {
+  void* const ys[POOL_W] = {y0, y1, y2, y3};
+  if (mask <= 0 || mask >= (1 << POOL_W)) return (int)cudaErrorInvalidValue;
+  for (int ph = 0; ph < POOL_W; ++ph)
+    if (((mask >> ph) & 1) && (ys[ph] == nullptr || reinterpret_cast<uintptr_t>(ys[ph]) % 16 != 0))
+      return (int)cudaErrorInvalidValue;
+  return checked_dispatch(x, wp, b, ys, n, L, Cin, Cout, dtype, mask, stream);
 }

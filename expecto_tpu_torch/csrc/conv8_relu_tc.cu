@@ -42,6 +42,32 @@
 //   thread). 160 divides Beluga's 320, 480 and 640; another Cout is padded in
 //   the packed weights and masked at the store.
 //
+// - The pooled epilogue (conv8_relu_tc_pool4_launch). Beluga max-pools
+//   conv1's and conv3's outputs 4 frames wide from a phase (the JAX
+//   package's XLA reduce-window expecto_tpu/ops/spans.py:47-51
+//   `_pool4_from`, and `_maxpool4` of models/beluga.py). That pool read the
+//   conv's whole output back from device memory and wrote a quarter of it.
+//   Here the epilogue pools before it stores: with a phase mask set, tiles
+//   step by TM - 4 = 124 rows and still compute 128, and a tile owns the
+//   pool groups whose first row lies in its first 124 rows, so each group
+//   lies wholly inside one tile at any L and any phase (no atomics, no
+//   memset, the sums in today's order). After the main loop the consumers
+//   stage the post-bias, post-ReLU bf16 tile in the ring's idle shared
+//   memory (one named barrier), then each takes (group, 8-channel piece)
+//   items: flat row n*L + l starts group (l - ph) / 4 of phase ph = l % 4
+//   when bit ph of the mask is set and the group's 4 rows lie below L-7. It
+//   stores the max of 4 staged rows, 16 bytes, into that phase's buffer.
+//   Rounding to bf16 is monotone, so the bits equal the unpooled kernel's
+//   output pooled afterwards. The pool adds no bound of its own: the work
+//   stays bound by the conv's operations (plus 4/128 of recomputed rows);
+//   the pool's bytes (the conv output read back, a quarter written) are
+//   gone. The SIMT kernel's rule (its own tiles, a group across a tile edge
+//   merged by atomic max on a zero-filled buffer) took this kernel up to
+//   1.8x as long: a block lasts about 20 us, and the compare-and-swap round
+//   trips at its edges cost more than the 4 recomputed rows (PERF.md's
+//   pooled-epilogue findings). With the mask at 0 the kernel is the
+//   unpooled one above.
+//
 // Shared memory: 4 stages x (4,352 B of A + 40,960 B of B) + barriers.
 
 #include <cuda.h>
@@ -67,8 +93,18 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8;
 constexpr int CONSUMER_THREADS = 256;               // warps 0-7: two warpgroups
 constexpr int THREADS = CONSUMER_THREADS + 32;      // warp 8: the producer
 constexpr int ACC = BN / 2;                         // fp32 accumulators a thread
+constexpr int POOL_W = 4;                           // max-pool width and stride
+constexpr int POOL_LD = BN + 8;  // bf16 a staged row: 336 bytes, so a warp's 8 rows fall on distinct banks
 
 static_assert(A_GROUP_BYTES % 128 == 0 && STAGE_BYTES % 128 == 0, "TMA needs 128-byte aligned boxes");
+static_assert(TM * POOL_LD * 2 <= STAGES * STAGE_BYTES, "the staged tile fits in the ring");
+
+// Where the epilogue stores: y (N, L-7, Cout) with mask 0; else, for each
+// bit ph of mask, the pooled phase buffer y[ph] (N, (L-7-ph)/4, Cout).
+struct Outputs {
+  __nv_bfloat16* y[POOL_W];
+  int mask;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -167,16 +203,51 @@ __device__ __forceinline__ void wgmma_m64n160k16(float (&d)[ACC], uint64_t da, u
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The pooled epilogue's second half: the consumers' bf16 tile of TM rows
+// staged in `tile` (POOL_LD a row), each (group, 8-channel piece) of the
+// groups this tile owns maxed over its 4 rows and stored, 16 bytes where
+// Cout allows.
+__device__ __forceinline__ void store_pooled(const __nv_bfloat16* tile, const Outputs& out, int m0, int M, int L,
+                                             int Cout) {
+  constexpr int PIECES = BN / 8;
+  const int l_out = L - KW + 1;
+  for (int it = threadIdx.x; it < (TM - POOL_W) * PIECES; it += CONSUMER_THREADS) {
+    const int i = it / PIECES, c = blockIdx.y * BN + 8 * (it % PIECES);
+    const int m = m0 + i;
+    if (m >= M || c >= Cout) continue;
+    const int n = m / L, l = m - n * L;
+    const int ph = l % POOL_W, j = l / POOL_W, frames = (l_out - ph) / POOL_W;
+    if (!((out.mask >> ph) & 1) || j >= frames) continue;  // not a group's first row (or not one asked for)
+    const uint4* src = reinterpret_cast<const uint4*>(tile + i * POOL_LD + 8 * (it % PIECES));
+    uint4 v = src[0];
+    __nv_bfloat162* mx = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int r = 1; r < POOL_W; ++r) {
+      const uint4 u = src[r * POOL_LD / 8];
+      const __nv_bfloat162* ur = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e] = __hmax2(mx[e], ur[e]);
+    }
+    __nv_bfloat16* dst = out.y[ph] + ((size_t)n * frames + j) * Cout + c;
+    if (Cout % 8 == 0) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(&v);
+      for (int e = 0; e < 8 && c + e < Cout; ++e) dst[e] = vs[e];
+    }
+  }
+}
+
+template <bool POOL>
 __global__ void __launch_bounds__(THREADS, 1)
 conv8_relu_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat16* __restrict__ wp,
-                     const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ y, int M, int L, int Cin,
-                     int Cout) {
+                     const __nv_bfloat16* __restrict__ b, const Outputs out, int M, int L, int Cin, int Cout) {
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t base = smem_addr(smem);
   const uint32_t full0 = base + STAGES * STAGE_BYTES;  // STAGES "full" barriers, then STAGES "empty"
   const uint32_t empty0 = full0 + STAGES * 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * TM;
+  const int m0 = blockIdx.x * (POOL ? TM - POOL_W : TM);
   const int kt = Cin / KC;
 
   if (threadIdx.x == 0) {
@@ -231,6 +302,26 @@ conv8_relu_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat
   // 8 j + 2 (lane % 4) (+1), register 4 j + 2 half + {0, 1}
   const int l_out = L - KW + 1;
   const int c_base = blockIdx.y * BN + 2 * (lane % 4);
+  if constexpr (POOL) {
+    // every consumer's last wgmma has completed: the ring is free to stage in
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+    __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * half;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = c_base + 8 * j;
+        const float b0 = c < Cout ? __bfloat162float(b[c]) : 0.f, b1 = c + 1 < Cout ? __bfloat162float(b[c + 1]) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(tile + r * POOL_LD + c - blockIdx.y * BN) = __floats2bfloat162_rn(
+            fmaxf(d[4 * j + 2 * half] + b0, 0.f), fmaxf(d[4 * j + 2 * half + 1] + b1, 0.f));
+      }
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMER_THREADS) : "memory");
+    store_pooled(tile, out, m0, M, L, Cout);
+    return;
+  }
+  __nv_bfloat16* __restrict__ y = out.y[0];
   const bool pairs = (Cout % 2) == 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -275,15 +366,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-}  // namespace
-
-// Returns 0 on success, a cudaError_t of the launch, or 10000 + the CUresult
-// of a failed tensor-map encoding. x (n, L, Cin) bf16 16-byte aligned with
-// Cin % 16 == 0; wp the packed weights (ops/conv8.py::pack_weights_tc); b
-// (Cout) bf16; y (n, L-7, Cout) bf16. Launches on `stream`, allocates
-// nothing.
-extern "C" int conv8_relu_tc_launch(const void* x, const void* wp, const void* b, void* y, int n, int L, int Cin,
-                                    int Cout, void* stream) {
+template <bool POOL>
+int launch(const void* x, const void* wp, const void* b, const Outputs& out, int n, int L, int Cin, int Cout,
+           void* stream) {
   const long long m = (long long)n * L;
   if (n <= 0 || L < KW || Cin <= 0 || Cin % KC != 0 || Cout <= 0 || m > 0x7fffffffLL ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
@@ -301,11 +386,41 @@ extern "C" int conv8_relu_tc_launch(const void* x, const void* wp, const void* b
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (cr != CUDA_SUCCESS) return 10000 + (int)cr;
 
-  cudaError_t err = cudaFuncSetAttribute(conv8_relu_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  cudaError_t err =
+      cudaFuncSetAttribute(conv8_relu_tc_kernel<POOL>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)((Cout + BN - 1) / BN));
-  conv8_relu_tc_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      xmap, static_cast<const __nv_bfloat16*>(wp), static_cast<const __nv_bfloat16*>(b),
-      static_cast<__nv_bfloat16*>(y), (int)m, L, Cin, Cout);
+  const int step = POOL ? TM - POOL_W : TM;
+  const dim3 grid((unsigned)((m + step - 1) / step), (unsigned)((Cout + BN - 1) / BN));
+  conv8_relu_tc_kernel<POOL><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      xmap, static_cast<const __nv_bfloat16*>(wp), static_cast<const __nv_bfloat16*>(b), out, (int)m, L, Cin, Cout);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns 0 on success, a cudaError_t of the launch, or 10000 + the CUresult
+// of a failed tensor-map encoding. x (n, L, Cin) bf16 16-byte aligned with
+// Cin % 16 == 0; wp the packed weights (ops/conv8.py::pack_weights_tc); b
+// (Cout) bf16; y (n, L-7, Cout) bf16. Launches on `stream`, allocates
+// nothing.
+extern "C" int conv8_relu_tc_launch(const void* x, const void* wp, const void* b, void* y, int n, int L, int Cin,
+                                    int Cout, void* stream) {
+  const Outputs out = {{static_cast<__nv_bfloat16*>(y), nullptr, nullptr, nullptr}, 0};
+  return launch<false>(x, wp, b, out, n, L, Cin, Cout, stream);
+}
+
+// The pooled epilogue: as conv8_relu_tc_launch, but for each bit ph of
+// `mask` (1..15) stores the 4-wide max-pool from phase ph into y<ph> (n,
+// (L-7-ph)/4, Cout) bf16, each 16-byte aligned, and the conv's output
+// nowhere.
+extern "C" int conv8_relu_tc_pool4_launch(const void* x, const void* wp, const void* b, void* y0, void* y1, void* y2,
+                                          void* y3, int n, int L, int Cin, int Cout, int mask, void* stream) {
+  const Outputs out = {{static_cast<__nv_bfloat16*>(y0), static_cast<__nv_bfloat16*>(y1),
+                        static_cast<__nv_bfloat16*>(y2), static_cast<__nv_bfloat16*>(y3)},
+                       mask};
+  if (mask <= 0 || mask >= (1 << POOL_W)) return (int)cudaErrorInvalidValue;
+  for (int ph = 0; ph < POOL_W; ++ph)
+    if (((mask >> ph) & 1) && (out.y[ph] == nullptr || reinterpret_cast<uintptr_t>(out.y[ph]) % 16 != 0))
+      return (int)cudaErrorInvalidValue;
+  return launch<true>(x, wp, b, out, n, L, Cin, Cout, stream);
 }

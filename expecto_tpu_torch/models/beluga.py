@@ -14,8 +14,10 @@ Layouts are the JAX package's: channels-last (N, L, C) activations, WIO
 of models/convert.py load unchanged. Every conv runs on a hand-written CUDA
 kernel on the card: conv0 over int8 base codes on
 :func:`expecto_tpu_torch.ops.conv0.conv0_codes_relu` (no float one-hot is
-built), conv0 over a one-hot and conv1-conv5 on
-:func:`expecto_tpu_torch.ops.conv8.conv8_relu`. Parameters are a plain dict
+built), conv0 over a one-hot, conv2, conv4 and conv5 on
+:func:`expecto_tpu_torch.ops.conv8.conv8_relu`, and conv1 and conv3 with
+the max-pool after them fused into the kernel's epilogue on
+:func:`expecto_tpu_torch.ops.conv8.conv8_relu_pool4`. Parameters are a plain dict
 ``{"conv{i}": {"w", "b"}, "fc1": {"w", "b"}, "fc2": {"w", "b"}}`` of tensors.
 """
 
@@ -26,7 +28,7 @@ import math
 import torch
 
 from ..ops.conv0 import conv0_codes_relu
-from ..ops.conv8 import conv8_relu
+from ..ops.conv8 import conv8_relu, conv8_relu_pool4
 
 BELUGA_INPUT_LEN = 2000
 BELUGA_N_TRACKS = 2002
@@ -67,18 +69,19 @@ def _conv_relu(x: torch.Tensor, p: dict) -> torch.Tensor:
     return conv8_relu(x.contiguous(), p["w"], p["b"])
 
 
+def _conv_relu_pool4(x: torch.Tensor, p: dict, phases) -> dict[int, torch.Tensor]:
+    """The conv, then the 4-wide max-pool from each of ``phases``, in one
+    launch: {phase: (N, (L-7-phase)//4, Cout)}, each contiguous and aligned,
+    so the next conv takes it as it is."""
+    return conv8_relu_pool4(x.contiguous(), p["w"], p["b"], phases)
+
+
 def _conv0(x: torch.Tensor, p: dict) -> torch.Tensor:
     """conv0 of (N, L) integer base codes on the code-gather kernel, or of an
     (N, L, 4) one-hot on conv8_relu."""
     if x.dim() == 2 and not x.is_floating_point():
         return conv0_codes_relu(x, p["w"], p["b"])
     return _conv_relu(x, p)
-
-
-def _maxpool4(x: torch.Tensor) -> torch.Tensor:
-    # torch MaxPool2d((1,4),(1,4)) truncates the remainder (floor mode).
-    n, l, c = x.shape
-    return x[:, : (l // 4) * 4, :].reshape(n, l // 4, 4, c).amax(dim=2)
 
 
 def beluga_forward(params: BelugaParams, x: torch.Tensor, *, logits: bool = False) -> torch.Tensor:
@@ -88,11 +91,9 @@ def beluga_forward(params: BelugaParams, x: torch.Tensor, *, logits: bool = Fals
     code outside 0..3, N among them, adds nothing), as the serving runner
     passes it. ``logits=True`` skips the output sigmoid."""
     h = _conv0(x, params["conv0"])
-    h = _conv_relu(h, params["conv1"])
-    h = _maxpool4(h)
+    h = _conv_relu_pool4(h, params["conv1"], (0,))[0]  # torch MaxPool2d((1,4),(1,4)): floor mode
     h = _conv_relu(h, params["conv2"])
-    h = _conv_relu(h, params["conv3"])
-    h = _maxpool4(h)
+    h = _conv_relu_pool4(h, params["conv3"], (0,))[0]
     h = _conv_relu(h, params["conv4"])
     h = _conv_relu(h, params["conv5"])
     h = h.reshape(h.shape[0], -1)  # length-major flatten

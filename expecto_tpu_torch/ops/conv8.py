@@ -20,6 +20,13 @@ Both kernels tile the conv over the N*L input rows as one sequence
 of 160 output channels, and read W packed once per weight tensor into their
 own layout (:func:`pack_weights_tc`, :func:`pack_weights_simt`).
 
+:func:`conv8_relu_pool4` is the same conv with Beluga's 4-wide max-pool
+(the JAX package's XLA ``expecto_tpu/ops/spans.py::_pool4_from``) fused
+into the kernels' epilogue: it returns the pooled buffer of each asked-for
+phase and never writes the conv's own output to device memory
+(:func:`conv8_relu_pool4_flat_plain` is the kernels' tile ownership in
+plain PyTorch).
+
 The serving path's conv0 takes int8 base codes instead, on ops/conv0.py.
 
 A CUDA tensor launches its route's kernel or raises: no route falls back to
@@ -43,6 +50,7 @@ _TC_KC = 16  # input channels per stage of the tc kernel
 _SIMT_KC = 4  # input channels per stage of the simt kernel
 _BN = 160  # output channels per tile of both kernels
 _MAX_ROWS = 2**31 - 1  # N * L: both kernels index the flat rows with an int
+POOL_W = 4  # Beluga's max-pool: width and stride 4
 
 
 def conv8_relu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,6 +74,83 @@ def conv8_relu_flat_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> 
     y = conv8_relu_plain(x.reshape(1, n * l, -1), w, b)[0]
     y = F.pad(y, (0, 0, 0, KERNEL_W - 1))  # back to N*L rows
     return y.reshape(n, l, -1)[:, : l - KERNEL_W + 1]
+
+
+def pool4_frames(l_out: int, phase: int) -> int:
+    """Frames of the 4-wide max-pool from ``phase`` over ``l_out`` rows
+    (floor remainder drop): frame j covers rows [phase + 4j, phase + 4j + 4)."""
+    return max(0, (l_out - phase) // POOL_W)
+
+
+def _pool4(y: torch.Tensor, phase: int) -> torch.Tensor:
+    """The plain versions' own 4-wide max-pool from ``phase`` over (N, L', C)
+    (ops/spans._pool4_from's job; kept apart so that the plain versions do
+    not depend on the span module)."""
+    n, l, c = y.shape
+    frames = pool4_frames(l, phase)
+    return y[:, phase : phase + POOL_W * frames].reshape(n, frames, POOL_W, c).amax(dim=2)
+
+
+def _pool_phases(phases) -> list[int]:
+    """``phases`` as a sorted list, checked: 1-4 distinct ints in 0..3."""
+    got = [int(p) for p in phases]
+    if not got or len(set(got)) != len(got) or any(not 0 <= p < POOL_W for p in got):
+        raise ValueError(f"conv8_relu_pool4 takes 1-4 distinct pool phases in 0..3, got {list(phases)}")
+    return sorted(got)
+
+
+def conv8_relu_pool4_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, phases) -> dict[int, torch.Tensor]:
+    """Plain PyTorch version of :func:`conv8_relu_pool4`: the conv, then the
+    4-wide max-pool from each phase -> {phase: (N, (L-7-phase)//4, Cout)}."""
+    y = conv8_relu_plain(x, w, b)
+    return {ph: _pool4(y, ph) for ph in _pool_phases(phases)}
+
+
+def conv8_relu_pool4_flat_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, phases, *, route: str = "tc",
+                                tm: int = 128) -> dict[int, torch.Tensor]:
+    """The kernels' pooled epilogue in plain PyTorch, over tiles of ``tm``
+    flat rows. Flat row n*L + l starts the group (l - ph) / 4 of phase
+    ph = l % 4 when ph is asked for and the group's 4 rows lie below L-7.
+
+    - ``route="tc"`` (128-row tiles): tiles step by ``tm`` - 4, and a tile
+      owns the groups whose first row lies in its first ``tm`` - 4 rows, so
+      it takes each group's max from its own rows alone;
+    - ``route="simt"`` (``tm`` 128 or 64): tiles step by ``tm``, each takes
+      the max over its rows of every group with a row in it, and the parts
+      of a group that straddles two tiles are merged by max into outputs
+      that start at zero.
+
+    The conv values come from :func:`conv8_relu_plain`; the rows that
+    straddle two spans and the rows past N*L are NaN here, so a group that
+    read such a row shows as NaN, as does (route "tc") one that no tile
+    owned."""
+    phases = _pool_phases(phases)
+    if route not in ROUTES:
+        raise ValueError(f"unknown conv8_relu route {route!r}")
+    n, l, _cin = x.shape
+    m, l_out = n * l, l - KERNEL_W + 1
+    step, first = (tm - POOL_W, 0) if route == "tc" else (tm, 1 - POOL_W)
+    fill = float("nan") if route == "tc" else 0.0  # the outputs' start, and a group's rows outside the tile
+    y = conv8_relu_plain(x, w, b)
+    flat = torch.full((m + tm, y.shape[2]), float("nan"), dtype=y.dtype)
+    flat[:m].view(n, l, -1)[:, :l_out] = y
+    out = {ph: torch.full((n, pool4_frames(l_out, ph), y.shape[2]), fill, dtype=y.dtype) for ph in phases}
+    s = torch.arange(first, step)  # the first rows of the groups a tile takes, from its own first row
+    for m0 in range(0, m, step):
+        tile = flat[m0 : m0 + tm]  # the tile's staged rows
+        rows = m0 + s
+        span, pos = rows.div(l, rounding_mode="floor"), rows % l
+        ph, j = pos % POOL_W, pos // POOL_W
+        for p in phases:
+            take = (rows >= 0) & (rows < m) & (ph == p) & (j < pool4_frames(l_out, p))
+            at = s[take]
+            # each of a group's rows in the tile; a row outside it adds nothing (simt: max of values >= 0), or
+            # shows as NaN (tc: a tile must own whole groups)
+            part = torch.stack([torch.where(((at + r >= 0) & (at + r < tm))[:, None], tile[(at + r).clamp(0, tm - 1)],
+                                            fill) for r in range(POOL_W)]).amax(dim=0)
+            idx = (span[take], j[take])
+            out[p][idx] = part if route == "tc" else torch.maximum(out[p][idx], part)
+    return out
 
 
 def pack_weights_tc(w: torch.Tensor) -> torch.Tensor:
@@ -143,6 +228,34 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("conv8_relu needs contiguous x, W and b")
 
 
+def _cuda_route(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, route: str | None, what: str) -> str:
+    """The route that runs CUDA x: :func:`_route`'s, or ``route`` if it takes
+    x. Raises on anything the kernels do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
+    _check(x, w, b)
+    n, l, cin = x.shape
+    auto = _route(x.device.type, x.dtype, cin, x.data_ptr())
+    route = auto if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"unknown conv8_relu route {route!r}")
+    if route == "tc" and auto != "tc":
+        raise ValueError(f"the tc kernel takes 16-byte-aligned bf16 x with Cin % {_TC_KC} == 0, got {x.dtype}, "
+                         f"Cin {cin}, data pointer {x.data_ptr():#x}")
+    if n * l > _MAX_ROWS:
+        raise ValueError(f"the {route} kernel takes N * L <= {_MAX_ROWS}, got {n * l}")
+    return route
+
+
+def _count(route: str, x: torch.Tensor, cout: int) -> None:
+    n, l, cin = x.shape
+    dtype = str(x.dtype).removeprefix("torch.")
+    conv8_relu.launches += 1
+    conv8_relu.launches_by_route[route] += 1
+    conv8_relu.launches_by_kind[(route, dtype, cin)] += 1
+    conv8_relu.launches_by_shape[(route, dtype, n, l, cin, cout)] += 1
+
+
 def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str | None = None) -> torch.Tensor:
     """relu(conv_valid_w8(x, W) + b): a CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. ``route`` ("simt" or "tc") overrides
@@ -156,20 +269,9 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
         if route not in (None, "cpu"):
             raise ValueError(f"route {route!r} needs CUDA tensors")
         return conv8_relu_plain(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv8_relu runs on CUDA or CPU tensors, got {x.device}")
-    _check(x, w, b)
+    route = _cuda_route(x, w, b, route, "conv8_relu")
     n, l, cin = x.shape
     cout = w.shape[2]
-    auto = _route(x.device.type, x.dtype, cin, x.data_ptr())
-    route = auto if route is None else route
-    if route not in ROUTES:
-        raise ValueError(f"unknown conv8_relu route {route!r}")
-    if route == "tc" and auto != "tc":
-        raise ValueError(f"the tc kernel takes 16-byte-aligned bf16 x with Cin % {_TC_KC} == 0, got {x.dtype}, "
-                         f"Cin {cin}, data pointer {x.data_ptr():#x}")
-    if n * l > _MAX_ROWS:
-        raise ValueError(f"the {route} kernel takes N * L <= {_MAX_ROWS}, got {n * l}")
     y = torch.empty((n, l - KERNEL_W + 1, cout), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -182,22 +284,66 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
                                                        _DTYPE_CODES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"conv8_relu {route} kernel launch failed: error {err}")
-    conv8_relu.launches += 1
-    conv8_relu.launches_by_route[route] += 1
-    conv8_relu.launches_by_kind[(route, str(x.dtype).removeprefix("torch."), cin)] += 1
-    conv8_relu.launches_by_shape[(route, str(x.dtype).removeprefix("torch."), n, l, cin, cout)] += 1
+    _count(route, x, cout)
     return y
 
 
+def conv8_relu_pool4(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, phases) -> dict[int, torch.Tensor]:
+    """The conv of :func:`conv8_relu`, then the 4-wide max-pool from each of
+    ``phases`` (1-4 distinct ints in 0..3), in one launch whose epilogue
+    pools before it stores: {phase: (N, (L-7-phase)//4, Cout)}, each phase
+    a contiguous tensor of its own. The conv's own output never reaches
+    device memory. Route rule (:func:`_route`), checks and packed weights as
+    :func:`conv8_relu`, but the SIMT kernel pools fp32 alone: bf16 off the
+    tc rule raises. CPU tensors take :func:`conv8_relu_pool4_plain`. A
+    phase with no full pool frame gives an (N, 0, Cout) tensor, and no
+    launch when no phase has one. Counts a launch in :func:`conv8_relu`'s
+    counts and in its own ``launches``, ``launches_by_route``."""
+    phases = _pool_phases(phases)
+    if x.device.type == "cpu":
+        return conv8_relu_pool4_plain(x, w, b, phases)
+    route = _cuda_route(x, w, b, None, "conv8_relu_pool4")
+    if route == "simt" and x.dtype != torch.float32:
+        raise ValueError(f"conv8_relu_pool4 pools {x.dtype} only on the tc kernel (16-byte-aligned x, Cin % "
+                         f"{_TC_KC} == 0), got Cin {x.shape[2]}, data pointer {x.data_ptr():#x}")
+    n, l, cin = x.shape
+    cout = w.shape[2]
+    out = {ph: torch.empty((n, pool4_frames(l - KERNEL_W + 1, ph), cout), device=x.device, dtype=x.dtype)
+           for ph in phases}
+    live = {ph: y for ph, y in out.items() if y.shape[1]}
+    if not live:
+        return out
+    mask = sum(1 << ph for ph in live)
+    ys = [live[ph].data_ptr() if ph in live else 0 for ph in range(POOL_W)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        wp = _packed(w, route).data_ptr()
+        if route == "tc":
+            err = cuda_build.launcher("conv8_relu_tc", 5, n_ptrs=7, entry="conv8_relu_tc_pool4_launch")(
+                x.data_ptr(), wp, b.data_ptr(), *ys, n, l, cin, cout, mask, stream)
+        else:
+            err = cuda_build.launcher("conv8_relu", 6, n_ptrs=7, entry="conv8_relu_pool4_launch")(
+                x.data_ptr(), wp, b.data_ptr(), *ys, n, l, cin, cout, _DTYPE_CODES[x.dtype], mask, stream)
+    if err != 0:
+        raise RuntimeError(f"conv8_relu_pool4 {route} kernel launch failed: error {err}")
+    _count(route, x, cout)
+    conv8_relu_pool4.launches += 1
+    conv8_relu_pool4.launches_by_route[route] += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Zero every launch count of :func:`conv8_relu`."""
+    """Zero every launch count of :func:`conv8_relu` and :func:`conv8_relu_pool4`."""
     conv8_relu.launches = 0
     conv8_relu.launches_by_route = dict.fromkeys(ROUTES, 0)
     conv8_relu.launches_by_kind = Counter()
     conv8_relu.launches_by_shape = Counter()
+    conv8_relu_pool4.launches = 0
+    conv8_relu_pool4.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 #: kernel launches since the last reset (CPU calls do not count): all of
 #: them, by route, by (route, dtype, Cin) and by (route, dtype, N, L, Cin,
-#: Cout)
+#: Cout), pooled launches among them; and the pooled launches alone, all
+#: and by route
 reset_launch_counts()

@@ -115,11 +115,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launcher(name: str, n_ints: int, n_floats: int = 0, n_ptrs: int = 4):
-    """``<name>_launch`` of ``csrc/<name>.cu``, whose C signature is
-    ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats and the stream,
-    returning the CUDA error."""
-    fn = getattr(load(name), f"{name}_launch")
+def launcher(name: str, n_ints: int, n_floats: int = 0, n_ptrs: int = 4, entry: str | None = None):
+    """``entry`` (default ``<name>_launch``) of ``csrc/<name>.cu``, whose C
+    signature is ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats
+    and the stream, returning the CUDA error."""
+    fn = getattr(load(name), entry or f"{name}_launch")
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         fn.argtypes = [vp] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [vp]

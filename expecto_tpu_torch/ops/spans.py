@@ -31,7 +31,11 @@ frames into copies of the backbone's phase buffers.
 
 Every conv runs on a CUDA kernel on the card: conv0 on ops/conv0.py when
 the spans are int8 base codes (the serving path), every other conv on
-ops/conv8.py; fc1 over uniformly strided windows on ops/fc1.py. The span functions take (N, L, 4) one-hot spans, as the JAX
+ops/conv8.py, where conv1 and conv3 pool in their kernel's epilogue
+(``conv8_relu_pool4``): no pool runs on its own, but for the first pool of
+:func:`conv6_phases_patch_sites_c1`, whose conv1 activations are given
+(:func:`conv6_from_conv1`); fc1 over uniformly strided windows on
+ops/fc1.py. The span functions take (N, L, 4) one-hot spans, as the JAX
 package's do, or (N, L) int8 codes of them. All indices are Python ints:
 the serving path centres every variant at the same ``mutpos``.
 """
@@ -40,7 +44,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.beluga import BelugaParams, _conv0, _conv_relu
+from ..models.beluga import BelugaParams, _conv0, _conv_relu, _conv_relu_pool4
 from .fc1 import FC1_FRAMES, fc1_strided
 
 #: conv6 frame f (phase ph) reads span inputs [16f + 4ph, 16f + 4ph + RF)
@@ -57,31 +61,35 @@ def _pool4_from(x: torch.Tensor, phase: int) -> torch.Tensor:
 
 def conv1_acts(params: BelugaParams, spans: torch.Tensor) -> torch.Tensor:
     """conv0+conv1 activations of (N, L, 4) one-hot spans, or of (N, L) int8
-    codes of them, -> (N, L-14, 320)."""
+    codes of them, -> (N, L-14, 320), unpooled."""
     h = _conv0(spans, params["conv0"])
     return _conv_relu(h, params["conv1"])
 
 
+def _conv6_from_pool1(params: BelugaParams, p1: torch.Tensor, phases) -> dict[int, torch.Tensor]:
+    """conv2..conv6 from pool-1 output -> {phase: (N, n_frames, 640)}; conv3
+    pools each pool-2 phase in its kernel's epilogue."""
+    h = _conv_relu(p1, params["conv2"])
+    pooled = _conv_relu_pool4(h, params["conv3"], sorted(set(int(p) for p in phases)))
+    return {ph: _conv_relu(_conv_relu(g, params["conv4"]), params["conv5"]) for ph, g in pooled.items()}
+
+
 def conv6_from_conv1(params: BelugaParams, h: torch.Tensor, phases) -> dict[int, torch.Tensor]:
     """conv2..conv6 from conv1 activations aligned at span position 0 (the
-    pooling lattice is anchored there) -> {phase: (N, n_frames, 640)}."""
-    p1 = _pool4_from(h, 0)
-    h = _conv_relu(p1, params["conv2"])
-    h = _conv_relu(h, params["conv3"])
-    out = {}
-    for ph in sorted(set(int(p) for p in phases)):
-        g = _conv_relu(_pool4_from(h, ph), params["conv4"])
-        out[ph] = _conv_relu(g, params["conv5"])
-    return out
+    pooling lattice is anchored there) -> {phase: (N, n_frames, 640)}. Its
+    first pool is the one that runs on its own: conv1 ran elsewhere."""
+    return _conv6_from_pool1(params, _pool4_from(h, 0), phases)
 
 
 def conv6_phases(params: BelugaParams, spans: torch.Tensor, phases) -> dict[int, torch.Tensor]:
     """conv1..conv6 over full spans ((N, L, 4) one-hot or (N, L) int8
-    codes), once per pool2 phase.
+    codes), once per pool2 phase; both pools run in the conv kernels'
+    epilogues.
 
     Returns {phase: (N, n_frames, 640)}; the window at span offset ``o``
     occupies frames [(o//4 - ph)//4 : +106] of phase ``ph = (o//4) % 4``."""
-    return conv6_from_conv1(params, conv1_acts(params, spans), phases)
+    h = _conv0(spans, params["conv0"])
+    return _conv6_from_pool1(params, _conv_relu_pool4(h, params["conv1"], (0,))[0], phases)
 
 
 def conv6_frame_range(mutpos: int, ph: int) -> tuple[int, int]:

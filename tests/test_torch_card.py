@@ -36,7 +36,10 @@ torch oracle on the CPU; and the runner's pipelined execution: depth 4
 against depth 1 bit for bit, depth 2 over 40 chunks with a slowed writer, a
 landing buffer reused a chunk early (a planted fault that must miss), dispatch
 running ahead of the first write by the launch counts, and every public
-method through a warm call under torch's sync debug mode "error".
+method through a warm call under torch's sync debug mode "error"; and the
+pooled epilogue (``conv8_relu_pool4``) on each route, bit-equal to the
+route's unfused kernel followed by ``ops/spans._pool4_from`` at the serving
+conv1 and conv3 shapes, the patch sub-spans and tile edges.
 
 These tests need a CUDA GPU and skip without one. This file imports no JAX,
 so it runs where JAX is absent; on such a machine pass ``--noconftest``
@@ -55,12 +58,12 @@ import torch
 
 from expecto_tpu_torch.genome.windows import gene_shifts, variant_shifts
 from expecto_tpu_torch.models import convert, gblinear
-from expecto_tpu_torch.ops import conv0, cuda_build, gblinear_cd
+from expecto_tpu_torch.ops import conv0, conv8, cuda_build, gblinear_cd
 from expecto_tpu_torch.ops import gblinear_round as gr
 from expecto_tpu_torch.ops.conv0 import conv0_codes_relu, conv0_codes_relu_plain
-from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, reset_launch_counts
+from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain, conv8_relu_pool4, conv8_relu_pool4_plain, reset_launch_counts
 from expecto_tpu_torch.ops.decay import gene_pos_weights
-from expecto_tpu_torch.ops.spans import conv6_patch_sites_plan, conv6_phases, conv6_phases_patch_sites
+from expecto_tpu_torch.ops.spans import _pool4_from, conv6_patch_sites_plan, conv6_phases, conv6_phases_patch_sites
 from expecto_tpu_torch.parallel import mesh
 from expecto_tpu_torch.parallel.runner import BelugaRunner
 from torch_oracle import TorchBeluga
@@ -225,6 +228,76 @@ def test_conv8_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert conv8_relu.launches == before
 
 
+# the pooled convs of the flows: serving span conv1 and conv3, the serving
+# and consensus patch sub-spans, the per-window 2,000 bp; then tile edges
+# (N*L just past the tc kernel's 124-row steps and the SIMT kernel's 128-
+# and 64-row tiles, spans shorter than a tile, a span with no pool frame,
+# Cout off the 16-byte pieces and off the 160 tile, an odd Cout)
+POOL_SHAPES = [(227, 3593, 320, 320, (0,)), (227, 889, 480, 480, (0, 2)), (227, 607, 320, 320, (0,)),
+               (227, 143, 480, 480, (0, 2)), (40, 697, 320, 320, (0,)), (40, 165, 480, 480, (0, 2)),
+               (64, 1993, 320, 320, (0,)), (64, 489, 480, 480, (0,)),
+               (1, 125, 16, 32, (0, 1, 2, 3)), (1, 61, 32, 40, (1, 3)), (1, 129, 16, 32, (0, 1, 2, 3)),
+               (1, 65, 32, 40, (1, 3)), (5, 26, 16, 161, (0, 2)), (3, 9, 16, 20, (0, 3)), (7, 37, 48, 168, (0, 1, 2, 3)),
+               (2, 8, 16, 32, (0, 1)), (9, 71, 16, 33, (0, 1, 2, 3))]
+
+
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:2], ids=["tc-bf16", "simt-fp32"])
+@pytest.mark.parametrize("n,l,cin,cout,phases", POOL_SHAPES)
+def test_conv8_pool4_equals_the_kernel_then_the_pool(cuda, n, l, cin, cout, phases, route, dtype):
+    x, w, b = _inputs(n, l, cin, cout, n + l + cin + cout, cuda, dtype)
+    assert conv8._route("cuda", dtype, cin, x.data_ptr()) == route
+    reset_launch_counts()
+    got = conv8_relu_pool4(x, w, b, phases)
+    torch.cuda.synchronize()
+    live = any(t.shape[1] for t in got.values())
+    assert conv8_relu_pool4.launches_by_route == {r: int(live and r == route) for r in ("simt", "tc")}
+    assert conv8_relu.launches_by_route == conv8_relu_pool4.launches_by_route
+    y = conv8_relu(x, w, b, route=route)
+    want = conv8_relu_pool4_plain(x.float(), w.float(), b.float(), phases)
+    assert sorted(got) == sorted(phases)
+    for ph in phases:
+        assert got[ph].is_contiguous() and got[ph].data_ptr() % 16 == 0 and got[ph].dtype == dtype
+        assert torch.equal(got[ph], _pool4_from(y, ph)), ph
+        torch.testing.assert_close(got[ph].float(), want[ph], rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tc-bf16", "simt-fp32"])
+def test_conv8_pool4_bit_equal_on_a_second_stream(cuda, dtype):
+    """The SIMT route merges groups across tile edges by atomic max (any
+    order gives the same max); a repeat of either route on another stream,
+    into a buffer the first call did not leave zeroed, gives the same
+    bits."""
+    x, w, b = _inputs(227, 889, 480, 480, 5, cuda, dtype)
+    first = conv8_relu_pool4(x, w, b, (0, 2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.full((227, 220, 480), 7.0, device=cuda, dtype=dtype)  # a freed block of nonzero bytes to reuse
+        again = conv8_relu_pool4(x, w, b, (0, 2))
+    torch.cuda.synchronize()
+    for ph in (0, 2):
+        assert torch.equal(first[ph], again[ph])
+
+
+def test_conv8_pool4_refuses_bf16_off_the_tc_rule_and_bad_input(cuda):
+    """The SIMT kernel pools fp32 alone: bf16 off the tc rule (a misaligned
+    view, Cin % 16 != 0) raises and launches nothing."""
+    x, w, b = _inputs(2, 30, 320, 320, 9, cuda, torch.bfloat16)
+    buf = torch.empty(x.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    view = buf[1 : 1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    x24, w24, b24 = _inputs(2, 30, 24, 24, 9, cuda, torch.bfloat16)
+    reset_launch_counts()
+    for args in ((view, w, b), (x24, w24, b24)):
+        with pytest.raises(ValueError, match="only on the tc kernel"):
+            conv8_relu_pool4(*args, (0, 1))
+    assert conv8_relu.launches == 0 and conv8_relu_pool4.launches == 0
+    with pytest.raises(ValueError, match="pool phases"):
+        conv8_relu_pool4(x, w, b, (0, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv8_relu_pool4(x.transpose(0, 1).contiguous().transpose(0, 1), w, b, (0,))
+
+
 def test_runner_fp32_on_card_matches_cpu(cuda):
     """score_variant_spans_packed_rows at narrow widths, maxshift 400: fp32 on
     the card (every conv on the kernel) against fp32 on the CPU."""
@@ -349,8 +422,8 @@ def test_bf16_runner_launches_conv0_on_codes_and_no_conv8_at_cin_4(cuda):
     alt = ((spans[:, mutpos : mutpos + 1] + 1) % 4).astype(np.int8)
     basis = rng.random((len(offsets), 3, 10)).astype(np.float32)
     W = (rng.standard_normal((10 * 2002, 2)) * 0.05).astype(np.float32)
-    runner = BelugaRunner(narrow_params(3), batch_size=16, device="cuda", compute_dtype=torch.bfloat16,
-                          out_dtype=np.float16)
+    runner = BelugaRunner(narrow_params(3, convs=TC_WIDTHS), batch_size=16, device="cuda",
+                          compute_dtype=torch.bfloat16, out_dtype=np.float16)
     reset_launch_counts()
     conv0.reset_launch_counts()
     runner.score_variant_spans_packed(spans, mutpos, alt, offsets, basis, W, np.zeros(2, np.float32))
