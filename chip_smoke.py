@@ -8,8 +8,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
 1. card: name and power limit as nvidia-smi reports them;
 2. build: nvcc compiles every kernel of ``expecto_tpu_torch/csrc`` for
    sm_90a, one process per source, all at once (ptxas registers and spills
-   printed); the three tensor-core kernels' SASS (conv1-conv5, fc1 in bf16
-   and fc1 in fp32) must hold HGMMA instructions, and the SIMT kernel's FFMA
+   printed); the tensor-core kernels' SASS (conv1-conv5, fc1 in bf16 and
+   both fp32 fc1 kernels) must hold HGMMA instructions, and the SIMT kernel's FFMA
    and no HMMA or HGMMA (``cuobjdump -sass``; its FFMA-to-LDS ratio is
    printed);
 3. kernels, at every shape they run in one substitution chunk of the main
@@ -37,15 +37,17 @@ Phases (any failure raises, and the script exits non-zero with no result):
    its tensor-core kernel); then warm repeats of the same serving call give
    the throughput. Every later flow's counts are read the same way: a bf16
    flow's fc1 runs on the bf16 kernel (``fc1_strided_tc.cu``) and an fp32
-   flow's on the three-pass TF32 kernel (``fc1_strided_tf32x3.cu``), never
-   the other one; the h5, gene and consensus span flows launch it exactly 4
+   flow's on the three-pass TF32 kernels, each shape on the one its M routes
+   to (``fc1_strided_tf32x3_swap.cu`` after one split pass up to 64 windows,
+   ``fc1_strided_tf32x3.cu`` past it), never a bf16 one; the h5, gene and
+   consensus span flows launch it exactly 4
    times a chunk (two orientations x two pool-2 phases) in either dtype,
    every other flow (the serves, the pipeline's, each rank of the 2-rank
    serves, the bench) at least once;
 5. fp32 serve: the same serving call with ``--fp32``'s settings on the first
    256 substitutions and their genes, warm (one call first), its launch
    counts checked (conv1-conv5 on the SIMT kernel, conv0 on the code-gather
-   kernel in fp32, fc1 on the three-pass TF32 kernel): the end-to-end
+   kernel in fp32, fc1 on the three-pass TF32 kernels): the end-to-end
    throughput of parity mode;
 6. parity: a few of those variants scored with ``--fp32`` on the card and on
    the CPU (plain path), REF/ALT/SED compared; the card run's counts are
@@ -231,23 +233,27 @@ Phases (any failure raises, and the script exits non-zero with no result):
    40 blocks) must launch, the SIMT kernel and the round kernel must not;
    its one result line (printed after ``bench result:``) must hold every
    path key, each finite and above 0; its wall is printed with the card;
-16. fc1: the two kernels of fc1's strided product at every shape that the
+16. fc1: the kernels of fc1's strided product at every shape that the
    flows, the 2-rank serves and the bench launched them at (the wrapper's
-   ``launches_by_shape``, keyed by dtype), on seeded inputs at Beluga's
-   widths. bf16 (``csrc/fc1_strided_tc.cu``): held against its plain version
-   within FC1_TOL_STEPS bf16 steps of max|y|. fp32
-   (``csrc/fc1_strided_tf32x3.cu``, three TF32 passes): held against a
-   float64 product of the same inputs within FC1_FP32_REL of max|y|, and
-   against the plain version within FC1_FP32_PLAIN_REL, a limit that the
-   plain version must meet against float64. In both, the plain version with
+   ``launches_by_shape``, keyed by dtype), and in fp32 at the routes'
+   boundary shapes (FC1_BOUNDARY_M windows of the serving span, both fp32
+   kernels at each), on seeded inputs at Beluga's widths. bf16
+   (``csrc/fc1_strided_tc.cu``): held against its plain version within
+   FC1_TOL_STEPS bf16 steps of max|y|. fp32 (three TF32 passes: the split
+   pass ``csrc/fc1_split_tf32.cu`` and ``csrc/fc1_strided_tf32x3_swap.cu``
+   up to ``ops/fc1.SWAP_MAX_M`` windows, ``csrc/fc1_strided_tf32x3.cu``
+   past it; each row records its route and the bytes its launches stream):
+   held against a float64 product of the same inputs within FC1_FP32_REL of
+   max|y|, and against the plain version within FC1_FP32_PLAIN_REL, a limit
+   that the plain version must meet against float64. In both, the plain version with
    the first window read one frame late must miss the limit, and two calls
    are equal bit for bit; each is timed beside its bound (bf16: operations
    at the bf16 peak; fp32: three passes' operations at the TF32 peak, the
    one pass's share of the FFMA peak beside it), the plain version, the
    ``unfold`` + 2003-column ``torch.matmul`` it replaced (in fp32 the plain
-   version itself, TF32 off) and one ``torch.matmul`` of the same windows by
-   the weight zero-padded to 2,048 columns (a yardstick only: the port never
-   calls it), timed twice. Each shape's row has the kernel's time over the
+   version itself, TF32 off) and one ``torch.matmul`` of the same windows,
+   as one contiguous (M, K) matrix, by the weight zero-padded to 2,048
+   columns (a yardstick only: the port never calls it), timed twice. Each shape's row has the kernel's time over the
    yardstick's (``vs_library``) and its share of the bound; a shape where
    the kernel is slower than the yardstick by more than the difference of
    the yardstick's two timings is logged and listed in the report (it does
@@ -335,7 +341,14 @@ CONV0_FP32_TOL = 1e-5
 #        float64: it, and the kernel against it, within FC1_FP32_PLAIN_REL
 FC1_TOL_STEPS = 2
 FC1_FP32_REL, FC1_FP32_PLAIN_REL = 1e-5, 4e-5
-FC1_ROUTE = {"bfloat16": "tc", "float32": "tf32x3"}  # each compute dtype's fc1 kernel (ops/fc1.py::_route)
+#: each compute dtype's fc1 kernels (ops/fc1.py::_route: fp32 takes the
+#: swapped kernel up to SWAP_MAX_M windows a call, the tf32x3 kernel past it)
+FC1_ROUTES = {"bfloat16": ("tc",), "float32": ("tf32x3", "tf32x3_swap")}
+#: the fp32 routes' boundary, held on every run besides the flows' shapes
+#: (and SWAP_MAX_M, SWAP_MAX_M + 1): M windows of the serving span's buffer,
+#: N samples of 3-5 windows; 64 and 65 straddle the swapped kernel's
+#: 64-window ring (6 stages at N = 64, 5 at N = 72)
+FC1_BOUNDARY_M = (4, 64, 65)
 
 #: every shape (dtype, N, F, C, s0, stride, n_win, Nout) that an fc1 kernel
 #: ran at in a flow or the bench, with its launches there: filled by
@@ -1173,18 +1186,40 @@ def _fc1_shapes_now() -> list:
     return [[list(shape), n] for shape, n in sorted(fc1_strided.launches_by_shape.items())]
 
 
+def _fc1_routes_of(shapes: dict) -> dict:
+    """{route: launches} that ops/fc1.py::_route gives the fc1 launches
+    ``shapes`` ({(dtype, N, F, C, s0, stride, n_win, Nout): launches})."""
+    import torch
+
+    from expecto_tpu_torch.ops import fc1
+
+    out = Counter()
+    for (dtype, n, _f, _c, _s0, _stride, n_win, _n_out), k in shapes.items():
+        out[fc1._route("cuda", getattr(torch, dtype), n * n_win)] += k
+    return dict(out)
+
+
+def _fc1_on_routes(dtype: str, by_route: dict, shapes: dict, split: int) -> bool:
+    """Whether a run's fc1 launches went where ops/fc1.py::_route sends each
+    of their shapes, on ``dtype``'s kernels alone, one split pass a launch
+    of the swapped kernel."""
+    return (by_route == _fc1_routes_of(shapes) and set(by_route) <= set(FC1_ROUTES[dtype])
+            and split == by_route.get("tf32x3_swap", 0))
+
+
 def _read_counts(dtype: str) -> dict:
     """Every kernel's launches since the last _reset_counts, checked: the
     route counts add up, no float one-hot reached conv8_relu (no launch at
     Cin 4), every conv0 ran on the code-gather kernel in ``dtype``, and each
     conv stack ran its conv0 there (conv1 and conv2, the two Cin-320 convs
     of a stack, launch twice as often as conv0), and fc1 ran on ``dtype``'s
-    kernel alone (bf16: "tc"; fp32: "tf32x3"); the flow's fc1 shapes join
+    kernels alone, each shape on its route (bf16: "tc"; fp32: "tf32x3_swap",
+    after one split pass, or "tf32x3" by M); the flow's fc1 shapes join
     FC1_SHAPES. No pool ran on its own, and each conv stack pooled twice in
     its convs' epilogue (conv1 and conv3), on the route of its convs."""
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
     from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_pool4
-    from expecto_tpu_torch.ops.fc1 import fc1_strided
+    from expecto_tpu_torch.ops.fc1 import fc1_strided, split_planes
 
     by_route, kinds = dict(conv8_relu.launches_by_route), Counter(conv8_relu.launches_by_kind)
     n0, kind0 = conv0_codes_relu.launches, dict(conv0_codes_relu.launches_by_kind)
@@ -1192,16 +1227,18 @@ def _read_counts(dtype: str) -> dict:
     counts = {"conv8_relu": conv8_relu.launches, "conv8_relu_by_route": by_route,
               "conv8_relu_by_kind": {f"{r} {dt} Cin {cin}": k for (r, dt, cin), k in sorted(kinds.items())},
               "conv0_codes": n0, "conv0_codes_by_kind": kind0, "fc1_strided": fc1_strided.launches,
-              "fc1_strided_by_route": dict(fc1_strided.launches_by_route), "conv8_relu_pool4_by_route": pooled,
-              "pool4_standalone": STANDALONE_POOLS["calls"]}
+              "fc1_strided_by_route": dict(fc1_strided.launches_by_route), "fc1_split_tf32": split_planes.launches,
+              "conv8_relu_pool4_by_route": pooled, "pool4_standalone": STANDALONE_POOLS["calls"]}
     if counts["pool4_standalone"]:
         raise AssertionError(f"{counts['pool4_standalone']} standalone pools ran on the card in a {dtype} flow")
     route = "simt" if dtype == "float32" else "tc"
     if pooled != {r: 2 * n0 * (r == route) for r in pooled}:
         raise AssertionError(f"a {dtype} flow's pooled convs: {pooled}, expected {2 * n0} on {route} ({n0} conv stacks)")
-    if fc1_strided.launches and counts["fc1_strided_by_route"] != {FC1_ROUTE[dtype]: fc1_strided.launches}:
-        raise AssertionError(f"a {dtype} flow's fc1 did not all run on the {FC1_ROUTE[dtype]} kernel: "
-                             f"{counts['fc1_strided_by_route']}")
+    if not _fc1_on_routes(dtype, counts["fc1_strided_by_route"], fc1_strided.launches_by_shape,
+                          counts["fc1_split_tf32"]):
+        raise AssertionError(f"a {dtype} flow's fc1 did not run on its routes {FC1_ROUTES[dtype]} as ops/fc1.py::"
+                             f"_route sends its shapes: {counts['fc1_strided_by_route']}, split passes "
+                             f"{counts['fc1_split_tf32']}, shapes {_fc1_shapes_now()}")
     FC1_SHAPES.update(fc1_strided.launches_by_shape)
     if sum(by_route.values()) != conv8_relu.launches:
         raise AssertionError(f"route counts {by_route} do not add up to {conv8_relu.launches} launches")
@@ -1350,6 +1387,7 @@ def parity_phase(report: dict, inputs: dict) -> None:
             raise AssertionError(f"fp32 score CLI on {device} returned {rc}")
         if tag == "card":
             counts = _read_counts("float32")
+            fc1_shapes = _fc1_shapes_now()
             if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
                 raise AssertionError(f"fp32 conv1-conv5 did not all run on the simt kernel: {counts}")
             if counts["fc1_strided"] <= 0:
@@ -1363,7 +1401,8 @@ def parity_phase(report: dict, inputs: dict) -> None:
     for name, g, c, atol in (("REF", ref_g, ref_c, PARITY_ATOL), ("ALT", alt_g, alt_c, PARITY_ATOL),
                              ("SED", sed_g, sed_c, sed_atol)):
         np.testing.assert_allclose(g, c, rtol=PARITY_RTOL, atol=atol, err_msg=f"card vs CPU fp32 {name}")
-    report["parity"] = {"rows": n_rows, "max_abs_err": errs, "sed_atol": sed_atol, "launches": counts}
+    report["parity"] = {"rows": n_rows, "max_abs_err": errs, "sed_atol": sed_atol, "launches": counts,
+                        "fc1_launches_by_shape": fc1_shapes}
     log(f"parity fp32 card vs CPU on {n_rows} rows x {N_MODELS} models: max |err| {errs}; card launches {counts}")
 
 
@@ -4074,21 +4113,25 @@ def _rank_routes(ranks: list, dtype: str, what: str) -> None:
     conv5 on the SIMT kernel (fp32) or the tc kernel (bf16) alone, conv1 and
     conv3 pooled in the epilogue (two pooled launches a conv0, no standalone
     pool), conv0 on the code-gather kernel in ``dtype``, and fc1 on
-    ``dtype``'s fc1 kernel alone; a rank's fc1 shapes join FC1_SHAPES."""
+    ``dtype``'s fc1 kernels alone, each shape on its route; a rank's fc1
+    shapes join FC1_SHAPES."""
     route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
     for r in ranks:
         by, pooled = r["conv8_relu_by_route"], r["conv8_relu_pool4_by_route"]
         if not (by[route] > 0 and by[other] == 0 and r["conv0_codes"] > 0 and r["pool4_standalone"] == 0
                 and pooled == {route: 2 * r["conv0_codes"], other: 0}
                 and r["conv0_codes_by_kind"] == {dtype: r["conv0_codes"]}
-                and r["fc1_strided"] > 0 and r["fc1_strided_by_route"] == {FC1_ROUTE[dtype]: r["fc1_strided"]}):
+                and r["fc1_strided"] > 0
+                and _fc1_on_routes(dtype, r["fc1_strided_by_route"],
+                                   {tuple(shape): n for shape, n in r["fc1_strided_by_shape"]}, r["fc1_split_tf32"])):
             raise AssertionError(f"{what} rank {r['rank']}: convs or fc1 not on the {dtype} kernels: {r}")
         FC1_SHAPES.update({tuple(shape): n for shape, n in r["fc1_strided_by_shape"]})
 
 
 def _launches(ranks: list) -> list:
     return [{"conv8_relu": r["conv8_relu_by_route"], "conv0_codes": r["conv0_codes"], "fc1_strided": r["fc1_strided"],
-             "gblinear_cd": r["gblinear_cd"], "gblinear_round": r["gblinear_round"]}
+             "fc1_strided_by_route": r["fc1_strided_by_route"], "gblinear_cd": r["gblinear_cd"],
+             "gblinear_round": r["gblinear_round"]}
             for r in ranks]
 
 
@@ -4376,7 +4419,7 @@ def rank_worker(args) -> int:
         "conv0_codes": conv0.conv0_codes_relu.launches,
         "conv0_codes_by_kind": dict(conv0.conv0_codes_relu.launches_by_kind),
         "fc1_strided": fc1.fc1_strided.launches, "fc1_strided_by_shape": _fc1_shapes_now(),
-        "fc1_strided_by_route": dict(fc1.fc1_strided.launches_by_route),
+        "fc1_strided_by_route": dict(fc1.fc1_strided.launches_by_route), "fc1_split_tf32": fc1.split_planes.launches,
         "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
         "conv8_relu_pool4_by_route": dict(conv8.conv8_relu_pool4.launches_by_route),
         "pool4_standalone": STANDALONE_POOLS["calls"], **stats}))
@@ -4403,7 +4446,7 @@ def bench_phase(report: dict, card: str) -> None:
     from expecto_tpu_torch.ops import gblinear_cd, gblinear_round
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
     from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_pool4
-    from expecto_tpu_torch.ops.fc1 import fc1_strided
+    from expecto_tpu_torch.ops.fc1 import fc1_strided, split_planes
 
     _reset_counts()
     gblinear_cd.reset_launch_counts()
@@ -4418,6 +4461,7 @@ def bench_phase(report: dict, card: str) -> None:
                                      sorted(conv8_relu.launches_by_kind.items())},
               "conv0_codes": conv0_codes_relu.launches, "conv0_codes_by_kind": dict(conv0_codes_relu.launches_by_kind),
               "fc1_strided": fc1_strided.launches, "fc1_strided_by_route": dict(fc1_strided.launches_by_route),
+              "fc1_split_tf32": split_planes.launches,
               "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
               "conv8_relu_pool4_by_route": dict(conv8_relu_pool4.launches_by_route),
               "pool4_standalone": STANDALONE_POOLS["calls"]}
@@ -4439,7 +4483,8 @@ def bench_phase(report: dict, card: str) -> None:
         raise AssertionError(f"the bench's convs must run on the tc kernel alone: {by_route}")
     if counts["conv0_codes"] <= 0 or by_kind0 != {"bfloat16": counts["conv0_codes"]}:
         raise AssertionError(f"the bench's conv0 must run on the code-gather kernel in bf16: {by_kind0}")
-    if counts["fc1_strided"] <= 0 or counts["fc1_strided_by_route"] != {"tc": counts["fc1_strided"]}:
+    if (counts["fc1_strided"] <= 0 or counts["fc1_strided_by_route"] != {"tc": counts["fc1_strided"]}
+            or counts["fc1_split_tf32"]):
         raise AssertionError(f"the bench's fc1 must run on the bf16 kernel alone: {counts}")
     if counts["pool4_standalone"] or counts["conv8_relu_pool4_by_route"] != {"simt": 0, "tc": 2 * counts["conv0_codes"]}:
         raise AssertionError(f"the bench's pools must all run in the tc kernel's epilogue, two a conv stack: {counts}")
@@ -4519,93 +4564,136 @@ def _fc1_tol(want) -> float:
     return FC1_TOL_STEPS * 2.0**-8 * float(want.float().abs().max())
 
 
+def _fc1_boundary_shapes() -> Counter:
+    """The fp32 routes' boundary shapes (FC1_BOUNDARY_M and SWAP_MAX_M, SWAP_MAX_M + 1
+    windows of the serving span's buffer), each with 0 launches of the flows."""
+    from expecto_tpu_torch.ops import fc1
+
+    shapes = Counter()
+    for m in sorted({*FC1_BOUNDARY_M, fc1.SWAP_MAX_M, fc1.SWAP_MAX_M + 1}):
+        n_win = next(w for w in (5, 4, 3, 2, 1) if m % w == 0)
+        shapes[("float32", m // n_win, 206, 640, 0, 25, n_win, 2003)] += 0
+    return shapes
+
+
 def fc1_phase(report: dict, card: str) -> None:
     """The fc1 kernels at every shape of FC1_SHAPES (what the flows, the
-    2-rank serves and the bench launched them at), on seeded inputs at
-    Beluga's widths. bf16 (csrc/fc1_strided_tc.cu): held against the plain
-    version (fp32 sum) within FC1_TOL_STEPS bf16 steps of max|y|. fp32
-    (csrc/fc1_strided_tf32x3.cu): held against a float64 product of the same
-    inputs within FC1_FP32_REL of max|y| and against the plain version
-    (SGEMM, TF32 off) within FC1_FP32_PLAIN_REL, which the plain version must
-    meet against float64. In both, the
+    2-rank serves and the bench launched them at) and, in fp32, at the
+    routes' boundary (_fc1_boundary_shapes), on seeded inputs at Beluga's
+    widths. bf16 (csrc/fc1_strided_tc.cu): held against the plain version
+    (fp32 sum) within FC1_TOL_STEPS bf16 steps of max|y|. fp32 (the split
+    pass and the swapped kernel, or the tf32x3 kernel, by M): held against a
+    float64 product of the same inputs within FC1_FP32_REL of max|y| and
+    against the plain version (SGEMM, TF32 off) within FC1_FP32_PLAIN_REL,
+    which the plain version must meet against float64; at a boundary shape
+    the other fp32 kernel too (through ops/fc1._launch), so both are held
+    on every run. In both dtypes, the
     plain version with the first window read one frame late must miss the
     limit and two calls are equal bit for bit; each is timed beside its
     bound, the plain version, today's ``unfold`` + 2003-column
     ``torch.matmul`` (the path the kernel replaced; in fp32 the plain
     version itself) and the library yardstick, one ``torch.matmul`` of the
-    same windows by the weight zero-padded to 2,048 columns (the port never
-    calls it), timed twice, before and after a second timing of the kernel;
-    ``vs_library`` is the kernel's best time over the yardstick's, and a
-    shape where the kernel is slower than the yardstick by more than the
-    yardstick's two timings differ is logged and listed under
-    ``slower_than_library``. These launches come after every flow's counts
-    were read."""
+    same windows, as one contiguous (M, K) matrix, by the weight
+    zero-padded to 2,048 columns (the port never calls it), timed twice,
+    before and after a second timing of the kernel; ``vs_library`` is the
+    kernel's best time over the yardstick's, and a shape where the kernel is
+    slower than the yardstick by more than the yardstick's two timings
+    differ is logged and listed under ``slower_than_library``. An fp32 row
+    records its route and the bytes its launches stream
+    (``fc1.streamed_bytes``); the split pass is held against its plain
+    version bit for bit and timed alone beside it. These
+    launches come after every flow's counts were read."""
     import torch
     import torch.nn.functional as F
 
     from expecto_tpu_torch.ops import fc1
 
     t0 = time.perf_counter()
-    if {key[0] for key in FC1_SHAPES} != set(FC1_ROUTE):
-        raise AssertionError(f"the flows did not launch both fc1 kernels: {sorted(FC1_SHAPES)}")
+    if {key[0] for key in FC1_SHAPES} != set(FC1_ROUTES):
+        raise AssertionError(f"the flows did not launch both dtypes' fc1 kernels: {sorted(FC1_SHAPES)}")
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(15)
     weights = {}
     rows = []
-    for (dtype, n, f, c, s0, stride, n_win, n_out), launches in sorted(FC1_SHAPES.items()):
+    shapes = Counter(FC1_SHAPES)
+    shapes.update(_fc1_boundary_shapes())
+    boundary_m = {key[1] * key[6] for key in _fc1_boundary_shapes()}
+    for (dtype, n, f, c, s0, stride, n_win, n_out), launches in sorted(shapes.items()):
         dt = getattr(torch, dtype)
-        k = fc1.FC1_FRAMES * c
+        k, m = fc1.FC1_FRAMES * c, n * n_win
         if (dtype, k, n_out) not in weights:
             w = (torch.randn((k, n_out), generator=gen, device=dev) / k**0.5).to(dt)
             weights[(dtype, k, n_out)] = (w, F.pad(w, (0, -(-n_out // 256) * 256 - n_out)))
         w, w_pad = weights[(dtype, k, n_out)]
         buf = torch.rand((n, f, c), generator=gen, device=dev).to(dt)
         shape = f"{dtype} N={n} F={f} C={c} s0={s0} stride={stride} n_win={n_win} Nout={n_out}"
-        y = fc1.fc1_strided(buf, w, s0, stride, n_win)
-        bit_equal = torch.equal(y, fc1.fc1_strided(buf, w, s0, stride, n_win))
+        route = fc1._route("cuda", dt, m)
+        boundary = dtype == "float32" and m in boundary_m
+        # the route's call, and at a boundary shape the other fp32 kernel
+        calls = {route: lambda: fc1.fc1_strided(buf, w, s0, stride, n_win)}
+        if boundary:
+            other = "tf32x3" if route == "tf32x3_swap" else "tf32x3_swap"
+            calls[other] = lambda r=other: fc1._launch(r, buf, w, s0, stride, n_win)
         want = fc1.fc1_strided_plain(buf, w, s0, stride, n_win)
-        a = fc1._windows(buf, s0, stride, n_win)
-        extra = {}
-        err = float((y.float() - want.float()).abs().max())
-        ok = True
-        if dtype == "float32":
-            # tol: the limit against the plain version; f64_tol: the
-            # kernel's own against float64
-            exact = (a.double() @ w.double()).float()
-            scale = float(exact.abs().max())
-            tol = FC1_FP32_PLAIN_REL * scale
-            extra = {"err_f64": float((y - exact).abs().max()), "plain_err_f64": float((want - exact).abs().max()),
-                     "f64_tol": FC1_FP32_REL * scale}
-            ok = extra["err_f64"] <= extra["f64_tol"] and extra["plain_err_f64"] <= tol
-            del exact
-        else:
-            tol = _fc1_tol(want)
+        a = fc1._windows(buf, s0, stride, n_win).reshape(m, k)
         late_s0 = s0 + 1 if s0 + 1 + fc1.FC1_FRAMES <= f else s0 - 1  # one frame off, inside the buffer
         late = want.clone()
         late[:, 0] = fc1.fc1_strided_plain(buf, w, late_s0, stride, 1)[:, 0]
-        fault_err = float((y.float() - late.float()).abs().max())
-        if not (bit_equal and ok) or err > tol or fault_err <= tol:
-            raise AssertionError(f"fc1 kernel at {shape}: bit-equal repeat {bit_equal}, max |err| {err} (limit {tol}) "
-                                 f"{extra}, planted late window {fault_err} (must exceed the limit)")
+        exact = (a.double() @ w.double()).float().reshape(want.shape) if dtype == "float32" else None
+        checked = {}
+        for r, call in calls.items():
+            y = call()
+            bit_equal = torch.equal(y, call())
+            err = float((y.float() - want.float()).abs().max())
+            extra, ok = {}, True
+            if exact is not None:
+                # tol: the limit against the plain version; f64_tol: the
+                # kernel's own against float64
+                scale = float(exact.abs().max())
+                tol = FC1_FP32_PLAIN_REL * scale
+                extra = {"err_f64": float((y - exact).abs().max()), "plain_err_f64": float((want - exact).abs().max()),
+                         "f64_tol": FC1_FP32_REL * scale}
+                ok = extra["err_f64"] <= extra["f64_tol"] and extra["plain_err_f64"] <= tol
+            else:
+                tol = _fc1_tol(want)
+            fault_err = float((y.float() - late.float()).abs().max())
+            if not (bit_equal and ok) or err > tol or fault_err <= tol:
+                raise AssertionError(f"fc1 {r} kernel at {shape}: bit-equal repeat {bit_equal}, max |err| {err} (limit "
+                                     f"{tol}) {extra}, planted late window {fault_err} (must exceed the limit)")
+            checked[r] = {"max_abs_err": err, "tol": tol, "planted_fault_err": fault_err, **extra}
+            del y
+        del exact
         span = (n_win - 1) * stride + fc1.FC1_FRAMES  # the frames the windows cover
         nbytes = buf.element_size() * (n * span * c + k * n_out + n * n_win * n_out)
         ops = 2.0 * n * n_win * k * n_out
-        route = FC1_ROUTE[dtype]
-        row = {"dtype": dtype, "kernel": fc1.KERNELS[route], "N": n, "F": f, "C": c, "s0": s0, "stride": stride,
-               "n_win": n_win, "Nout": n_out, "M": n * n_win, "launches": launches, "max_abs_err": err, "tol": tol,
-               "planted_fault_err": fault_err, **extra,
+        row = {"dtype": dtype, "route": route, "kernel": fc1.KERNELS[route], "N": n, "F": f, "C": c, "s0": s0,
+               "stride": stride, "n_win": n_win, "Nout": n_out, "M": m, "launches": launches, "boundary": boundary,
+               **checked[route],
                **(_bound(nbytes, 3 * ops, "tf32") if dtype == "float32" else _bound(nbytes, ops, "bf16")),
-               "schedule": list(fc1.fc1_schedule(n * n_win, n_out, k, fc1.resident_ctas(dev), tiles=fc1.TILES[route])),
-               "ms": cuda_ms(lambda: fc1.fc1_strided(buf, w, s0, stride, n_win)),
+               "streamed_bytes": fc1.streamed_bytes(route, n, n_win, stride, c, n_out),
+               "schedule": list(fc1.fc1_schedule(m, n_out, k, fc1.resident_ctas(dev), tiles=fc1.TILES[route])),
+               "ms": cuda_ms(calls[route]),
                "plain_ms": cuda_ms(lambda: fc1.fc1_strided_plain(buf, w, s0, stride, n_win), reps=3, warmup=1),
                "unfold_matmul_ms": cuda_ms(lambda: fc1._windows(buf, s0, stride, n_win) @ w, reps=3, warmup=1)}
         if dtype == "float32":
             row["ffma_bound_ms"] = 1e3 * ops / PEAK_FLOPS["fp32"]  # one pass of fp32 operations outside the tensor cores
+            # the split pass alone: equal to its plain version bit for bit
+            planes, planes_plain = fc1.split_planes(buf, s0, span), fc1.split_planes_plain(buf, s0, span)
+            if not torch.equal(planes.view(torch.int32), planes_plain.view(torch.int32)):
+                raise AssertionError(f"the fc1 split pass differs from split_tf32 at {shape}")
+            row["split_max_abs_err"] = float((planes - planes_plain).abs().max())
+            del planes, planes_plain
+            row["split_ms"] = cuda_ms(lambda: fc1.split_planes(buf, s0, span))
+            row["split_plain_ms"] = cuda_ms(lambda: fc1.split_planes_plain(buf, s0, span), reps=3, warmup=1)
+            row["split_bound_ms"] = 1e3 * 12 * n * span * c / PEAK_BYTES  # one fp32 read, two writes
+        if boundary:
+            row["other"] = {"route": other, **checked[other], "ms": cuda_ms(calls[other]),
+                            "streamed_bytes": fc1.streamed_bytes(other, n, n_win, stride, c, n_out)}
         # the yardstick timed twice, before and after the kernel's second
         # timing: their difference is the noise that a slower kernel must
         # exceed to count as slower
         lib = [cuda_ms(lambda: a @ w_pad, reps=3, warmup=1)]
-        row["ms_again"] = cuda_ms(lambda: fc1.fc1_strided(buf, w, s0, stride, n_win))
+        row["ms_again"] = cuda_ms(calls[route])
         lib.append(cuda_ms(lambda: a @ w_pad, reps=3, warmup=1))
         row.update(library_ms=min(lib), library_noise_ms=abs(lib[0] - lib[1]), ms=min(row["ms"], row["ms_again"]))
         row.update(vs_library=row["ms"] / row["library_ms"], share_of_bound=row["bound_ms"] / row["ms"],
@@ -4613,11 +4701,14 @@ def fc1_phase(report: dict, card: str) -> None:
         ffma = ""
         if dtype == "float32":
             row["share_of_ffma_peak"] = row["ffma_bound_ms"] / row["ms"]
-            ffma = f"; {100 * row['share_of_ffma_peak']:.1f} % of the FFMA peak"
+            ffma = (f"; {100 * row['share_of_ffma_peak']:.1f} % of the FFMA peak; {row['streamed_bytes'] / 1e9:.3f} GB "
+                    f"streamed; split pass {row['split_ms']:.3f} ms, bound {row['split_bound_ms']:.3f}")
+            if boundary:
+                ffma += f"; {other} {row['other']['ms']:.3f} ms, err_f64 {row['other']['err_f64']:.3g}"
         rows.append(row)
-        errs = "".join(f", {key} {v:.3g}" for key, v in extra.items())
-        log(f"fc1 kernel {shape} (M={n * n_win}, schedule {row['schedule']}) x{launches}: {row['ms']:.3f} ms (err "
-            f"{err:.3g}{errs}, limit {tol:.3g}, late window {fault_err:.3g}; bit-equal) bound {row['bound_ms']:.3f} "
+        errs = "".join(f", {key} {v:.3g}" for key, v in checked[route].items() if key not in ("max_abs_err", "tol"))
+        log(f"fc1 {route} kernel {shape} (M={m}, schedule {row['schedule']}) x{launches}: {row['ms']:.3f} ms (err "
+            f"{row['max_abs_err']:.3g}{errs}, limit {row['tol']:.3g}; bit-equal) bound {row['bound_ms']:.3f} "
             f"ms ({row['bound_by']}, {100 * row['share_of_bound']:.1f} % of it{ffma}) "
             f"plain {row['plain_ms']:.3f} ms unfold+matmul {row['unfold_matmul_ms']:.3f} ms padded matmul "
             f"{row['library_ms']:.3f} ms (noise {row['library_noise_ms']:.3f}; kernel/yardstick "
@@ -4625,16 +4716,19 @@ def fc1_phase(report: dict, card: str) -> None:
         if row["slower_than_library"]:
             log(f"fc1 kernel SLOWER than the padded matmul at {shape}: {row['ms']:.3f} ms against "
                 f"{row['library_ms']:.3f} ms (noise {row['library_noise_ms']:.3f} ms) [{card}]")
-        del buf, a, y, want, late
+        del buf, a, want, late
     torch.cuda.empty_cache()
     slower = [r for r in rows if r["slower_than_library"]]
     report["fc1"] = {"shapes": rows, "phase_s": time.perf_counter() - t0,
-                     "slower_than_library": [{key: r[key] for key in ("dtype", "N", "F", "s0", "stride", "n_win", "M",
-                                                                       "ms", "library_ms", "library_noise_ms")}
+                     "slower_than_library": [{key: r[key] for key in ("dtype", "route", "N", "F", "s0", "stride",
+                                                                       "n_win", "M", "ms", "library_ms",
+                                                                       "library_noise_ms")}
                                              for r in slower]}
-    for dtype in FC1_ROUTE:
-        mine = [r for r in rows if r["dtype"] == dtype]
-        log(f"fc1 phase, {dtype}: {len(mine)} shapes, {sum(r['launches'] for r in mine)} launches of the flows and "
+    for route in fc1.ROUTES:
+        mine = [r for r in rows if r["route"] == route]
+        if not mine:
+            raise AssertionError(f"the fc1 phase held no shape on the {route} kernel")
+        log(f"fc1 phase, {route}: {len(mine)} shapes, {sum(r['launches'] for r in mine)} launches of the flows and "
             f"the bench, kernel/yardstick {min(r['vs_library'] for r in mine):.3f}-"
             f"{max(r['vs_library'] for r in mine):.3f}, {100 * min(r['share_of_bound'] for r in mine):.1f}-"
             f"{100 * max(r['share_of_bound'] for r in mine):.1f} % of the bound, "
@@ -4642,30 +4736,47 @@ def fc1_phase(report: dict, card: str) -> None:
     log(f"fc1 phase {time.perf_counter() - t0:.1f} s")
 
 
-def fc1_entry(report: dict, dtype: str) -> dict:
-    """The kernel line's entry of ``dtype``'s fc1 kernel: every number
-    launch-weighted over the fc1 shapes of that dtype's serve (the bf16
-    serve, the main path; the warm fp32 serve), a mean per launch;
-    ``launches`` are that run's, ``launches_*`` the other flows'."""
-    tag = "bf16" if dtype == "bfloat16" else "fp32"
-    serve = report["main_path"] if dtype == "bfloat16" else report["fp32_serve"]
-    shapes = {tuple(k): n for k, n in serve["fc1_launches_by_shape"]}
-    rows = [r for r in report["fc1"]["shapes"] if r["dtype"] == dtype]
+def _fc1_launch_run(report: dict, route: str) -> tuple[str, dict]:
+    """(name, report entry) of the run whose fc1 launches a route's kernel
+    line entry reports: the bf16 serve (the main path) for "tc"; for an fp32
+    route the warm fp32 serve, or the fp32 parity run where the serve's
+    chunks never took that route."""
+    if route == "tc":
+        return "bf16 serve (main path)", report["main_path"]
+    runs = [("warm fp32 serve", report["fp32_serve"]), ("fp32 parity", report["parity"])]
+    for name, run in runs:
+        if run["launches"]["fc1_strided_by_route"].get(route, 0) > 0:
+            return name, run
+    raise AssertionError(f"neither the fp32 serve nor the parity run launched the {route} kernel: "
+                         f"{[run['launches']['fc1_strided_by_route'] for _name, run in runs]}")
+
+
+def fc1_entry(report: dict, route: str) -> dict:
+    """The kernel line's entry of ``route``'s fc1 kernel: every number
+    launch-weighted over the fc1 shapes that route took in its run
+    (_fc1_launch_run), a mean per launch (the swapped kernel's ms include
+    the split pass, which its calls run first); ``launches`` are that run's,
+    ``launches_*`` the other flows'."""
+    dtype = "bfloat16" if route == "tc" else "float32"
+    tag = "bf16" if route == "tc" else "fp32"
+    run_name, run = _fc1_launch_run(report, route)
+    rows = [r for r in report["fc1"]["shapes"] if r["route"] == route]
     by_shape = {(dtype, r["N"], r["F"], r["C"], r["s0"], r["stride"], r["n_win"], r["Nout"]): r for r in rows}
+    shapes = {tuple(k): n for k, n in run["fc1_launches_by_shape"] if tuple(k) in by_shape}
     total = sum(shapes.values())
 
     def mean(key: str) -> float:
         return sum(n * by_shape[s][key] for s, n in shapes.items()) / total
 
-    pipe = {f: p["launches"]["fc1_strided"] for f, p in report["pipeline"].items()
-            if p["dtype"] == dtype and p["launches"]["fc1_strided"]}
+    def flow(launches: dict) -> int:
+        return launches["fc1_strided_by_route"].get(route, 0)
+
+    pipe = {f: flow(p["launches"]) for f, p in report["pipeline"].items() if p["dtype"] == dtype and flow(p["launches"])}
     mixes = report["consensus"]["mixes"].values()
-    route = FC1_ROUTE[dtype]
     entry = {
         "name": f"fc1_strided_{route}", "route": "cuda",
         "source": f"expecto_tpu_torch/csrc/fc1_strided_{route}.cu",
-        "replaces": "expecto_tpu/ops/spans.py:421", "launches": serve["launches"]["fc1_strided"],
-        "launches_run": "bf16 serve (main path)" if dtype == "bfloat16" else "warm fp32 serve",
+        "replaces": "expecto_tpu/ops/spans.py:421", "launches": flow(run["launches"]), "launches_run": run_name,
         "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"), "bound_by": "operations" if mean("ops_ms") >= mean("bytes_ms") else "bytes",
         "library_ms": mean("library_ms"), "dtype": tag, "unfold_matmul_ms": mean("unfold_matmul_ms"),
@@ -4675,22 +4786,57 @@ def fc1_entry(report: dict, dtype: str) -> dict:
         "min_share_of_bound": min(r["share_of_bound"] for r in rows),
         "shapes_slower_than_library": sum(r["slower_than_library"] for r in rows),
         "sass_hgmma": report["sass_fc1_hgmma"][route],
-        f"launches_h5_{tag}": report["h5_contract"][tag]["launches"]["fc1_strided"],
-        f"launches_gene_{tag}": report["genes"][tag]["launches"]["fc1_strided"],
-        f"launches_consensus_{tag}": sum(m[tag]["launches"]["fc1_strided"] for m in mixes),
+        f"launches_h5_{tag}": flow(report["h5_contract"][tag]["launches"]),
+        f"launches_gene_{tag}": flow(report["genes"][tag]["launches"]),
+        f"launches_consensus_{tag}": sum(flow(m[tag]["launches"]) for m in mixes),
         "launches_pipeline": pipe,
     }
-    if dtype == "bfloat16":
-        entry["launches_2rank_bf16"] = [r["fc1_strided"]
+    if route == "tc":
+        entry["launches_2rank_bf16"] = [r["fc1_strided_by_route"].get(route, 0)
                                         for r in report["multiprocess"]["score_bf16"]["launches_per_rank"]]
     else:
         entry.update(
-            launches_fp32_parity=report["parity"]["launches"]["fc1_strided"],
+            launches_fp32_serve=flow(report["fp32_serve"]["launches"]),
+            launches_fp32_parity=flow(report["parity"]["launches"]),
             max_err_f64=max(r["err_f64"] for r in rows), max_plain_err_f64=max(r["plain_err_f64"] for r in rows),
             max_err_f64_over_tol=max(r["err_f64"] / r["f64_tol"] for r in rows),
             ffma_bound_ms=mean("ffma_bound_ms"), min_share_of_ffma_peak=min(r["share_of_ffma_peak"] for r in rows),
-            launches_2rank_fp32=[r["fc1_strided"] for r in report["multiprocess"]["score_fp32"]["launches_per_rank"]])
+            streamed_bytes=mean("streamed_bytes"), split_ms=mean("split_ms"),
+            boundary_shapes=[{"M": r["M"], "ms": r["ms"], "other_route": r["other"]["route"],
+                              "other_ms": r["other"]["ms"], "library_ms": r["library_ms"]}
+                             for r in report["fc1"]["shapes"] if r["boundary"] and r["route"] == route],
+            launches_2rank_fp32=[r["fc1_strided_by_route"].get(route, 0)
+                                 for r in report["multiprocess"]["score_fp32"]["launches_per_rank"]])
     return entry
+
+
+def fc1_split_entry(report: dict) -> dict:
+    """The kernel line's entry of the swapped kernel's split pass:
+    launch-weighted over the shapes that kernel took in its run
+    (_fc1_launch_run, one split a launch), against its plain version
+    (split_tf32, bit for bit) and its byte bound (one fp32 read and two
+    writes of the frames the windows cover); no library call computes it."""
+    import torch
+
+    from expecto_tpu_torch.ops import fc1
+
+    run_name, run = _fc1_launch_run(report, "tf32x3_swap")
+    fp32 = [r for r in report["fc1"]["shapes"] if r["dtype"] == "float32"]
+    rows = {(r["N"], r["F"], r["C"], r["s0"], r["stride"], r["n_win"], r["Nout"]): r for r in fp32}
+    shapes = {tuple(k[1:]): n for k, n in run["fc1_launches_by_shape"]
+              if k[0] == "float32" and fc1._route("cuda", torch.float32, k[1] * k[6]) == "tf32x3_swap"}
+    total = sum(shapes.values())
+
+    def mean(key: str) -> float:
+        return sum(n * rows[s][key] for s, n in shapes.items()) / total
+
+    return {"name": "fc1_split_tf32", "route": "cuda", "source": "expecto_tpu_torch/csrc/fc1_split_tf32.cu",
+            "replaces": "expecto_tpu/ops/spans.py:421", "launches": run["launches"]["fc1_split_tf32"],
+            "launches_run": run_name, "max_abs_err": max(r["split_max_abs_err"] for r in fp32),
+            "ms": mean("split_ms"), "plain_ms": mean("split_plain_ms"), "bound_ms": mean("split_bound_ms"),
+            "bound_by": "bytes", "library_ms": None, "dtype": "fp32", "shapes_checked": len(fp32),
+            "launches_fp32_serve": report["fp32_serve"]["launches"]["fc1_split_tf32"],
+            "launches_parity": report["parity"]["launches"]["fc1_split_tf32"]}
 
 
 def _flow_conv_launches(report: dict) -> dict:
@@ -4786,6 +4932,8 @@ def kernel_table(report: dict) -> dict:
     conv3 are pooled launches everywhere, as the flows make them (their
     replaced path and the other pool numbers in ``pool4``). Per-shape numbers
     in ``layers``, ``h5_layers``, ``gene_layers`` and ``consensus_layers``."""
+    from expecto_tpu_torch.ops import fc1
+
     conv8, conv0 = report["conv8_layers"], report["conv0_layers"]
     h5_full = [r for r in report["h5_layers"] if r["N"] == H5_CHUNK_N[0]]
     serve, parity = report["main_path"]["launches"], report["parity"]["launches"]
@@ -4834,8 +4982,8 @@ def kernel_table(report: dict) -> dict:
     launches_bench = {"conv8_relu_tc": bench["conv8_relu_by_route"]["tc"],
                       "conv8_relu": bench["conv8_relu_by_route"]["simt"], "conv0_codes": bench["conv0_codes"],
                       "gblinear_cd": bench["gblinear_cd"], "gblinear_round": bench["gblinear_round"],
-                      "fc1_strided_tc": bench["fc1_strided_by_route"].get("tc", 0),
-                      "fc1_strided_tf32x3": bench["fc1_strided_by_route"].get("tf32x3", 0)}
+                      **{fc1.KERNELS[r]: bench["fc1_strided_by_route"].get(r, 0) for r in fc1.ROUTES},
+                      "fc1_split_tf32": bench["fc1_split_tf32"]}
     table = {"kernels": [
         entry("conv8_relu_tc", "expecto_tpu_torch/csrc/conv8_relu_tc.cu", conv8, "bf16",
               serve["conv8_relu_by_route"]["tc"], sass_hgmma=report["sass_hgmma"],
@@ -4877,8 +5025,8 @@ def kernel_table(report: dict) -> dict:
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms"), launches_pipeline=pipe_launches("codes")),
         gblinear_cd_entry(report["train"], report["multiprocess"]["train"]),
         gblinear_round_entry(report["train"]),
-        fc1_entry(report, "bfloat16"),
-        fc1_entry(report, "float32"),
+        *(fc1_entry(report, route) for route in fc1.ROUTES),
+        fc1_split_entry(report),
     ], "layers": [
         {"layer": r["layer"], "N": r["N"], "L": r["L"], "Cin": r["Cin"], "Cout": r["Cout"], "pool": r["pool"],
          "launches_per_chunk": r["launches_per_chunk"],
@@ -4931,7 +5079,7 @@ def main(argv=None) -> int:
         return 1
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
-    from expecto_tpu_torch.ops import cuda_build
+    from expecto_tpu_torch.ops import cuda_build, fc1
 
     card = card_line()
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda, "seed": args.seed}
@@ -4956,8 +5104,7 @@ def main(argv=None) -> int:
         f"FFMA per LDS), {sass['HMMA']} HMMA, {sass['HGMMA']} HGMMA")
     if sass["FFMA"] == 0 or sass["HMMA"] or sass["HGMMA"]:
         raise AssertionError(f"the SIMT kernel's SASS must hold FFMA and no tensor-core instruction: {sass}")
-    report["sass_fc1_hgmma"] = {route: cuda_build.sass_count(f"fc1_strided_{route}", "HGMMA")
-                                for route in FC1_ROUTE.values()}
+    report["sass_fc1_hgmma"] = {route: cuda_build.sass_count(fc1.KERNELS[route], "HGMMA") for route in fc1.ROUTES}
     log(f"csrc/fc1_strided_*.cu SASS: HGMMA instructions {report['sass_fc1_hgmma']}")
     if not all(report["sass_fc1_hgmma"].values()):
         raise AssertionError(f"an fc1 kernel's SASS holds no HGMMA (tensor-core) instruction: "

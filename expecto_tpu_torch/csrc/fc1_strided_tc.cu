@@ -73,13 +73,15 @@
 //   timing, so a shape gives the same bits on every call.
 //
 // Shared memory: 1 KB of alignment, STAGES x (16 KB of A + 32 KB of B),
-// the barriers and the frame order.
+// the barriers and the frame order. The ring's primitives, the schedule's
+// walk and the second pass are csrc/fc1_common.cuh's, shared with the fp32
+// kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fc1_common.cuh"
 
 namespace {
+
+using namespace fc1;
 
 constexpr int TM = 128;                          // rows a tile (2 consumer warpgroups x 64)
 constexpr int BN = 256;                          // columns a tile
@@ -92,7 +94,6 @@ constexpr int PRODUCERS = 128;                   // warpgroup 0
 constexpr int THREADS = PRODUCERS + 256;         // + two consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 constexpr int ACC = BN / 2;                      // fp32 accumulators a consumer thread
-constexpr int MAX_FRAMES = 256;
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 // registers a thread at launch: the pool setmaxnreg redistributes
 constexpr int LAUNCH_REGS = (PRODUCERS * PRODUCER_REGS + (THREADS - PRODUCERS) * CONSUMER_REGS) / THREADS;  // 168
@@ -101,85 +102,6 @@ static_assert(LAUNCH_REGS == 168 && LAUNCH_REGS * THREADS <= 65536, "the registe
 static_assert(STAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0, "swizzled tiles start on 1,024-byte boundaries");
 
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 16 * STAGES + 4 * MAX_FRAMES;
-
-struct Params {
-  long long ld;  // elements between samples
-  long long P;   // positions: (tiles_n / cols) column blocks x kt chunks
-  int M, n_win, C, s0, stride, K, kt, nb, frames, n_out;
-  int tm, tiles_m, rows, cols, groups;  // tm: rows of A a tile holds (at most TM)
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`. A
-// phase that never completes (a lost arrival) traps after 2^26 polls
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
-
-// 16 bytes from `src` when `valid`, else 16 zero bytes (nothing is read)
-__device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// the barrier's phase counts one arrival of this thread once all of its
-// earlier cp.async have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle, K-major: rows of 128
-// bytes, 8-row groups 1,024 bytes apart; `addr` on a 1,024-byte boundary
-// plus 32 bytes per k16 step
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 256 fp32, this thread's 128) = (accumulate ? d : 0) + A (64 x 16
 // bf16) * B (16 x 256 bf16)
@@ -243,36 +165,6 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[ACC], uint64_t da, u
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// This CTA's place in the schedule: group q, column cc of the block, first
-// row tile i0, and the group's range [start, end) of positions.
-struct Place {
-  long long start, end;
-  int q, cc, i0;
-};
-
-__device__ __forceinline__ Place place(const Params& p) {
-  const int per = p.rows * p.cols;
-  Place pl;
-  pl.q = blockIdx.x / per;
-  const int idx = blockIdx.x - pl.q * per;
-  pl.cc = idx / p.rows;
-  pl.i0 = idx - pl.cc * p.rows;
-  pl.start = (long long)pl.q * p.P / p.groups;
-  pl.end = (long long)(pl.q + 1) * p.P / p.groups;
-  return pl;
-}
-
-// The K chunks [k0, k1) of column block cb that the range takes from x on;
-// returns the position after them.
-__device__ __forceinline__ long long segment(const Params& p, const Place& pl, long long x, int& cb, int& k0,
-                                             int& k1) {
-  cb = (int)(x / p.kt);
-  const long long xe = min(pl.end, (long long)(cb + 1) * p.kt);
-  k0 = (int)(x - (long long)cb * p.kt);
-  k1 = (int)(xe - (long long)cb * p.kt);
-  return xe;
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 fc1_strided_tc_kernel(const __nv_bfloat16* __restrict__ buf, const __nv_bfloat16* __restrict__ wp,
                       __nv_bfloat16* __restrict__ y, float* __restrict__ ws, const Params p, int period) {
@@ -283,19 +175,7 @@ fc1_strided_tc_kernel(const __nv_bfloat16* __restrict__ buf, const __nv_bfloat16
   const uint32_t empty0 = full0 + STAGES * 8;
   int* frame_of = reinterpret_cast<int*>(smem_raw + (empty0 + STAGES * 8 - raw));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full0 + 8 * s, PRODUCERS + 1);      // every producer's cp.async, and the B copy's expect_tx
-      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    // the frames of a window in walk order: r, r + period, ... for r < period
-    int j = 0;
-    for (int r = 0; r < period; ++r)
-      for (int f = r; f < p.frames; f += period) frame_of[j++] = f;
-  }
-  __syncthreads();
+  init_ring(full0, empty0, STAGES, PRODUCERS, CONSUMER_WARPS, frame_of, period, p.frames);
   const Place pl = place(p);
 
   if (warp < PRODUCERS / 32) {
@@ -311,9 +191,7 @@ fc1_strided_tc_kernel(const __nv_bfloat16* __restrict__ buf, const __nv_bfloat16
       for (int h = 0; h < 2; ++h) {
         const int r = ra + 64 * h, m = i * p.tm + r;
         row_ok[h] = r < p.tm && m < p.M;
-        const int mm = row_ok[h] ? m : 0;
-        const int n = mm / p.n_win, w = mm - n * p.n_win;
-        rowp[h] = buf + n * p.ld + ((long long)p.s0 + (long long)w * p.stride) * p.C;
+        rowp[h] = buf + row_offset(p, row_ok[h] ? m : 0);
       }
       for (long long x = pl.start; x < pl.end;) {
         int cb, k0, k1;
@@ -322,7 +200,7 @@ fc1_strided_tc_kernel(const __nv_bfloat16* __restrict__ buf, const __nv_bfloat16
         for (int j = k0; j < k1; ++j, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
-          const int koff = p.nb ? frame_of[j / p.nb] * p.C + (j % p.nb) * KC : j * KC;
+          const int koff = chunk_offset(p, frame_of, j, KC);
           const uint32_t sa = base + s * STAGE_BYTES;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
@@ -407,45 +285,6 @@ fc1_strided_tc_kernel(const __nv_bfloat16* __restrict__ buf, const __nv_bfloat16
   }
 }
 
-// the group whose range holds position x: the largest q with q*P/groups <= x
-__device__ __forceinline__ int group_of(long long x, long long P, int groups) {
-  return (int)(((x + 1) * groups - 1) / P);
-}
-
-// y[m, c] = bf16(the parts of column tile c / 256 summed in the order of
-// their groups), for the tiles that more than one group took part in
-__global__ void fc1_partial_sum_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y, int M, int n_out,
-                                       int kt, int cols, int groups, long long P) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)M * n_out) return;
-  const int m = (int)(i / n_out), c = (int)(i - (long long)m * n_out);
-  const int t = c / BN, cb = t / cols, cc = t - cb * cols;
-  const long long x0 = (long long)cb * kt;
-  const int qf = group_of(x0, P, groups), ql = group_of(x0 + kt - 1, P, groups);
-  if (qf == ql) return;  // one group's range held the whole tile: stored already
-  float s = 0.f;
-  for (int q = qf; q <= ql; ++q) {
-    const int slot = 2 * q + (((long long)q * P / groups) / kt == cb ? 0 : 1);
-    s += ws[(((size_t)slot * cols + cc) * M + m) * BN + (c - t * BN)];
-  }
-  y[i] = __float2bfloat16(s);
-}
-
-int launch_main(const __nv_bfloat16* buf, const __nv_bfloat16* wp, __nv_bfloat16* y, float* ws, const Params& p,
-                int period, cudaStream_t st) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, fc1_strided_tc_kernel);
-  if (err != cudaSuccess) return (int)err;
-  // setmaxnreg.inc waits for registers that the CTA was launched with: a
-  // kernel built with fewer than LAUNCH_REGS a thread would wait forever
-  if (fa.numRegs < LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(fc1_strided_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)(p.groups * p.rows * p.cols);
-  fc1_strided_tc_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(buf, wp, y, ws, p, period);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Returns 0 on success or the cudaError_t of a refused launch. buf: n
@@ -460,44 +299,15 @@ int launch_main(const __nv_bfloat16* buf, const __nv_bfloat16* wp, __nv_bfloat16
 extern "C" int fc1_strided_tc_launch(const void* buf, const void* wp, void* y, void* ws, int n, int ld, int C,
                                      int s0, int stride, int n_win, int frames, int n_out, int period, int tile_rows,
                                      int rows, int cols, int groups, void* stream) {
-  const long long m = (long long)n * n_win, k = (long long)frames * C, kt = (k + KC - 1) / KC;
-  if (n <= 0 || n_win <= 0 || C <= 0 || C % 8 != 0 || frames <= 0 || frames > MAX_FRAMES || k > 0x7fffffffLL ||
-      s0 < 0 || stride <= 0 || ld <= 0 || ld % 8 != 0 || n_out <= 0 || m > 0x7fffffffLL || period <= 0 ||
-      period > frames || (period > 1 && C % KC != 0) || reinterpret_cast<uintptr_t>(buf) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(wp) % 16 != 0 || tile_rows <= 0 || tile_rows > TM)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles_m = (m + tile_rows - 1) / tile_rows, tiles_n = (n_out + BN - 1) / BN;
-  if (rows <= 0 || rows > tiles_m || cols <= 0 || tiles_n % cols != 0 || groups <= 0 ||
-      (long long)groups * rows * cols > 0x7fffffffLL || (groups > 1 && ws == nullptr))
-    return (int)cudaErrorInvalidValue;
   Params p;
-  p.ld = ld;
-  p.P = tiles_n / cols * kt;
-  if (groups > p.P) return (int)cudaErrorInvalidValue;
-  p.M = (int)m;
-  p.n_win = n_win;
-  p.C = C;
-  p.s0 = s0;
-  p.stride = stride;
-  p.K = (int)k;
-  p.kt = (int)kt;
-  p.nb = C % KC == 0 ? C / KC : 0;
-  p.frames = frames;
-  p.n_out = n_out;
-  p.tm = tile_rows;
-  p.tiles_m = (int)tiles_m;
-  p.rows = rows;
-  p.cols = cols;
-  p.groups = groups;
+  const cudaError_t bad = make_params(p, buf, wp, ws, n, ld, C, s0, stride, n_win, frames, n_out, period, tile_rows,
+                                      rows, cols, groups, 8, KC, BN, TM);
+  if (bad != cudaSuccess) return (int)bad;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* b = static_cast<const __nv_bfloat16*>(buf);
-  const auto* w = static_cast<const __nv_bfloat16*>(wp);
   auto* out = static_cast<__nv_bfloat16*>(y);
   auto* part = static_cast<float*>(ws);
-  const int err = launch_main(b, w, out, part, p, period, st);
-  if (err != 0 || groups == 1) return err;
-  const long long total = m * n_out;
-  fc1_partial_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, p.M, n_out, p.kt, cols, groups,
-                                                                          p.P);
-  return (int)cudaGetLastError();
+  const int err = launch_persistent(fc1_strided_tc_kernel, LAUNCH_REGS, SMEM_BYTES, (unsigned)(groups * rows * cols),
+                                    THREADS, st, static_cast<const __nv_bfloat16*>(buf),
+                                    static_cast<const __nv_bfloat16*>(wp), out, part, p, period);
+  return err != 0 ? err : launch_partial_sum<__nv_bfloat16, BN>(part, out, p, st);
 }

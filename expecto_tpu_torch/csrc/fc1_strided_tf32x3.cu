@@ -1,5 +1,6 @@
 // fc1 of Beluga as a strided product over a conv6 phase buffer, in fp32
-// (parity mode) on Hopper's TF32 tensor cores, three passes a product:
+// (parity mode) on Hopper's TF32 tensor cores, three passes a product, for
+// the calls with many windows (M > ops/fc1.py's SWAP_MAX_M):
 //
 //   y[n, w, o] = sum_{f < 106, c < C} buf[n, s0 + w*stride + f, c] * W[f*C + c, o]
 //
@@ -7,7 +8,8 @@
 // 2,003) split and packed by ops/fc1.py (below) -> y (N, n_win, Nout) fp32:
 // fc1's pre-activations, no bias or ReLU.
 //
-// Replaces the XLA step of expecto_tpu/ops/spans.py::fc1_pre_from_phases,
+// Replaces, with csrc/fc1_strided_tf32x3_swap.cu (the calls with few
+// windows), the XLA step of expecto_tpu/ops/spans.py::fc1_pre_from_phases,
 // the strided valid convolution lax.conv_general_dilated (:421) with the
 // (106, 640, 2003) kernel, for fp32 (parity mode), which the JAX package
 // runs at Precision.HIGHEST: on the TPU a multi-pass split of fp32 into
@@ -15,19 +17,23 @@
 // windows, N = 2,003 columns, K = 106*640 = 67,840.
 //
 // The split. Each operand x is cut into hi = tf32(x) and lo = tf32(x - hi),
-// both rounded to nearest (cvt.rna: the MMA would truncate an fp32 operand,
-// leaving 2^-10 of x in the rest where rounding leaves 2^-11), so hi + lo
-// holds x within 2^-22 |x|. Each k8 step runs three products on the
-// tensor cores, lo*hi + hi*lo + hi*hi (the small ones first), into one
-// fp32 accumulator; lo*lo (2^-22 of the product) is left out.
+// both rounded to nearest (the MMA would truncate an fp32 operand, leaving
+// 2^-10 of x in the rest where rounding leaves 2^-11), so hi + lo holds x
+// within 2^-22 |x|. Each k8 step runs three products on the tensor cores,
+// lo*hi + hi*lo + hi*hi (the small ones first), into one fp32 accumulator;
+// lo*lo (2^-22 of the product) is left out.
 //
 // What bounds it on an H100: 3 x 2*M*67,840*2,003 operations at the TF32
-// rate of 495 TFLOP/s (165 TFLOP/s of fp32 work, 2.5 times the 67 TFLOP/s
-// of the FFMA units that bound SGEMM) against 1.11 GB of split weight (hi
-// and lo, columns padded to 2,048) at 3.35 TB/s: 0.33 ms, which the
-// operations pass at M = 50. Serving and the h5 step call fc1 at M = 60 -
-// 1,135 rows, the gene path at 1,600: all of it bound by the operations.
-// The design keeps the TF32 tensor cores fed:
+// rate of 495 TFLOP/s, 1.647 us a row of M (165 TFLOP/s of fp32 work, 2.5
+// times the 67 TFLOP/s of the FFMA units that bound SGEMM), against the
+// function's bytes, fp32 W once (0.5435 GB, 0.162 ms at 3.35 TB/s): the
+// operations pass the bytes at M ~ 98. This kernel streams W split (hi and
+// lo, columns padded to 2,048: 1.11 GB, 0.332 ms), which its operations
+// pass at M ~ 201, and does the tensor work of whole 128-row tiles; below
+// SWAP_MAX_M the calls go to csrc/fc1_strided_tf32x3_swap.cu, which streams
+// fp32 W once. Serving and the h5 step call fc1 at M = 500 - 1,135 rows a
+// chunk, the gene path at 1,600: bound by the operations. The design keeps
+// the TF32 tensor cores fed:
 //
 // - Warp specialization, as csrc/fc1_strided_tc.cu: warpgroup 0 is the
 //   producer (56 registers a thread after setmaxnreg), its 128 threads copy
@@ -47,44 +53,50 @@
 //   threads at a named barrier before its wgmma read them. A warpgroup has
 //   drained its own group of the stage before (below), so its split runs
 //   while the other consumer warpgroup's group keeps the tensor cores busy.
-//   A split in registers (wgmma's A-from-registers form) would hold the A
-//   fragments beside the accumulator and the promoted sum.
+//   Each A element is so split once for every column tile that shares its
+//   row tile (16 times at Beluga's widths); A split once a call by
+//   csrc/fc1_split_tf32.cu and copied as two planes doubles the A bytes a
+//   stage brings in, and measured slower on the H100 at every shape of this
+//   route (PERF.md, section 6).
 // - B by the copy engine. ops/fc1.py splits W once per weight tensor and
 //   packs hi and lo into (Nout/128, K/32, 2, 128, 32): one stage of B, hi
 //   then lo, is one contiguous block that one thread copies with
 //   cp.async.bulk, completing on the stage's full barrier by its byte count.
 // - Promoted sums, every stage. The tensor cores' fp32 accumulation does
 //   not round to nearest, and K is 8,480 k8 steps deep: left in the
-//   accumulator the sum drifts up to 4.6e-4 of max|y| from a float64
-//   product (PERF.md, section 6). So each stage's 12 k8 products start a fresh
-//   accumulator; the consumer waits for its group (wgmma.wait_group 0),
-//   releases the stage and adds the accumulator into a separate fp32 sum in
-//   registers (FADD, round to nearest). Each warpgroup drains its own group
-//   every stage; the overlap on the tensor cores comes from the other
-//   consumer warpgroup. The promoted sum needs the registers of a
-//   128-column tile.
+//   accumulator the sum drifts up to 4.7e-4 of max|y| from a float64
+//   product (PERF.md, section 6). So each stage's 12 k8 products start a
+//   fresh accumulator; the consumer waits for its group (wgmma.wait_group
+//   0), releases the stage and adds the accumulator into a separate fp32
+//   sum in registers (FADD, round to nearest). Each warpgroup drains its
+//   own group every stage; the overlap on the tensor cores comes from the
+//   other consumer warpgroup. A second accumulator, promoted while the next
+//   stage's group runs (wait_group 1), measured up to 15 % slower on the
+//   H100 (PERF.md, section 6).
 // - As csrc/fc1_strided_tc.cu: the 128-byte swizzle, the frame walk of
 //   period `period` (the stride where C % 32 == 0: a buffer frame's reads
 //   by neighbouring windows come a few stages apart and hit L2), the
 //   persistent grid on ops/fc1.py::fc1_schedule's fixed schedule, and the
 //   second pass that sums the parts of a tile split between groups in group
-//   order, so a shape gives the same bits on every call.
+//   order (csrc/fc1_common.cuh), so a shape gives the same bits on every
+//   call.
 //
 // The instance: 128 x 128 tiles, 3 stages (64 KB a stage: 2 x 16 KB of A,
 // 2 x 16 KB of B; a fourth does not fit), a promotion every stage. Measured
-// on an H100 against other builds of this design (PERF.md, section 6): it holds
-// 1e-5 of max|y| of float64 where a promotion every 16 stages does not and
-// no promotion misses by 46x; it was 1-10 % faster than a promotion every 4
-// stages; 128 x 256 tiles in 2 stages, whose registers hold no promoted
-// sum, ran 13-39 % slower and 34x off.
+// on an H100 against other builds of this design (PERF.md, section
+// 6): promoting every stage holds 1e-5 of max|y| of float64 where a
+// promotion every 16 stages does not and no promotion misses by 46x, and
+// was 1-10 % faster than a promotion every 4 stages; 128 x 256 tiles in 2
+// stages, whose registers hold no promoted sum, ran 13-39 % slower.
 //
 // Shared memory: 1 KB of alignment, STAGES x (2 x A_BYTES + 2 x B_BYTES),
 // the barriers and the frame order.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fc1_common.cuh"
 
 namespace {
+
+using namespace fc1;
 
 constexpr int TM = 128;                                  // rows a tile (2 consumer warpgroups x 64)
 constexpr int BN = 128;                                  // columns a tile
@@ -97,7 +109,6 @@ constexpr int PRODUCERS = 128;                           // warpgroup 0
 constexpr int THREADS = PRODUCERS + 256;                 // + two consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 constexpr int ACC = BN / 2;                              // fp32 accumulators a consumer thread
-constexpr int MAX_FRAMES = 256;
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 // registers a thread at launch: the pool setmaxnreg redistributes
 constexpr int LAUNCH_REGS = (PRODUCERS * PRODUCER_REGS + (THREADS - PRODUCERS) * CONSUMER_REGS) / THREADS;  // 168
@@ -108,70 +119,6 @@ static_assert(STAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0 && B_BYTES % 1024 =
 
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 16 * STAGES + 4 * MAX_FRAMES;
 static_assert(SMEM_BYTES <= 232448, "the ring fits a block's shared memory");
-
-struct Params {
-  long long ld;  // elements between samples
-  long long P;   // positions: (tiles_n / cols) column blocks x kt chunks
-  int M, n_win, C, s0, stride, K, kt, nb, frames, n_out;
-  int tm, tiles_m, rows, cols, groups;  // tm: rows of A a tile holds (at most TM)
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`. A
-// phase that never completes (a lost arrival) traps after 2^26 polls
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
-
-// 16 bytes from `src` when `valid`, else 16 zero bytes (nothing is read)
-__device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// the barrier's phase counts one arrival of this thread once all of its
-// earlier cp.async have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
-}
-
-// x rounded to TF32, to nearest with ties away from zero, as an fp32 value
-// whose low 13 mantissa bits are zero (ops/fc1.py::split_tf32 does the same)
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r & 0xFFFFE000u);
-}
 
 // Splits the 16-byte piece at shared address `at` in place: hi there, lo
 // `lo_off` bytes further.
@@ -194,32 +141,9 @@ __device__ __forceinline__ void split_piece(uint32_t at, uint32_t lo_off) {
                : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle, K-major: rows of 128
-// bytes, 8-row groups 1,024 bytes apart; `addr` on a 1,024-byte boundary
-// plus 32 bytes per k8 step
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (64 x 128 fp32, this thread's 64) = (accumulate ? d : 0) + A (64 x 8
 // tf32) * B (8 x 128 tf32), both from shared memory
-__device__ __forceinline__ void wgmma_k8(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+__device__ __forceinline__ void wgmma_k8(float (&d)[ACC], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -255,35 +179,6 @@ __device__ __forceinline__ void wgmma_k8(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// This CTA's place in the schedule: group q, column cc of the block, first
-// row tile i0, and the group's range [start, end) of positions.
-struct Place {
-  long long start, end;
-  int q, cc, i0;
-};
-
-__device__ __forceinline__ Place place(const Params& p) {
-  const int per = p.rows * p.cols;
-  Place pl;
-  pl.q = blockIdx.x / per;
-  const int idx = blockIdx.x - pl.q * per;
-  pl.cc = idx / p.rows;
-  pl.i0 = idx - pl.cc * p.rows;
-  pl.start = (long long)pl.q * p.P / p.groups;
-  pl.end = (long long)(pl.q + 1) * p.P / p.groups;
-  return pl;
-}
-
-// The K chunks [k0, k1) of column block cb that the range takes from x on;
-// returns the position after them.
-__device__ __forceinline__ long long segment(const Params& p, const Place& pl, long long x, int& cb, int& k0,
-                                             int& k1) {
-  cb = (int)(x / p.kt);
-  const long long xe = min(pl.end, (long long)(cb + 1) * p.kt);
-  k0 = (int)(x - (long long)cb * p.kt);
-  k1 = (int)(xe - (long long)cb * p.kt);
-  return xe;
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 fc1_strided_tf32x3_kernel(const float* __restrict__ buf, const float* __restrict__ wp, float* __restrict__ y,
@@ -295,19 +190,7 @@ fc1_strided_tf32x3_kernel(const float* __restrict__ buf, const float* __restrict
   const uint32_t empty0 = full0 + STAGES * 8;
   int* frame_of = reinterpret_cast<int*>(smem_raw + (empty0 + STAGES * 8 - raw));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full0 + 8 * s, PRODUCERS + 1);      // every producer's cp.async, and the B copy's expect_tx
-      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    // the frames of a window in walk order: r, r + period, ... for r < period
-    int j = 0;
-    for (int r = 0; r < period; ++r)
-      for (int f = r; f < p.frames; f += period) frame_of[j++] = f;
-  }
-  __syncthreads();
+  init_ring(full0, empty0, STAGES, PRODUCERS, CONSUMER_WARPS, frame_of, period, p.frames);
   const Place pl = place(p);
 
   if (warp < PRODUCERS / 32) {
@@ -317,15 +200,13 @@ fc1_strided_tf32x3_kernel(const float* __restrict__ buf, const float* __restrict
     const uint8_t* wbytes = reinterpret_cast<const uint8_t*>(wp);
     int it = 0;
     for (int i = pl.i0; i < p.tiles_m; i += p.rows) {
-      const float* rowp[2];
+      long long off[2];
       bool row_ok[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = ra + 64 * h, m = i * p.tm + r;
         row_ok[h] = r < p.tm && m < p.M;
-        const int mm = row_ok[h] ? m : 0;
-        const int n = mm / p.n_win, w = mm - n * p.n_win;
-        rowp[h] = buf + n * p.ld + ((long long)p.s0 + (long long)w * p.stride) * p.C;
+        off[h] = row_offset(p, row_ok[h] ? m : 0);
       }
       for (long long x = pl.start; x < pl.end;) {
         int cb, k0, k1;
@@ -334,7 +215,7 @@ fc1_strided_tf32x3_kernel(const float* __restrict__ buf, const float* __restrict
         for (int j = k0; j < k1; ++j, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
-          const int koff = p.nb ? frame_of[j / p.nb] * p.C + (j % p.nb) * KC : j * KC;
+          const int koff = chunk_offset(p, frame_of, j, KC);
           const uint32_t sa = base + s * STAGE_BYTES;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
@@ -343,7 +224,7 @@ fc1_strided_tf32x3_kernel(const float* __restrict__ buf, const float* __restrict
             for (int e = 0; e < 4; ++e) {
               const int g = ha + 2 * e, k = koff + 4 * g;
               const bool ok = row_ok[h] && k < p.K;
-              cp_async16_or_zero(sa + r * 128 + ((g ^ (r & 7)) << 4), ok ? rowp[h] + k : buf, ok);
+              cp_async16_or_zero(sa + r * 128 + ((g ^ (r & 7)) << 4), ok ? buf + off[h] + k : buf, ok);
             }
           }
           cp_async_arrive(full0 + 8 * s);
@@ -429,98 +310,29 @@ fc1_strided_tf32x3_kernel(const float* __restrict__ buf, const float* __restrict
   }
 }
 
-// the group whose range holds position x: the largest q with q*P/groups <= x
-__device__ __forceinline__ int group_of(long long x, long long P, int groups) {
-  return (int)(((x + 1) * groups - 1) / P);
-}
-
-// y[m, c] = the parts of column tile c / BN summed in the order of their
-// groups, for the tiles that more than one group took part in
-__global__ void fc1_tf32x3_partial_sum_kernel(const float* __restrict__ ws, float* __restrict__ y, int M, int n_out,
-                                              int kt, int cols, int groups, long long P) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)M * n_out) return;
-  const int m = (int)(i / n_out), c = (int)(i - (long long)m * n_out);
-  const int t = c / BN, cb = t / cols, cc = t - cb * cols;
-  const long long x0 = (long long)cb * kt;
-  const int qf = group_of(x0, P, groups), ql = group_of(x0 + kt - 1, P, groups);
-  if (qf == ql) return;  // one group's range held the whole tile: stored already
-  float s = 0.f;
-  for (int q = qf; q <= ql; ++q) {
-    const int slot = 2 * q + (((long long)q * P / groups) / kt == cb ? 0 : 1);
-    s += ws[(((size_t)slot * cols + cc) * M + m) * BN + (c - t * BN)];
-  }
-  y[i] = s;
-}
-
-int launch_main(const float* buf, const float* wp, float* y, float* ws, const Params& p, int period,
-                cudaStream_t st) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, fc1_strided_tf32x3_kernel);
-  if (err != cudaSuccess) return (int)err;
-  // setmaxnreg.inc waits for registers that the CTA was launched with: a
-  // kernel built with fewer than LAUNCH_REGS a thread would wait forever
-  if (fa.numRegs < LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(fc1_strided_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)(p.groups * p.rows * p.cols);
-  fc1_strided_tf32x3_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(buf, wp, y, ws, p, period);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Returns 0 on success or the cudaError_t of a refused launch. buf: n
 // samples `ld` elements apart (rows of C channels, 16-byte aligned, C % 4
-// == 0); window w of sample n reads frames s0 + w*stride .. + frames - 1;
-// wp: the split weights (ops/fc1.py::pack_weights_tf32x3 at this `period`,
-// which must be 1 unless C % 32 == 0) of K = frames * C rows padded to a
-// multiple of 32 and n_out columns padded to a multiple of BN; y (n, n_win,
-// n_out) fp32; (tile_rows, rows, cols, groups) the schedule
-// (ops/fc1.py::fc1_schedule at this instance's tiles); ws: 2 * groups x
-// cols x n*n_win x BN fp32 (unused when groups == 1). Launches on `stream`,
-// allocates nothing.
+// == 0); window w of sample n reads frames s0 + w*stride .. + frames - 1; wp: the split
+// weights (ops/fc1.py::pack_weights_tf32x3 at this `period`, which must be
+// 1 unless C % 32 == 0) of K = frames * C rows padded to a multiple of 32
+// and n_out columns padded to a multiple of BN; y (n, n_win, n_out) fp32;
+// (tile_rows, rows, cols, groups) the schedule (ops/fc1.py::fc1_schedule
+// at this instance's tiles); ws: 2 * groups x cols x n*n_win x BN fp32
+// (unused when groups == 1). Launches on `stream`, allocates nothing.
 extern "C" int fc1_strided_tf32x3_launch(const void* buf, const void* wp, void* y, void* ws, int n, int ld, int C,
                                          int s0, int stride, int n_win, int frames, int n_out, int period,
                                          int tile_rows, int rows, int cols, int groups, void* stream) {
-  const long long m = (long long)n * n_win, k = (long long)frames * C, kt = (k + KC - 1) / KC;
-  if (n <= 0 || n_win <= 0 || C <= 0 || C % 4 != 0 || frames <= 0 || frames > MAX_FRAMES || k > 0x7fffffffLL ||
-      s0 < 0 || stride <= 0 || ld <= 0 || ld % 4 != 0 || n_out <= 0 || m > 0x7fffffffLL || period <= 0 ||
-      period > frames || (period > 1 && C % KC != 0) || reinterpret_cast<uintptr_t>(buf) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(wp) % 16 != 0 || tile_rows <= 0 || tile_rows > TM)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles_m = (m + tile_rows - 1) / tile_rows, tiles_n = (n_out + BN - 1) / BN;
-  if (rows <= 0 || rows > tiles_m || cols <= 0 || tiles_n % cols != 0 || groups <= 0 ||
-      (long long)groups * rows * cols > 0x7fffffffLL || (groups > 1 && ws == nullptr))
-    return (int)cudaErrorInvalidValue;
   Params p;
-  p.ld = ld;
-  p.P = tiles_n / cols * kt;
-  if (groups > p.P) return (int)cudaErrorInvalidValue;
-  p.M = (int)m;
-  p.n_win = n_win;
-  p.C = C;
-  p.s0 = s0;
-  p.stride = stride;
-  p.K = (int)k;
-  p.kt = (int)kt;
-  p.nb = C % KC == 0 ? C / KC : 0;
-  p.frames = frames;
-  p.n_out = n_out;
-  p.tm = tile_rows;
-  p.tiles_m = (int)tiles_m;
-  p.rows = rows;
-  p.cols = cols;
-  p.groups = groups;
+  const cudaError_t bad = make_params(p, buf, wp, ws, n, ld, C, s0, stride, n_win, frames, n_out, period, tile_rows,
+                                      rows, cols, groups, 4, KC, BN, TM);
+  if (bad != cudaSuccess) return (int)bad;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* b = static_cast<const float*>(buf);
-  const auto* w = static_cast<const float*>(wp);
   auto* out = static_cast<float*>(y);
   auto* part = static_cast<float*>(ws);
-  const int err = launch_main(b, w, out, part, p, period, st);
-  if (err != 0 || groups == 1) return err;
-  const long long total = m * n_out;
-  fc1_tf32x3_partial_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, p.M, n_out, p.kt, cols,
-                                                                                 groups, p.P);
-  return (int)cudaGetLastError();
+  const int err = launch_persistent(fc1_strided_tf32x3_kernel, LAUNCH_REGS, SMEM_BYTES,
+                                    (unsigned)(groups * rows * cols), THREADS, st, static_cast<const float*>(buf),
+                                    static_cast<const float*>(wp), out, part, p, period);
+  return err != 0 ? err : launch_partial_sum<float, BN>(part, out, p, st);
 }

@@ -8,23 +8,29 @@ y (N, n_win, Nout): the pre-activations (no bias or ReLU) of n_win windows
 strided valid convolution ``lax.conv_general_dilated`` of
 ``expecto_tpu/ops/spans.py::fc1_pre_from_phases`` (:421), an XLA step of
 the JAX package. :func:`fc1_strided` picks an implementation by
-:func:`_route`, a pure function of device and dtype:
+:func:`_route`, a pure function of device, dtype and M = N * n_win:
 
 - ``"tc"``: ``csrc/fc1_strided_tc.cu``, CUDA bf16 on the tensor cores
   (wgmma), the production dtype of every CLI;
-- ``"tf32x3"``: ``csrc/fc1_strided_tf32x3.cu``, CUDA fp32 (parity mode) on
-  the TF32 tensor cores in three passes: each operand split into a TF32
-  hi and lo (:func:`split_tf32`), lo*hi + hi*lo + hi*hi summed in fp32,
-  held to fp32's limits, as the JAX package runs the product at
-  ``Precision.HIGHEST``;
+- CUDA fp32 (parity mode) on the TF32 tensor cores in three passes: each
+  operand split into a TF32 hi and lo (:func:`split_tf32`), lo*hi + hi*lo
+  + hi*hi summed in fp32, held to fp32's limits, as the JAX package runs
+  the product at ``Precision.HIGHEST``. ``"tf32x3_swap"`` for M <=
+  :data:`SWAP_MAX_M` (bound by W's bytes): the windows split once a call by
+  ``csrc/fc1_split_tf32.cu`` (:func:`split_planes`), then
+  ``csrc/fc1_strided_tf32x3_swap.cu``, W^T x windows^T with fp32 W
+  streamed once and split in the kernel; ``"tf32x3"`` above it (bound by
+  the operations): ``csrc/fc1_strided_tf32x3.cu``, W split once per weight
+  tensor, the windows split in the kernel;
 - ``"cpu"``: :func:`fc1_strided_plain`, only for tensors on the CPU.
 
-Both kernels read the windows straight from the buffer, never copied, take
-W packed once per weight tensor and frame walk (:func:`pack_weights_fc1`,
-:func:`pack_weights_tf32x3`), and walk the fixed persistent schedule of
-:func:`fc1_schedule` at their own tile constants (:data:`TILES`). A CUDA
-tensor launches its route's kernel or raises (any other CUDA dtype raises):
-nothing falls back to a matmul.
+The kernels read the windows (or their split planes) in place, never
+copied out, take W packed once per weight tensor, frame walk and route
+(:func:`pack_weights_fc1`, :func:`pack_weights_tf32x3`,
+:func:`pack_weights_tf32x3_swap`), and walk the fixed persistent schedule
+of :func:`fc1_schedule` at their own tile constants (:data:`TILES`). A CUDA
+tensor launches its route's kernels or raises (any other CUDA dtype
+raises): nothing falls back to a matmul.
 """
 
 from __future__ import annotations
@@ -39,8 +45,11 @@ import torch.nn.functional as F
 from . import cuda_build
 
 FC1_FRAMES = 106
-ROUTES = ("tc", "tf32x3")
-_TM = 128  # the most rows (windows) a tile of either kernel holds
+ROUTES = ("tc", "tf32x3", "tf32x3_swap")
+#: the largest M (windows a call) that fp32 takes to the swapped kernel: one
+#: window tile of at most 64, where streaming fp32 W once beats the tf32x3
+#: kernel (PERF.md, section 6)
+SWAP_MAX_M = 64
 _MAX_ROWS = 2**31 - 1  # N * n_win: the kernels index rows with an int
 
 
@@ -50,12 +59,14 @@ class Tiles(NamedTuple):
     bn: int  # columns per tile; W's columns are zero-padded to a multiple of it
     kc: int  # K per stage (one 128-byte row); W's rows are zero-padded to a multiple of it
     min_chunks: int  # the fewest K chunks a group of the schedule walks
+    tm: int  # the most rows (windows) a tile holds
 
 
 #: each route's kernel instance: bf16 128 x 256 tiles 64 deep; fp32 128 x
-#: 128 tiles 32 deep (a group walks at least 2,048 K in both)
-TILES = {"tc": Tiles(256, 64, 32), "tf32x3": Tiles(128, 32, 64)}
-KERNELS = {"tc": "fc1_strided_tc", "tf32x3": "fc1_strided_tf32x3"}
+#: 128 tiles 32 deep; the swapped fp32 kernel 128 W columns by at most 64
+#: windows, 32 deep (a group walks at least 2,048 K in all three)
+TILES = {"tc": Tiles(256, 64, 32, 128), "tf32x3": Tiles(128, 32, 64, 128), "tf32x3_swap": Tiles(128, 32, 64, 64)}
+KERNELS = {"tc": "fc1_strided_tc", "tf32x3": "fc1_strided_tf32x3", "tf32x3_swap": "fc1_strided_tf32x3_swap"}
 _KC, _MIN_CHUNKS = TILES["tc"].kc, TILES["tc"].min_chunks  # the bf16 kernel's
 
 
@@ -151,6 +162,32 @@ def pack_weights_tf32x3(w: torch.Tensor, period: int = 1) -> torch.Tensor:
     return torch.stack((_layout(hi, period, tiles), _layout(lo, period, tiles)), dim=2).contiguous()
 
 
+def pack_weights_tf32x3_swap(w: torch.Tensor, period: int = 1) -> torch.Tensor:
+    """W (K, Nout) fp32 in the swapped kernel's layout: (Nout/128, K/32,
+    128, 8, 4), one contiguous 16 KB stage per (column tile, K chunk), each
+    output column a 128-byte K-major row (:func:`_layout`): the form of
+    wgmma's A operand. Not split: the kernel splits it in registers. Nout
+    is zero-padded to a multiple of 128 and K to one of 32. At Beluga's
+    widths, 0.556 GB (530 MiB)."""
+    return _layout(w, period, TILES["tf32x3_swap"]).contiguous()
+
+
+_PACKERS = {"tc": pack_weights_fc1, "tf32x3": pack_weights_tf32x3, "tf32x3_swap": pack_weights_tf32x3_swap}
+
+
+def streamed_bytes(route: str, n: int, n_win: int, stride: int, c: int, n_out: int) -> int:
+    """The bytes that ``route``'s launches for one call move at the least:
+    its packed W read once (bf16; fp32 split: hi and lo; swapped: fp32),
+    the frames the windows cover (swapped: read by the split pass, written
+    as two planes and read back by the kernel) and y written once."""
+    tiles = TILES[route]
+    k, span = FC1_FRAMES * c, (n_win - 1) * stride + FC1_FRAMES
+    w_elems = -(-k // tiles.kc) * tiles.kc * -(-n_out // tiles.bn) * tiles.bn
+    size = 2 if route == "tc" else 4
+    frames = n * span * c * size * (5 if route == "tf32x3_swap" else 1)
+    return w_elems * size * (2 if route == "tf32x3" else 1) + frames + n * n_win * n_out * size
+
+
 _PACKED: dict[tuple[int, int, str], tuple] = {}  # (id(W), period, route) -> (weakref to W, W._version, packed W)
 
 
@@ -162,21 +199,22 @@ def _packed(w: torch.Tensor, period: int = 1, route: str = "tc") -> torch.Tensor
     hit = _PACKED.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    wp = pack_weights_fc1(w, period) if route == "tc" else pack_weights_tf32x3(w, period)
+    wp = _PACKERS[route](w, period)
     _PACKED[key] = (weakref.ref(w, lambda _ref: _PACKED.pop(key, None)), w._version, wp)
     return wp
 
 
-def _route(device_type: str, dtype: torch.dtype) -> str:
-    """Which implementation runs a buffer of this device type and dtype:
-    "cpu", "tc" (CUDA bf16) or "tf32x3" (CUDA fp32; module docstring). No
+def _route(device_type: str, dtype: torch.dtype, m: int) -> str:
+    """Which implementation runs a buffer of this device type and dtype for
+    M = ``m`` windows: "cpu", "tc" (CUDA bf16), "tf32x3_swap" (CUDA fp32, M
+    <= SWAP_MAX_M) or "tf32x3" (CUDA fp32 above it; module docstring). No
     flow computes in another dtype on the card: such a buffer raises."""
     if device_type == "cpu":
         return "cpu"
     if dtype == torch.bfloat16:
         return "tc"
     if dtype == torch.float32:
-        return "tf32x3"
+        return "tf32x3_swap" if m <= SWAP_MAX_M else "tf32x3"
     raise TypeError(f"fc1's kernels take bfloat16 or float32 on {device_type}, got {dtype}")
 
 
@@ -194,7 +232,7 @@ def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, tiles: Tiles = TILES[
     """A kernel's persistent schedule for M = ``m`` rows on a card that
     holds ``ctas`` CTAs of it at once (one an SM), at the kernel's
     ``tiles``: ``groups`` x ``rows`` x ``cols`` CTAs. The rows are cut into
-    balanced row tiles of ``tile_rows`` (at most 128); the (column block, K
+    balanced row tiles of ``tile_rows`` (at most ``tiles.tm``); the (column block, K
     chunk) positions, P = (Nout/bn / cols) x K/kc, are cut into ``groups``
     equal ranges, and each CTA of a
     group takes one row tile and one column tile of each block of ``cols``
@@ -206,9 +244,9 @@ def fc1_schedule(m: int, n_out: int, k: int, ctas: int, *, tiles: Tiles = TILES[
     are kept (the probe's knobs). A pure function of the shape and the
     card's CTAs, so a shape gives the same bits every call."""
     if tile_rows is None:
-        tile_rows = -(-m // -(-m // _TM))
-    elif not 0 < tile_rows <= _TM:
-        raise ValueError(f"tile_rows = {tile_rows}: a tile holds 1 to {_TM} rows")
+        tile_rows = -(-m // -(-m // tiles.tm))
+    elif not 0 < tile_rows <= tiles.tm:
+        raise ValueError(f"tile_rows = {tile_rows}: a tile holds 1 to {tiles.tm} rows")
     tiles_n, kt = -(-n_out // tiles.bn), -(-k // tiles.kc)
     rows = min(-(-m // tile_rows), ctas)
     if cols is not None and (cols <= 0 or tiles_n % cols):
@@ -290,19 +328,66 @@ def _check(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win: int)
         raise ValueError(f"the fc1 kernel takes buf and W on one CUDA device, got {buf.device}, {w.device}")
 
 
+def split_planes_plain(buf: torch.Tensor, s0: int, span: int) -> torch.Tensor:
+    """Plain PyTorch version of the split pass: frames s0 .. s0 + span - 1
+    of fp32 ``buf`` (N, F, C) as (2, N, span, C), :func:`split_tf32`'s hi
+    then lo."""
+    return torch.stack(split_tf32(buf[:, s0 : s0 + span]))
+
+
+def split_planes(buf: torch.Tensor, s0: int, span: int) -> torch.Tensor:
+    """The swapped fp32 kernel's split pass (``csrc/fc1_split_tf32.cu``): frames s0
+    .. s0 + span - 1 of each sample of fp32 ``buf`` (N, F, C) cut once into
+    TF32 hi and lo planes, (2, N, span, C) contiguous, equal bit for bit to
+    :func:`split_planes_plain`, which a CPU tensor takes. buf is read in
+    place (a splice view too): rows of C % 4 == 0 channels, samples a
+    multiple of 4 elements apart, 16-byte aligned."""
+    if buf.device.type == "cpu":
+        return split_planes_plain(buf, s0, span)
+    n, f, c = buf.shape
+    if (buf.dtype != torch.float32 or c % 4 or buf.stride(2) != 1 or buf.stride(1) != c or buf.stride(0) % 4
+            or buf.data_ptr() % 16 or not 0 <= s0 < s0 + span <= f):
+        raise ValueError(f"the split pass takes fp32 buf (N, F, C) with contiguous 16-byte rows, samples a multiple "
+                         f"of 4 elements apart, and frames {s0} .. {s0 + span - 1} inside its {f}; got {buf.dtype}, "
+                         f"strides {buf.stride()}, data pointer {buf.data_ptr():#x}")
+    planes = torch.empty((2, n, span, c), device=buf.device, dtype=torch.float32)
+    with torch.cuda.device(buf.device):
+        err = cuda_build.launcher("fc1_split_tf32", 6, n_ptrs=3)(
+            buf.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(), n, buf.stride(0), c, s0, span,
+            8 * resident_ctas(buf.device), torch.cuda.current_stream(buf.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fc1 split pass launch failed: error {err}")
+    split_planes.launches += 1
+    return planes
+
+
 def fc1_strided(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win: int) -> torch.Tensor:
     """fc1's pre-activations of ``n_win`` windows of 106 frames ``stride``
     frames apart from frame ``s0`` of each sample of ``buf`` (N, F, C):
     (N, n_win, Nout) in buf's dtype. CPU tensors take the plain version;
-    CUDA bf16 the tc kernel, CUDA fp32 the tf32x3 kernel (each raising on
+    CUDA bf16 the tc kernel; CUDA fp32 the split pass and the swapped
+    kernel (M <= SWAP_MAX_M), or the tf32x3 kernel (each raising on
     anything it does not take, and if a launch fails)."""
     s0, stride, n_win = int(s0), int(stride), int(n_win)
-    route = _route(buf.device.type, buf.dtype)
+    n, f, c = buf.shape
+    route = _route(buf.device.type, buf.dtype, n * n_win)
     if route == "cpu":
         return fc1_strided_plain(buf, w, s0, stride, n_win)
     _check(buf, w, s0, stride, n_win)
-    tiles = TILES[route]
+    y = _launch(route, buf, w, s0, stride, n_win)
+    fc1_strided.launches += 1
+    fc1_strided.launches_by_route[route] += 1
+    fc1_strided.launches_by_shape[(str(buf.dtype).removeprefix("torch."), n, f, c, s0, stride, n_win, w.shape[1])] += 1
+    return y
+
+
+def _launch(route: str, buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win: int) -> torch.Tensor:
+    """Launches ``route``'s kernel (after the split pass for the swapped
+    kernel) on a checked CUDA input; counts nothing. :func:`fc1_strided` calls it with
+    the route of :func:`_route`; ``scripts/probe_fc1_torch.py`` times both
+    fp32 routes through it at each M."""
     n, _f, c = buf.shape
+    tiles = TILES[route]
     n_out = w.shape[1]
     m, k = n * n_win, FC1_FRAMES * c
     period = walk_period(c, stride, tiles.kc)
@@ -311,27 +396,32 @@ def fc1_strided(buf: torch.Tensor, w: torch.Tensor, s0: int, stride: int, n_win:
         sched = fc1_schedule(m, n_out, k, resident_ctas(buf.device), tiles=tiles)
         ws = (torch.empty((2 * sched.groups, sched.cols, m, tiles.bn), device=buf.device, dtype=torch.float32)
               if sched.groups > 1 else None)
-        stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = cuda_build.launcher(KERNELS[route], 13)(
-            buf.data_ptr(), _packed(w, period, route).data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(),
-            n, buf.stride(0), c, s0, stride, n_win, FC1_FRAMES, n_out, period, *sched, stream)
+        if route == "tf32x3_swap":
+            # the windows' frames split once; the kernel reads both planes from frame 0
+            span = (n_win - 1) * stride + FC1_FRAMES
+            planes = split_planes(buf, s0, span)
+            a, ld, a0 = (planes[0].data_ptr(), planes[1].data_ptr()), span * c, 0
+        else:
+            a, ld, a0 = (buf.data_ptr(),), buf.stride(0), s0
+        err = cuda_build.launcher(KERNELS[route], 13, n_ptrs=3 + len(a))(
+            *a, _packed(w, period, route).data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            n, ld, c, a0, stride, n_win, FC1_FRAMES, n_out, period, *sched,
+            torch.cuda.current_stream(buf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fc1_strided {route} kernel launch failed: error {err}")
-    fc1_strided.launches += 1
-    fc1_strided.launches_by_route[route] += 1
-    fc1_strided.launches_by_shape[(str(buf.dtype).removeprefix("torch."), n, buf.shape[1], c, s0, stride, n_win,
-                                   n_out)] += 1
     return y
 
 
 def reset_launch_counts() -> None:
-    """Zero every launch count of :func:`fc1_strided`."""
+    """Zero every launch count of :func:`fc1_strided` and :func:`split_planes`."""
     fc1_strided.launches = 0
     fc1_strided.launches_by_route = Counter()
     fc1_strided.launches_by_shape = Counter()
+    split_planes.launches = 0
 
 
 #: kernel launches since the last reset (CPU calls do not count): all of
-#: them, by route ("tc", "tf32x3") and by (dtype, N, F, C, s0, stride,
-#: n_win, Nout), dtype "bfloat16" or "float32"
+#: them, by route ("tc", "tf32x3", "tf32x3_swap") and by (dtype, N, F, C,
+#: s0, stride, n_win, Nout), dtype "bfloat16" or "float32"; and the split
+#: pass's, one a launch of the swapped kernel
 reset_launch_counts()

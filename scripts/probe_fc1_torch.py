@@ -4,7 +4,7 @@ their plain version and cuBLAS, and the bf16 kernel's schedule knobs.
 
     python3 scripts/probe_fc1_torch.py [--reps N] [--groups 0,2,5] [--cols 0,1,2] [--map-tiles]
                                        [--shapes NAME,...] [--out DIR]
-    python3 scripts/probe_fc1_torch.py --dtype float32 [--reps N]
+    python3 scripts/probe_fc1_torch.py --dtype float32 [--reps N] [--package DIR]
                                        [--shapes NAME,...] [--out DIR]
 
 At each fc1 shape of the bf16 flows (a serving chunk, an h5 pair chunk, a
@@ -39,18 +39,33 @@ probe encodes that map with the driver's ``cuTensorMapEncodeTiled``
 kernel at row tiles of bw * bn rows: the cost of such tiles, beside
 whatever the copy engine would save.
 
-``--dtype float32``: the parity-mode kernel of ``csrc/fc1_strided_tf32x3.cu``
-(three TF32 passes) at the same 11 shapes, fp32 inputs. Each shape: the
-kernel (``fc1_strided``), the plain version and a float64 product of the
-same inputs; the kernel within FP32_REL of max|y| of float64 and within
-FP32_PLAIN_REL of the plain version, the plain version within
-FP32_PLAIN_REL of float64, the first window read one frame late outside
-both, two calls bit-equal; then, in turns, best of ``--reps``: the
-kernel, the plain version (``unfold`` + the 2,003-column SGEMM, TF32 off,
-which is also the path the kernel replaced) and the yardstick, one SGEMM
-of the same windows by W zero-padded to 2,048 columns (TF32 off). The
-bound: 3 x 2MKN operations at the TF32 rate (495 TFLOP/s) against the
-bytes at 3.35 TB/s, with the share of the 67 TFLOP/s FFMA peak beside it.
+``--dtype float32``: the parity-mode kernels (three TF32 passes: the split
+pass ``csrc/fc1_split_tf32.cu``, then ``csrc/fc1_strided_tf32x3_swap.cu``
+at M <= ``SWAP_MAX_M`` or ``csrc/fc1_strided_tf32x3.cu`` above it) at the
+same 11 shapes and at M = 1, 4, 5, 8, 16, 32, 64, 65, 96, 128, 129, 192,
+256 and 512 windows of the serving span's buffer (F 206, s0 0, stride 25),
+fp32 inputs. Each shape: the route's call (``fc1_strided``) and each fp32
+kernel through its launcher (``ops/fc1._launch``), against the plain
+version and a float64 product of the same inputs: within FP32_REL of
+max|y| of float64 and within FP32_PLAIN_REL of the plain version, the
+plain version within FP32_PLAIN_REL of float64, the first window read one
+frame late outside both, two calls bit-equal; then, in turns, best of
+``--reps``: the call, each kernel (split pass included), the split pass
+alone, the plain version (``unfold`` + the 2,003-column SGEMM, TF32 off,
+which is also the path the kernels replaced) and the yardstick, one SGEMM
+of the same windows, made contiguous as (M, K), by W zero-padded to 2,048
+columns (TF32 off), and beside it the same SGEMM on the windows as an (N,
+n_win, K) tensor (``chip_smoke.py``'s fc1 phase before this probe's
+re-timing) and by the 2,003-column W. The bound: 3 x 2MKN operations at the
+TF32 rate (495 TFLOP/s) against the function's bytes (the frames, fp32 W
+and y once) at 3.35 TB/s, with the share of the 67 TFLOP/s FFMA peak
+beside it, and each kernel's streamed bytes (``fc1.streamed_bytes``).
+``--package DIR`` imports ``expecto_tpu_torch`` from another tree (the
+parent's, unpacked with ``git archive``) and times its ``fc1_strided`` at
+the same shapes, with its own kernels' builds: run parent, change, change,
+parent in one call to compare them on one card. ``--unchecked`` records
+each check in the row instead of raising, to time a tree whose kernel was
+cut down on purpose (a kernel with its products taken out, say).
 """
 
 from __future__ import annotations
@@ -80,6 +95,11 @@ SHAPES = {
     # small chunks: a serving tail (12 spans), an h5 tail (64 pairs), two gene spans
     "serve tail ph0": (12, 206, 0, 25, 5), "h5 tail ph0": (128, 206, 0, 25, 5), "gene 2 ph0": (2, 2594, 0, 25, 100),
 }
+# the fp32 probe's M sweep at the serving span's (F, s0, stride): "M=m" is
+# N samples of n_win windows (n_win <= 5 fit 206 frames)
+M_SWEEP = {f"M={n * n_win}": (n, 206, 0, 25, n_win) for n, n_win in (
+    (1, 1), (1, 4), (1, 5), (2, 4), (4, 4), (8, 4), (16, 4), (13, 5), (24, 4), (32, 4), (43, 3), (48, 4), (64, 4),
+    (128, 4))}
 
 
 def card_line() -> str:
@@ -177,49 +197,64 @@ def probe_fp32(args, card: str) -> list[dict]:
     w = torch.randn((k, N_OUT), generator=gen, device=dev) / k**0.5
     w_pad = F.pad(w, (0, 2048 - N_OUT))
     w64 = w.double()
+    routes = [r for r in ("tf32x3_swap", "tf32x3") if r in fc1.TILES and hasattr(fc1, "_launch")]
     rows = []
     for name in args.shapes.split(","):
-        n, f, s0, stride, n_win = SHAPES[name]
+        n, f, s0, stride, n_win = {**SHAPES, **M_SWEEP}[name]
         buf = torch.rand((n, f, C), generator=gen, device=dev)
         m = n * n_win
-        y = fc1.fc1_strided(buf, w, s0, stride, n_win)
-        want = fc1.fc1_strided_plain(buf, w, s0, stride, n_win)
         a = fc1._windows(buf, s0, stride, n_win)
+        want = fc1.fc1_strided_plain(buf, w, s0, stride, n_win)
         exact = (a.double() @ w64).float()
         torch.cuda.synchronize()
         limit = FP32_REL * float(exact.abs().max())
+        plain_limit = FP32_PLAIN_REL / FP32_REL * limit
+        plain_f64 = float((want - exact).abs().max())
         late = want.clone()
         late[:, 0] = fc1.fc1_strided_plain(buf, w, s0 + 1, stride, 1)[:, 0]
-
-        def errs(got):
-            return float((got - want).abs().max()), float((got - exact).abs().max())
-
-        err_plain, err_f64 = errs(y)
-        plain_f64 = float((want - exact).abs().max())
-        late_err = float((y - late).abs().max())
-        bit_equal = torch.equal(y, fc1.fc1_strided(buf, w, s0, stride, n_win))
-        plain_limit = FP32_PLAIN_REL / FP32_REL * limit
-        if err_f64 > limit or max(err_plain, plain_f64) > plain_limit or late_err <= plain_limit or not bit_equal:
-            raise AssertionError(f"{name}: kernel vs plain {err_plain}, vs float64 {err_f64}, plain vs float64 "
-                                 f"{plain_f64}, late window {late_err} (limit {limit}), bit-equal {bit_equal}")
-        fns = {"kernel": lambda: fc1.fc1_strided(buf, w, s0, stride, n_win),
-               "plain": lambda: fc1.fc1_strided_plain(buf, w, s0, stride, n_win),
-               "library_matmul_2048": lambda: a @ w_pad}
+        calls = {"kernel": lambda: fc1.fc1_strided(buf, w, s0, stride, n_win),
+                 **{r: (lambda r=r: fc1._launch(r, buf, w, s0, stride, n_win)) for r in routes}}
+        checks = {}
+        for key, fn in calls.items():
+            y = fn()
+            err_plain, err_f64 = float((y - want).abs().max()), float((y - exact).abs().max())
+            late_err = float((y - late).abs().max())
+            bit_equal = torch.equal(y, fn())
+            missed = err_f64 > limit or max(err_plain, plain_f64) > plain_limit or late_err <= plain_limit
+            if (missed or not bit_equal) and not args.unchecked:
+                raise AssertionError(f"{name} {key}: vs plain {err_plain}, vs float64 {err_f64}, plain vs float64 "
+                                     f"{plain_f64}, late window {late_err} (limit {limit}), bit-equal {bit_equal}")
+            checks[key] = {"err_plain": err_plain, "err_f64": err_f64, "late_err": late_err, "within_limits": not missed,
+                           "bit_equal": bit_equal}
+            del y
+        a2 = a.reshape(m, k).contiguous()
+        fns = {**calls, "plain": lambda: fc1.fc1_strided_plain(buf, w, s0, stride, n_win),
+               "library_matmul_2048": lambda: a2 @ w_pad, "library_matmul_2048_3d": lambda: a @ w_pad,
+               "library_matmul_2003": lambda: a2 @ w}
+        if routes:
+            span = (n_win - 1) * stride + 106
+            fns["split"] = lambda: fc1.split_planes(buf, s0, span)
         times = best_times(fns, args.reps)
         bound, by, ffma_ms = bound_fp32_ms(n, s0, stride, n_win)
         lib = times["library_matmul_2048"]
+        route = fc1._route("cuda", torch.float32, m) if routes else "tf32x3"
         row = {"shape": name, "dtype": "float32", "N": n, "F": f, "s0": s0, "stride": stride, "n_win": n_win, "M": m,
-               "schedule": list(fc1.fc1_schedule(m, N_OUT, k, fc1.resident_ctas(dev), tiles=fc1.TILES["tf32x3"])),
-               "err_plain": err_plain, "err_f64": err_f64, "plain_err_f64": plain_f64, "late_err": late_err,
-               "limit": limit, "plain_limit": plain_limit, "bound_ms": bound, "bound_by": by, "ffma_bound_ms": ffma_ms,
+               "route": route, "package": args.package or ".",
+               "schedule": list(fc1.fc1_schedule(m, N_OUT, k, fc1.resident_ctas(dev), tiles=fc1.TILES[route])),
+               "checks": checks, "plain_err_f64": plain_f64, "limit": limit, "plain_limit": plain_limit,
+               "bound_ms": bound, "bound_by": by, "ffma_bound_ms": ffma_ms,
                "tflops_kernel": 2.0 * m * k * N_OUT / times["kernel"] / 1e9,
                **{f"{key}_ms": v for key, v in times.items()},
                "vs_library": {key: times[key] / lib for key in times},
-               "share_of_bound": bound / times["kernel"], "share_of_ffma_peak": ffma_ms / times["kernel"],
-               "card": card}
+               "share_of_bound": {key: bound / times[key] for key in calls},
+               "share_of_ffma_peak": ffma_ms / times["kernel"], "card": card}
+        if routes:
+            row["streamed_bytes"] = {r: fc1.streamed_bytes(r, n, n_win, stride, C, N_OUT) for r in routes}
+            row["schedules"] = {r: list(fc1.fc1_schedule(m, N_OUT, k, fc1.resident_ctas(dev), tiles=fc1.TILES[r]))
+                                for r in routes}
         rows.append(row)
         print(json.dumps(row), flush=True)
-        del buf, a, y, want, exact, late
+        del buf, a, a2, want, exact, late
         torch.cuda.empty_cache()
     return rows
 
@@ -230,7 +265,13 @@ def main(argv=None) -> int:
     ap.add_argument("--groups", default="0", help="schedule slice counts (0: the schedule's own)")
     ap.add_argument("--cols", default="0", help="column tiles a group's block (0: the schedule's own)")
     ap.add_argument("--map-tiles", action="store_true", help="also the row tiles of a TMA map (docstring)")
-    ap.add_argument("--shapes", default=",".join(SHAPES), help="names of SHAPES to run")
+    ap.add_argument("--shapes", default=None,
+                    help="names of SHAPES (and, with --dtype float32, of M_SWEEP) to run (default: all)")
+    ap.add_argument("--package", default=None,
+                    help="--dtype float32: import expecto_tpu_torch from this tree instead (docstring)")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="--dtype float32: record the checks without raising (to time a tree whose kernel was cut "
+                         "down on purpose)")
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -241,18 +282,22 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_fc1_torch: no CUDA GPU available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(Path(args.package).resolve() if args.package else REPO))
     from expecto_tpu_torch.ops import cuda_build, fc1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     if args.dtype == "float32":
+        args.shapes = args.shapes or ",".join([*SHAPES, *M_SWEEP])
         rows = probe_fp32(args, card)
         if args.out:
             Path(args.out).mkdir(parents=True, exist_ok=True)
             (Path(args.out) / "probe_fc1_fp32.json").write_text(json.dumps(rows, indent=1))
         print(card, flush=True)
         return 0
+    if args.package:
+        ap.error("--package takes --dtype float32")
+    args.shapes = args.shapes or ",".join(SHAPES)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     k = 106 * C

@@ -3,9 +3,10 @@
 HIGHEST), fp32 on the CPU, where the port's wrapper takes the plain
 PyTorch version; the packers' layouts, the TF32 split (emulated at
 Beluga's full depth against float64), the route rule, the split plan and
-the wrapper's checks. The CUDA kernels (csrc/fc1_strided_tc.cu, bf16, and
+the wrapper's checks. The CUDA kernels (csrc/fc1_strided_tc.cu, bf16;
+csrc/fc1_split_tf32.cu, then csrc/fc1_strided_tf32x3_swap.cu or
 csrc/fc1_strided_tf32x3.cu, fp32) run only on the card: the ``gpu`` cases
-below hold them against the plain version (and the fp32 one against a
+below hold them against the plain version (and the fp32 ones against a
 float64 product) there and skip without a card. They import no JAX, so on
 a machine without it:
 
@@ -32,7 +33,10 @@ from expecto_tpu_torch.ops.fc1 import (
     frame_order,
     pack_weights_fc1,
     pack_weights_tf32x3,
+    pack_weights_tf32x3_swap,
     schedule_units,
+    split_planes,
+    split_planes_plain,
     split_tf32,
     walk_period,
 )
@@ -355,16 +359,18 @@ def test_tf32x3_schedule_covers_every_chunk_once(m, n_out, k):
 
 
 def test_route_is_a_pure_function_of_device_and_dtype():
-    """CUDA bf16 takes the tc kernel, CUDA fp32 the tf32x3 kernel; no flow
-    computes in another dtype on the card, so such a buffer raises."""
-    table = {("cpu", torch.float32): "cpu", ("cpu", torch.bfloat16): "cpu", ("cuda", torch.bfloat16): "tc",
-             ("cuda", torch.float32): "tf32x3"}
+    """CUDA bf16 takes the tc kernel at every M, CUDA fp32 one of its two
+    kernels by M alone; the CPU takes the plain version; no flow computes
+    in another dtype on the card, so such a buffer raises."""
+    table = {("cpu", torch.float32, 1600): "cpu", ("cpu", torch.bfloat16, 4): "cpu",
+             ("cuda", torch.bfloat16, 4): "tc", ("cuda", torch.bfloat16, 1600): "tc",
+             ("cuda", torch.float32, 1600): "tf32x3", ("cuda", torch.float32, 4): "tf32x3_swap"}
     for _ in range(2):
         assert {key: _route(*key) for key in table} == table
-    assert set(fc1.ROUTES) == {"tc", "tf32x3"} == set(TILES) == set(fc1.KERNELS)
+    assert set(fc1.ROUTES) == {"tc", "tf32x3", "tf32x3_swap"} == set(TILES) == set(fc1.KERNELS)
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError, match="bfloat16 or float32"):
-            _route("cuda", dtype)
+            _route("cuda", dtype, 4)
 
 
 K_BELUGA, SMS = FC1_FRAMES * 640, 132
@@ -448,13 +454,18 @@ def _group_of(x, positions, groups):
     return ((x + 1) * groups - 1) // positions
 
 
-def _emulate(buf, w, s0, stride, n_win, sms, knobs, route="tc"):
+def _emulate(buf, w, s0, stride, n_win, sms, knobs, route="tc", passes=3):
     """The kernel's arithmetic on the CPU, as its CTAs walk the schedule:
     A rows from the buffer at the walk's K offsets, B stages unswizzled
     from the packed weight, fp32 tiles stored whole or as parts, and the
-    second pass summing each tile's parts in group order. ``route``
-    "tf32x3": the fp32 kernel's tiles, each A stage split as its consumers
-    split it and the three products lo*hi + hi*lo + hi*hi a stage."""
+    second pass summing each tile's parts in group order. fp32 routes: the three
+    products lo*hi + hi*lo + hi*hi of a stage summed into a fresh fp32
+    accumulator and promoted into the tile's fp32 sum; "tf32x3" at its
+    tiles with W split by its packer and each A stage split as its
+    consumers split it, "tf32x3_swap" at its own (at most 64 windows a
+    tile) with the windows from the split pass's planes and each fp32 W
+    stage split as its consumers split it (in registers: the same split).
+    ``passes`` = 1 keeps hi*hi alone: a single TF32 pass."""
     n, _f, c = buf.shape
     tiles = TILES[route]
     bn, kc = tiles.bn, tiles.kc
@@ -463,18 +474,25 @@ def _emulate(buf, w, s0, stride, n_win, sms, knobs, route="tc"):
     sched = fc1_schedule(m, n_out, k, sms, tiles=tiles, **knobs)
     cols, groups, tm = sched.cols, sched.groups, sched.tile_rows
     kt, tiles_n = -(-k // kc), -(-n_out // bn)
-    a = torch.nn.functional.pad(_windows(buf.float(), s0, stride, n_win).reshape(m, k), (0, kt * kc - k))
     lo = torch.arange(8)
+
+    def rows(x, at):
+        return torch.nn.functional.pad(_windows(x.float(), at, stride, n_win).reshape(m, k), (0, kt * kc - k))
 
     def stages(wp):
         return wp.reshape(tiles_n, kt, bn // 8, 8, 8, kc // 8)[:, :, :, lo[:, None], lo[None, :] ^ lo[:, None]].reshape(
             tiles_n, kt, bn, kc)
 
     if route == "tc":
-        b = stages(pack_weights_fc1(w, period).float())
-    else:
+        a, b = rows(buf, s0), stages(pack_weights_fc1(w, period).float())
+    elif route == "tf32x3":
+        a = rows(buf, s0)
         wp = pack_weights_tf32x3(w, period)
         b, b_lo = stages(wp[:, :, 0]), stages(wp[:, :, 1])
+    else:
+        planes = split_planes_plain(buf, s0, (n_win - 1) * stride + FC1_FRAMES)
+        a, a_lo = rows(planes[0], 0), rows(planes[1], 0)
+        b = stages(pack_weights_tf32x3_swap(w, period))
     nb, order = (c // kc, frame_order(FC1_FRAMES, period)) if c % kc == 0 else (0, None)
     y = torch.zeros((m, tiles_n * bn))
     ws = {}
@@ -486,8 +504,14 @@ def _emulate(buf, w, s0, stride, n_win, sms, knobs, route="tc"):
             if route == "tc":
                 acc += a[r, koff : koff + kc] @ b[t, j].T
             else:
-                a_hi, a_lo = split_tf32(a[r, koff : koff + kc])
-                acc += a_lo @ b[t, j].T + a_hi @ b_lo[t, j].T + a_hi @ b[t, j].T
+                if route == "tf32x3_swap":
+                    (w_hi, w_lo), x_hi, x_lo = split_tf32(b[t, j]), a[r, koff : koff + kc], a_lo[r, koff : koff + kc]
+                else:
+                    (x_hi, x_lo), w_hi, w_lo = split_tf32(a[r, koff : koff + kc]), b[t, j], b_lo[t, j]
+                stage = x_hi @ w_hi.T
+                if passes == 3:
+                    stage = x_lo @ w_hi.T + x_hi @ w_lo.T + stage
+                acc += stage
         if slot is None:
             y[r, t * bn : (t + 1) * bn] = acc
         else:
@@ -535,6 +559,149 @@ def test_emulated_tf32x3_walk_matches_plain(n, f, c, s0, stride, n_win, n_out, s
     got = _emulate(torch.from_numpy(buf), torch.from_numpy(w), s0, stride, n_win, sms, KNOBS[knobs], "tf32x3")
     want = fc1_strided_plain(torch.from_numpy(buf), torch.from_numpy(w), s0, stride, n_win)
     _assert_close(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, fc1.SWAP_MAX_M - 1, fc1.SWAP_MAX_M, fc1.SWAP_MAX_M + 1, 128, 1600])
+def test_fp32_route_is_a_pure_function_of_the_shape(m):
+    """CUDA fp32 takes the swapped kernel up to SWAP_MAX_M windows a call
+    (one window tile) and the tf32x3 kernel past it, whatever else the call
+    holds: the route depends on M alone, the same on every call."""
+    want = "tf32x3_swap" if m <= fc1.SWAP_MAX_M else "tf32x3"
+    assert fc1.SWAP_MAX_M <= TILES["tf32x3_swap"].tm
+    assert [_route("cuda", torch.float32, m) for _ in range(2)] == [want, want]
+    assert _route("cuda", torch.bfloat16, m) == "tc" and _route("cpu", torch.float32, m) == "cpu"
+
+
+def _unpack_swap(wp, period=1, k=None):
+    """The inverse of pack_weights_tf32x3_swap: (K padded to 32, Nout
+    padded to 128), the swizzle and the frame walk undone."""
+    tiles, chunks, bn = wp.shape[:3]
+    lo8 = torch.arange(8)
+    x = wp.reshape(tiles, chunks, bn // 8, 8, 8, 4)[:, :, :, lo8[:, None], lo8[None, :] ^ lo8[:, None]]
+    full = x.permute(1, 4, 5, 0, 2, 3).reshape(chunks * 32, tiles * bn)
+    if period > 1:
+        inv = torch.empty(FC1_FRAMES, dtype=torch.long)
+        inv[torch.tensor(frame_order(FC1_FRAMES, period))] = torch.arange(FC1_FRAMES)
+        full = full.reshape(FC1_FRAMES, k // FC1_FRAMES, -1)[inv].reshape(k, -1)
+    return full
+
+
+# the swapped kernel's W: fp32 as it is, 128-column tiles of 32-deep K
+# chunks; the frame walk of the stride at C % 32 == 0, K off the stage at C
+# = 4 and 12, Nout off the tile
+@pytest.mark.parametrize("c,n_out,period", [(32, 19, 25), (4, 1, 1), (12, 130, 1), (64, 256, 7), (32, 2003, 1)])
+def test_swap_packer_round_trips_and_pads_with_zeros(c, n_out, period):
+    k = FC1_FRAMES * c
+    w = torch.from_numpy(np.random.default_rng(c + n_out + 1).standard_normal((k, n_out)).astype(np.float32))
+    wp = pack_weights_tf32x3_swap(w, period)
+    tiles, chunks = -(-n_out // 128), -(-k // 32)
+    assert wp.shape == (tiles, chunks, 128, 8, 4) and wp.is_contiguous() and wp.dtype == torch.float32
+    full = _unpack_swap(wp, period, k)
+    assert torch.equal(full[:k, :n_out], w)  # not split: the kernel splits it
+    assert not full[:, n_out:].any() and not full[k:].any()
+    # one stage: W column n of tile t and chunk j is a 128-byte K-major row
+    # (wgmma's A operand) whose slot s holds K group s ^ (n % 8)
+    nb, order = c // 32, frame_order(FC1_FRAMES, period)
+    t, j, n = tiles - 1, chunks - 2, min(11, n_out - 1 - (tiles - 1) * 128)
+    k0 = order[j // nb] * c + (j % nb) * 32 if period > 1 else j * 32
+    for slot in range(8):
+        g = slot ^ (n % 8)
+        assert torch.equal(wp[t, j, n, slot], w[k0 + 4 * g : k0 + 4 * g + 4, t * 128 + n])
+
+
+def test_swap_packing_is_cached_on_its_own_route():
+    """The swapped kernel's fp32 W is cached beside the split one: a weight
+    that meets both fp32 kernels is packed once for each."""
+    w = torch.ones((FC1_FRAMES * 32, 19))
+    swap, split = _packed(w, 1, "tf32x3_swap"), _packed(w, 1, "tf32x3")
+    assert swap.shape == (1, FC1_FRAMES, 128, 8, 4) and split.shape == (1, FC1_FRAMES, 2, 128, 8, 4)
+    assert _packed(w, 1, "tf32x3_swap") is swap and torch.equal(swap, pack_weights_tf32x3_swap(w))
+    assert _packed(w, 25, "tf32x3_swap") is not swap
+
+
+@pytest.mark.parametrize("m,n_out,k", [(1, 2003, K_FULL), (4, 2003, K_FULL), (5, 2003, K_FULL), (60, 2003, K_FULL),
+                                       (64, 2003, K_FULL), (65, 2003, K_FULL), (129, 2003, K_FULL),
+                                       (512, 2003, K_FULL), (35, 19, FC1_FRAMES * 12), (9, 257, FC1_FRAMES * 32)])
+def test_swap_schedule_covers_every_chunk_once(m, n_out, k):
+    """The swapped kernel's schedule (128 W columns, at most 64 windows a
+    tile, 32-deep K chunks): never more CTAs than the card holds, one
+    window tile up to 64 windows, every group at least 64 chunks where K
+    has them, and each (window tile, column tile, K chunk) in exactly one
+    unit of the walk."""
+    tiles = TILES["tf32x3_swap"]
+    s = fc1_schedule(m, n_out, k, SMS, tiles=tiles)
+    tiles_m, tiles_n, kt = -(-m // s.tile_rows), -(-n_out // 128), -(-k // 32)
+    assert s.tile_rows <= 64 and (m > 64 or tiles_m == 1) and s.rows * s.cols * s.groups <= SMS
+    assert s.groups == 1 or (tiles_n // s.cols) * kt // s.groups >= 64
+    seen = Counter()
+    for _cta, i, t, k0, k1, _slot in schedule_units(m, n_out, k, s, tiles):
+        assert 0 <= i < tiles_m and 0 <= t < tiles_n and 0 <= k0 < k1 <= kt
+        seen.update((i, t, j) for j in range(k0, k1))
+    assert set(seen.values()) == {1} and len(seen) == tiles_m * tiles_n * kt
+    if m <= fc1.SWAP_MAX_M and k == K_FULL:
+        assert s.rows * s.cols * s.groups == SMS  # the 132 SMs all stream W
+
+
+SWAP_KNOBS = {"own": {}, "forced": {"groups": 2, "cols": 1, "tile_rows": 24}}
+# (N, F, C, s0, stride, n_win, Nout, SMs) for the swapped kernel: one window
+# tile (M 4-64; several at the forced 24 rows), several (M 65, 100), the
+# walk of period 25 and 1, K off the stage, columns off the tile, many
+# groups on few chunks
+EMULATED_SWAP = [(2, 160, 32, 12, 25, 2, 300, 132), (7, 300, 12, 12, 25, 5, 64, 132), (5, 240, 16, 0, 50, 2, 19, 8),
+                 (16, 206, 32, 0, 25, 4, 130, 132), (13, 206, 4, 0, 25, 5, 1, 132), (1, 2594, 8, 0, 25, 100, 19, 20)]
+
+
+@pytest.mark.parametrize("knobs", list(SWAP_KNOBS))
+@pytest.mark.parametrize("n,f,c,s0,stride,n_win,n_out,sms", EMULATED_SWAP)
+def test_emulated_swap_walk_matches_plain_and_float64(n, f, c, s0, stride, n_win, n_out, sms, knobs):
+    """The swapped kernel's walk (windows from the split planes, each W
+    stage split as its consumers split it, a fresh accumulator a stage
+    promoted into the sum, parts summed in group order) against the plain
+    fp32 version and a float64 product, at narrow widths."""
+    buf, w, _b = _inputs(n, f, c, n_out, seed=n + f + c + 2)
+    b_t, w_t = torch.from_numpy(buf), torch.from_numpy(w)
+    got = _emulate(b_t, w_t, s0, stride, n_win, sms, SWAP_KNOBS[knobs], "tf32x3_swap")
+    _assert_close(got.numpy(), fc1_strided_plain(b_t, w_t, s0, stride, n_win).numpy())
+    exact = (_windows(b_t.double(), s0, stride, n_win) @ w_t.double()).numpy()
+    _assert_close(got.numpy(), exact)
+
+
+@pytest.mark.parametrize("n,n_win", [(1, 5), (16, 4)])
+def test_swap_walk_holds_fp32_limit_at_belugas_depth(n, n_win):
+    """The swapped kernel's walk at K = 67,840 (C = 640) on 3 columns, at
+    the single-sample tail (M = 5) and a full window tile (M = 64): within
+    FP32_REL of max|y| of float64 and FP32_PLAIN_REL of the plain SGEMM's
+    stand-in; a single TF32 pass a stage (the planted fault) misses the
+    plain version's looser limit."""
+    rng = np.random.default_rng(n)
+    buf = torch.from_numpy(rng.random((n, 206, 640)).astype(np.float32))  # after conv6's ReLU: non-negative
+    w = torch.from_numpy((rng.standard_normal((K_FULL, 3)) / np.sqrt(K_FULL)).astype(np.float32))
+    exact = _windows(buf.double(), 0, 25, n_win) @ w.double()
+    limit = FP32_REL * float(exact.abs().max())
+    got = _emulate(buf, w, 0, 25, n_win, SMS, {}, "tf32x3_swap")
+    assert float((got.double() - exact).abs().max()) <= limit
+    assert float((got - fc1_strided_plain(buf, w, 0, 25, n_win)).abs().max()) <= FP32_PLAIN_REL / FP32_REL * limit
+    single = _emulate(buf, w, 0, 25, n_win, SMS, {}, "tf32x3_swap", passes=1)
+    assert float((single.double() - exact).abs().max()) > FP32_PLAIN_REL / FP32_REL * limit
+
+
+@pytest.mark.parametrize("s0,span,view", [(0, 206, False), (12, 181, False), (3, 106, True)])
+def test_split_pass_plain_version_is_split_tf32(s0, span, view):
+    """The split pass's plain version: the frames s0 .. s0 + span - 1 as
+    (2, N, span, C), split_tf32's hi then lo; on the CPU the wrapper is the
+    plain version (a splice view too) and launches nothing."""
+    rng = np.random.default_rng(s0 + span)
+    base = torch.from_numpy((rng.standard_normal((3, 207, 8)) * 10.0 ** rng.integers(-4, 4, (3, 207, 8)))
+                            .astype(np.float32))
+    buf = base[:, :206] if view else base[:, :206].contiguous()
+    fc1.reset_launch_counts()
+    planes = split_planes(buf, s0, span)
+    hi, lo = split_tf32(buf[:, s0 : s0 + span])
+    assert planes.shape == (2, 3, span, 8) and planes.is_contiguous()
+    assert torch.equal(planes[0], hi) and torch.equal(planes[1], lo)
+    assert torch.equal(split_planes_plain(buf, s0, span), planes) and split_planes.launches == 0
+    err = (buf[:, s0 : s0 + span].double() - planes[0].double() - planes[1].double()).abs()
+    assert bool((err <= 2.0**-22 * buf[:, s0 : s0 + span].double().abs()).all())
 
 
 def _good(f=240, c=32, n_out=19, n=2):
@@ -774,7 +941,7 @@ def test_tf32x3_kernel_matches_plain_and_float64(cuda, n, f, s0, stride, n_win):
     got = fc1_strided(buf, w, s0, stride, n_win)
     again = fc1_strided(buf, w, s0, stride, n_win)
     torch.cuda.synchronize()
-    assert fc1_strided.launches_by_route - before == Counter({"tf32x3": 2})
+    assert fc1_strided.launches_by_route - before == Counter({_route("cuda", torch.float32, n * n_win): 2})
     assert torch.equal(got, again)
     _tf32x3_matches_plain_and_float64(buf, w, s0, stride, n_win, got)
 
@@ -813,15 +980,107 @@ def test_tf32x3_kernel_reads_a_splice_view_in_place(cuda):
 
 
 @pytest.mark.gpu
-def test_fp32_on_the_card_is_the_tf32x3_kernel(cuda):
-    """A CUDA fp32 buffer launches the three-pass TF32 kernel: one launch
-    counted on its route and under an fp32 shape, none on the bf16 kernel."""
-    buf, w = _card_inputs_fp32(4, 206, 640, 2003, 3, cuda)
+@pytest.mark.parametrize("n", [4, 16])
+def test_fp32_on_the_card_is_the_tf32x3_kernel(cuda, n):
+    """A CUDA fp32 buffer launches one three-pass TF32 kernel, the one its
+    M routes to (M = 20: the split pass and the swapped kernel; 80: the
+    tf32x3 kernel): one launch counted on that route and under an fp32
+    shape, none on the bf16 kernel."""
+    buf, w = _card_inputs_fp32(n, 206, 640, 2003, 3, cuda)
     fc1.reset_launch_counts()
     got = fc1_strided(buf, w, 0, 25, 5)
-    assert fc1_strided.launches == 1 and fc1_strided.launches_by_route == Counter({"tf32x3": 1})
-    assert fc1_strided.launches_by_shape == Counter({("float32", 4, 206, 640, 0, 25, 5, 2003): 1})
+    route = "tf32x3_swap" if 5 * n <= fc1.SWAP_MAX_M else "tf32x3"
+    assert fc1_strided.launches == 1 and fc1_strided.launches_by_route == Counter({route: 1})
+    assert fc1_strided.launches_by_shape == Counter({("float32", n, 206, 640, 0, 25, 5, 2003): 1})
+    assert split_planes.launches == (route == "tf32x3_swap")
     _tf32x3_matches_plain_and_float64(buf, w, 0, 25, 5, got)
+
+
+# (N, F, C, s0, stride, n_win, Nout) around the fp32 routes' boundary and
+# the swapped kernel's tiles at Beluga's widths: M = 1, 4 and 5 (single
+# samples), 60, 63, SWAP_MAX_M = 64 and 65 (two window tiles of 33 in the
+# swapped kernel), 128 and 129 (two and three); narrow widths: a part
+# stage (C = 12), one column, 257 columns
+FP32_EDGE_SHAPES = [(1, 206, 640, 0, 25, 1, 2003), (1, 206, 640, 12, 25, 4, 2003), (1, 206, 640, 0, 25, 5, 2003),
+                    (12, 206, 640, 0, 25, 5, 2003), (21, 206, 640, 0, 25, 3, 2003), (16, 206, 640, 0, 25, 4, 2003),
+                    (13, 206, 640, 0, 25, 5, 2003), (32, 206, 640, 0, 25, 4, 2003), (43, 206, 640, 0, 25, 3, 2003),
+                    (7, 300, 12, 12, 25, 5, 19), (9, 206, 640, 0, 25, 5, 1), (9, 206, 640, 12, 25, 4, 257)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,c,s0,stride,n_win,n_out", FP32_EDGE_SHAPES)
+def test_fp32_regimes_at_their_boundary_repeat_on_a_second_stream(cuda, n, f, c, s0, stride, n_win, n_out):
+    """Both fp32 kernels at each shape (the route's own through fc1_strided,
+    the other through its launcher): on a second stream bit-equal to the
+    first call, within the fp32 limits of the plain version and float64."""
+    buf, w = _card_inputs_fp32(n, f, c, n_out, n + c + n_out + 1, cuda)
+    route = _route("cuda", torch.float32, n * n_win)
+    before = Counter(fc1_strided.launches_by_route)
+    got = fc1_strided(buf, w, s0, stride, n_win)
+    assert fc1_strided.launches_by_route - before == Counter({route: 1})
+    for which in ("tf32x3_swap", "tf32x3"):
+        y = got if which == route else fc1._launch(which, buf, w, s0, stride, n_win)
+        side = torch.cuda.Stream(device=cuda)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            again = fc1._launch(which, buf, w, s0, stride, n_win)
+        torch.cuda.synchronize()
+        assert y.shape == (n, n_win, n_out) and torch.equal(y, again), which
+        _tf32x3_matches_plain_and_float64(buf, w, s0, stride, n_win, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,n_out", [(4, 1), (12, 19), (48, 64), (32, 257)])
+def test_swap_kernel_takes_narrow_widths(cuda, c, n_out):
+    """The swapped kernel at test widths (M = 10): 106*C off the 32-deep
+    stage, C down to one 16-byte piece, Nout off the 128-column tile."""
+    buf, w = _card_inputs_fp32(2, 300, c, n_out, c + 1, cuda)
+    before = Counter(fc1_strided.launches_by_route)
+    got = fc1_strided(buf, w, 12, 25, 5)
+    assert fc1_strided.launches_by_route - before == Counter({"tf32x3_swap": 1})
+    assert got.shape == (2, 5, n_out) and torch.equal(got, fc1_strided(buf, w, 12, 25, 5))
+    _tf32x3_matches_plain_and_float64(buf, w, 12, 25, 5, got)
+
+
+@pytest.mark.gpu
+def test_swap_kernel_reads_a_splice_view_in_place(cuda):
+    base, w = _card_inputs_fp32(3, 207, 640, 2003, 10, cuda)
+    buf = base[:, :206]
+    got = fc1_strided(buf, w, 12, 25, 4)
+    _tf32x3_matches_plain_and_float64(buf.contiguous(), w, 12, 25, 4, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s0,span,view", [(0, 206, False), (12, 181, False), (3, 106, True), (0, 2581, False)])
+def test_split_pass_equals_split_tf32_bit_for_bit(cuda, s0, span, view):
+    """The split pass on the card against split_tf32 on the same numbers
+    (magnitudes over 16 binades, zeros, ties), a splice view read in place."""
+    g = torch.Generator(device=cuda).manual_seed(s0 + span)
+    f = max(206, s0 + span)
+    base = torch.randn((5, f + 1, 640), generator=g, device=cuda) * torch.exp2(
+        torch.randint(-8, 8, (5, f + 1, 640), generator=g, device=cuda).float())
+    base[0, s0, :4] = torch.tensor([0.0, -0.0, 1.0 + 2.0**-11, -(1.0 + 2.0**-11)], device=cuda)
+    buf = base[:, :f] if view else base[:, :f].contiguous()
+    before = split_planes.launches
+    planes = split_planes(buf, s0, span)
+    torch.cuda.synchronize()
+    assert split_planes.launches == before + 1 and planes.shape == (2, 5, span, 640)
+    want = split_planes_plain(buf, s0, span)
+    assert torch.equal(planes.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_split_pass_refuses_on_the_card(cuda):
+    buf = torch.zeros((2, 206, 640), device=cuda)
+    flat = torch.zeros(2 * 206 * 640 + 4, device=cuda)
+    with pytest.raises(ValueError, match="split pass"):
+        split_planes(flat[1 : 1 + 2 * 206 * 640].view(2, 206, 640), 0, 206)
+    with pytest.raises(ValueError, match="split pass"):
+        split_planes(torch.zeros((2, 206, 6), device=cuda), 0, 206)
+    with pytest.raises(ValueError, match="split pass"):
+        split_planes(buf.bfloat16(), 0, 206)
+    with pytest.raises(ValueError, match="split pass"):
+        split_planes(buf, 101, 106)
 
 
 @pytest.mark.gpu
