@@ -152,8 +152,16 @@ Phases (any failure raises, and the script exits non-zero with no result):
    chr8, rRNA genes and NaN labels), 24,338 x 20,020 fp32 features and 218
    tissues, the reference's hyperparameters, 100 rounds of 40 feature
    blocks: the coordinate-update kernel against its plain version bit for
-   bit at (512, 1), (512, 128) and (512, 218) (padded rows, the 1e-5
-   guard, L1, ties), timed beside it and its bound; one tissue with its
+   bit at (512, K) for K = 1, 128, 218, 256 and 1,000 (padded rows, the
+   1e-5 guard, L1, ties), timed beside it and its bound; the K-model block
+   step's two kernels (gradient with the coordinate update, residual) at K
+   = 1, 128, 218, 256 and 1,000 on the rows of the call that runs each: G
+   and r's increment within TRAIN_BLOCK_REL of max|.| against float64
+   (late-row faults must miss), w and dw the coordinate step on the
+   kernel's G bit for bit, the fused one-rank update equal to the split
+   route, reruns equal, timed beside their bounds, the plain block step and
+   the torch block step they replaced (which they must beat at K > 1); one
+   tissue with its
    watchlist (``train_expression_model``), which launches the round kernel
    once a round and the coordinate update never, equal bit for bit to a
    second run and, with the plain round (the per-block loop) swapped in,
@@ -167,11 +175,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
    through ``python -m expecto_tpu_torch.cli.train`` (its ``main``), each
    seed's ``.save`` equal to the in-process sweep. Each call's launches are
    zeroed just before it and checked just after (one round kernel a round
-   at K = 1, 40 coordinate updates a round at K = 218 and 128), and each is
+   at K = 1; at K = 218 and 128 the block step's two kernels 40 times a
+   round each and no coordinate update), and each is
    profiled once for its time a round, the block sweep's kernels and the
    card's idle share. Then the card against the CPU on 2,048 rows, 8
-   tissues and 20 rounds with an L1 weight, within 1e-5 of max|w|, which
-   one round fewer and alpha's sign swapped must exceed. Then the round
+   tissues and 20 rounds with an L1 weight (launch-checked), within 1e-5
+   of max|w|, which one round fewer and alpha's sign swapped must exceed.
+   Then the round
    kernel's two shared-memory plans: ``train_gblinear`` at 512 features
    with the rows drawn on the card, at the "shared" plan's row cap (about
    3.8 million rows) and one row past it (the "streamed" plan), one
@@ -219,9 +229,10 @@ Phases (any failure raises, and the script exits non-zero with no result):
    one rank; rows shifted by one must exceed it); ``cli.compute_features``
    on the 96 genes in fp32 (1e-5 of max|feature|); ``cli.consensus ref``
    in fp32; ``cli.train --bootstrap_seeds 128`` at the published width
-   (every ``.save`` within 1e-5 of max|w|, biases 1e-6; per rank 4,000
-   coordinate-update launches and 3 + 100 x 41 = 4,103 all-reduce calls,
-   whose host time is printed), and again on its first 8 seeds with the
+   (every ``.save`` within 1e-5 of max|w|, biases 1e-6; per rank the block
+   step's split route, 4,000 launches each of the gradient kernel, the
+   coordinate update's planes entry and the residual kernel, and 3 + 100 x
+   41 = 4,103 all-reduce calls, whose host time is printed), and again on its first 8 seeds with the
    all-reduce swapped for the identity, which must miss those limits. Every rank's convs must run
    on its dtype's kernels. The backend and each run's wall at one and two
    ranks are printed; the ranks share one card, so the walls are the
@@ -229,8 +240,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
 15. bench: ``python -m expecto_tpu_torch.bench`` (its ``main``, no
    arguments: the card, ``bench.py``'s on-card sizes, no h5 writes), every
    launch count zeroed just before it and read just after: the tc kernel,
-   the code-gather conv0 in bf16 and 520 coordinate updates (13 rounds of
-   40 blocks) must launch, the SIMT kernel and the round kernel must not;
+   the code-gather conv0 in bf16 and the block step's two kernels 520
+   times each (13 rounds of 40 blocks) must launch, the SIMT kernel, the
+   round kernel and the coordinate update must not;
    its one result line (printed after ``bench result:``) must hold every
    path key, each finite and above 0; its wall is printed with the card;
 16. fc1: the kernels of fc1's strided product at every shape that the
@@ -495,8 +507,19 @@ TRAIN_TISSUES = 218
 TRAIN_ROUNDS = 100
 TRAIN_BOOT_SEEDS = 128
 # (block, models) of the coordinate-update kernel: the three training calls'
-# shapes and the bench's 256-model round
-TRAIN_CD_SHAPES = ((512, 1), (512, 128), (512, 218), (512, 256))
+# shapes, the bench's 256-model round and the reference's 1,000 bootstrap
+# jobs (its planes entry runs them on the split route)
+TRAIN_CD_SHAPES = ((512, 1), (512, 128), (512, 218), (512, 256), (512, 1000))
+# (rows, models) of the K-model block step's two kernels, each K at the row
+# count of the call that runs it: the K = 1 sharded trainer and the
+# bootstrap CLI (128 seeds; 1,000, the reference's jobs) on 22,296 train
+# genes, all tissues on 21,202, the bench on 18,000
+TRAIN_BLOCK_SHAPES = ((22_296, 1), (22_296, 128), (21_202, 218), (18_000, 256), (22_296, 1_000))
+# the block step's G and r (and r's increment alone) against float64, as a
+# share of their max|.|: the fp32 fc1 kernels' limit (FC1_FP32_REL)
+TRAIN_BLOCK_REL = 1e-5
+# the training kernels, by the names their CUDA kernels carry (profiles)
+TRAIN_KERNELS = ("gblinear_round", "gblinear_cd", "gblinear_block_grad", "gblinear_block_resid")
 # genes a chromosome: chr8 is the test split; chrX/chrY (and chr7 for the
 # all-tissue sweep) are held out of training; the rest are spread over the
 # other autosomes
@@ -3107,13 +3130,17 @@ def _cd_checked(b: int, k: int, alpha: float, gen):
     return g, h, w
 
 
-def train_kernel_phase(out: dict) -> None:
+def train_kernel_phase(out: dict, card: str) -> None:
     """The coordinate-update kernel against its plain version, bit for bit,
-    at each (block, models) shape of the three training calls and the
-    bench's round, with alpha 0 and > 0; then timed beside the plain version and its bound (g, h and
+    at each (block, models) shape of the training calls, the bench's round
+    and 1,000 models, with alpha 0 and > 0; then timed beside the plain version and its bound (g, h and
     w read once, w and dw written once: 20 bytes an element): the card's
     time a call (the kernel, or the plain version's kernels) and the
-    time a call back to back, which the host's issue rate sets."""
+    time a call back to back, which the host's issue rate sets. Then the
+    K-model block step's two kernels at each (rows, K) of
+    TRAIN_BLOCK_SHAPES (:func:`block_step_row`): checked, timed beside
+    their bounds, the plain block step and the torch block step they
+    replaced, which they must beat."""
     import torch
 
     from expecto_tpu_torch.ops.gblinear_cd import coord_update, coord_update_plain
@@ -3134,6 +3161,151 @@ def train_kernel_phase(out: dict) -> None:
             f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), plain {row['plain_ms'] * 1e3:.2f} us; back to back "
             f"{row['call_ms'] * 1e3:.2f} us a call, plain {row['plain_call_ms'] * 1e3:.2f} us")
     out["cd_layers"] = rows
+    out["block_layers"] = []
+    for n, k in TRAIN_BLOCK_SHAPES:
+        row = block_step_row(n, k, gen)
+        out["block_layers"].append(row)
+        log(f"kernels gblinear_block_grad + gblinear_block_resid (512 x {n:,} rows x K {k}, route {row['route']}): G "
+            f"{row['g_rel']:.3g}, r's increment {row['inc_rel']:.3g}, r {row['r_rel']:.3g} of max|.| off float64 (limit "
+            f"{TRAIN_BLOCK_REL:g}; late-row faults {row['g_late_row_fault_rel']:.3g}, "
+            f"{row['r_late_rows_fault_rel']:.3g}); w and dw the coordinate step on the kernel's G bit for bit, the "
+            f"fused update equal to the split route, a rerun equal; a block {row['ms'] * 1e3:.1f} us (gradient "
+            f"{row['grad_ms'] * 1e3:.1f}, bound {row['grad_bound']['bound_ms'] * 1e3:.1f} {row['grad_bound']['bound_by']}"
+            f"; residual {row['resid_ms'] * 1e3:.1f}, bound {row['resid_bound']['bound_ms'] * 1e3:.1f} "
+            f"{row['resid_bound']['bound_by']}; the block's bound {row['block_bound']['bound_ms'] * 1e3:.1f}), plain "
+            f"block step {row['plain_ms'] * 1e3:.1f}, the torch block step it replaced {row['yardstick_ms'] * 1e3:.1f} "
+            f"({row['speedup_vs_yardstick']:.2f}x), torch.addmm for the residual {row['library_ms'] * 1e3:.1f} [{card}]")
+        if k > 1 and row["ms"] >= row["yardstick_ms"]:  # K = 1 (byte-bound both ways) may tie
+            raise AssertionError(f"the block step at K = {k} is not faster than the torch block step it replaced: "
+                                 f"{row['ms']} against {row['yardstick_ms']} ms")
+
+
+def block_step_row(n: int, k: int, gen, *, checked: bool = True, timed: bool = True) -> dict:
+    """The K-model block step's two kernels (ops/gblinear_block.py) on one
+    block of 512 seeded features (the last 7 zero, as a last block's padded
+    rows) x ``n`` rows and ``k`` models with integer row weights: G (the
+    split route's output) and r's increment (the residual kernel on r = 0)
+    within TRAIN_BLOCK_REL of their max|.| against float64, r updated
+    within it of max|r|; G from X with its last row changed and r with its
+    last 128 rows not advanced (planted faults) must miss; the fused update
+    equal to the split route and to ``coord_update_plain`` on the kernel's
+    own G bit for bit (w, and dw's planes against ``split_tf32``); a rerun
+    equal bit for bit. Then timed
+    in turns with CUDA events: each kernel, the two together, the plain
+    block step (SGEMM, the plain update), the torch block step they
+    replaced (SGEMM and ``gblinear_cd``: the yardstick) and ``torch.addmm``
+    (the residual kernel's one-call library equivalent); each kernel's bound
+    (three TF32 passes at the tf32 peak against its bytes: X, rw and r read,
+    h and w read, w and dw written; X, r and dw read, r written) and the
+    block's (both products' passes against X twice, r read twice and
+    written once, rw read once).
+    ``checked=False`` records the failed checks in the row instead of
+    raising (to time a kernel cut down on purpose); ``timed=False`` stops
+    after the checks."""
+    import torch
+
+    from expecto_tpu_torch.ops import gblinear_block as gbb
+    from expecto_tpu_torch.ops.fc1 import split_tf32
+    from expecto_tpu_torch.ops.gblinear_cd import coord_update, coord_update_plain, coord_update_planes
+
+    b, eta, lam, alpha = 512, 0.01, 100.0, 0.7
+    X = torch.randn((n, b), generator=gen, device=DEVICE)
+    X[:, -7:] = 0.0
+    Xt = gbb.block_layout(X, b)
+    X[n - 1] += 1.0
+    Xt_fault = gbb.block_layout(X, b)
+    del X
+    Xb = Xt[0]
+    rw = torch.randint(0, 3, (n, k), generator=gen, device=DEVICE).float()
+    rw[n - 1] = 1.0  # the changed last row reaches G in every model
+    rw = gbb.transposed_rows(rw)
+    r = gbb.transposed_rows(torch.randn((n, k), generator=gen, device=DEVICE) * 2)
+    h = (Xb * Xb) @ rw.T
+    w0 = torch.randn((b, k), generator=gen, device=DEVICE) * 0.05
+    s = gbb.block_scratch(Xt, k, 1)
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+    rel = lambda got, want: float((got.double() - want.double()).abs().max() / want.double().abs().max())  # noqa: E731
+
+    def fused_step():
+        w, rn = w0.clone(), gbb.transposed_rows(r.T)
+        gbb._launch_grad(Xb, rw, rn, s, h, w, eta, lam, alpha, fused=True)
+        planes = s.dw.clone()
+        gbb.residual_update(Xb, s.dw, rn, scratch=s)
+        torch.cuda.synchronize()
+        return w, planes, rn
+
+    g64 = Xb.double() @ (rw.double() * r.double()).T
+    gbb._launch_grad(Xt_fault[0], rw, r, s, h, w0.clone(), eta, lam, alpha, fused=False)
+    g_fault = rel(s.g, g64)
+    gbb._launch_grad(Xb, rw, r, s, h, w0.clone(), eta, lam, alpha, fused=False)
+    G = s.g.clone()
+    w_split = w0.clone()
+    coord_update_planes(G, h, w_split, s.dw, eta, lam, alpha)
+    planes_split = s.dw.clone()
+    w_plain = w0.clone()
+    dw = coord_update_plain(G, h, w_plain, eta, lam, alpha)
+    inc = gbb.transposed_rows(torch.zeros_like(r.T))
+    gbb.residual_update(Xb, s.dw, inc, scratch=s)
+    inc64 = dw.double().T @ Xb.double()
+    runs = [fused_step(), fused_step()]
+    w, planes, rn = runs[0]
+    r_fault = rn.clone()
+    r_fault[:, -128:] = r[:, -128:]
+    row = {"n": n, "B": b, "K": k, "route": s.route._asdict(), "grad_schedule": s.grad._asdict(),
+           "resid_grid": s.resid_grid, "g_rel": rel(G, g64), "inc_rel": rel(inc, inc64),
+           "r_rel": rel(rn, r.double() + inc64), "g_late_row_fault_rel": g_fault,
+           "r_late_rows_fault_rel": rel(r_fault, r.double() + inc64), "limit": TRAIN_BLOCK_REL,
+           "max_abs_err": float((G.double() - g64).abs().max()),
+           "inc_max_abs_err": float((inc.double() - inc64).abs().max())}
+    checks = {
+        "G, r's increment and r within the limit of float64": max(row["g_rel"], row["inc_rel"], row["r_rel"])
+        <= TRAIN_BLOCK_REL,
+        "the planted faults miss": min(g_fault, row["r_late_rows_fault_rel"]) > TRAIN_BLOCK_REL,
+        "w and dw equal the coordinate step on the kernel's G": torch.equal(bits(w), bits(w_plain)) and torch.equal(
+            planes[:, :k, :b], torch.stack(split_tf32(dw.T.contiguous()))),
+        "the fused update equals the split route": torch.equal(bits(w), bits(w_split)) and torch.equal(
+            bits(planes), bits(planes_split)),
+        "a rerun is equal": all(torch.equal(bits(x), bits(y)) for x, y in zip(runs[0], runs[1])),
+    }
+    bad = [what for what, ok in checks.items() if not ok]
+    row["failed_checks"] = bad
+    if bad and checked:
+        raise AssertionError(f"block step (n {n}, K {k}): {bad}; {row}")
+    del runs, r_fault, Xt_fault, g64, inc64
+    if not timed:
+        del s, Xt, rw, r
+        torch.cuda.empty_cache()
+        return row
+
+    wt, rt = w0.clone(), gbb.transposed_rows(r.T)
+    calls = {
+        "grad_ms": lambda: gbb._launch_grad(Xb, rw, rt, s, h, wt, eta, lam, alpha, fused=True),
+        "resid_ms": lambda: gbb.residual_update(Xb, s.dw, rt, scratch=s),
+        "grad_plain_ms": lambda: gbb.grad_update_plain(Xb, rw, rt, h, wt, eta, lam, alpha, update=coord_update_plain),
+        "resid_plain_ms": lambda: gbb.residual_update_plain(Xb, dw, rt),
+        "plain_ms": lambda: gbb.residual_update_plain(
+            Xb, gbb.grad_update_plain(Xb, rw, rt, h, wt, eta, lam, alpha, update=coord_update_plain), rt),
+        "yardstick_ms": lambda: gbb.residual_update_plain(
+            Xb, gbb.grad_update_plain(Xb, rw, rt, h, wt, eta, lam, alpha, update=coord_update), rt),
+        "library_ms": lambda: torch.addmm(rt, dw.T, Xb),
+    }
+    calls["ms"] = lambda: (calls["grad_ms"](), calls["resid_ms"]())
+    times = {key: [] for key in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for key in order:
+            slow = "plain" in key or key == "yardstick_ms"
+            times[key].append(cuda_ms(calls[key], reps=5 if slow else 20, warmup=2))
+    row.update({key: min(v) for key, v in times.items()}, times=times)
+    flops = 3 * 2.0 * b * n * k
+    row["grad_bound"] = _bound(4.0 * (b * n + 2 * n * k + 4 * b * k), flops, "tf32")
+    row["resid_bound"] = _bound(4.0 * (b * n + 2 * n * k + b * k), flops, "tf32")
+    row["block_bound"] = _bound(4.0 * (2 * b * n + 4 * n * k), 2 * flops, "tf32")
+    row["speedup_vs_yardstick"] = row["yardstick_ms"] / row["ms"]
+    if not bool(torch.isfinite(wt).all() and torch.isfinite(rt).all()):
+        raise AssertionError(f"block step (n {n}, K {k}): the timed steps left non-finite weights or residuals")
+    del s, Xt, rw, r, rt
+    torch.cuda.empty_cache()
+    return row
 
 
 def _round_trace(prof, rounds: int) -> dict:
@@ -3141,16 +3313,18 @@ def _round_trace(prof, rounds: int) -> dict:
     device range (the ``gblinear_round`` annotation: first kernel to last),
     the card's busy time inside those ranges (the union of kernel and copy
     intervals) and its kernel time by kind: the round kernel, the
-    coordinate-update kernel, torch's elementwise and reduction kernels, and
-    the products (every other kernel: cuBLAS's GEMV/GEMM); and the whole
-    call's busy time."""
+    coordinate-update kernel, the block step's gradient and residual
+    kernels, torch's elementwise and reduction kernels, and the products
+    (every other kernel: cuBLAS's GEMV/GEMM); and the whole call's busy
+    time."""
     ranges, dev = [], []
     for ev in profiled_events(prof):
         (ranges if ev[2] == "gblinear_round" else dev).append(ev)
     if len(ranges) != rounds:
         raise AssertionError(f"the profile holds {len(ranges)} gblinear_round ranges on the card, not {rounds}")
     ranges.sort()
-    by_kind = {"gblinear_round": 0.0, "gblinear_cd": 0.0, "elementwise": 0.0, "products": 0.0, "copies": 0.0}
+    by_kind = {"gblinear_round": 0.0, "gblinear_cd": 0.0, "gblinear_block_grad": 0.0, "gblinear_block_resid": 0.0,
+               "elementwise": 0.0, "products": 0.0, "copies": 0.0}
     inside = []
     j = 0
     dev.sort()
@@ -3159,7 +3333,7 @@ def _round_trace(prof, rounds: int) -> dict:
             j += 1
         if j < len(ranges) and ranges[j][0] <= s and e <= ranges[j][1]:
             inside.append((s, e))
-            kind = next((k for k in ("gblinear_round", "gblinear_cd") if k in name), None) or (
+            kind = next((k for k in TRAIN_KERNELS if k in name), None) or (
                 "copies" if "Memcpy" in name or "Memset" in name else "elementwise" if "at::native" in name
                 else "products")
             by_kind[kind] += (e - s) / 1e3
@@ -3188,25 +3362,45 @@ def _profiled_train_call(fn, rounds: int):
     return res, trace
 
 
-def _launch_checked(fn, what: str, *, rounds: int = 0, blocks: int = 0):
-    """``fn()`` timed on the host clock (ending in a synchronize), with the
-    round kernel's and the coordinate-update kernel's counts zeroed just
-    before and read just after: they must be ``rounds`` and ``blocks``."""
-    import torch
+def _train_counts() -> dict:
+    """The training kernels' launches since their counts were zeroed: the
+    round kernel, the coordinate-update kernel (both entries), the block
+    step's gradient kernel (by route) and residual kernel."""
+    from expecto_tpu_torch.ops import gblinear_block, gblinear_cd, gblinear_round
 
-    from expecto_tpu_torch.ops import gblinear_cd, gblinear_round
+    return {"gblinear_round": gblinear_round.gblinear_round.launches, "gblinear_cd": gblinear_cd.coord_update.launches,
+            "gblinear_block_grad": gblinear_block.grad_update.launches,
+            "gblinear_block_grad_by_route": dict(gblinear_block.grad_update.launches_by_route),
+            "gblinear_block_resid": gblinear_block.residual_update.launches}
 
-    torch.cuda.synchronize()
+
+def _reset_train_counts() -> None:
+    from expecto_tpu_torch.ops import gblinear_block, gblinear_cd, gblinear_round
+
     gblinear_cd.reset_launch_counts()
     gblinear_round.reset_launch_counts()
+    gblinear_block.reset_launch_counts()
+
+
+def _launch_checked(fn, what: str, *, rounds: int = 0, blocks: int = 0, block_steps: int = 0):
+    """``fn()`` timed on the host clock (ending in a synchronize), with the
+    training kernels' counts zeroed just before and read just after: the
+    round kernel's must be ``rounds``, the coordinate update's ``blocks``,
+    and the block step's two kernels' ``block_steps`` each (the gradient
+    kernel's on the fused route: one process)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_train_counts()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = (gblinear_round.gblinear_round.launches, gblinear_cd.coord_update.launches)
-    if got != (rounds, blocks):
-        raise AssertionError(f"{what}: {got[0]} round-kernel and {got[1]} coordinate-update launches, expected "
-                             f"{rounds} and {blocks}")
+    got = _train_counts()
+    want = {"gblinear_round": rounds, "gblinear_cd": blocks, "gblinear_block_grad": block_steps,
+            "gblinear_block_grad_by_route": {"fused": block_steps, "split": 0}, "gblinear_block_resid": block_steps}
+    if got != want:
+        raise AssertionError(f"{what}: training kernel launches {got}, expected {want}")
     return res, wall
 
 
@@ -3358,7 +3552,7 @@ def train_phase(report: dict, card: str, seed: int):
     n_blocks = -(-TRAIN_FEATURES // gblinear.GBLinearParams().block_size)
     launches = n_blocks * TRAIN_ROUNDS
     log(f"train inputs: {X.shape} features, {expression.shape[1] - 1} tissues ({out['inputs_s']:.1f} s)")
-    train_kernel_phase(out)
+    train_kernel_phase(out, card)
 
     # one tissue, its watchlist on: the round kernel's run, a rerun, the plain round swapped in, a planted fault
     def one_tissue():
@@ -3401,24 +3595,26 @@ def train_phase(report: dict, card: str, seed: int):
     def all_tissues():
         return ptrain.train_all_tissues(X, geneanno, expression, vectorized=True, metrics_path=None, device=DEVICE)
 
-    allt, wall = _launch_checked(all_tissues, "train_all_tissues(vectorized=True)", blocks=launches)
+    allt, wall = _launch_checked(all_tissues, "train_all_tissues(vectorized=True)", block_steps=launches)
     allt_again, c = _profiled_train_call(all_tissues, TRAIN_ROUNDS)
     names = list(allt)
     if names != list(expression.columns[1:]) or not all(
             np.array_equal(allt[t].model.weight, allt_again[t].model.weight) for t in names):
         raise AssertionError("train_all_tissues: tissues missing or two runs differ")
     n_tr = len(allt[names[0]].train_true)
-    c.update(wall_s=wall, launches=launches, train_genes=n_tr, tissues=len(names),
+    c.update(wall_s=wall, launches=launches, launches_gblinear_cd=0, train_genes=n_tr, tissues=len(names),
              spearman_median=float(np.median([r.spearman for r in allt.values()])))
     f_pad = n_blocks * gblinear.GBLinearParams().block_size
-    c["products_tflop_per_s"] = 4 * f_pad * n_tr * len(names) * TRAIN_ROUNDS / (c["kernel_ms_by_kind"]["products"]
-                                                                                * 1e9)
-    c["products_share_of_peak_fp32"] = c["products_tflop_per_s"] * 1e12 / PEAK_FLOPS["fp32"]
+    block_ms = c["kernel_ms_by_kind"]["gblinear_block_grad"] + c["kernel_ms_by_kind"]["gblinear_block_resid"]
+    # the block sweep's two products (2 x 2 F n K flops a round) on the block kernels' time, and the three
+    # TF32 passes they run against the TF32 peak
+    c["products_tflop_per_s"] = 4 * f_pad * n_tr * len(names) * TRAIN_ROUNDS / (block_ms * 1e9)
+    c["products_share_of_peak_tf32_three_pass"] = 3 * c["products_tflop_per_s"] * 1e12 / PEAK_FLOPS["tf32"]
     out["k218"] = c
     _log_train_call(f"train_all_tissues (vectorized, {len(names)} tissues, {n_tr} train genes)", c, card)
-    log(f"  block-sweep products {c['products_tflop_per_s']:.2f} TFLOP/s fp32 "
-        f"({100 * c['products_share_of_peak_fp32']:.1f} % of {PEAK_FLOPS['fp32'] / 1e12:.0f}); median chr8 spearman "
-        f"{c['spearman_median']:.4f}")
+    log(f"  block-sweep products {c['products_tflop_per_s']:.2f} TFLOP/s of fp32 work on the two block kernels "
+        f"(three TF32 passes: {100 * c['products_share_of_peak_tf32_three_pass']:.1f} % of "
+        f"{PEAK_FLOPS['tf32'] / 1e12:.0f}); median chr8 spearman {c['spearman_median']:.4f}")
     if not (all(np.isfinite(r.model.weight).all() for r in allt.values())
             and c["spearman_median"] > TRAIN_MIN_SPEARMAN):
         raise AssertionError(f"train_all_tissues: finite weights and a median chr8 Spearman above "
@@ -3430,7 +3626,7 @@ def train_phase(report: dict, card: str, seed: int):
     argv = ["--targetIndex", "1", "--bootstrap_seeds", str(TRAIN_BOOT_SEEDS), "--expFile",
             str(inp["dir"] / "expression.csv"), "--inputFile", str(inp["dir"] / "Xreducedall.npy"),
             "--annoFile", str(inp["dir"] / "geneanno.csv"), "--output_dir", str(boot_dir), "--device", DEVICE]
-    rc, wall = _launch_checked(lambda: train_cli.main(argv), "cli.train --bootstrap_seeds", blocks=launches)
+    rc, wall = _launch_checked(lambda: train_cli.main(argv), "cli.train --bootstrap_seeds", block_steps=launches)
     if rc != 0:
         raise AssertionError(f"cli.train --bootstrap_seeds exited {rc}")
 
@@ -3444,7 +3640,7 @@ def train_phase(report: dict, card: str, seed: int):
         if not (np.array_equal(saved.weight, res.model.weight)
                 and np.float32(saved.bias) == np.float32(res.model.bias)):
             raise AssertionError(f"bootstrap seed {seed_j}: the CLI's .save differs from the in-process sweep")
-    c.update(cli_wall_s=wall, launches=launches, seeds=TRAIN_BOOT_SEEDS,
+    c.update(cli_wall_s=wall, launches=launches, launches_gblinear_cd=0, seeds=TRAIN_BOOT_SEEDS,
              spearman_mean=float(np.nanmean([r.spearman for r in boot])))
     out["boot"] = c
     log(f"cli.train --bootstrap_seeds {TRAIN_BOOT_SEEDS}: wall {wall:.3f} s (the npy and CSVs loaded, "
@@ -3563,7 +3759,9 @@ def train_cpu_check(out: dict, X, expression) -> None:
     """``train_gblinear_multi`` on the card against the CPU on a reduced
     problem (the first rows, the first tissues, the published feature width,
     an L1 weight), weights within TRAIN_CPU_RTOL of max|w|; one round fewer
-    and alpha's sign swapped, both on the card, must exceed that limit."""
+    and alpha's sign swapped, both on the card, must exceed that limit. The
+    card's sound run launches the block step's two kernels once a block a
+    round each, and no coordinate update."""
     import numpy as np
 
     from expecto_tpu_torch.models import gblinear
@@ -3580,8 +3778,10 @@ def train_cpu_check(out: dict, X, expression) -> None:
     cpu = run("cpu")
     cpu_s = time.perf_counter() - t0
     limit = TRAIN_CPU_RTOL * float(np.abs(cpu.weights).max())
+    card, card_s = _launch_checked(lambda: run(DEVICE), "train_gblinear_multi (card vs CPU)",
+                                   block_steps=TRAIN_SMALL_ROUNDS * -(-TRAIN_FEATURES // 512))
     gaps = {}
-    for what, res in (("card", run(DEVICE)), ("one round fewer", run(DEVICE, rounds=TRAIN_SMALL_ROUNDS - 1)),
+    for what, res in (("card", card), ("one round fewer", run(DEVICE, rounds=TRAIN_SMALL_ROUNDS - 1)),
                       ("alpha's sign swapped", run(DEVICE, alpha=-TRAIN_SMALL_ALPHA))):
         gaps[what] = float(np.abs(res.weights - cpu.weights).max())
         if what == "card":
@@ -3593,7 +3793,9 @@ def train_cpu_check(out: dict, X, expression) -> None:
             raise AssertionError(f"the planted fault '{what}' stays within the card-vs-CPU limit: {gaps[what]}")
     out["cpu_check"] = {"rows": TRAIN_SMALL_ROWS, "models": TRAIN_SMALL_K, "rounds": TRAIN_SMALL_ROUNDS,
                         "alpha": TRAIN_SMALL_ALPHA, "limit": limit, "max_abs_w": float(np.abs(cpu.weights).max()),
-                        "bias_gap": bias_gap, "cpu_s": cpu_s, **{f"gap_{k}": v for k, v in gaps.items()}}
+                        "bias_gap": bias_gap, "cpu_s": cpu_s, "card_s": card_s,
+                        "block_steps": TRAIN_SMALL_ROUNDS * -(-TRAIN_FEATURES // 512),
+                        **{f"gap_{k}": v for k, v in gaps.items()}}
     fewer, swapped = gaps["one round fewer"], gaps["alpha's sign swapped"]
     log(f"train card vs CPU ({TRAIN_SMALL_ROWS} rows x {TRAIN_FEATURES} features, K {TRAIN_SMALL_K}, "
         f"{TRAIN_SMALL_ROUNDS} rounds, alpha {TRAIN_SMALL_ALPHA}): weights {gaps['card']:.3g} (limit {limit:.3g} = "
@@ -3906,12 +4108,12 @@ def analysis_phase(report: dict, card: str, seed: int, main_model) -> None:
     import numpy as np
     import pandas as pd
 
-    from expecto_tpu_torch.ops import conv0, conv8, gblinear_cd, gblinear_round
+    from expecto_tpu_torch.ops import conv0, conv8, gblinear_block, gblinear_cd, gblinear_round
 
     log("analysis: subcommands run here: " + "; ".join(ANALYSIS_ON_CARD))
     log("analysis: proven by the CPU tests only (the packages this machine lacks): "
         + "; ".join(f"{k} ({v})" for k, v in ANALYSIS_CPU_ONLY.items()))
-    for mod in (conv8, conv0, gblinear_cd, gblinear_round):
+    for mod in (conv8, conv0, gblinear_block, gblinear_cd, gblinear_round):
         mod.reset_launch_counts()
     t0 = time.perf_counter()
     inp = make_analysis_inputs(seed, main_model)
@@ -3998,7 +4200,9 @@ def analysis_phase(report: dict, card: str, seed: int, main_model) -> None:
 
     launches = {"conv8_relu": conv8.conv8_relu.launches, "conv0_codes": conv0.conv0_codes_relu.launches,
                 "gblinear_cd": gblinear_cd.coord_update.launches,
-                "gblinear_round": gblinear_round.gblinear_round.launches}
+                "gblinear_round": gblinear_round.gblinear_round.launches,
+                "gblinear_block_grad": gblinear_block.grad_update.launches,
+                "gblinear_block_resid": gblinear_block.residual_update.launches}
     if any(launches.values()):
         raise AssertionError(f"a kernel launched in the analysis phase: {launches}")
     out.update(walls_s=walls, launches=launches, on_card=list(ANALYSIS_ON_CARD), cpu_only=ANALYSIS_CPU_ONLY)
@@ -4010,25 +4214,64 @@ def analysis_phase(report: dict, card: str, seed: int, main_model) -> None:
 def gblinear_cd_entry(train: dict, mp_train: dict) -> dict:
     """The kernel line's entry of the coordinate-update kernel: its time on
     the card, its plain version's and its bound at the all-tissue call's
-    shape (512, 218), whose timed run gives ``launches``; the times a call
-    back to back (``call_ms``); the same at K = 1 (the shape of the per-block
-    loop that the round kernel replaced, now the plain round's), 128 and 256
-    (the bench's round), and the launches of the bootstrap call and of each rank of the 2-rank
-    bootstrap run. The K = 1 call launches it no more."""
+    shape (512, 218); the times a call back to back (``call_ms``); the same
+    at K = 1 (the shape of the per-block loop that the round kernel
+    replaced, now the plain round's), 128, 256 (the bench's round) and
+    1,000. Since the block step's kernels, the one-process K-model calls
+    launch it no more: ``launches`` are the 2-rank bootstrap run's (the
+    split route's planes entry, a block a round on each rank)."""
     cd = {r["K"]: r for r in train["cd_layers"]}
+    per_rank = [r["gblinear_cd"] for r in mp_train["sound"]["ranks"]]
     return {
         "name": "gblinear_cd", "route": "cuda", "source": "expecto_tpu_torch/csrc/gblinear_cd.cu",
         "replaces": "expecto_tpu/models/gblinear.py:92",
         "replaces_what": "_coord_delta with the eta scale and weight update of the block steps (:125-127, "
                          ":249-251): an XLA fusion, no pallas_call",
-        "launches": train["k218"]["launches"], "max_abs_err": max(r["max_abs_err"] for r in cd.values()),
+        "launches": sum(per_rank), "max_abs_err": max(r["max_abs_err"] for r in cd.values()),
         "ms": cd[218]["ms"], "plain_ms": cd[218]["plain_ms"], "bound_ms": cd[218]["bound_ms"],
         "bound_by": cd[218]["bound_by"], "library_ms": None, "shape": [cd[218]["B"], 218],
         "call_ms": cd[218]["call_ms"], "plain_call_ms": cd[218]["plain_call_ms"],
-        **{f"{key}_k{k}": cd[k][key] for k in (1, 128, 256) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
-        "launches_k1": train["k1"]["launches_gblinear_cd"], "launches_bootstrap_k128": train["boot"]["launches"],
-        "launches_bootstrap_k128_per_rank_of_2": [r["gblinear_cd"] for r in mp_train["sound"]["ranks"]],
+        **{f"{key}_k{k}": cd[k][key] for k in (1, 128, 256, 1000) for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
+        "launches_k1": train["k1"]["launches_gblinear_cd"], "launches_k218": train["k218"]["launches_gblinear_cd"],
+        "launches_bootstrap_k128": train["boot"]["launches_gblinear_cd"],
+        "launches_bootstrap_k128_per_rank_of_2": per_rank,
     }
+
+
+def gblinear_block_entries(train: dict, mp_train: dict) -> list:
+    """The kernel line's entries of the block step's two kernels: time a
+    block, the plain version's and the bound at the all-tissue call's shape
+    (K = 218), whose timed run gives ``launches``; the same at every K of
+    TRAIN_BLOCK_SHAPES; the torch block step they replaced (``yardstick``)
+    beside each; the 2-rank bootstrap run's launches a rank (the gradient
+    kernel on the split route). No single PyTorch call computes G with the
+    coordinate update; ``torch.addmm`` computes the residual's."""
+    rows = {r["K"]: r for r in train["block_layers"]}
+    ranks = mp_train["sound"]["ranks"]
+    out = []
+    for name, key, library in (("gblinear_block_grad", "grad", None), ("gblinear_block_resid", "resid", "library_ms")):
+        r218 = rows[218]
+        out.append({
+            "name": name, "route": "cuda", "source": f"expecto_tpu_torch/csrc/{name}.cu",
+            "replaces": "expecto_tpu/models/gblinear.py:246",
+            "replaces_what": "_multi_round_body's block_step (:246-251), "
+                             + ("jnp.dot(Xb, row_w * r) and _coord_delta with the eta scale and weight update"
+                                if key == "grad" else "r + jnp.dot(Xb.T, dw)") + ": XLA, no pallas_call",
+            "launches": train["k218"]["launches"],
+            "max_abs_err": r218["max_abs_err" if key == "grad" else "inc_max_abs_err"],
+            "ms": r218[f"{key}_ms"], "plain_ms": r218[f"{key}_plain_ms"], "bound_ms": r218[f"{key}_bound"]["bound_ms"],
+            "bound_by": r218[f"{key}_bound"]["bound_by"], "library_ms": r218[library] if library else None,
+            "shape": [r218["B"], r218["n"], 218], "block_ms": r218["ms"], "block_yardstick_ms": r218["yardstick_ms"],
+            "block_bound_ms": r218["block_bound"]["bound_ms"],
+            **{f"{field}_k{k}": rows[k][src] for k in rows
+               for field, src in (("ms", f"{key}_ms"), ("plain_ms", f"{key}_plain_ms"), ("block_ms", "ms"),
+                                  ("yardstick_ms", "yardstick_ms"))},
+            **{f"bound_ms_k{k}": rows[k][f"{key}_bound"]["bound_ms"] for k in rows},
+            "rel_err_vs_float64": max(rows[k]["g_rel" if key == "grad" else "inc_rel"] for k in rows),
+            "launches_bootstrap_k128": train["boot"]["launches"],
+            "launches_bootstrap_k128_per_rank_of_2": [r[name] for r in ranks],
+        })
+    return out
 
 
 def gblinear_round_entry(train: dict) -> dict:
@@ -4131,7 +4374,8 @@ def _rank_routes(ranks: list, dtype: str, what: str) -> None:
 def _launches(ranks: list) -> list:
     return [{"conv8_relu": r["conv8_relu_by_route"], "conv0_codes": r["conv0_codes"], "fc1_strided": r["fc1_strided"],
              "fc1_strided_by_route": r["fc1_strided_by_route"], "gblinear_cd": r["gblinear_cd"],
-             "gblinear_round": r["gblinear_round"]}
+             "gblinear_round": r["gblinear_round"], "gblinear_block_grad": r["gblinear_block_grad"],
+             "gblinear_block_resid": r["gblinear_block_resid"]}
             for r in ranks]
 
 
@@ -4341,19 +4585,24 @@ def multiprocess_phase(report: dict, inputs: dict, card: str) -> None:
             wgap = max(wgap, float(np.abs(m2.weight - saved1[j].weight).max()) / float(np.abs(saved1[j].weight).max()))
             bgap = max(bgap, abs(float(m2.bias) - float(saved1[j].bias)))
         row = {"seeds": seeds, "wall_2_s": wall2, "ranks": ranks, "w_gap_over_max_w": wgap, "bias_gap": bgap}
+        steps = TRAIN_ROUNDS * n_blocks  # the split route: G, the all-reduce, the planes entry, the residual
         for r in ranks:
-            if (r["gblinear_cd"] != TRAIN_ROUNDS * n_blocks or r["gblinear_round"] != 0
-                    or r["all_reduce_calls"] != want_calls):
+            if (r["gblinear_cd"] != steps or r["gblinear_round"] != 0 or r["all_reduce_calls"] != want_calls
+                    or r["gblinear_block_grad_by_route"] != {"fused": 0, "split": steps}
+                    or r["gblinear_block_resid"] != steps):
                 raise AssertionError(f"train {fault or 'sound'} rank {r['rank']}: {r['gblinear_cd']} coordinate-update "
-                                     f"launches (expected {TRAIN_ROUNDS * n_blocks}), {r['gblinear_round']} "
-                                     f"round-kernel launches (expected 0), {r['all_reduce_calls']} "
-                                     f"all-reduce calls (expected {want_calls})")
+                                     f"launches (expected {steps}), {r['gblinear_round']} round-kernel launches "
+                                     f"(expected 0), gradient kernel {r['gblinear_block_grad_by_route']} (expected "
+                                     f"{steps} split), residual kernel {r['gblinear_block_resid']} (expected {steps}), "
+                                     f"{r['all_reduce_calls']} all-reduce calls (expected {want_calls})")
         sound = wgap <= 1e-5 and bgap <= 1e-6
         log(f"multi-process cli.train --bootstrap_seeds {seeds}{' (identity all-reduce)' if fault else ''}: "
             f"2 ranks {wall2:.3f} s (torchrun; CLI main per rank " + ", ".join(
                 f"{r['main_s']:.3f}" for r in ranks) + " s); every .save vs 1 rank: weights "
             f"{wgap:.4g} of max|w| (limit 1e-05), biases {bgap:.4g} (limit 1e-06); per rank "
-            f"{ranks[0]['gblinear_cd']} coordinate-update launches, {ranks[0]['all_reduce_calls']} all-reduce calls "
+            f"{ranks[0]['gblinear_block_grad']} gradient-kernel (split route), {ranks[0]['gblinear_cd']} "
+            f"coordinate-update and {ranks[0]['gblinear_block_resid']} residual-kernel launches, "
+            f"{ranks[0]['all_reduce_calls']} all-reduce calls "
             f"(3 + {TRAIN_ROUNDS} x (1 + {n_blocks})) taking " + ", ".join(
                 f"{r['all_reduce_s']:.3f}" for r in ranks) + f" s of host time [{card}]")
         if fault and sound:
@@ -4383,7 +4632,7 @@ def rank_worker(args) -> int:
 
     sys.path.insert(0, str(REPO))
     from expecto_tpu_torch.models import gblinear
-    from expecto_tpu_torch.ops import conv0, conv8, fc1, gblinear_cd, gblinear_round
+    from expecto_tpu_torch.ops import conv0, conv8, fc1
     from expecto_tpu_torch.parallel import dist
 
     if args.cli_args[:1] != ["-m"] or len(args.cli_args) < 2:
@@ -4402,8 +4651,7 @@ def rank_worker(args) -> int:
     gblinear._all_reduce = counted
     _count_standalone_pools()
     _reset_counts()
-    gblinear_cd.reset_launch_counts()
-    gblinear_round.reset_launch_counts()
+    _reset_train_counts()
     sys.argv = [module, *args.cli_args[2:]]
     t0 = time.perf_counter()
     try:
@@ -4420,37 +4668,36 @@ def rank_worker(args) -> int:
         "conv0_codes_by_kind": dict(conv0.conv0_codes_relu.launches_by_kind),
         "fc1_strided": fc1.fc1_strided.launches, "fc1_strided_by_shape": _fc1_shapes_now(),
         "fc1_strided_by_route": dict(fc1.fc1_strided.launches_by_route), "fc1_split_tf32": fc1.split_planes.launches,
-        "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
-        "conv8_relu_pool4_by_route": dict(conv8.conv8_relu_pool4.launches_by_route),
+        **_train_counts(), "conv8_relu_pool4_by_route": dict(conv8.conv8_relu_pool4.launches_by_route),
         "pool4_standalone": STANDALONE_POOLS["calls"], **stats}))
     return rc
 
 
 #: the launches the bench's training path makes: 3 warm and 10 timed rounds
-#: of the K-model sweep, one coordinate update a feature block (40 blocks of
-#: 512 over 20,020 features)
-BENCH_CD_LAUNCHES = 13 * 40
+#: of the K-model sweep, one block step a feature block (40 blocks of 512
+#: over 20,020 features): each of its two kernels once
+BENCH_BLOCK_STEPS = 13 * 40
 
 
 def bench_phase(report: dict, card: str) -> None:
     """``python -m expecto_tpu_torch.bench`` (its ``main``) at full size, with
     every launch count zeroed just before it and read just after: the tc
-    kernel, the code-gather conv0 in bf16 and the coordinate update must
-    launch (the SIMT kernel and the round kernel must not: the bench is bf16
-    and its training path is the K-model sweep); its one result line must
-    hold every path key, finite and positive."""
+    kernel, the code-gather conv0 in bf16 and the block step's two kernels
+    must launch (the SIMT kernel, the round kernel and the coordinate
+    update must not: the bench is bf16 and its training path is the
+    K-model sweep in one process); its one result line must hold every path
+    key, finite and positive."""
     import contextlib
     import math
 
     from expecto_tpu_torch import bench
-    from expecto_tpu_torch.ops import gblinear_cd, gblinear_round
+    from expecto_tpu_torch.ops import gblinear_block, gblinear_cd
     from expecto_tpu_torch.ops.conv0 import conv0_codes_relu
     from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_pool4
     from expecto_tpu_torch.ops.fc1 import fc1_strided, split_planes
 
     _reset_counts()
-    gblinear_cd.reset_launch_counts()
-    gblinear_round.reset_launch_counts()
+    _reset_train_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -4462,12 +4709,12 @@ def bench_phase(report: dict, card: str) -> None:
               "conv0_codes": conv0_codes_relu.launches, "conv0_codes_by_kind": dict(conv0_codes_relu.launches_by_kind),
               "fc1_strided": fc1_strided.launches, "fc1_strided_by_route": dict(fc1_strided.launches_by_route),
               "fc1_split_tf32": split_planes.launches,
-              "gblinear_cd": gblinear_cd.coord_update.launches, "gblinear_round": gblinear_round.gblinear_round.launches,
-              "conv8_relu_pool4_by_route": dict(conv8_relu_pool4.launches_by_route),
+              **_train_counts(), "conv8_relu_pool4_by_route": dict(conv8_relu_pool4.launches_by_route),
               "pool4_standalone": STANDALONE_POOLS["calls"]}
     FC1_SHAPES.update(fc1_strided.launches_by_shape)
     shapes = {"conv8_relu": dict(conv8_relu.launches_by_shape), "conv0_codes": dict(conv0_codes_relu.launches_by_shape),
-              "gblinear_cd": dict(gblinear_cd.coord_update.launches_by_shape)}
+              "gblinear_cd": dict(gblinear_cd.coord_update.launches_by_shape),
+              "gblinear_block": dict(gblinear_block.grad_update.launches_by_shape)}
     lines = [line for line in out.getvalue().splitlines() if line.strip()]
     if rc != 0 or len(lines) != 1:
         raise AssertionError(f"the bench returned {rc} and printed {len(lines)} lines: {lines[-3:]}")
@@ -4488,14 +4735,18 @@ def bench_phase(report: dict, card: str) -> None:
         raise AssertionError(f"the bench's fc1 must run on the bf16 kernel alone: {counts}")
     if counts["pool4_standalone"] or counts["conv8_relu_pool4_by_route"] != {"simt": 0, "tc": 2 * counts["conv0_codes"]}:
         raise AssertionError(f"the bench's pools must all run in the tc kernel's epilogue, two a conv stack: {counts}")
-    if counts["gblinear_cd"] != BENCH_CD_LAUNCHES or counts["gblinear_round"] != 0:
-        raise AssertionError(f"the bench's training path: {counts['gblinear_cd']} coordinate updates (expected "
-                             f"{BENCH_CD_LAUNCHES}), {counts['gblinear_round']} round-kernel launches (expected 0)")
+    want = {"gblinear_round": 0, "gblinear_cd": 0, "gblinear_block_grad": BENCH_BLOCK_STEPS,
+            "gblinear_block_grad_by_route": {"fused": BENCH_BLOCK_STEPS, "split": 0},
+            "gblinear_block_resid": BENCH_BLOCK_STEPS}
+    if {key: counts[key] for key in want} != want:
+        raise AssertionError(f"the bench's training path: launches {({key: counts[key] for key in want})}, expected "
+                             f"{want}")
     report["bench"] = {"record": record, "wall_s": wall, "launches": counts,
                        "shape_checks": bench_shape_checks(shapes)}
     log(f"bench launches: tc {by_route['tc']}, simt {by_route['simt']}, conv0_codes bf16 {counts['conv0_codes']}, "
         f"fc1_strided {counts['fc1_strided']}, gblinear_cd {counts['gblinear_cd']}, "
-        f"gblinear_round {counts['gblinear_round']}")
+        f"gblinear_round {counts['gblinear_round']}, gblinear_block_grad {counts['gblinear_block_grad']}, "
+        f"gblinear_block_resid {counts['gblinear_block_resid']}")
     log(f"bench result: {lines[0]}")
     log(f"bench wall {wall:.1f} s [{card}]")
 
@@ -4505,7 +4756,10 @@ def bench_shape_checks(shapes: dict) -> dict:
     run launched it at (``shapes``: the wrappers' ``launches_by_shape``),
     on seeded inputs: the conv kernels against the fp32 plain version with
     the earlier phases' tolerances, the coordinate update bit for bit
-    (alpha 0, the bench's, and 0.7). Returns {kernel: {"shapes", "launches",
+    (alpha 0, the bench's, and 0.7), the block step's kernels by
+    :func:`block_step_row`'s checks (``max_abs_err``: G's against float64
+    for the gradient kernel, the increment's share of its max for the
+    residual kernel). Returns {kernel: {"shapes", "launches",
     "max_abs_err"}}; the checks' own launches come after the bench's counts
     were read."""
     import torch
@@ -4552,6 +4806,12 @@ def bench_shape_checks(shapes: dict) -> dict:
         for alpha in (0.0, 0.7):
             _cd_checked(b, k, alpha, gen)
         tally("gblinear_cd", launches, 0.0)
+    for (b, n, k, _route), launches in sorted(shapes["gblinear_block"].items()):
+        if b != 512:
+            raise AssertionError(f"the bench's block step at {b} features: block_step_row checks blocks of 512")
+        row = block_step_row(n, k, gen, timed=False)
+        tally("gblinear_block_grad", launches, row["max_abs_err"])
+        tally("gblinear_block_resid", launches, row["inc_max_abs_err"])
     torch.cuda.empty_cache()
     for name, row in out.items():
         log(f"bench shapes: {name} held against its plain version at {row['shapes']} shapes ({row['launches']} of the "
@@ -4982,6 +5242,8 @@ def kernel_table(report: dict) -> dict:
     launches_bench = {"conv8_relu_tc": bench["conv8_relu_by_route"]["tc"],
                       "conv8_relu": bench["conv8_relu_by_route"]["simt"], "conv0_codes": bench["conv0_codes"],
                       "gblinear_cd": bench["gblinear_cd"], "gblinear_round": bench["gblinear_round"],
+                      "gblinear_block_grad": bench["gblinear_block_grad"],
+                      "gblinear_block_resid": bench["gblinear_block_resid"],
                       **{fc1.KERNELS[r]: bench["fc1_strided_by_route"].get(r, 0) for r in fc1.ROUTES},
                       "fc1_split_tf32": bench["fc1_split_tf32"]}
     table = {"kernels": [
@@ -5025,6 +5287,7 @@ def kernel_table(report: dict) -> dict:
               simt_onehot_ms=_weighted(conv0, "bf16", "simt_onehot_ms"), launches_pipeline=pipe_launches("codes")),
         gblinear_cd_entry(report["train"], report["multiprocess"]["train"]),
         gblinear_round_entry(report["train"]),
+        *gblinear_block_entries(report["train"], report["multiprocess"]["train"]),
         *(fc1_entry(report, route) for route in fc1.ROUTES),
         fc1_split_entry(report),
     ], "layers": [

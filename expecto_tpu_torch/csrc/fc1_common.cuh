@@ -1,12 +1,13 @@
 // What the fc1 kernels share (csrc/fc1_strided_tc.cu, bf16;
 // csrc/fc1_strided_tf32x3.cu and csrc/fc1_strided_tf32x3_swap.cu, fp32;
-// csrc/fc1_split_tf32.cu, the fp32 split pass): the mbarrier ring's
-// primitives, the copies into shared memory, the wgmma descriptor and
-// synchronisation, the persistent schedule (Params, Place, segment,
-// group_of, ops/fc1.py::fc1_schedule's walk), the second pass that sums a
-// split tile's parts in group order, the launchers' argument checks, and the
-// TF32 rounding of the fp32 kernels' split. Each kernel's head note says
-// how it uses them.
+// csrc/fc1_split_tf32.cu, the fp32 split pass) beyond csrc/hopper_common.cuh
+// (the mbarrier ring's primitives, the copies into shared memory, the wgmma
+// descriptor, synchronisation and tf32 instances, the TF32 rounding of the
+// fp32 kernels' split, the persistent launcher): the ring's set-up with the
+// frame order, the persistent schedule (Params, Place, segment, group_of,
+// ops/fc1.py::fc1_schedule's walk), the second pass that sums a split tile's
+// parts in group order and the launchers' argument checks. Each kernel's
+// head note says how it uses them.
 
 #pragma once
 
@@ -14,7 +15,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace fc1 {
+
+using namespace hopper;
 
 constexpr int MAX_FRAMES = 256;  // the longest frame walk a kernel keeps in shared memory
 
@@ -24,79 +29,6 @@ struct Params {
   int M, n_win, C, s0, stride, K, kt, nb, frames, n_out;
   int tm, tiles_m, rows, cols, groups;  // tm: rows of A (windows) a tile holds
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`. A
-// phase that never completes (a lost arrival) traps after 2^26 polls
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
-
-// 16 bytes from `src` when `valid`, else 16 zero bytes (nothing is read)
-__device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// the barrier's phase counts one arrival of this thread once all of its
-// earlier cp.async have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle, K-major: rows of 128
-// bytes, 8-row groups 1,024 bytes apart; `addr` on a 1,024-byte boundary
-// plus 32 bytes per K step (k16 in bf16, k8 in tf32)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // Thread 0 sets up the ring: `stages` "full" barriers at full0 (every
 // producer thread's cp.async and the bulk copy's expect_tx) and "empty"
@@ -189,14 +121,6 @@ __global__ void partial_sum_kernel(const float* __restrict__ ws, T* __restrict__
   store_out(y + i, s);
 }
 
-// x rounded to TF32, to nearest with ties away from zero (cvt.rna's
-// rounding), as an fp32 value whose low 13 mantissa bits are zero: adding
-// half a TF32 step to the bits carries into the kept ones exactly when the
-// magnitude rounds up (ops/fc1.py::split_tf32 does the same)
-__device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
 // The launchers' checks of a kernel instance's arguments (tiles of at most
 // tm_max rows and bn columns, kc-deep K chunks, `per` elements in 16 bytes);
 // fills p. Returns cudaSuccess or cudaErrorInvalidValue.
@@ -232,23 +156,6 @@ inline cudaError_t make_params(Params& p, const void* buf, const void* wp, const
   p.cols = cols;
   p.groups = groups;
   return cudaSuccess;
-}
-
-// Launches a warp-specialized kernel on its persistent grid: refuses a build
-// with fewer than `launch_regs` registers a thread (its setmaxnreg.inc would
-// wait forever for registers the CTA was not launched with), then allows its
-// dynamic shared memory. Returns the cudaError_t.
-template <typename Kernel, typename... Args>
-int launch_persistent(Kernel kernel, int launch_regs, int smem, unsigned grid, int threads, cudaStream_t st,
-                      Args... args) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return (int)err;
-  if (fa.numRegs < launch_regs) return (int)cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, threads, smem, st>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 // The second pass over a launch's parts, when the schedule split tiles

@@ -104,140 +104,6 @@ __host__ __device__ constexpr int ring_stages(int nt) {
 }
 static_assert(ring_stages(TW) == 7 && ring_stages(8) == MAX_STAGES, "the ring is 7 deep at N = 64, 12 at N = 8");
 
-// d (64 x N fp32, this thread's N/2) = (accumulate ? d : 0) + A (64 x 8
-// tf32, this thread's fragment a) * B (8 x N tf32, from shared memory)
-template <int N>
-__device__ __forceinline__ void wgmma_k8(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t db, int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_k8<8>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3"
-      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k8<16>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k8<24>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
-      "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k8<32>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k8<40>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19"
-      "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k8<48>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k8<56>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
-      "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k8<64>(float (&d)[ACC], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-}
-
 // The shared memory a launch works in: the ring of `stages` stages of
 // `bytes` at `ring`, its full and empty barriers, the windows a tile.
 struct Ring {
@@ -255,9 +121,9 @@ __device__ __forceinline__ void stage_products(float (&d)[3][ACC], const uint32_
 #pragma unroll
   for (int kk = 0; kk < KC / 8; ++kk) {
     const int h = 8 * kk, l = h + 4;
-    wgmma_k8<N>(d[0], a[l], a[l + 1], a[l + 2], a[l + 3], sw128_desc(xa + 32 * kk), kk > 0);
-    wgmma_k8<N>(d[1], a[h], a[h + 1], a[h + 2], a[h + 3], sw128_desc(xa + xlo + 32 * kk), kk > 0);
-    wgmma_k8<N>(d[2], a[h], a[h + 1], a[h + 2], a[h + 3], sw128_desc(xa + 32 * kk), kk > 0);
+    Tf32Wgmma<N>::run(d[0], a[l], a[l + 1], a[l + 2], a[l + 3], sw128_desc(xa + 32 * kk), kk > 0);
+    Tf32Wgmma<N>::run(d[1], a[h], a[h + 1], a[h + 2], a[h + 3], sw128_desc(xa + xlo + 32 * kk), kk > 0);
+    Tf32Wgmma<N>::run(d[2], a[h], a[h + 1], a[h + 2], a[h + 3], sw128_desc(xa + 32 * kk), kk > 0);
   }
 }
 

@@ -23,10 +23,19 @@
 //
 // The arithmetic is gblinear_cd.cuh's coord_step, which rounds every
 // operation as the plain version does, so the two agree bit for bit.
+//
+// A second entry, gblinear_cd_planes_launch, is the K-model sweep's update
+// on its split route (a process group of more than one rank: the gradient
+// all-reduced between the block's two products): the same step, w updated
+// in place, and dw written as csrc/gblinear_block_resid.cu's operand, TF32
+// hi and lo planes (2, n_pad, b_pad), each model's features contiguous
+// (hopper_common.cuh's tf32_rna), in place of dw (B, K). With one rank it
+// gives csrc/gblinear_block_grad.cu's fused update bit for bit.
 
 #include <cuda_runtime.h>
 
 #include "gblinear_cd.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -43,6 +52,23 @@ __global__ void __launch_bounds__(THREADS)
   w[i] = __fadd_rn(wi, d);
 }
 
+// The update of element i = f K + k of (B, K), dw as planes: [k, f] hi,
+// [n_pad + k, f] lo, rows b_pad apart
+__global__ void __launch_bounds__(THREADS)
+    gblinear_cd_planes_kernel(const float* __restrict__ g, const float* __restrict__ h, float* __restrict__ w,
+                              float* __restrict__ planes, int B, int K, int n_pad, int b_pad, float eta, float lam,
+                              float alpha) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (long long)B * K) return;
+  const int f = (int)(i / K), k = (int)(i - (long long)f * K);
+  const float wi = w[i];
+  const float d = gblinear::coord_step(g[i], h[i], wi, eta, lam, alpha);
+  w[i] = __fadd_rn(wi, d);
+  const float hi = hopper::tf32_rna(d);
+  planes[(size_t)k * b_pad + f] = hi;
+  planes[((size_t)n_pad + k) * b_pad + f] = hopper::tf32_rna(d - hi);
+}
+
 }  // namespace
 
 // g, h, w, dw: n contiguous fp32 each (w updated in place). Launches on
@@ -55,5 +81,19 @@ extern "C" int gblinear_cd_launch(const void* g, const void* h, void* w, void* d
   gblinear_cd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(h), static_cast<float*>(w), static_cast<float*>(dw),
       n, eta, lam, alpha);
+  return (int)cudaGetLastError();
+}
+
+// g, h, w: (B, K) contiguous fp32 (w updated in place); planes: (2, n_pad,
+// b_pad) fp32, n_pad >= K and b_pad >= B (the rest left as it is). Launches
+// on `stream`, allocates nothing, and returns the CUDA error of the launch
+// (0 on success).
+extern "C" int gblinear_cd_planes_launch(const void* g, const void* h, void* w, void* planes, int B, int K, int n_pad,
+                                         int b_pad, float eta, float lam, float alpha, void* stream) {
+  if (B <= 0 || K <= 0 || n_pad < K || b_pad < B || (long long)B * K > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * K;
+  gblinear_cd_planes_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(h), static_cast<float*>(w), static_cast<float*>(planes),
+      B, K, n_pad, b_pad, eta, lam, alpha);
   return (int)cudaGetLastError();
 }

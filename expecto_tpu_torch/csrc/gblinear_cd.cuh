@@ -1,6 +1,7 @@
 // gblinear's elastic-net coordinate step, one feature at a time, shared by
-// csrc/gblinear_cd.cu (the coordinate update of a block) and
-// csrc/gblinear_round.cu (one whole round of the K = 1 sweep):
+// csrc/gblinear_cd.cu (the coordinate update of a block), csrc/gblinear_round.cu
+// (one whole round of the K = 1 sweep) and csrc/gblinear_block_grad.cu (the
+// K-model block step's gradient kernel, in its epilogue):
 //
 //   gl2 = g + lam * w          hl2 = h + lam          tmp = w - gl2 / hl2
 //   pos = max(-(gl2 + alpha) / hl2, -w)

@@ -17,9 +17,10 @@ deterministic block coordinate descent over feature blocks of
 advanced once per block by a second product. :func:`train_gblinear` runs a
 whole round as one launch of the round kernel (``csrc/gblinear_round.cu``
 through ``ops/gblinear_round.py``); the K-model and sharded trainers run a
-Python loop over the blocks, a block step being two ``torch.matmul``
-products and one launch of the coordinate-update kernel
-(``csrc/gblinear_cd.cu``). Nothing in a round waits for the host.
+Python loop over the blocks, a block step on the card being two kernels
+(``ops/gblinear_block.py``: the gradient product with the coordinate update
+in its epilogue, then the residual product with its add, both in three TF32
+passes). Nothing in a round waits for the host.
 
 The row-sharded trainers (:func:`train_gblinear_multi_sharded`,
 :func:`train_gblinear_sharded`) run the same sweep in every rank of a
@@ -38,6 +39,8 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from ..ops.gblinear_block import (BlockScratch, block_layout, block_scratch, grad_update, residual_update,
+                                  transposed_rows)
 from ..ops.gblinear_cd import coord_update
 from ..ops.gblinear_round import gblinear_round, round_scratch
 from ..parallel.runner import resolve_device
@@ -241,7 +244,11 @@ def train_gblinear_multi(
       weights is exactly training on the resampled rows.
 
     Per-feature stats are products over all models: G = X_blk @ (row_w * r)
-    each block step, H = X_blk^2 @ row_w once, in fp32 on the device.
+    each block step, H = X_blk^2 @ row_w once, in fp32 on the device. On the
+    card each block step is two kernels (:func:`multi_round`), whose
+    products run three TF32 passes whatever ``params.precision`` says: that
+    meets "highest" and is at least as exact as "high" and "default", which
+    still set the hessians' and the watchlist's products.
     """
     hp = params or GBLinearParams()
     if hp.early_stopping_rounds is not None:
@@ -257,10 +264,14 @@ def train_gblinear_multi(
 @dataclass
 class MultiState:
     """The K-model sweep's state on the device. Read by every round:
-    ``Xt`` (n_blocks, B, n) the padded feature blocks, ``rw`` (n, K) row
+    ``Xt`` (n_blocks, B, n) the padded feature blocks (``block_layout``: a
+    view whose feature rows lie a 32-byte multiple apart), ``rw`` (K, n) row
     weights, ``denom`` (K,) effective row counts plus ``reg_lambda_bias``,
     ``hess`` (n_blocks, B, K) the loop-invariant hessians. Updated in place:
-    ``w_blocks`` (n_blocks, B, K), ``bias`` (K,), the residual ``r`` (n, K)."""
+    ``w_blocks`` (n_blocks, B, K), ``bias`` (K,), the residual ``r`` (K, n).
+    ``rw`` and ``r`` hold each model's rows as one row (``transposed_rows``:
+    the transpose of the JAX package's (n, K)). ``scratch``: the block step
+    kernels' (``block_scratch``) on a CUDA device, None on the CPU."""
 
     Xt: torch.Tensor
     rw: torch.Tensor
@@ -269,6 +280,7 @@ class MultiState:
     w_blocks: torch.Tensor
     bias: torch.Tensor
     r: torch.Tensor
+    scratch: BlockScratch | None = None
 
 
 def multi_state(X: np.ndarray, Y: np.ndarray, row_weights, hp: GBLinearParams, device: torch.device, *,
@@ -281,33 +293,45 @@ def multi_state(X: np.ndarray, Y: np.ndarray, row_weights, hp: GBLinearParams, d
         row_weights = np.ones((n, k), np.float32)
     row_weights = np.asarray(row_weights, dtype=np.float32)
     with _matmul_precision(hp.precision):
-        Xt, n_blocks = _pad_blocks(_dev(X, device).T, hp.block_size)
-        rw = _dev(row_weights, device)
+        Xt = block_layout(_dev(X, device), hp.block_size)
+        n_blocks = Xt.shape[0]
+        rw = transposed_rows(_dev(row_weights, device))
         denom = reduce(_dev(row_weights.sum(axis=0), device)) + hp.reg_lambda_bias  # effective row counts
         # per-(feature, model) hessians are loop-invariant: once, block by
         # block to bound the X*X temporary
-        hess = reduce(torch.stack([(Xb * Xb) @ rw for Xb in Xt]))
+        hess = reduce(torch.stack([(Xb * Xb) @ rw.T for Xb in Xt]))
     return MultiState(Xt=Xt, rw=rw, denom=denom, hess=hess,
                       w_blocks=torch.zeros((n_blocks, hp.block_size, k), dtype=torch.float32, device=device),
                       bias=torch.zeros(k, dtype=torch.float32, device=device),
-                      r=_dev(np.full((n, k), hp.base_score, np.float32) - Y, device))
+                      r=transposed_rows(_dev(np.full((n, k), hp.base_score, np.float32) - Y, device)),
+                      scratch=block_scratch(Xt, k, _ranks()) if device.type == "cuda" else None)
+
+
+def _ranks() -> int:
+    """Ranks of the default process group (1 without one): the block
+    step's route (``ops/gblinear_block.py::block_route``)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def multi_round(hp: GBLinearParams, s: MultiState, *, reduce=lambda t: t) -> None:
     """One boosting round of the K-model sweep (the JAX package's
     ``_multi_round_body``) on ``s``, in place: the bias step, then per
-    feature block the gradient ``Xb @ (rw * r)``, one coordinate update of
-    the block's (B, K) weights and the residual advanced by ``Xb.T @ dw``.
-    ``reduce`` as in :func:`_multi_sweep`. The coordinate update is the
-    module global ``coord_update`` (a test may swap in the plain version)."""
+    feature block the gradient ``Xb @ (rw * r).T``, one coordinate update of
+    the block's (B, K) weights and the residual advanced by ``dw.T @ Xb``.
+    ``reduce`` as in :func:`_multi_sweep`. A block step is the module
+    globals ``grad_update`` and ``residual_update`` (ops/gblinear_block.py; a
+    test may swap in the plain versions): on the card two kernels; on the
+    CPU the plain versions, the update being the module global
+    ``coord_update``."""
     with _matmul_precision(hp.precision):
         # bias step: sum_g / sum_h per model
-        db = hp.eta * (-reduce((s.rw * s.r).sum(0)) / s.denom)
+        db = hp.eta * (-reduce((s.rw * s.r).sum(1)) / s.denom)
         s.bias += db
-        s.r += db
+        s.r += db[:, None]
         for Xb, hb, wb in zip(s.Xt, s.hess, s.w_blocks):
-            dw = coord_update(reduce(Xb @ (s.rw * s.r)), hb, wb, hp.eta, hp.reg_lambda, hp.reg_alpha)
-            s.r += Xb.T @ dw
+            dw = grad_update(Xb, s.rw, s.r, hb, wb, hp.eta, hp.reg_lambda, hp.reg_alpha, reduce=reduce,
+                             scratch=s.scratch, update=coord_update)
+            residual_update(Xb, dw, s.r, scratch=s.scratch)
 
 
 def _multi_sweep(X, Y, row_weights, hp: GBLinearParams, device: torch.device, *, reduce, evals=None,
@@ -396,9 +420,12 @@ def train_gblinear_multi_sharded(
     per round the bias gradient and each block's (B, K) gradient, before the
     coordinate update. So a run makes ``3 + num_round * (1 + n_blocks)``
     all-reduce calls, and the updates, computed from the same sums on every
-    rank, keep the weights replicated; the coordinate update stays one
-    kernel launch a block on each rank. Rows are not padded: the sums need
-    no static shape. One process: the sums are local and the result equals
+    rank, keep the weights replicated; on the card a block step is then the
+    gradient kernel writing G, the all-reduce, the coordinate-update
+    kernel's planes entry and the residual kernel on each rank
+    (``ops/gblinear_block.py``'s split route). Rows are not padded: the sums
+    need no static shape. One process: the sums are local, the block step
+    takes the fused route, and the result equals
     :func:`train_gblinear_multi`'s bit for bit.
 
     ``evals``: xgboost-style watchlist [(X_eval, y_eval, name), ...], the

@@ -4,16 +4,20 @@
     python3 scripts/profile_train_torch.py [--out DIR] [--seed N]
 
 Builds chip_smoke.py's seeded training tables (24,338 genes x 20,020 fp32
-features, 218 tissues) and runs the two sweeps with the reference's
+features, 218 tissues) and runs three sweeps with the reference's
 hyperparameters (eta 0.01, lambda 100, 100 rounds, blocks of 512 features):
-K = 1, one tissue with its watchlist (``train_expression_model``), and
-K = 218, every tissue in one sweep (``train_all_tissues(vectorized=True)``).
+K = 1, one tissue with its watchlist (``train_expression_model``); K = 218,
+every tissue in one sweep (``train_all_tissues(vectorized=True)``); and K =
+128, the bootstrap CLI's 128 seeds (``train_bootstrap``).
 Each runs once to warm up, once timed, once under ``torch.profiler``. Prints
 per sweep the wall time (unprofiled and profiled), the card's busy and idle
 shares over the call and inside the rounds (each round is a
 ``gblinear_round`` range), the time a round on the card and on the host
 (the CPU side of the range: the time to issue the round's launches), the
-device time per kernel name inside the rounds, and the time a round
+device time inside the rounds by kind (``chip_smoke._round_trace``: the
+round kernel, the coordinate update, the block step's gradient and
+residual kernels, elementwise, other products, copies) and per kernel
+name, and the time a round
 without the profiler: the trainer the call made (``train_gblinear`` or
 ``train_gblinear_multi_sharded``, with its arguments) called again at 20 and at 100
 rounds, three times each in turns, the difference of the median walls over
@@ -79,6 +83,8 @@ def main(argv=None) -> int:
                "train_gblinear"),
         "k218": (lambda: ptrain.train_all_tissues(X, geneanno, expression, vectorized=True, device="cuda"),
                  "train_gblinear_multi_sharded"),
+        "k128": (lambda: ptrain.train_bootstrap(X, geneanno, expression.iloc[:, 1].values, list(range(128)),
+                                                device="cuda"), "train_gblinear_multi_sharded"),
     }
     results = {}
     for tag, (fn, trainer) in sweeps.items():
@@ -120,6 +126,8 @@ def main(argv=None) -> int:
               f"(max {r['host_ms_per_round_max']:.3f}); without the profiler {r['unprofiled']['ms_per_round']:.3f} ms a "
               f"round ({trainer} at 100 and 20 rounds: {[round(w, 3) for w in r['unprofiled']['walls_100_s']]}, "
               f"{[round(w, 3) for w in r['unprofiled']['walls_20_s']]} s)")
+        print(f"  by kind, ms a round: " + ", ".join(f"{k} {v / cs.TRAIN_ROUNDS:.3f}"
+                                                   for k, v in r["kernel_ms_by_kind"].items()))
         for k in kernels[:12]:
             print(f"  device {k['device_ms']:9.2f} ms {100 * k['device_ms'] / max(sweep_ms, 1e-9):5.1f}% of the sweep "
                   f" x{k['calls']:<6d} {k['name'][:110]}")

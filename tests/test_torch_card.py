@@ -920,30 +920,44 @@ def test_trainers_with_the_kernel_equal_the_plain_version_and_a_rerun(cuda, trai
     """K = 1 launches the round kernel once a round and no coordinate
     update; with the plain round swapped in it stays within the card-vs-CPU
     limits (weights 1e-5 of max|w|, bias 1e-6, RMSE 1e-5), and a rerun is
-    equal bit for bit. K = 3 launches the coordinate-update kernel once a
-    block and equals its plain version bit for bit."""
+    equal bit for bit. K = 3 launches the block step's two kernels once a
+    block each (the fused route: no coordinate-update launch), equals a
+    rerun bit for bit and, with the plain block step (SGEMM and the plain
+    update) swapped in, stays within the card-vs-CPU limits (weights 1e-5
+    of max|w|, biases 1e-5)."""
+    from expecto_tpu_torch.ops import gblinear_block as gbb
+
     gblinear_cd.reset_launch_counts()
     gr.reset_launch_counts()
+    gbb.reset_launch_counts()
     k1 = _train_k1(train_problem, "cuda")
     assert gr.gblinear_round.launches == 30 and gblinear_cd.coord_update.launches == 0
     multi = _train_multi(train_problem, "cuda")
-    assert gblinear_cd.coord_update.launches == 30 * 3 and gr.gblinear_round.launches == 30  # 3 blocks, 30 rounds
+    assert gblinear_cd.coord_update.launches == 0 and gr.gblinear_round.launches == 30
+    assert gbb.grad_update.launches_by_route == {"fused": 30 * 3, "split": 0}  # 3 blocks, 30 rounds
+    assert gbb.residual_update.launches == 30 * 3
     k1_again, multi_again = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
     monkeypatch.setattr(gblinear, "gblinear_round", gr.gblinear_round_plain)
     monkeypatch.setattr(gblinear, "coord_update", gblinear_cd.coord_update_plain)
+    monkeypatch.setattr(gblinear, "grad_update", gbb.grad_update_plain)
+    monkeypatch.setattr(gblinear, "residual_update", gbb.residual_update_plain)
     gblinear_cd.reset_launch_counts()
     gr.reset_launch_counts()
+    gbb.reset_launch_counts()
     k1_plain, multi_plain = _train_k1(train_problem, "cuda"), _train_multi(train_problem, "cuda")
     assert gblinear_cd.coord_update.launches == 0 and gr.gblinear_round.launches == 0
+    assert gbb.grad_update.launches == 0 and gbb.residual_update.launches == 0
     np.testing.assert_array_equal(k1_again.weight, k1.weight)
     assert k1_again.bias == k1.bias and k1_again.eval_history == k1.eval_history
     np.testing.assert_allclose(k1_plain.weight, k1.weight, rtol=0, atol=1e-5 * float(np.abs(k1.weight).max()))
     assert abs(k1_plain.bias - k1.bias) <= 1e-6
     for name in ("eval", "train"):
         np.testing.assert_allclose(k1_plain.eval_history[name], k1.eval_history[name], rtol=0, atol=1e-5)
-    for other in (multi_again, multi_plain):
-        np.testing.assert_array_equal(other.weights, multi.weights)
-        np.testing.assert_array_equal(other.biases, multi.biases)
+    np.testing.assert_array_equal(multi_again.weights, multi.weights)
+    np.testing.assert_array_equal(multi_again.biases, multi.biases)
+    np.testing.assert_allclose(multi_plain.weights, multi.weights, rtol=0,
+                               atol=1e-5 * float(np.abs(multi_plain.weights).max()))
+    np.testing.assert_allclose(multi_plain.biases, multi.biases, rtol=0, atol=1e-5)
 
 
 def test_trainers_on_card_match_cpu(cuda, train_problem):

@@ -245,6 +245,11 @@ def test_library_hash_covers_the_headers_a_source_includes(tmp_path, monkeypatch
 
 
 def test_the_two_gblinear_kernels_share_the_coordinate_step_header():
-    for name in ("gblinear_cd", "gblinear_round"):
-        assert [p.name for p in cuda_build._sources(cuda_build.CSRC_DIR / f"{name}.cu", [])] == [
-            f"{name}.cu", "gblinear_cd.cuh"]
+    """Every kernel that applies the coordinate step includes its one
+    header (the coordinate-update kernel also the TF32 split of its planes
+    entry, the block-step gradient kernel its own and the wgmma headers)."""
+    want = {"gblinear_cd": ["gblinear_cd.cuh", "hopper_common.cuh"], "gblinear_round": ["gblinear_cd.cuh"],
+            "gblinear_block_grad": ["gblinear_block.cuh", "hopper_common.cuh", "gblinear_cd.cuh"]}
+    for name, headers in want.items():
+        assert [p.name for p in cuda_build._sources(cuda_build.CSRC_DIR / f"{name}.cu", [])] == [f"{name}.cu",
+                                                                                                   *headers]
