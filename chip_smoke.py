@@ -8,10 +8,11 @@ Phases (any failure raises, and the script exits non-zero with no result):
 1. card: name and power limit as nvidia-smi reports them;
 2. build: nvcc compiles every kernel of ``expecto_tpu_torch/csrc`` for
    sm_90a, one process per source, all at once (ptxas registers and spills
-   printed); the tensor-core kernels' SASS (conv1-conv5, fc1 in bf16 and
-   both fp32 fc1 kernels) must hold HGMMA instructions, and the SIMT kernel's FFMA
-   and no HMMA or HGMMA (``cuobjdump -sass``; its FFMA-to-LDS ratio is
-   printed);
+   printed); the tensor-core kernels' SASS (conv1-conv5 in bf16 and in
+   fp32, fc1 in bf16 and both fp32 fc1 kernels) must hold HGMMA
+   instructions, the fp32 conv kernel's ptxas report no spill, and the SIMT
+   kernel's SASS FFMA and no HMMA or HGMMA (``cuobjdump -sass``; its
+   FFMA-to-LDS ratio is printed);
 3. kernels, at every shape they run in one substitution chunk of the main
    path (227 variants; maxshift 800: the six Beluga layers over the 3,600-bp
    span and over the alt allele's patch sub-span), each held against its
@@ -19,9 +20,13 @@ Phases (any failure raises, and the script exits non-zero with no result):
    ``F.conv1d`` (a yardstick only: the port never calls it):
    ``conv8_relu`` at conv2, conv4 and conv5 and ``conv8_relu_pool4`` at
    conv1 and conv3 (their pools fused, as the flows launch them; see 17),
-   fp32 on the SIMT kernel (with each shape's share of its fp32 bound) and
-   bf16 on the tensor-core kernel and on the SIMT kernel (unfused, then
-   the pools); ``conv0_codes_relu`` at conv0, fp32 and bf16 on the
+   fp32 on the three-pass TF32 kernel (``csrc/conv8_relu_tf32x3.cu``,
+   also within FP32_F64_REL of max|y| of a float64 product, which one
+   TF32 pass must miss, and bit-equal on a second launch; with each
+   shape's share of its 3xTF32 bound, the FFMA bound beside it) and on the
+   SIMT kernel (route "simt", held and timed on the same work), bf16 on
+   the tensor-core kernel and on the SIMT kernel (unfused, then the
+   pools); ``conv0_codes_relu`` at conv0, fp32 and bf16 on the
    code-gather kernel, beside the SIMT kernel on the float one-hot; then
    each dtype's chunk total beside ``F.conv1d`` (TF32 off) and the bound;
    then every conv of the h5 path's pair chunks (112 spans, and the 64 of
@@ -32,8 +37,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    models, maxshift 800, default bf16 compute and fp16 wire, on ~1,024
    substitutions, ~128 indels and 4 contig-edge rows of a seeded genome;
    launch counts are zeroed just before and read just after (every conv0 on
-   the code-gather kernel, conv1-conv5 on the tensor-core kernel, no SIMT
-   launch and no conv8_relu launch at Cin 4, the counts adding up, fc1 on
+   the code-gather kernel, conv1-conv5 on the tensor-core kernel, no launch
+   on another route and no conv8_relu launch at Cin 4, the counts adding up, fc1 on
    its tensor-core kernel); then warm repeats of the same serving call give
    the throughput. Every later flow's counts are read the same way: a bf16
    flow's fc1 runs on the bf16 kernel (``fc1_strided_tc.cu``) and an fp32
@@ -46,13 +51,15 @@ Phases (any failure raises, and the script exits non-zero with no result):
    serves, the bench) at least once;
 5. fp32 serve: the same serving call with ``--fp32``'s settings on the first
    256 substitutions and their genes, warm (one call first), its launch
-   counts checked (conv1-conv5 on the SIMT kernel, conv0 on the code-gather
-   kernel in fp32, fc1 on the three-pass TF32 kernels): the end-to-end
+   counts checked (conv1-conv5 on the three-pass TF32 conv kernel and no
+   SIMT launch, conv0 on the code-gather kernel in fp32, fc1 on the
+   three-pass TF32 kernels): the end-to-end
    throughput of parity mode;
 6. parity: a few of those variants scored with ``--fp32`` on the card and on
    the CPU (plain path), REF/ALT/SED compared; the card run's counts are
-   zeroed just before it and read just after (conv1-conv5 on the SIMT
-   kernel, conv0 on the code-gather kernel in fp32);
+   zeroed just before it and read just after (conv1-conv5 on the tf32x3
+   kernel and none on another route, conv0 on the code-gather kernel in
+   fp32);
 7. h5 contract (``expecto-chromatin`` -> ``expecto-predict``) on all the
    main path's variants with the chromatin CLI's settings (batch 1,024; fp32
    compute and wire by default, then ``--bf16``'s bf16 compute and fp16
@@ -60,8 +67,9 @@ Phases (any failure raises, and the script exits non-zero with no result):
    then one timed call of the CLI's streaming path (the runner's sink
    writing each pair chunk into numpy arrays that stand in for the h5
    datasets, then the window rows), launch counts zeroed just before it and
-   read just after (fp32: conv1-conv5 on the SIMT kernel; bf16: on the tc
-   kernel, no SIMT launch; totals equal to the chunk arithmetic); the
+   read just after (fp32: conv1-conv5 on the tf32x3 kernel; bf16: on the tc
+   kernel; no launch on another route; totals equal to the chunk
+   arithmetic); the
    streamed arrays equal to the in-memory ones bit for bit, alt = ref + diff
    exactly, the bf16 effects within a stated limit of the fp32 ones (which
    the same comparison with the strands swapped or the rows shifted
@@ -105,7 +113,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    phase); then ``python -m expecto_tpu_torch.cli.compute_features`` (its
    ``main``, weights loaded) in fp32 and with ``--bf16``, and three warm
    timed ``compute_gene_features`` calls with the CLI's settings in each
-   dtype, launch counts zeroed just before each and checked just after (fp32: SIMT
+   dtype, launch counts zeroed just before each and checked just after (fp32: tf32x3
    only; bf16: tc only; 16 launches a chunk, every conv0 on the code-gather
    kernel); fp32 card vs CPU features on one gene a strand, the span path
    vs the per-window path (``predict_and_project``) and ``--replicate_raw``'s
@@ -277,7 +285,7 @@ Phases (any failure raises, and the script exits non-zero with no result):
    conv1 and conv3 pooled at every shape of every flow (the serving chunk's
    span and patch sub-spans, the h5 pair chunks, the gene chunk, the
    consensus backbone, patch batches, dedup windows and fallback spans),
-   bf16 on the tc kernel and fp32 on the SIMT kernel: bit-equal to the
+   bf16 on the tc kernel and fp32 on the tf32x3 kernel: bit-equal to the
    unfused kernel followed by ``ops/spans._pool4_from``, within the route's
    limits of the fp32 plain version, which a pool read one row late and
    another phase's buffer must miss; timed beside the replaced path (kernel
@@ -306,6 +314,7 @@ import argparse
 import ctypes
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -353,6 +362,15 @@ CONV0_FP32_TOL = 1e-5
 #        float64: it, and the kernel against it, within FC1_FP32_PLAIN_REL
 FC1_TOL_STEPS = 2
 FC1_FP32_REL, FC1_FP32_PLAIN_REL = 1e-5, 4e-5
+#: each compute dtype's conv1-conv5 kernel (ops/conv8.py::_route: bf16 on the
+#: tc kernel, fp32 on the three-pass TF32 kernel); every flow launches the
+#: other conv8_relu routes, the SIMT kernel among them, 0 times
+CONV_ROUTE = {"bfloat16": "tc", "float32": "tf32x3"}
+#: the fp32 conv kernel's limit against a float64 product of the same inputs:
+#: FP32_F64_REL of max|y| (three TF32 passes hold each product within about
+#: 2^-21 of it, and each stage's chain is promoted into an fp32 sum rounded
+#: to nearest; one TF32 pass, about 2^-11 off, misses it)
+FP32_F64_REL = 1e-5
 #: each compute dtype's fc1 kernels (ops/fc1.py::_route: fp32 takes the
 #: swapped kernel up to SWAP_MAX_M windows a call, the tf32x3 kernel past it)
 FC1_ROUTES = {"bfloat16": ("tc",), "float32": ("tf32x3", "tf32x3_swap")}
@@ -374,7 +392,8 @@ FC1_SHAPES: Counter = Counter()
 STANDALONE_POOLS: Counter = Counter()
 #: conv launches by route of each flow at the default seed before the pools
 #: were fused (that tree's run): the fused epilogue must keep every one.
-#: serve: the bf16 serve (tc) and the fp32 parity run (simt); h5 and gene:
+#: serve: the bf16 serve (tc) and the fp32 parity run (the fp32 route: simt
+#: then, tf32x3 since); h5 and gene:
 #: the timed calls; consensus: the last timed call of each mix, summed
 PARENT_CONV_LAUNCHES = {"serve": (201, 61), "h5": (339, 339), "gene": (84, 84), "consensus": (580, 580)}
 
@@ -689,20 +708,47 @@ def _misses(got, want, atol: float, rtol: float) -> bool:
     return not bool(((got[:, :f].float() - want[:, :f]).abs() <= atol + rtol * want[:, :f].abs()).all())
 
 
+def _fp32_exactness(x, w, b, y, what: str) -> dict:
+    """The fp32 route's conv output ``y`` (unpooled) against a float64
+    product of the same inputs: within FP32_F64_REL of max|y|, a limit that
+    one TF32 pass (the plain version in float64 on x and W rounded to TF32,
+    the planted fault) must miss; and a second launch equal bit for bit."""
+    import torch
+
+    from expecto_tpu_torch.ops.conv8 import conv8_relu, conv8_relu_plain
+    from expecto_tpu_torch.ops.fc1 import split_tf32
+
+    if not torch.equal(y, conv8_relu(x, w, b)):
+        raise AssertionError(f"{what}: a second launch differs from the first")
+    y64 = conv8_relu_plain(x.double(), w.double(), b.double())
+    scale = float(y64.abs().max())
+    f64 = float((y - y64).abs().max()) / scale
+    one_pass = float((conv8_relu_plain(split_tf32(x)[0].double(), split_tf32(w)[0].double(), b.double()) - y64)
+                     .abs().max()) / scale
+    if f64 > FP32_F64_REL or one_pass <= FP32_F64_REL:
+        raise AssertionError(f"{what}: {f64:.3g} of max|y| off float64 (limit {FP32_F64_REL}); one TF32 pass "
+                             f"{one_pass:.3g} off must miss it")
+    return {"f64_rel": f64, "one_pass_f64_rel": one_pass}
+
+
 def _conv8_cell(x, w, b, pool: tuple, tag: str, what: str, yardsticks: bool) -> dict:
-    """One conv1-conv5 shape in one dtype on its main-path route (fp32 on
-    the SIMT kernel, bf16 on the tc kernel): unpooled (``pool`` ()) on
-    ``conv8_relu``, pooled on ``conv8_relu_pool4``, as the flows launch it.
-    Held against the fp32 plain version within the route's limits; a pooled
-    launch is also bit-equal to the route's unfused kernel followed by
-    ops/spans._pool4_from (the path it replaced), and a pool read one row
-    late and another phase's buffer must miss the limits. Timed (``ms``; a
-    pooled one also the replaced path, ``replaced_ms``, and its pools alone,
-    ``pools_ms``); with ``yardsticks`` (always when pooled) also the plain
-    version in the working dtype, the library call (``F.relu(F.conv1d)``,
-    then ``F.max_pool1d`` on each phase's slice when pooled; TF32 off; the
-    port never calls it) and the bound (the conv's operations; bytes: x, W
-    and b read once, the output or the pooled buffers written once)."""
+    """One conv1-conv5 shape in one dtype on its main-path route (CONV_ROUTE:
+    fp32 on the tf32x3 kernel, bf16 on the tc kernel): unpooled (``pool``
+    ()) on ``conv8_relu``, pooled on ``conv8_relu_pool4``, as the flows
+    launch it. Held against the fp32 plain version within the route's
+    limits; a pooled launch is also bit-equal to the route's unfused kernel
+    followed by ops/spans._pool4_from (the path it replaced), and a pool
+    read one row late and another phase's buffer must miss the limits. fp32
+    also by _fp32_exactness (float64, one TF32 pass, a repeat). Timed
+    (``ms``; a pooled one also the replaced path, ``replaced_ms``, and its
+    pools alone, ``pools_ms``); with ``yardsticks`` (always when pooled)
+    also the plain version in the working dtype, the library call
+    (``F.relu(F.conv1d)``, then ``F.max_pool1d`` on each phase's slice when
+    pooled; TF32 off; the port never calls it) and the bound (the conv's
+    operations, in fp32 three TF32 passes of them at the TF32 peak, the one
+    pass at the FFMA peak beside it as ``ffma_bound_ms``; bytes: x, W and b
+    read once, the output or the pooled buffers written once); fp32 also the
+    SIMT kernel on the same work (``simt_ms``, route "simt")."""
     import torch
     import torch.nn.functional as F
 
@@ -713,10 +759,16 @@ def _conv8_cell(x, w, b, pool: tuple, tag: str, what: str, yardsticks: bool) -> 
     n, length, cin = x.shape
     cout, l_out = w.shape[2], length - 7
     route = _route("cuda", x.dtype, cin, x.data_ptr())
-    if route != ("simt" if tag == "fp32" else "tc"):
+    if route != CONV_ROUTE[str(x.dtype).removeprefix("torch.")]:
         raise AssertionError(f"{what} would take the {route} route")
     atol, rtol = (FP32_ATOL, FP32_RTOL) if tag == "fp32" else (BF16_ATOL, BF16_RTOL)
     pool_from = spans._pool4_from
+
+    def plain_fp32():
+        if pool:
+            return conv8_relu_pool4_plain(x.float(), w.float(), b.float(), pool)
+        return conv8_relu_plain(x.float(), w.float(), b.float())
+
     if pool:
         launch = lambda: conv8_relu_pool4(x, w, b, pool)  # noqa: E731
         plain = lambda: conv8_relu_pool4_plain(x, w, b, pool)  # noqa: E731
@@ -724,7 +776,7 @@ def _conv8_cell(x, w, b, pool: tuple, tag: str, what: str, yardsticks: bool) -> 
         for ph in pool:
             if not torch.equal(got[ph], pool_from(y, ph)):
                 raise AssertionError(f"{what}: phase {ph} differs from the unfused kernel + pool")
-        want = conv8_relu_pool4_plain(x.float(), w.float(), b.float(), pool)
+        want = plain_fp32()
         err = max(_check_close(got[ph], want[ph], atol, rtol, f"{what} phase {ph}") for ph in pool)
         for i, ph in enumerate(pool):
             other = got[pool[(i + 1) % len(pool)]] if len(pool) > 1 else pool_from(y, (ph + 1) % 4)
@@ -740,14 +792,19 @@ def _conv8_cell(x, w, b, pool: tuple, tag: str, what: str, yardsticks: bool) -> 
 
         cell = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch), "replaced_ms": cuda_ms(replaced),
                 "pools_ms": cuda_ms(lambda: [pool_from(y, ph) for ph in pool])}
-        del y
+        simt = lambda: conv8_relu_pool4(x, w, b, pool, route="simt")  # noqa: E731
         out_elems = sum(n * (max(0, l_out - ph) // 4) * cout for ph in pool)
     else:
         launch = lambda: conv8_relu(x, w, b)  # noqa: E731
         plain = lambda: conv8_relu_plain(x, w, b)  # noqa: E731
-        err = _check_close(launch(), conv8_relu_plain(x.float(), w.float(), b.float()), atol, rtol, what)
+        simt = lambda: conv8_relu(x, w, b, route="simt")  # noqa: E731
+        y = launch()
+        err = _check_close(y, plain_fp32(), atol, rtol, what)
         cell = {"route": route, "max_abs_err": err, "ms": cuda_ms(launch)}
         out_elems = n * l_out * cout
+    if tag == "fp32":
+        cell.update(_fp32_exactness(x, w, b, y, what))
+    del y
     if yardsticks or pool:
         xt = x.transpose(1, 2).contiguous()
         wt = w.permute(2, 1, 0).contiguous()  # (Cout, Cin, 8)
@@ -757,8 +814,15 @@ def _conv8_cell(x, w, b, pool: tuple, tag: str, what: str, yardsticks: bool) -> 
             return [F.max_pool1d(yc[:, :, ph:], 4) for ph in pool] if pool else yc
 
         nbytes = (x.numel() + w.numel() + b.numel() + out_elems) * x.element_size()
-        cell.update(_bound(nbytes, 2.0 * n * l_out * cin * cout * 8, tag), plain_ms=cuda_ms(plain),
-                    library_ms=cuda_ms(library))
+        ops = 2.0 * n * l_out * cin * cout * 8
+        cell.update(_bound(nbytes, 3 * ops, "tf32") if tag == "fp32" else _bound(nbytes, ops, tag),
+                    plain_ms=cuda_ms(plain), library_ms=cuda_ms(library))
+        if tag == "fp32":
+            got, want = simt(), plain_fp32()
+            simt_err = (max(_check_close(got[ph], want[ph], atol, rtol, f"{what} phase {ph} on simt") for ph in pool)
+                        if pool else _check_close(got, want, atol, rtol, f"{what} on simt"))
+            del got, want
+            cell.update(ffma_bound_ms=1e3 * ops / PEAK_FLOPS["fp32"], simt_ms=cuda_ms(simt), simt_max_abs_err=simt_err)
         del xt, wt
     return cell
 
@@ -789,9 +853,10 @@ def _pooled_log(c: dict) -> str:
 def kernel_phase(report: dict) -> None:
     """conv1-conv5 at every shape of a substitution chunk, conv1 and conv3
     with their pools fused, as the flows launch them (_conv8_cell): fp32 on
-    the SIMT kernel (the fp32 main path's route); bf16 on the tensor-core
-    kernel (the bf16 main path's route) and on the SIMT kernel too
-    (unfused, the pools after it), so the redesign shows shape by shape."""
+    the three-pass TF32 kernel (the fp32 main path's route) beside the SIMT
+    kernel on the same work; bf16 on the tensor-core kernel (the bf16 main
+    path's route) and on the SIMT kernel too (unfused, the pools after it),
+    so each redesign shows shape by shape."""
     import torch
 
     from expecto_tpu_torch.models.beluga import CONV_SPECS
@@ -822,9 +887,11 @@ def kernel_phase(report: dict) -> None:
         log(f"kernel {name} N={n} L={length} {cin}->{cout} pool {list(pool)} x{per_chunk} per chunk: bf16 "
             f"tc {bf['ms']:.3f} ms (err {bf['max_abs_err']:.3g}){_pooled_log(bf)} simt {bf['simt']['ms']:.3f} ms "
             f"(err {bf['simt']['max_abs_err']:.3g}) plain {bf['plain_ms']:.3f} ms library {bf['library_ms']:.3f} ms "
-            f"bound {bf['bound_ms']:.3f} ms ({bf['bound_by']}); fp32 simt {fp['ms']:.3f} ms (err "
-            f"{fp['max_abs_err']:.3g}){_pooled_log(fp)} plain {fp['plain_ms']:.3f} ms library {fp['library_ms']:.3f} "
-            f"ms bound {fp['bound_ms']:.3f} ms ({100 * fp['bound_ms'] / fp['ms']:.1f} % of it)")
+            f"bound {bf['bound_ms']:.3f} ms ({bf['bound_by']}); fp32 tf32x3 {fp['ms']:.3f} ms (err "
+            f"{fp['max_abs_err']:.3g}, {fp['f64_rel']:.3g} of max|y| off float64, one pass {fp['one_pass_f64_rel']:.3g})"
+            f"{_pooled_log(fp)} simt {fp['simt_ms']:.3f} ms plain {fp['plain_ms']:.3f} ms library "
+            f"{fp['library_ms']:.3f} ms 3xTF32 bound {fp['bound_ms']:.3f} ms ({100 * fp['bound_ms'] / fp['ms']:.1f} % of "
+            f"it) FFMA bound {fp['ffma_bound_ms']:.3f} ms")
         rows.append(row)
         torch.cuda.empty_cache()
     report["conv8_layers"] = rows
@@ -1037,14 +1104,16 @@ def chunk_summary(report: dict) -> None:
         log(f"{tag} chunk ({sum(r['launches_per_chunk'] for r in every)} launches): main-path kernels "
             f"{chunk['ms']:.3f} ms (conv1-conv5 {chunk['conv1_5_ms']:.3f}, conv0 {chunk['conv0_ms']:.3f}), "
             f"F.conv1d {chunk['library_ms']:.3f} ms, bound {chunk['bound_ms']:.3f} ms")
-    simt = {"ms": _weighted(conv8, "fp32", "ms"), "library_ms": _weighted(conv8, "fp32", "library_ms"),
-            "bound_ms": _weighted(conv8, "fp32", "bound_ms"),
-            "min_shape_share": min(r["fp32"]["bound_ms"] / r["fp32"]["ms"] for r in conv8)}
-    report["simt_fp32_chunk"] = simt
-    log(f"simt fp32 conv1-conv5 chunk: {simt['ms']:.3f} ms, {100 * simt['bound_ms'] / simt['ms']:.1f} % of its "
-        f"bound {simt['bound_ms']:.3f} ms; F.conv1d (TF32 off) {simt['library_ms']:.3f} ms, "
-        f"{simt['library_ms'] / simt['ms']:.2f}x the kernel's time; lowest share of a shape's bound "
-        f"{100 * simt['min_shape_share']:.1f} %")
+    fp = {k: _weighted(conv8, "fp32", k) for k in ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+                                                    "ffma_bound_ms")}
+    fp["min_shape_share"] = min(r["fp32"]["bound_ms"] / r["fp32"]["ms"] for r in conv8)
+    fp["simt_min_shape_ffma_share"] = min(r["fp32"]["ffma_bound_ms"] / r["fp32"]["simt_ms"] for r in conv8)
+    report["fp32_conv_chunk"] = fp
+    log(f"fp32 conv1-conv5 chunk: tf32x3 {fp['ms']:.3f} ms, {100 * fp['bound_ms'] / fp['ms']:.1f} % of its 3xTF32 "
+        f"bound {fp['bound_ms']:.3f} ms (lowest share of a shape's {100 * fp['min_shape_share']:.1f} %); SIMT "
+        f"{fp['simt_ms']:.3f} ms ({fp['simt_ms'] / fp['ms']:.2f}x, {100 * fp['ffma_bound_ms'] / fp['simt_ms']:.1f} % of "
+        f"the FFMA bound {fp['ffma_bound_ms']:.3f} ms); plain {fp['plain_ms']:.3f} ms; F.conv1d (TF32 off) "
+        f"{fp['library_ms']:.3f} ms ({fp['library_ms'] / fp['ms']:.2f}x)")
 
 
 def make_inputs(seed: int) -> dict:
@@ -1230,6 +1299,17 @@ def _fc1_on_routes(dtype: str, by_route: dict, shapes: dict, split: int) -> bool
             and split == by_route.get("tf32x3_swap", 0))
 
 
+def _on_conv_route(by_route: dict, dtype: str) -> bool:
+    """conv1-conv5 launched on ``dtype``'s route (CONV_ROUTE) and on no other."""
+    route = CONV_ROUTE[dtype]
+    return by_route[route] > 0 and not any(n for r, n in by_route.items() if r != route)
+
+
+def _off_route(by_route: dict, dtype: str) -> int:
+    """conv8_relu launches on the routes other than ``dtype``'s."""
+    return sum(n for r, n in by_route.items() if r != CONV_ROUTE[dtype])
+
+
 def _read_counts(dtype: str) -> dict:
     """Every kernel's launches since the last _reset_counts, checked: the
     route counts add up, no float one-hot reached conv8_relu (no launch at
@@ -1254,7 +1334,7 @@ def _read_counts(dtype: str) -> dict:
               "conv8_relu_pool4_by_route": pooled, "pool4_standalone": STANDALONE_POOLS["calls"]}
     if counts["pool4_standalone"]:
         raise AssertionError(f"{counts['pool4_standalone']} standalone pools ran on the card in a {dtype} flow")
-    route = "simt" if dtype == "float32" else "tc"
+    route = CONV_ROUTE[dtype]
     if pooled != {r: 2 * n0 * (r == route) for r in pooled}:
         raise AssertionError(f"a {dtype} flow's pooled convs: {pooled}, expected {2 * n0} on {route} ({n0} conv stacks)")
     if not _fc1_on_routes(dtype, counts["fc1_strided_by_route"], fc1_strided.launches_by_shape,
@@ -1290,7 +1370,7 @@ def main_path_phase(report: dict, inputs: dict, card: str) -> None:
         raise AssertionError(f"score CLI returned {rc}")
     counts = _read_counts("bfloat16")
     by_route = counts["conv8_relu_by_route"]
-    if by_route["tc"] <= 0 or by_route["simt"] != 0:
+    if not _on_conv_route(by_route, "bfloat16"):
         raise AssertionError(f"bf16 conv1-conv5 did not all run on the tc kernel: {by_route}")
     if counts["fc1_strided"] <= 0:
         raise AssertionError(f"the bf16 serve launched no fc1 kernel: {counts}")
@@ -1383,8 +1463,8 @@ def fp32_serve_phase(report: dict, inputs: dict, card: str) -> None:
     vcf, genes, n_rows = subset(inputs, range(N_FP32_SERVE), "fp32_serve")
     wall = serve(vcf, genes, n_rows, fp32=True, warmup=1, repeats=1, output_csv=FP32_SERVE_CSV)[0]
     counts = _read_counts("float32")
-    if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
-        raise AssertionError(f"fp32 serve: conv1-conv5 did not all run on the simt kernel: {counts}")
+    if not _on_conv_route(counts["conv8_relu_by_route"], "float32"):
+        raise AssertionError(f"fp32 serve: conv1-conv5 did not all run on the tf32x3 kernel: {counts}")
     if counts["fc1_strided"] <= 0:
         raise AssertionError(f"the fp32 serve launched no fc1 kernel: {counts}")
     report["fp32_serve"] = {"variants": N_FP32_SERVE, "rows": n_rows, "models": N_MODELS, "wall_s": wall,
@@ -1411,8 +1491,8 @@ def parity_phase(report: dict, inputs: dict) -> None:
         if tag == "card":
             counts = _read_counts("float32")
             fc1_shapes = _fc1_shapes_now()
-            if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
-                raise AssertionError(f"fp32 conv1-conv5 did not all run on the simt kernel: {counts}")
+            if not _on_conv_route(counts["conv8_relu_by_route"], "float32"):
+                raise AssertionError(f"fp32 conv1-conv5 did not all run on the tf32x3 kernel: {counts}")
             if counts["fc1_strided"] <= 0:
                 raise AssertionError(f"the fp32 parity run launched no fc1 kernel: {counts}")
         frames[tag] = check_output(out, n_rows)
@@ -1549,9 +1629,9 @@ def h5_contract_phase(report: dict, inputs: dict, card: str) -> tuple[dict, obje
             chunks = -(-H5_SPAN_VARIANTS // H5_PAIRS)
             win_calls = 9 * -(-4 * n_win // H5_BATCH) if n_win else 0
             want0, want8 = 2 * chunks + win_calls, 14 * chunks + 5 * win_calls
-            route, other = ("simt", "tc") if tag == "fp32" else ("tc", "simt")
-            by_route = counts["conv8_relu_by_route"]
-            if (counts["conv0_codes"], by_route[route], by_route[other]) != (want0, want8, 0):
+            dtype = "float32" if tag == "fp32" else "bfloat16"
+            route, by_route = CONV_ROUTE[dtype], counts["conv8_relu_by_route"]
+            if (counts["conv0_codes"], by_route[route], _off_route(by_route, dtype)) != (want0, want8, 0):
                 raise AssertionError(f"h5 {tag}: launches {counts}, expected {want0} conv0 and {want8} {route}")
             # fc1 over both orientations' two pool-2 phases a pair chunk, on
             # the dtype's kernel; the window rows' fc1 is the per-window matmul
@@ -1694,8 +1774,8 @@ def _score_fp32(vcf: Path, genes: Path, out_csv: Path, n_rows: int, what: str, *
         raise AssertionError(f"{what}: cli.score --fp32 returned non-zero")
     wall = time.perf_counter() - t0
     counts = _read_counts("float32")
-    if counts["conv8_relu_by_route"]["simt"] <= 0 or counts["conv8_relu_by_route"]["tc"] != 0:
-        raise AssertionError(f"{what}: conv1-conv5 did not all run on the simt kernel: {counts}")
+    if not _on_conv_route(counts["conv8_relu_by_route"], "float32"):
+        raise AssertionError(f"{what}: conv1-conv5 did not all run on the tf32x3 kernel: {counts}")
     if counts["fc1_strided"] <= 0:
         raise AssertionError(f"{what}: cli.score --fp32 launched no fc1 kernel: {counts}")
     return check_output(out_csv, n_rows)[0], counts, wall
@@ -2024,10 +2104,9 @@ def _gene_counts_checked(dtype: str, chunks: int, what: str) -> dict:
     launches a chunk on the dtype's kernel (two orientations x two pool-2
     phases)."""
     counts = _read_counts(dtype)
-    route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
-    by_route = counts["conv8_relu_by_route"]
+    route, by_route = CONV_ROUTE[dtype], counts["conv8_relu_by_route"]
     want = (2 * chunks, 14 * chunks, 0, 4 * chunks)
-    if (counts["conv0_codes"], by_route[route], by_route[other], counts["fc1_strided"]) != want:
+    if (counts["conv0_codes"], by_route[route], _off_route(by_route, dtype), counts["fc1_strided"]) != want:
         raise AssertionError(f"{what}: launches {counts}, expected {2 * chunks} conv0, {14 * chunks} {route} and "
                              f"{want[3]} fc1 for {chunks} gene chunks of 16 launches")
     return counts
@@ -2419,10 +2498,9 @@ def _consensus_counts_checked(kind: str, calls: list, runner, what: str) -> dict
             c += name == "project_spans_backbone_patch"
             want0, want8 = want0 + 2 * c, want8 + 14 * c
     counts = _read_counts(kind)
-    route, other = ("simt", "tc") if kind == "float32" else ("tc", "simt")
-    by_route = counts["conv8_relu_by_route"]
-    if (counts["conv0_codes"], by_route[route], by_route[other], counts["fc1_strided"]) != (want0, want8, 0,
-                                                                                            want_fc1):
+    route, by_route = CONV_ROUTE[kind], counts["conv8_relu_by_route"]
+    if (counts["conv0_codes"], by_route[route], _off_route(by_route, kind), counts["fc1_strided"]) != (
+            want0, want8, 0, want_fc1):
         raise AssertionError(f"{what}: launches {counts}, expected {want0} conv0, {want8} {route} and {want_fc1} "
                              f"fc1 for {calls}")
     return {"launches": counts, "engine_calls": [list(c) for c in calls]}
@@ -4353,16 +4431,16 @@ def _group(module: str, argv: list[str], what: str, *, identity_all_reduce: bool
 
 def _rank_routes(ranks: list, dtype: str, what: str) -> None:
     """Every rank ran its convs on the kernels of ``dtype``'s routes: conv1-
-    conv5 on the SIMT kernel (fp32) or the tc kernel (bf16) alone, conv1 and
+    conv5 on the tf32x3 kernel (fp32) or the tc kernel (bf16) alone, conv1 and
     conv3 pooled in the epilogue (two pooled launches a conv0, no standalone
     pool), conv0 on the code-gather kernel in ``dtype``, and fc1 on
     ``dtype``'s fc1 kernels alone, each shape on its route; a rank's fc1
     shapes join FC1_SHAPES."""
-    route, other = ("simt", "tc") if dtype == "float32" else ("tc", "simt")
+    route = CONV_ROUTE[dtype]
     for r in ranks:
         by, pooled = r["conv8_relu_by_route"], r["conv8_relu_pool4_by_route"]
-        if not (by[route] > 0 and by[other] == 0 and r["conv0_codes"] > 0 and r["pool4_standalone"] == 0
-                and pooled == {route: 2 * r["conv0_codes"], other: 0}
+        if not (_on_conv_route(by, dtype) and r["conv0_codes"] > 0 and r["pool4_standalone"] == 0
+                and pooled == {p: 2 * r["conv0_codes"] * (p == route) for p in pooled}
                 and r["conv0_codes_by_kind"] == {dtype: r["conv0_codes"]}
                 and r["fc1_strided"] > 0
                 and _fc1_on_routes(dtype, r["fc1_strided_by_route"],
@@ -4726,14 +4804,15 @@ def bench_phase(report: dict, card: str) -> None:
         if not (isinstance(v, float) and math.isfinite(v) and v > 0):
             raise AssertionError(f"bench {key} = {v!r}: not a finite number above 0")
     by_route, by_kind0 = counts["conv8_relu_by_route"], counts["conv0_codes_by_kind"]
-    if by_route["tc"] <= 0 or by_route["simt"] != 0:
+    if not _on_conv_route(by_route, "bfloat16"):
         raise AssertionError(f"the bench's convs must run on the tc kernel alone: {by_route}")
     if counts["conv0_codes"] <= 0 or by_kind0 != {"bfloat16": counts["conv0_codes"]}:
         raise AssertionError(f"the bench's conv0 must run on the code-gather kernel in bf16: {by_kind0}")
     if (counts["fc1_strided"] <= 0 or counts["fc1_strided_by_route"] != {"tc": counts["fc1_strided"]}
             or counts["fc1_split_tf32"]):
         raise AssertionError(f"the bench's fc1 must run on the bf16 kernel alone: {counts}")
-    if counts["pool4_standalone"] or counts["conv8_relu_pool4_by_route"] != {"simt": 0, "tc": 2 * counts["conv0_codes"]}:
+    if counts["pool4_standalone"] or counts["conv8_relu_pool4_by_route"] != {
+            r: 2 * counts["conv0_codes"] * (r == "tc") for r in counts["conv8_relu_pool4_by_route"]}:
         raise AssertionError(f"the bench's pools must all run in the tc kernel's epilogue, two a conv stack: {counts}")
     want = {"gblinear_round": 0, "gblinear_cd": 0, "gblinear_block_grad": BENCH_BLOCK_STEPS,
             "gblinear_block_grad_by_route": {"fused": BENCH_BLOCK_STEPS, "split": 0},
@@ -4743,7 +4822,8 @@ def bench_phase(report: dict, card: str) -> None:
                              f"{want}")
     report["bench"] = {"record": record, "wall_s": wall, "launches": counts,
                        "shape_checks": bench_shape_checks(shapes)}
-    log(f"bench launches: tc {by_route['tc']}, simt {by_route['simt']}, conv0_codes bf16 {counts['conv0_codes']}, "
+    log(f"bench launches: tc {by_route['tc']}, simt {by_route['simt']}, tf32x3 {by_route['tf32x3']}, conv0_codes bf16 "
+        f"{counts['conv0_codes']}, "
         f"fc1_strided {counts['fc1_strided']}, gblinear_cd {counts['gblinear_cd']}, "
         f"gblinear_round {counts['gblinear_round']}, gblinear_block_grad {counts['gblinear_block_grad']}, "
         f"gblinear_block_resid {counts['gblinear_block_resid']}")
@@ -4786,7 +4866,7 @@ def bench_shape_checks(shapes: dict) -> dict:
         if _route("cuda", dt, cin, x.data_ptr()) != route:
             raise AssertionError(f"bench shape N={n} L={length} {cin}->{cout} {dtype} would not take the {route} route")
         atol, rtol = (FP32_ATOL, FP32_RTOL) if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
-        name = "conv8_relu_tc" if route == "tc" else "conv8_relu"
+        name = {"tc": "conv8_relu_tc", "tf32x3": "conv8_relu_tf32x3"}.get(route, "conv8_relu")
         err = _check_close(conv8_relu(x, w, b, route=route), conv8_relu_plain(x.float(), w.float(), b.float()),
                            atol, rtol, f"bench shape {name} {dtype} N={n} L={length} {cin}->{cout}")
         tally(name, launches, err)
@@ -5100,15 +5180,16 @@ def fc1_split_entry(report: dict) -> dict:
 
 
 def _flow_conv_launches(report: dict) -> dict:
-    """{flow: (tc launches of its bf16 run, simt launches of its fp32 run)},
+    """{flow: (tc launches of its bf16 run, tf32x3 launches of its fp32 run)},
     the runs PARENT_CONV_LAUNCHES counts."""
     by = lambda c, r: c["conv8_relu_by_route"][r]  # noqa: E731
     mixes = report["consensus"]["mixes"].values()
-    return {"serve": (by(report["main_path"]["launches"], "tc"), by(report["parity"]["launches"], "simt")),
-            "h5": (by(report["h5_contract"]["bf16"]["launches"], "tc"), by(report["h5_contract"]["fp32"]["launches"], "simt")),
-            "gene": (by(report["genes"]["bf16"]["launches"], "tc"), by(report["genes"]["fp32"]["launches"], "simt")),
+    fp = CONV_ROUTE["float32"]
+    return {"serve": (by(report["main_path"]["launches"], "tc"), by(report["parity"]["launches"], fp)),
+            "h5": (by(report["h5_contract"]["bf16"]["launches"], "tc"), by(report["h5_contract"]["fp32"]["launches"], fp)),
+            "gene": (by(report["genes"]["bf16"]["launches"], "tc"), by(report["genes"]["fp32"]["launches"], fp)),
             "consensus": (sum(by(m["bf16"]["launches"], "tc") for m in mixes),
-                          sum(by(m["fp32"]["launches"], "simt") for m in mixes))}
+                          sum(by(m["fp32"]["launches"], fp) for m in mixes))}
 
 
 def _pooled_flows(report: dict) -> dict:
@@ -5146,7 +5227,7 @@ def pool_phase(report: dict, card: str, seed: int) -> None:
                 f"plain {c['plain_ms']:.3f} ms, conv1d+max_pool1d {c['library_ms']:.3f} ms, bound "
                 f"{c['bound_ms']:.3f} ms [{card}]")
     flows = _flow_conv_launches(report)
-    log(f"conv launches by flow (tc bf16, simt fp32): {flows}; parent's at seed 0: {PARENT_CONV_LAUNCHES}; no "
+    log(f"conv launches by flow (tc bf16, tf32x3 fp32): {flows}; parent's at seed 0: {PARENT_CONV_LAUNCHES}; no "
         f"standalone pool in any flow (each flow's read)")
     if seed == 0 and flows != PARENT_CONV_LAUNCHES:
         raise AssertionError(f"conv launches by flow {flows} differ from the parent's {PARENT_CONV_LAUNCHES}")
@@ -5165,7 +5246,7 @@ def pool4_entry(report: dict, tag: str) -> dict:
              *(m[tag]["launches"] for m in report["consensus"]["mixes"].values())]
     shapes = {f"{chunk} {r['layer']} N={r['N']} L={r['L']}": {k: r[tag][k] for k in POOL_KEYS} | {"pool": r["pool"]}
               for chunk, rows in _pooled_flows(report).items() for r in rows if r["pool"]}
-    return {"launches": run["conv8_relu_pool4_by_route"]["tc" if tag == "bf16" else "simt"],
+    return {"launches": run["conv8_relu_pool4_by_route"][CONV_ROUTE["bfloat16" if tag == "bf16" else "float32"]],
             "standalone_pool_launches": sum(c["pool4_standalone"] for c in flows),
             "max_abs_err": max(r[tag]["max_abs_err"] for rows in _pooled_flows(report).values() for r in rows
                                if r["pool"]),
@@ -5179,8 +5260,10 @@ def kernel_table(report: dict) -> dict:
     of one substitution chunk that its main path gives it (each shape
     weighted by its launches there): the tc kernel at bf16 conv1-conv5 and
     the code-gather kernel at bf16 conv0, whose ``launches`` are the bf16
-    serving run's; the SIMT kernel at fp32 conv1-conv5, whose ``launches``
-    are the fp32 parity run's on the card. ``launches_h5_*`` are the timed
+    serving run's; the tf32x3 kernel at fp32 conv1-conv5, whose ``launches``
+    are the fp32 parity run's on the card; the SIMT kernel on the same fp32
+    work, timed beside it (``launches``: the same run's, 0 since every fp32
+    flow's conv1-conv5 take the tf32x3 route). ``launches_h5_*`` are the timed
     h5-contract chromatin runs', ``h5_chunk_ms`` the kernel's time in one
     full pair chunk of them; ``launches_gene_*`` are the timed gene-feature
     calls', ``gene_chunk_ms`` the kernel's time in one gene chunk of them
@@ -5238,8 +5321,39 @@ def kernel_table(report: dict) -> dict:
             "gene_chunk_library_ms": _weighted(gene_rows, tag, "library_ms"), **extra,
         }
 
+    def simt_entry() -> dict:
+        """The SIMT kernel's entry: its times on the fp32 shapes of the
+        tf32x3 route (``route="simt"``), which no flow sends it now."""
+        fp = "fp32"
+        timed = lambda rows: [r for r in rows if "simt_ms" in r[fp]]  # noqa: E731
+        gene_rows = timed([r for r in report["gene_layers"] if r["layer"] != "conv0"])
+        cons = lambda key: {c: _weighted(timed([r for r in report["consensus_layers"] if r["case"] == c  # noqa: E731
+                                                and r["layer"] != "conv0"]), fp, key) for c in cons_cases}
+        return {
+            "name": "conv8_relu", "route": "cuda", "source": "expecto_tpu_torch/csrc/conv8_relu.cu",
+            "replaces": "expecto_tpu/ops/pallas_conv.py:49", "launches": parity["conv8_relu_by_route"]["simt"],
+            "launches_run": "fp32 parity",
+            "max_abs_err": max(r[fp]["simt_max_abs_err"] for r in timed(conv8) + gene_rows),
+            "ms": _weighted(conv8, fp, "simt_ms"), "plain_ms": _weighted(conv8, fp, "plain_ms"),
+            "bound_ms": _weighted(conv8, fp, "bound_ms"), "bound_by": "operations",
+            "library_ms": _weighted(conv8, fp, "library_ms"), "dtype": fp,
+            "ffma_bound_ms": _weighted(conv8, fp, "ffma_bound_ms"),
+            "min_shape_ffma_share": report["fp32_conv_chunk"]["simt_min_shape_ffma_share"],
+            "gene_chunk_ms": _weighted(gene_rows, fp, "simt_ms"), "consensus_ms": cons("simt_ms"),
+            "launches_fp32_flows": {"serve": report["fp32_serve"]["launches"]["conv8_relu_by_route"]["simt"],
+                                    "h5": h5[fp]["conv8_relu_by_route"]["simt"],
+                                    "gene": gene[fp]["conv8_relu_by_route"]["simt"],
+                                    "consensus": cons_launches(fp, "simt"), "pipeline": pipe_launches("simt")},
+            "bf16_ms": sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
+            "sass_ffma": report["sass_simt"]["FFMA"], "sass_lds": report["sass_simt"]["LDS"],
+            "sass_hmma": report["sass_simt"]["HMMA"], "sass_hgmma": report["sass_simt"]["HGMMA"],
+        }
+
+    fp32_rows = [r for r in conv8 + report["h5_layers"] + report["gene_layers"] + report["consensus_layers"]
+                 if r["layer"] != "conv0"]
     bench = report["bench"]["launches"]
     launches_bench = {"conv8_relu_tc": bench["conv8_relu_by_route"]["tc"],
+                      "conv8_relu_tf32x3": bench["conv8_relu_by_route"]["tf32x3"],
                       "conv8_relu": bench["conv8_relu_by_route"]["simt"], "conv0_codes": bench["conv0_codes"],
                       "gblinear_cd": bench["gblinear_cd"], "gblinear_round": bench["gblinear_round"],
                       "gblinear_block_grad": bench["gblinear_block_grad"],
@@ -5255,18 +5369,23 @@ def kernel_table(report: dict) -> dict:
               consensus_bound_ms=cons_ms("bf16", False, "bound_ms"),
               consensus_library_ms=cons_ms("bf16", False, "library_ms"), launches_pipeline=pipe_launches("tc"),
               pool4=pool4_entry(report, "bf16")),
-        entry("conv8_relu", "expecto_tpu_torch/csrc/conv8_relu.cu", conv8, "fp32",
-              parity["conv8_relu_by_route"]["simt"], launches_run="fp32 parity",
-              launches_h5_fp32=h5["fp32"]["conv8_relu_by_route"]["simt"],
-              launches_gene_fp32=gene["fp32"]["conv8_relu_by_route"]["simt"],
-              launches_consensus_fp32=cons_launches("fp32", "simt"), consensus_ms=cons_ms("fp32", False),
+        entry("conv8_relu_tf32x3", "expecto_tpu_torch/csrc/conv8_relu_tf32x3.cu", conv8, "fp32",
+              parity["conv8_relu_by_route"]["tf32x3"], launches_run="fp32 parity",
+              launches_fp32_serve=report["fp32_serve"]["launches"]["conv8_relu_by_route"]["tf32x3"],
+              launches_h5_fp32=h5["fp32"]["conv8_relu_by_route"]["tf32x3"],
+              launches_gene_fp32=gene["fp32"]["conv8_relu_by_route"]["tf32x3"],
+              launches_consensus_fp32=cons_launches("fp32", "tf32x3"), consensus_ms=cons_ms("fp32", False),
               consensus_bound_ms=cons_ms("fp32", False, "bound_ms"),
-              consensus_library_ms=cons_ms("fp32", False, "library_ms"), launches_pipeline=pipe_launches("simt"),
-              bf16_ms=sum(r["bf16"]["simt"]["ms"] * r["launches_per_chunk"] for r in conv8),
-              min_shape_bound_share=report["simt_fp32_chunk"]["min_shape_share"],
-              sass_ffma=report["sass_simt"]["FFMA"], sass_lds=report["sass_simt"]["LDS"],
-              sass_hmma=report["sass_simt"]["HMMA"], sass_hgmma=report["sass_simt"]["HGMMA"],
+              consensus_library_ms=cons_ms("fp32", False, "library_ms"), launches_pipeline=pipe_launches("tf32x3"),
+              launches_2rank_fp32={k: [r["conv8_relu"]["tf32x3"] for r in report["multiprocess"][k]["launches_per_rank"]]
+                                   for k in ("score_fp32", "features", "consensus_ref")},
+              ffma_bound_ms=_weighted(conv8, "fp32", "ffma_bound_ms"), simt_ms=_weighted(conv8, "fp32", "simt_ms"),
+              min_shape_bound_share=report["fp32_conv_chunk"]["min_shape_share"],
+              max_f64_rel=max(r["fp32"]["f64_rel"] for r in fp32_rows),
+              min_one_pass_f64_rel=min(r["fp32"]["one_pass_f64_rel"] for r in fp32_rows),
+              sass_hgmma=report["sass_tf32x3"]["HGMMA"], spill_bytes=report["sass_tf32x3"]["spill_bytes"],
               pool4=pool4_entry(report, "fp32")),
+        simt_entry(),
         entry("conv0_codes", "expecto_tpu_torch/csrc/conv0_codes.cu", conv0, "bf16", serve["conv0_codes"],
               fp32_ms=_weighted(conv0, "fp32", "ms"), fp32_bound_ms=_weighted(conv0, "fp32", "bound_ms"),
               fp32_plain_ms=_weighted(conv0, "fp32", "plain_ms"),
@@ -5295,6 +5414,8 @@ def kernel_table(report: dict) -> dict:
          "launches_per_chunk": r["launches_per_chunk"],
          **{f"{t}_{k}": r[t][k] for t in ("fp32", "bf16") for k in ("route", "ms", "plain_ms", "library_ms", "bound_ms",
                                                                      "bound_by", "max_abs_err")},
+         **({"fp32_simt_ms": r["fp32"]["simt_ms"], "fp32_ffma_bound_ms": r["fp32"]["ffma_bound_ms"],
+             "fp32_f64_rel": r["fp32"]["f64_rel"]} if "simt_ms" in r["fp32"] else {}),
          **({"bf16_simt_ms": r["bf16"]["simt"]["ms"]} if "simt" in r["bf16"] else {}),
          **({"bf16_simt_onehot_ms": r["bf16"]["simt_onehot_ms"], "fp32_simt_onehot_ms": r["fp32"]["simt_onehot_ms"]}
             if "simt_onehot_ms" in r["bf16"] else {})}
@@ -5361,6 +5482,14 @@ def main(argv=None) -> int:
     log(f"csrc/conv8_relu_tc.cu SASS: {report['sass_hgmma']} HGMMA instructions")
     if report["sass_hgmma"] == 0:
         raise AssertionError("the tc kernel's SASS holds no HGMMA (tensor-core) instruction")
+    ptxas = built["conv8_relu_tf32x3"][1] if "conv8_relu_tf32x3" in built else cuda_build.ptxas_report("conv8_relu_tf32x3")
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas)]
+    report["sass_tf32x3"] = {"HGMMA": cuda_build.sass_count("conv8_relu_tf32x3", "HGMMA"), "spill_bytes": sum(spills)}
+    log(f"csrc/conv8_relu_tf32x3.cu SASS: {report['sass_tf32x3']['HGMMA']} HGMMA instructions; ptxas: "
+        f"{report['sass_tf32x3']['spill_bytes']} bytes of spills in {len(spills) // 2} functions")
+    if report["sass_tf32x3"]["HGMMA"] == 0 or sum(spills) or not spills:
+        raise AssertionError(f"the tf32x3 kernel's SASS must hold HGMMA and its ptxas report no spill: "
+                             f"{report['sass_tf32x3']}, spills {spills}")
     sass = {op: cuda_build.sass_count("conv8_relu", op) for op in ("FFMA", "LDS", "HMMA", "HGMMA")}
     report["sass_simt"] = sass
     log(f"csrc/conv8_relu.cu SASS: {sass['FFMA']} FFMA, {sass['LDS']} LDS ({sass['FFMA'] / max(1, sass['LDS']):.1f} "

@@ -10,9 +10,12 @@
 // the output cast.
 //
 // Replaces the TPU kernel expecto_tpu/ops/pallas_conv.py::conv8_relu for all
-// that the tensor-core kernel csrc/conv8_relu_tc.cu does not take: fp32 at
-// any Cin (parity mode's conv1-conv5), bf16 with Cin % 16 != 0 or a data
-// pointer off a 16-byte boundary, and a float one-hot at conv0 (Cin = 4).
+// that the two tensor-core kernels do not take: fp32 with a data pointer
+// off a 16-byte boundary or Cin % 4 != 0 (parity mode's conv1-conv5 run on
+// csrc/conv8_relu_tf32x3.cu, three TF32 passes), bf16 with Cin % 16 != 0 or
+// a data pointer off a 16-byte boundary (csrc/conv8_relu_tc.cu takes the
+// rest), as a bf16 one-hot at conv0 (Cin = 4). No flow sends it input now;
+// route="simt" forces it, the tf32x3 kernel's yardstick.
 //
 // What bounds it on an H100: Beluga's conv1-conv5 do 2 * 8 * Cin = 5,120 to
 // 10,240 operations per output element, far above the ridge of fp32 FFMA

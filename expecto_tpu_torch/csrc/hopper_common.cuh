@@ -1,9 +1,10 @@
 // What the hand-written Hopper kernels on wgmma share: the fc1 family
-// (csrc/fc1_common.cuh and its kernels) and the K-model trainer's block
-// step (csrc/gblinear_block.cuh: csrc/gblinear_block_grad.cu,
-// csrc/gblinear_block_resid.cu), and the TF32 split of csrc/gblinear_cd.cu.
-// The mbarrier ring's primitives, the copies into shared memory, the wgmma
-// descriptor and synchronisation, 2-D tensor-map (TMA) loads and their
+// (csrc/fc1_common.cuh and its kernels), the K-model trainer's block step
+// (csrc/gblinear_block.cuh: csrc/gblinear_block_grad.cu,
+// csrc/gblinear_block_resid.cu), the TF32 split of csrc/gblinear_cd.cu and
+// the fp32 conv csrc/conv8_relu_tf32x3.cu. The mbarrier ring's primitives,
+// the copies into shared memory, the wgmma descriptors (128-byte swizzle
+// and none) and synchronisation, 2-D tensor-map (TMA) loads and their
 // encoding, the tf32 wgmma with A from registers at every N = 8 ... 128,
 // the TF32 rounding of the three-pass split, and the launcher of a
 // warp-specialized kernel.
@@ -83,6 +84,16 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// wgmma shared-memory descriptor, no swizzle ("interleave"), K-major: a
+// core matrix is 8 rows of 16 bytes, 128 contiguous bytes; `lbo` is the
+// byte offset between the two core matrices of a K step (k16 in bf16, k8 in
+// tf32), `sbo` the one between 8-row groups along M (or N). Any 16-byte
+// multiple: a start 16k bytes on shifts the rows by k.
+__device__ __forceinline__ uint64_t interleave_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }

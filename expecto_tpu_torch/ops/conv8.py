@@ -3,22 +3,32 @@
     y[:, l, :] = relu( sum_k  x[:, l+k, :] @ W[k]  + b ),   k < 8
 
 x (N, L, Cin), W (8, Cin, Cout), b (Cout) -> (N, L-7, Cout), channels last
-as in the JAX package. Two hand-written CUDA kernels port the TPU kernel
+as in the JAX package. Three hand-written CUDA kernels port the TPU kernel
 ``expecto_tpu/ops/pallas_conv.py::conv8_relu``; :func:`conv8_relu` picks one
 by :func:`_route`, a pure function of device, dtype, Cin and alignment:
 
 - ``"tc"``: ``csrc/conv8_relu_tc.cu``, bf16 on the tensor cores (wgmma, TMA),
   for bf16 x with Cin % 16 == 0 and a 16-byte-aligned data pointer (TMA's
   rule): Beluga's conv1-conv5 on the main path;
-- ``"simt"``: ``csrc/conv8_relu.cu``, fp32 FFMA on the CUDA cores, for fp32
-  (parity mode: conv1-conv5) and every other bf16 input, a float one-hot at
-  conv0 (Cin = 4) among them;
+- ``"tf32x3"``: ``csrc/conv8_relu_tf32x3.cu``, fp32 on the TF32 tensor cores
+  in three passes (each operand split into TF32 hi and lo, lo*hi + hi*lo +
+  hi*hi, each stage's products promoted into an fp32 sum), for fp32 x with
+  Cin % 4 == 0 and a 16-byte-aligned data pointer: parity mode's
+  conv1-conv5 in every fp32 flow;
+- ``"simt"``: ``csrc/conv8_relu.cu``, fp32 FFMA on the CUDA cores, for the
+  rest: fp32 views off a 16-byte boundary or with a Cin off 4, and every
+  bf16 input off the tc rule, a bf16 one-hot at conv0 (Cin = 4) among
+  them. No flow sends it input; it stays callable as ``route="simt"`` on
+  any input, the tf32x3 kernel's yardstick;
 - ``"cpu"``: :func:`conv8_relu_plain`, only for tensors on the CPU.
 
-Both kernels tile the conv over the N*L input rows as one sequence
+The kernels tile the conv over the N*L input rows as one sequence
 (:func:`conv8_relu_flat_plain` is that indexing in plain PyTorch), in tiles
 of 160 output channels, and read W packed once per weight tensor into their
-own layout (:func:`pack_weights_tc`, :func:`pack_weights_simt`).
+own layout (:func:`pack_weights_tc`, :func:`pack_weights_tf32x3`,
+:func:`pack_weights_simt`). Where a tf32x3 launch fills the SMs poorly (the
+consensus patch's short rows) it splits K in :func:`tf32x3_splits` parts
+and a second kernel adds them in a fixed order.
 
 :func:`conv8_relu_pool4` is the same conv with Beluga's 4-wide max-pool
 (the JAX package's XLA ``expecto_tpu/ops/spans.py::_pool4_from``) fused
@@ -42,14 +52,19 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .fc1 import split_tf32
 
 KERNEL_W = 8
-ROUTES = ("simt", "tc")
+ROUTES = ("simt", "tc", "tf32x3")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TC_KC = 16  # input channels per stage of the tc kernel
+_TF32_KC = 4  # input channels per stage of the tf32x3 kernel
+_TF32_TM = 128  # flat rows per tile of the tf32x3 kernel
+_TF32_MAX_SPLITS = 4  # parts of K at most (tf32x3_splits)
+_TF32_MIN_STAGES = 16  # stages a part at least
 _SIMT_KC = 4  # input channels per stage of the simt kernel
-_BN = 160  # output channels per tile of both kernels
-_MAX_ROWS = 2**31 - 1  # N * L: both kernels index the flat rows with an int
+_BN = 160  # output channels per tile of the kernels
+_MAX_ROWS = 2**31 - 1  # N * L: the kernels index the flat rows with an int
 POOL_W = 4  # Beluga's max-pool: width and stride 4
 
 
@@ -112,9 +127,11 @@ def conv8_relu_pool4_flat_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tenso
     flat rows. Flat row n*L + l starts the group (l - ph) / 4 of phase
     ph = l % 4 when ph is asked for and the group's 4 rows lie below L-7.
 
-    - ``route="tc"`` (128-row tiles): tiles step by ``tm`` - 4, and a tile
-      owns the groups whose first row lies in its first ``tm`` - 4 rows, so
-      it takes each group's max from its own rows alone;
+    - ``route="tc"`` or ``"tf32x3"`` (128-row tiles): tiles step by ``tm``
+      - 4, and a tile owns the groups whose first row lies in its first
+      ``tm`` - 4 rows, so it takes each group's max from its own rows alone
+      (a tf32x3 launch whose K is split pools in its second kernel, from
+      the whole conv: the same values);
     - ``route="simt"`` (``tm`` 128 or 64): tiles step by ``tm``, each takes
       the max over its rows of every group with a row in it, and the parts
       of a group that straddles two tiles are merged by max into outputs
@@ -122,15 +139,16 @@ def conv8_relu_pool4_flat_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tenso
 
     The conv values come from :func:`conv8_relu_plain`; the rows that
     straddle two spans and the rows past N*L are NaN here, so a group that
-    read such a row shows as NaN, as does (route "tc") one that no tile
-    owned."""
+    read such a row shows as NaN, as does (routes "tc", "tf32x3") one that
+    no tile owned."""
     phases = _pool_phases(phases)
     if route not in ROUTES:
         raise ValueError(f"unknown conv8_relu route {route!r}")
     n, l, _cin = x.shape
     m, l_out = n * l, l - KERNEL_W + 1
-    step, first = (tm - POOL_W, 0) if route == "tc" else (tm, 1 - POOL_W)
-    fill = float("nan") if route == "tc" else 0.0  # the outputs' start, and a group's rows outside the tile
+    owned = route != "simt"
+    step, first = (tm - POOL_W, 0) if owned else (tm, 1 - POOL_W)
+    fill = float("nan") if owned else 0.0  # the outputs' start, and a group's rows outside the tile
     y = conv8_relu_plain(x, w, b)
     flat = torch.full((m + tm, y.shape[2]), float("nan"), dtype=y.dtype)
     flat[:m].view(n, l, -1)[:, :l_out] = y
@@ -145,11 +163,11 @@ def conv8_relu_pool4_flat_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tenso
             take = (rows >= 0) & (rows < m) & (ph == p) & (j < pool4_frames(l_out, p))
             at = s[take]
             # each of a group's rows in the tile; a row outside it adds nothing (simt: max of values >= 0), or
-            # shows as NaN (tc: a tile must own whole groups)
+            # shows as NaN (tc, tf32x3: a tile must own whole groups)
             part = torch.stack([torch.where(((at + r >= 0) & (at + r < tm))[:, None], tile[(at + r).clamp(0, tm - 1)],
                                             fill) for r in range(POOL_W)]).amax(dim=0)
             idx = (span[take], j[take])
-            out[p][idx] = part if route == "tc" else torch.maximum(out[p][idx], part)
+            out[p][idx] = part if owned else torch.maximum(out[p][idx], part)
     return out
 
 
@@ -167,6 +185,50 @@ def pack_weights_tc(w: torch.Tensor) -> torch.Tensor:
     return wp.permute(4, 1, 0, 2, 5, 3).contiguous()
 
 
+def pack_weights_tf32x3(w: torch.Tensor) -> torch.Tensor:
+    """W (8, Cin, Cout) fp32 split (ops/fc1.py::split_tf32: TF32 hi and lo,
+    both rounded to nearest) into the tf32x3 kernel's layout: (Cout/160,
+    Cin/4, 2, 8 taps, 160, 4), one contiguous 40 KB shared-memory stage per
+    (Cout tile, 4-channel chunk) holding hi, then lo, each tap a K-major
+    column of 160 outputs x 4 channels (16 bytes a row); Cout is
+    zero-padded to a multiple of 160."""
+    kw, cin, cout = w.shape
+    if kw != KERNEL_W or cin % _TF32_KC or w.dtype != torch.float32:
+        raise ValueError(f"the tf32x3 kernel packs fp32 W (8, Cin % {_TF32_KC} == 0, Cout), got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    tiles = -(-cout // _BN)
+    hi, lo = split_tf32(F.pad(w, (0, tiles * _BN - cout)))
+    planes = torch.stack((hi, lo))  # plane, tap, Cin, Cout
+    planes = planes.reshape(2, KERNEL_W, cin // _TF32_KC, _TF32_KC, tiles, _BN)  # plane, tap, chunk, c, tile, n
+    return planes.permute(4, 2, 0, 1, 5, 3).contiguous()
+
+
+def tf32x3_splits(m: int, cin: int, cout: int, sms: int) -> int:
+    """Parts of K (input-channel stages) a tf32x3 launch of ``m`` flat rows
+    takes on a card of ``sms`` SMs (one CTA an SM): 1 from two waves of
+    tiles up (there the parts' round trip through device memory and the
+    second kernel cost more than the fuller last wave gains: measured on
+    the H100 at 436-1,485 tiles, 3-20 % slower split); below, the count up
+    to _TF32_MAX_SPLITS, each part at least _TF32_MIN_STAGES stages, whose
+    (tiles x parts) CTAs fill the waves best, the fewest parts unless one
+    more fills them by 5 % more. A pure function of the shape, so a pooled
+    launch and the unpooled one of the same x split alike."""
+    tiles = -(-m // _TF32_TM) * -(-cout // _BN)
+    if tiles >= 2 * sms:
+        return 1
+    most = max(1, min(_TF32_MAX_SPLITS, cin // _TF32_KC // _TF32_MIN_STAGES))
+
+    def fill(s: int) -> float:
+        ctas = tiles * s
+        return ctas / (sms * -(-ctas // sms))
+
+    best = 1
+    for s in range(2, most + 1):
+        if fill(s) > fill(best) + 0.05:
+            best = s
+    return best
+
+
 def pack_weights_simt(w: torch.Tensor) -> torch.Tensor:
     """W (8, Cin, Cout) in the simt kernel's layout: fp32 (Cout/160, Cin/4,
     8 taps, 4, 160), one contiguous shared-memory stage per (Cout tile,
@@ -182,7 +244,7 @@ def pack_weights_simt(w: torch.Tensor) -> torch.Tensor:
     return wp.permute(3, 1, 0, 2, 4).contiguous()
 
 
-_PACKERS = {"tc": pack_weights_tc, "simt": pack_weights_simt}
+_PACKERS = {"tc": pack_weights_tc, "tf32x3": pack_weights_tf32x3, "simt": pack_weights_simt}
 _PACKED: dict[tuple, tuple] = {}  # (id(W), route) -> (weakref to W, W._version, packed W)
 
 
@@ -199,11 +261,13 @@ def _packed(w: torch.Tensor, route: str) -> torch.Tensor:
 
 def _route(device_type: str, dtype: torch.dtype, cin: int, data_ptr: int) -> str:
     """Which implementation runs x of this device type, dtype, channel count
-    and data pointer: "cpu", "simt" or "tc" (module docstring)."""
+    and data pointer: "cpu", "simt", "tc" or "tf32x3" (module docstring)."""
     if device_type == "cpu":
         return "cpu"
     if dtype == torch.bfloat16 and cin % _TC_KC == 0 and data_ptr % 16 == 0:
         return "tc"
+    if dtype == torch.float32 and cin % _TF32_KC == 0 and data_ptr % 16 == 0:
+        return "tf32x3"
     return "simt"
 
 
@@ -242,9 +306,24 @@ def _cuda_route(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, route: str | 
     if route == "tc" and auto != "tc":
         raise ValueError(f"the tc kernel takes 16-byte-aligned bf16 x with Cin % {_TC_KC} == 0, got {x.dtype}, "
                          f"Cin {cin}, data pointer {x.data_ptr():#x}")
+    if route == "tf32x3" and auto != "tf32x3":
+        raise ValueError(f"the tf32x3 kernel takes 16-byte-aligned fp32 x with Cin % {_TF32_KC} == 0, got "
+                         f"{x.dtype}, Cin {cin}, data pointer {x.data_ptr():#x}")
     if n * l > _MAX_ROWS:
         raise ValueError(f"the {route} kernel takes N * L <= {_MAX_ROWS}, got {n * l}")
     return route
+
+
+def _tf32x3_parts(x: torch.Tensor, cout: int) -> tuple[int, torch.Tensor | None]:
+    """The parts of K of a tf32x3 launch on CUDA x (:func:`tf32x3_splits`)
+    and their workspace (splits, N*L, Cout) fp32, None for one part. The
+    caller holds it until the launch is enqueued: PyTorch's caching
+    allocator then reuses it only in the current stream's order."""
+    n, l, cin = x.shape
+    splits = tf32x3_splits(n * l, cin, cout, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if splits == 1:
+        return 1, None
+    return splits, torch.empty((splits, n * l, cout), device=x.device, dtype=torch.float32)
 
 
 def _count(route: str, x: torch.Tensor, cout: int) -> None:
@@ -258,13 +337,13 @@ def _count(route: str, x: torch.Tensor, cout: int) -> None:
 
 def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str | None = None) -> torch.Tensor:
     """relu(conv_valid_w8(x, W) + b): a CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. ``route`` ("simt" or "tc") overrides
-    :func:`_route` for CUDA tensors, for timing one kernel against the other;
-    a route that does not take the input raises. Either kernel reads W packed
-    for it, once per weight tensor while the tensor lives unwritten, and
-    takes up to 2**31 - 1 flat rows N * L (any N). Raises on anything the
-    kernels do not take (dtype, device, shape, contiguity, rows) and if a
-    launch fails."""
+    plain version for CPU tensors. ``route`` ("simt", "tc" or "tf32x3")
+    overrides :func:`_route` for CUDA tensors, for timing one kernel against
+    another; a route that does not take the input raises. Each kernel reads
+    W packed for it, once per weight tensor while the tensor lives
+    unwritten, and takes up to 2**31 - 1 flat rows N * L (any N). Raises on
+    anything the kernels do not take (dtype, device, shape, contiguity,
+    rows) and if a launch fails."""
     if x.device.type == "cpu":
         if route not in (None, "cpu"):
             raise ValueError(f"route {route!r} needs CUDA tensors")
@@ -279,6 +358,11 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
         if route == "tc":
             err = cuda_build.launcher("conv8_relu_tc", 4)(x.data_ptr(), wp, b.data_ptr(), y.data_ptr(), n, l, cin,
                                                           cout, stream)
+        elif route == "tf32x3":
+            splits, ws = _tf32x3_parts(x, cout)
+            err = cuda_build.launcher("conv8_relu_tf32x3", 5, n_ptrs=5)(
+                x.data_ptr(), wp, b.data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(), n, l, cin, cout,
+                splits, stream)
         else:
             err = cuda_build.launcher("conv8_relu", 5)(x.data_ptr(), wp, b.data_ptr(), y.data_ptr(), n, l, cin, cout,
                                                        _DTYPE_CODES[x.dtype], stream)
@@ -288,21 +372,24 @@ def conv8_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, route: str 
     return y
 
 
-def conv8_relu_pool4(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, phases) -> dict[int, torch.Tensor]:
+def conv8_relu_pool4(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, phases, *,
+                     route: str | None = None) -> dict[int, torch.Tensor]:
     """The conv of :func:`conv8_relu`, then the 4-wide max-pool from each of
     ``phases`` (1-4 distinct ints in 0..3), in one launch whose epilogue
     pools before it stores: {phase: (N, (L-7-phase)//4, Cout)}, each phase
     a contiguous tensor of its own. The conv's own output never reaches
-    device memory. Route rule (:func:`_route`), checks and packed weights as
-    :func:`conv8_relu`, but the SIMT kernel pools fp32 alone: bf16 off the
-    tc rule raises. CPU tensors take :func:`conv8_relu_pool4_plain`. A
+    device memory. Route rule (:func:`_route`), ``route`` override, checks
+    and packed weights as :func:`conv8_relu`, but the SIMT kernel pools fp32
+    alone: bf16 off the tc rule raises. CPU tensors take :func:`conv8_relu_pool4_plain`. A
     phase with no full pool frame gives an (N, 0, Cout) tensor, and no
     launch when no phase has one. Counts a launch in :func:`conv8_relu`'s
     counts and in its own ``launches``, ``launches_by_route``."""
     phases = _pool_phases(phases)
     if x.device.type == "cpu":
+        if route not in (None, "cpu"):
+            raise ValueError(f"route {route!r} needs CUDA tensors")
         return conv8_relu_pool4_plain(x, w, b, phases)
-    route = _cuda_route(x, w, b, None, "conv8_relu_pool4")
+    route = _cuda_route(x, w, b, route, "conv8_relu_pool4")
     if route == "simt" and x.dtype != torch.float32:
         raise ValueError(f"conv8_relu_pool4 pools {x.dtype} only on the tc kernel (16-byte-aligned x, Cin % "
                          f"{_TC_KC} == 0), got Cin {x.shape[2]}, data pointer {x.data_ptr():#x}")
@@ -321,6 +408,11 @@ def conv8_relu_pool4(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, phases) 
         if route == "tc":
             err = cuda_build.launcher("conv8_relu_tc", 5, n_ptrs=7, entry="conv8_relu_tc_pool4_launch")(
                 x.data_ptr(), wp, b.data_ptr(), *ys, n, l, cin, cout, mask, stream)
+        elif route == "tf32x3":
+            splits, ws = _tf32x3_parts(x, cout)
+            err = cuda_build.launcher("conv8_relu_tf32x3", 6, n_ptrs=8, entry="conv8_relu_tf32x3_pool4_launch")(
+                x.data_ptr(), wp, b.data_ptr(), *ys, 0 if ws is None else ws.data_ptr(), n, l, cin, cout, splits,
+                mask, stream)
         else:
             err = cuda_build.launcher("conv8_relu", 6, n_ptrs=7, entry="conv8_relu_pool4_launch")(
                 x.data_ptr(), wp, b.data_ptr(), *ys, n, l, cin, cout, _DTYPE_CODES[x.dtype], mask, stream)

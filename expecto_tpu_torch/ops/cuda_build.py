@@ -95,6 +95,22 @@ def build(names=None, *, ptxas_info: bool = False) -> dict[str, tuple[float, str
             tmp.unlink(missing_ok=True)
 
 
+def ptxas_report(name: str) -> str:
+    """``-Xptxas -v``'s report (registers, shared memory and spills of each
+    function) of ``csrc/<name>.cu``, compiled anew to a scratch file beside
+    the built libraries; the built library is left as it is."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run([_tool("nvcc"), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+                              capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def sass_count(name: str, opcode: str) -> int:
     """How many instructions of ``opcode`` (e.g. ``HGMMA``) the built
     library of ``csrc/<name>.cu`` holds, from ``cuobjdump -sass``."""

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels and runner on the card: conv8_relu (both routes,
-the fp32 SIMT kernel and the bf16 tensor-core kernel) and conv0_codes_relu
+"""The port's CUDA kernels and runner on the card: conv8_relu (its three
+routes: the bf16 tensor-core kernel, the fp32 three-pass TF32 kernel, held
+also against float64, and the SIMT kernel) and conv0_codes_relu
 (the code-gather conv0 kernel) against their plain PyTorch versions at
 ragged and short shapes, batches past 65,535 spans and misaligned views, the
 route and launch counts, the wrappers' checks on CUDA tensors, and the
@@ -120,9 +121,10 @@ def test_conv8_kernel_matches_plain(cuda, n, l, cin, cout, dtype):
 TC_SHAPES = ([(5, l, cin, cout) for l in (8, 9, 26, 34) for cin in (320, 480, 640) for cout in (320, 480, 640)]
              + [(227, 34, 640, 640), (227, 26, 480, 640), (227, 120, 320, 480), (3, 40, 32, 40), (2, 19, 16, 1),
                 (4, 50, 64, 161), (1, 300, 320, 330)])
-# the tc kernel on the bf16 main path; the SIMT kernel forced, in fp32 (the
-# fp32 main path) and in bf16
-FLAT_ROUTES = [("tc", torch.bfloat16), ("simt", torch.float32), ("simt", torch.bfloat16)]
+# the tc kernel on the bf16 main path, the tf32x3 kernel on the fp32 main
+# path; the SIMT kernel forced, in fp32 and in bf16
+FLAT_ROUTES = [("tc", torch.bfloat16), ("tf32x3", torch.float32), ("simt", torch.float32), ("simt", torch.bfloat16)]
+FLAT_IDS = ["tc-bf16", "tf32x3-fp32", "simt-fp32", "simt-bf16"]
 
 
 def _assert_route_matches_plain(x, w, b, route):
@@ -139,7 +141,7 @@ def _assert_route_matches_plain(x, w, b, route):
     return got
 
 
-@pytest.mark.parametrize("route,dtype", FLAT_ROUTES, ids=["tc-bf16", "simt-fp32", "simt-bf16"])
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES, ids=FLAT_IDS)
 @pytest.mark.parametrize("n,l,cin,cout", TC_SHAPES)
 def test_conv8_tc_kernel_matches_plain(cuda, n, l, cin, cout, route, dtype):
     x, w, b = _inputs(n, l, cin, cout, n + l + cin + cout, cuda, dtype)
@@ -165,14 +167,15 @@ def test_conv8_simt_kernel_past_65535_spans(cuda, dtype):
 @pytest.mark.parametrize("cin", [320, 17])
 def test_conv8_simt_kernel_on_a_misaligned_fp32_view(cuda, cin):
     """A contiguous fp32 view 4 bytes past a 16-byte boundary stages through
-    the same 4-byte copies and gives the aligned result."""
+    the same 4-byte copies and gives the SIMT kernel's result on the aligned
+    tensor (which takes the tf32x3 route unless forced)."""
     x, w, b = _inputs(3, 30, cin, 320, cin, cuda, torch.float32)
     buf = torch.empty(x.numel() + 8, device=cuda)
     view = buf[1 : 1 + x.numel()].view(x.shape)
     view.copy_(x)
     assert view.is_contiguous() and view.data_ptr() % 16 == 4
     got = _assert_route_matches_plain(view, w, b, "simt")
-    torch.testing.assert_close(got, conv8_relu(x, w, b), rtol=0, atol=0)
+    torch.testing.assert_close(got, conv8_relu(x, w, b, route="simt"), rtol=0, atol=0)
 
 
 def test_conv8_route_counts_follow_the_dispatch(cuda):
@@ -181,9 +184,9 @@ def test_conv8_route_counts_follow_the_dispatch(cuda):
         conv8_relu(*_inputs(2, 40, cin, 32, cin, cuda, dtype))
     torch.cuda.synchronize()
     assert conv8_relu.launches == 4
-    assert conv8_relu.launches_by_route == {"simt": 2, "tc": 2}
+    assert conv8_relu.launches_by_route == {"simt": 1, "tc": 2, "tf32x3": 1}
     assert conv8_relu.launches_by_kind == {("tc", "bfloat16", 320): 1, ("tc", "bfloat16", 480): 1,
-                                           ("simt", "bfloat16", 4): 1, ("simt", "float32", 320): 1}
+                                           ("simt", "bfloat16", 4): 1, ("tf32x3", "float32", 320): 1}
 
 
 def test_conv8_misaligned_bf16_goes_to_simt_and_tc_refuses_it(cuda):
@@ -195,12 +198,59 @@ def test_conv8_misaligned_bf16_goes_to_simt_and_tc_refuses_it(cuda):
     before = dict(conv8_relu.launches_by_route)
     got = conv8_relu(view, w, b)
     torch.cuda.synchronize()
-    assert conv8_relu.launches_by_route == {"simt": before["simt"] + 1, "tc": before["tc"]}
+    assert conv8_relu.launches_by_route == {**before, "simt": before["simt"] + 1}
     torch.testing.assert_close(got, conv8_relu(x, w, b), rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
     with pytest.raises(ValueError, match="tc kernel takes"):
         conv8_relu(view, w, b, route="tc")
     with pytest.raises(ValueError, match="tc kernel takes"):
         conv8_relu(x.float(), w.float(), b.float(), route="tc")
+
+
+@pytest.mark.parametrize("cin", [320, 18])
+def test_conv8_misaligned_or_ragged_fp32_goes_to_simt_and_tf32x3_refuses_it(cuda, cin):
+    """fp32 off the tf32x3 rule, a view 4 bytes past a 16-byte boundary or a
+    Cin off its 4-channel stage, runs on the SIMT kernel; the tf32x3 route
+    forced on it raises and launches nothing."""
+    x, w, b = _inputs(2, 30, cin, 320, 9, cuda, torch.float32)
+    buf = torch.empty(x.numel() + 8, device=cuda)
+    view = buf[1 : 1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    assert conv8._route("cuda", torch.float32, cin, x.data_ptr()) == ("tf32x3" if cin % 4 == 0 else "simt")
+    before = dict(conv8_relu.launches_by_route)
+    got = conv8_relu(view, w, b)
+    torch.cuda.synchronize()
+    assert conv8_relu.launches_by_route == {**before, "simt": before["simt"] + 1}
+    torch.testing.assert_close(got, conv8_relu(x, w, b), rtol=TOL[torch.float32], atol=TOL[torch.float32])
+    before = dict(conv8_relu.launches_by_route)
+    with pytest.raises(ValueError, match="tf32x3 kernel takes"):
+        conv8_relu(view, w, b, route="tf32x3")
+    with pytest.raises(ValueError, match="tf32x3 kernel takes"):
+        conv8_relu(x.bfloat16(), w.bfloat16(), b.bfloat16(), route="tf32x3")
+    assert conv8_relu.launches_by_route == before
+
+
+# fp32 conv1-conv5 shapes of the flows at Beluga's widths: the serving
+# patch sub-span's conv5 (K split in 2 parts), the consensus patch at N.K =
+# 40 (conv4 in 2 parts, conv5 in 3), a gene chunk's conv5 (one part)
+TF32_SHAPES = [(227, 27, 640, 640), (40, 39, 480, 640), (40, 32, 640, 640), (16, 2601, 640, 640)]
+
+
+@pytest.mark.parametrize("n,l,cin,cout", TF32_SHAPES)
+def test_conv8_tf32x3_holds_float64_and_repeats_bit_for_bit(cuda, n, l, cin, cout):
+    """Three TF32 passes within 1e-5 of max|y| of a float64 product of the
+    same inputs, where one pass (x and W rounded to TF32) misses; a second
+    launch gives the same bits (the parts of a split K summed in order)."""
+    x, w, b = _inputs(n, l, cin, cout, n + l, cuda, torch.float32)
+    got = conv8_relu(x, w, b)
+    assert torch.equal(got, conv8_relu(x, w, b))
+    want = conv8_relu_plain(x.double(), w.double(), b.double())
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    from expecto_tpu_torch.ops.fc1 import split_tf32
+
+    one_pass = conv8_relu_plain(split_tf32(x)[0].double(), split_tf32(w)[0].double(), b.double())
+    assert float((one_pass - want).abs().max()) > 1e-5 * scale
 
 
 def test_conv8_tc_weights_repacked_after_an_in_place_write(cuda):
@@ -241,16 +291,18 @@ POOL_SHAPES = [(227, 3593, 320, 320, (0,)), (227, 889, 480, 480, (0, 2)), (227, 
                (2, 8, 16, 32, (0, 1)), (9, 71, 16, 33, (0, 1, 2, 3))]
 
 
-@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:2], ids=["tc-bf16", "simt-fp32"])
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:3], ids=FLAT_IDS[:3])
 @pytest.mark.parametrize("n,l,cin,cout,phases", POOL_SHAPES)
 def test_conv8_pool4_equals_the_kernel_then_the_pool(cuda, n, l, cin, cout, phases, route, dtype):
+    """The flows' routes (tc-bf16, tf32x3-fp32) and the SIMT kernel forced
+    on fp32."""
     x, w, b = _inputs(n, l, cin, cout, n + l + cin + cout, cuda, dtype)
-    assert conv8._route("cuda", dtype, cin, x.data_ptr()) == route
+    assert conv8._route("cuda", dtype, cin, x.data_ptr()) == ("tf32x3" if route == "simt" else route)
     reset_launch_counts()
-    got = conv8_relu_pool4(x, w, b, phases)
+    got = conv8_relu_pool4(x, w, b, phases, route=route)
     torch.cuda.synchronize()
     live = any(t.shape[1] for t in got.values())
-    assert conv8_relu_pool4.launches_by_route == {r: int(live and r == route) for r in ("simt", "tc")}
+    assert conv8_relu_pool4.launches_by_route == {r: int(live and r == route) for r in conv8.ROUTES}
     assert conv8_relu.launches_by_route == conv8_relu_pool4.launches_by_route
     y = conv8_relu(x, w, b, route=route)
     want = conv8_relu_pool4_plain(x.float(), w.float(), b.float(), phases)
@@ -261,19 +313,19 @@ def test_conv8_pool4_equals_the_kernel_then_the_pool(cuda, n, l, cin, cout, phas
         torch.testing.assert_close(got[ph].float(), want[ph], rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["tc-bf16", "simt-fp32"])
-def test_conv8_pool4_bit_equal_on_a_second_stream(cuda, dtype):
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:3], ids=FLAT_IDS[:3])
+def test_conv8_pool4_bit_equal_on_a_second_stream(cuda, route, dtype):
     """The SIMT route merges groups across tile edges by atomic max (any
-    order gives the same max); a repeat of either route on another stream,
-    into a buffer the first call did not leave zeroed, gives the same
-    bits."""
+    order gives the same max); the tc and tf32x3 routes own whole groups. A
+    repeat of each route on another stream, into a buffer the first call
+    did not leave zeroed, gives the same bits."""
     x, w, b = _inputs(227, 889, 480, 480, 5, cuda, dtype)
-    first = conv8_relu_pool4(x, w, b, (0, 2))
+    first = conv8_relu_pool4(x, w, b, (0, 2), route=route)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         torch.full((227, 220, 480), 7.0, device=cuda, dtype=dtype)  # a freed block of nonzero bytes to reuse
-        again = conv8_relu_pool4(x, w, b, (0, 2))
+        again = conv8_relu_pool4(x, w, b, (0, 2), route=route)
     torch.cuda.synchronize()
     for ph in (0, 2):
         assert torch.equal(first[ph], again[ph])
@@ -526,8 +578,8 @@ def test_h5_runner_bf16_fp16_wire_on_card(cuda, budget):
 def test_h5_runner_launch_counts(cuda, dtype):
     """Per pair chunk: ref and alt in one batch, 2 orientations x (1 conv0 +
     conv1-conv3 once + conv4/conv5 per pool-2 phase {0, 2}). fp32 runs
-    conv1-conv5 on the SIMT kernel, bf16 on the tc kernel; conv0 on the
-    code-gather kernel in the compute dtype."""
+    conv1-conv5 on the tf32x3 kernel, bf16 on the tc kernel, none on
+    another route; conv0 on the code-gather kernel in the compute dtype."""
     runner = BelugaRunner(narrow_params(13, convs=TC_WIDTHS), batch_size=16, device="cuda", compute_dtype=dtype,
                           out_dtype=np.float32 if dtype == torch.float32 else np.float16)
     ref, alt = _h5_pairs(3, seed=14)
@@ -539,8 +591,8 @@ def test_h5_runner_launch_counts(cuda, dtype):
     kind = "float32" if dtype == torch.float32 else "bfloat16"
     assert conv0_codes_relu.launches_by_kind == {kind: 2 * chunks}
     assert conv8_relu.launches == 2 * 7 * chunks
-    route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
-    assert conv8_relu.launches_by_route[route] == 2 * 7 * chunks and conv8_relu.launches_by_route[other] == 0
+    route = "tf32x3" if dtype == torch.float32 else "tc"
+    assert conv8_relu.launches_by_route == {r: 2 * 7 * chunks * (r == route) for r in conv8.ROUTES}
 
 
 # ---- gene features ------------------------------------------------------------
@@ -557,7 +609,7 @@ GENE_CONV8_SHAPES = [(16, 41_793, 320, 320), (16, 10_446, 320, 480), (16, 10_439
                      (16, 2_607, 480, 640), (16, 2_601, 640, 640), (16, 2_600, 640, 640)]
 
 
-@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:2], ids=["tc-bf16", "simt-fp32"])
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:3], ids=FLAT_IDS[:3])
 @pytest.mark.parametrize("n,l,cin,cout", GENE_CONV8_SHAPES)
 def test_conv8_kernels_at_gene_chunk_shapes(cuda, n, l, cin, cout, route, dtype):
     gen = torch.Generator(device=cuda).manual_seed(l + cin)
@@ -623,7 +675,8 @@ def test_gene_features_n_dense_chunk_on_the_4bit_route(cuda):
 def test_gene_features_launch_counts(cuda, dtype):
     """Per gene chunk 16 launches: 2 orientations x (1 conv0 + conv1-conv3
     once + conv4/conv5 at pool-2 phases 0 and 2); fp32 conv1-conv5 on the
-    SIMT kernel, bf16 on the tc kernel; conv0 on the code-gather kernel."""
+    tf32x3 kernel, bf16 on the tc kernel, none on another route; conv0 on
+    the code-gather kernel."""
     runner = BelugaRunner(narrow_params(19, convs=TC_WIDTHS), batch_size=400, device="cuda", compute_dtype=dtype,
                           out_dtype=np.float32 if dtype == torch.float32 else np.float16)
     spans = _gene_spans(5, seed=20)
@@ -635,8 +688,8 @@ def test_gene_features_launch_counts(cuda, dtype):
     chunks = 3  # 2 spans a chunk at batch 400 and 200 offsets
     kind = "float32" if dtype == torch.float32 else "bfloat16"
     assert conv0_codes_relu.launches_by_kind == {kind: 2 * chunks}
-    route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
-    assert conv8_relu.launches_by_route[route] == 14 * chunks and conv8_relu.launches_by_route[other] == 0
+    route = "tf32x3" if dtype == torch.float32 else "tc"
+    assert conv8_relu.launches_by_route == {r: 14 * chunks * (r == route) for r in conv8.ROUTES}
 
 
 # ---- consensus: backbone patching ------------------------------------------------
@@ -652,7 +705,7 @@ CONS_CONV8_SHAPES = ([(1, 41_801, 320, 320), (1, 10_448, 320, 480), (1, 10_441, 
                         ((697, 320, 320), (172, 320, 480), (165, 480, 480), (39, 480, 640), (32, 640, 640))])
 
 
-@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:2], ids=["tc-bf16", "simt-fp32"])
+@pytest.mark.parametrize("route,dtype", FLAT_ROUTES[:3], ids=FLAT_IDS[:3])
 @pytest.mark.parametrize("n,l,cin,cout", CONS_CONV8_SHAPES)
 def test_conv8_kernels_at_consensus_shapes(cuda, n, l, cin, cout, route, dtype):
     gen = torch.Generator(device=cuda).manual_seed(n + l + cin)
@@ -763,8 +816,8 @@ def test_backbone_patch_launch_counts(cuda, dtype):
     calls = 1 + 3  # the backbone, then 3 chunks of 2 samples
     kind = "float32" if dtype == torch.float32 else "bfloat16"
     assert conv0_codes_relu.launches_by_kind == {kind: 2 * calls}
-    route, other = ("simt", "tc") if dtype == torch.float32 else ("tc", "simt")
-    assert conv8_relu.launches_by_route[route] == 14 * calls and conv8_relu.launches_by_route[other] == 0
+    route = "tf32x3" if dtype == torch.float32 else "tc"
+    assert conv8_relu.launches_by_route == {r: 14 * calls * (r == route) for r in conv8.ROUTES}
 
 
 # ---- gblinear training -----------------------------------------------------

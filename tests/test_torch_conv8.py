@@ -87,12 +87,12 @@ def test_plain_rejects_invalid_shapes(bad):
         conv8_relu_plain(x, w, b)
 
 
-def _misaligned_bf16(n, l, cin):
-    """A contiguous bf16 view whose data pointer is 2 bytes past a 16-byte
+def _misaligned(n, l, cin, dtype=torch.bfloat16):
+    """A contiguous view whose data pointer is one element past a 16-byte
     boundary (a slice one element into a buffer)."""
-    buf = torch.zeros(n * l * cin + 8, dtype=torch.bfloat16)
+    buf = torch.zeros(n * l * cin + 8, dtype=dtype)
     view = buf[1 : 1 + n * l * cin].view(n, l, cin)
-    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    assert view.is_contiguous() and view.data_ptr() % 16 == buf.element_size()
     return view
 
 
@@ -104,16 +104,21 @@ def _misaligned_bf16(n, l, cin):
     (torch.bfloat16, 4, True, "cuda", "simt"),  # conv0
     (torch.bfloat16, 20, True, "cuda", "simt"),  # Cin not a multiple of 16
     (torch.bfloat16, 320, False, "cuda", "simt"),  # TMA needs a 16-byte-aligned base
-    (torch.float32, 4, True, "cuda", "simt"),
-    (torch.float32, 16, True, "cuda", "simt"),
-    (torch.float32, 320, True, "cuda", "simt"),
-    (torch.float32, 640, True, "cuda", "simt"),
+    # fp32 takes the three-pass TF32 kernel where its stage width (4
+    # channels) divides Cin and TMA can read x; the SIMT kernel the rest
+    (torch.float32, 4, True, "cuda", "tf32x3"),
+    (torch.float32, 16, True, "cuda", "tf32x3"),
+    (torch.float32, 320, True, "cuda", "tf32x3"),
+    (torch.float32, 480, True, "cuda", "tf32x3"),
+    (torch.float32, 640, True, "cuda", "tf32x3"),
+    (torch.float32, 18, True, "cuda", "simt"),  # Cin off the tf32x3 stage width
+    (torch.float32, 320, False, "cuda", "simt"),  # TMA needs a 16-byte-aligned base
     (torch.bfloat16, 320, True, "cpu", "cpu"),
     (torch.float32, 4, True, "cpu", "cpu"),
 ])
 def test_route_is_a_function_of_dtype_cin_and_alignment(dtype, cin, aligned, device, want):
-    x = torch.zeros((2, 8, cin), dtype=dtype) if aligned else _misaligned_bf16(2, 8, cin)
-    assert x.data_ptr() % 16 == (0 if aligned else 2)
+    x = torch.zeros((2, 8, cin), dtype=dtype) if aligned else _misaligned(2, 8, cin, dtype)
+    assert x.data_ptr() % 16 == (0 if aligned else x.element_size())
     assert _route(device, x.dtype, x.shape[2], x.data_ptr()) == want
 
 
@@ -225,5 +230,5 @@ def test_wrapper_on_cpu_rejects_a_kernel_route():
 def test_reset_launch_counts_zeroes_every_count():
     conv8_relu.launches_by_route["tc"] += 3
     reset_launch_counts()
-    assert conv8_relu.launches == 0 and conv8_relu.launches_by_route == {"simt": 0, "tc": 0}
+    assert conv8_relu.launches == 0 and conv8_relu.launches_by_route == {"simt": 0, "tc": 0, "tf32x3": 0}
     assert not conv8_relu.launches_by_kind

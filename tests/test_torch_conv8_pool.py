@@ -87,12 +87,12 @@ FLAT_CASES = [(1, 8, (0, 1, 2, 3)), (3, 9, (0,)), (1, 125, (0, 2)), (2, 63, (1, 
               (2, 64, (0, 3)), (3, 43, (2,))]
 
 
-# the tc kernel's 128-row tiles stepping 124 rows; the SIMT kernel's 128- and
-# 64-row tiles, groups across their edges merged
-TILES = [("tc", 128), ("simt", 128), ("simt", 64)]
+# the tc and tf32x3 kernels' 128-row tiles stepping 124 rows; the SIMT
+# kernel's 128- and 64-row tiles, groups across their edges merged
+TILES = [("tc", 128), ("simt", 128), ("simt", 64), ("tf32x3", 128)]
 
 
-@pytest.mark.parametrize("route,tm", TILES, ids=["tc128", "simt128", "simt64"])
+@pytest.mark.parametrize("route,tm", TILES, ids=["tc128", "simt128", "simt64", "tf32x3_128"])
 @pytest.mark.parametrize("n,l,phases", FLAT_CASES)
 def test_flat_tiles_equal_plain_bit_for_bit(n, l, phases, route, tm):
     x, w, b = (torch.from_numpy(a) for a in _inputs(n, l, 16, 20, seed=n * l))
@@ -145,7 +145,7 @@ def test_pool4_on_cpu_counts_no_launch_and_rejects_other_devices():
     reset_launch_counts()
     conv8_relu_pool4(x, w, b, (0,))
     assert conv8_relu.launches == 0 and conv8_relu_pool4.launches == 0
-    assert conv8_relu_pool4.launches_by_route == {"simt": 0, "tc": 0}
+    assert conv8_relu_pool4.launches_by_route == {"simt": 0, "tc": 0, "tf32x3": 0}
     with pytest.raises(ValueError, match="CUDA or CPU"):
         conv8_relu_pool4(x.to("meta"), w.to("meta"), b.to("meta"), (0,))
 
