@@ -175,10 +175,14 @@ Phases (any failure raises, and the script exits non-zero with no result):
    second run and, with the plain round (the per-block loop) swapped in,
    within 1e-5 of max|w| (weights), 1e-6 (bias) and 1e-5 (RMSE history),
    limits that the plain round with a stale residual (r not advanced after
-   the first block) must miss; the round kernel at the published shape
-   against the plain round over one round (and a bit-equal rerun), timed
-   beside the plain round, a CUDA-graph replay of the plain round (a
-   yardstick of what removing the launches alone buys) and its bound; all
+   the first block) must miss; its training RMSE, taken from r, within 1e-5
+   of the same call with the training set passed as a copy (the product
+   form), and both calls' peak device memory; the round kernel at the
+   published shape against the plain round over one round (and a bit-equal
+   rerun), timed beside the plain round, a CUDA-graph replay of the plain
+   round (a yardstick of what removing the launches alone buys) and its
+   bound, its plan's invariants (:func:`_check_round_geometry`) and its
+   SASS free of local loads and stores; all
    218 tissues in one sweep (``train_all_tissues``); 128 bootstrap seeds
    through ``python -m expecto_tpu_torch.cli.train`` (its ``main``), each
    seed's ``.save`` equal to the in-process sweep. Each call's launches are
@@ -191,8 +195,8 @@ Phases (any failure raises, and the script exits non-zero with no result):
    of max|w|, which one round fewer and alpha's sign swapped must exceed.
    Then the round
    kernel's two shared-memory plans: ``train_gblinear`` at 512 features
-   with the rows drawn on the card, at the "shared" plan's row cap (about
-   3.8 million rows) and one row past it (the "streamed" plan), one
+   with the rows drawn on the card, at the "shared" plan's row cap (8,192
+   rows a CTA: about 1.08 million rows) and one row past it (the "streamed" plan), one
    round-kernel launch a round either way, each within the round limits of
    the plain round. The single-tissue CLI mode (plots) and
    ``--allTissues`` (``metrics.h5``) run on the CPU tests only;
@@ -3521,6 +3525,34 @@ def _gaps_text(gaps: dict) -> str:
     return ", ".join(f"{k} {gaps[k]:.3g} (limit {v:g})" for k, v in TRAIN_ROUND_LIMITS.items())
 
 
+def _check_round_geometry(g, n: int, b: int) -> None:
+    """The round kernel's plan (``ops/gblinear_round.device_geometry``) for n
+    rows and blocks of ``b`` features, held to what the kernel needs: one
+    CTA an SM, every CTA's rows within its tiles, whole stages over the
+    block, at least two ring slots beside the cache, the (C) groups within
+    the consumer threads (512) and the shared memory within the card's
+    limit. Raises if any fails."""
+    import numpy as np
+    import torch
+
+    from expecto_tpu_torch.ops.gblinear_round import row_plan
+
+    lo, hi = row_plan(n, g.ctas)
+    checks = {
+        "one CTA an SM": g.ctas == torch.cuda.get_device_properties(0).multi_processor_count,
+        "rows within the tiles": int(np.max(hi - lo)) <= g.rows_max <= g.tile * g.tiles_max,
+        "tile of float4s": g.tile % 4 == 0 and 0 < g.tile <= 256,
+        "whole stages": g.stage_rows * g.stages >= b > g.stage_rows * (g.stages - 1),
+        "two ring slots": 0 <= g.cache <= min(g.slots - 2, g.stages),
+        "groups": 1 <= g.groups and g.groups * g.tile // 4 <= 512,
+        "r's floats": g.r_floats == (g.tile if g.streamed else g.tile * g.tiles_max),
+        "shared memory": g.smem <= g.optin,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"the round kernel's plan at {n} rows x blocks of {b} fails "
+                             f"{[k for k, v in checks.items() if not v]}: {g}")
+
+
 def train_round_phase(out: dict, X, n_rows: int, card: str) -> None:
     """The round kernel at the published shape: the first ``n_rows`` rows of
     the features (the K = 1 call's training-row count), 40 blocks of 512,
@@ -3539,7 +3571,8 @@ def train_round_phase(out: dict, X, n_rows: int, card: str) -> None:
     from expecto_tpu_torch.models import gblinear
     from expecto_tpu_torch.ops import cuda_build
     from expecto_tpu_torch.ops.gblinear_cd import coord_update
-    from expecto_tpu_torch.ops.gblinear_round import gblinear_round, gblinear_round_plain, round_ctas, round_scratch
+    from expecto_tpu_torch.ops.gblinear_round import (device_geometry, gblinear_round, gblinear_round_plain,
+                                                      round_scratch)
 
     hp = gblinear.GBLinearParams()
     Xt, n_blocks = gblinear._pad_blocks(torch.from_numpy(X[:n_rows]).to(DEVICE).T, hp.block_size)
@@ -3587,10 +3620,13 @@ def train_round_phase(out: dict, X, n_rows: int, card: str) -> None:
     row.update(_bound(4.0 * (Xt.numel() + 3 * w.numel() + 2 * n_rows + 2), 4.0 * Xt.numel(), "fp32"))
     if not bool(torch.isfinite(w).all() and torch.isfinite(r).all()):
         raise AssertionError("the timed rounds left non-finite weights or residuals")
-    smem = cuda_build.load("gblinear_round").gblinear_round_smem
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    row["smem_bytes"], row["ctas"] = smem(n_rows, hp.block_size), round_ctas(torch.cuda.current_device(), n_rows,
-                                                                             hp.block_size)
+    geom = device_geometry(torch.cuda.current_device(), n_rows, hp.block_size)
+    row["smem_bytes"], row["ctas"] = geom.smem, geom.ctas
+    _check_round_geometry(geom, n_rows, hp.block_size)
+    row["geometry"] = geom._asdict()
+    row["sass_local"] = {op: cuda_build.sass_count("gblinear_round", op) for op in ("LDL", "STL")}
+    if any(row["sass_local"].values()):
+        raise AssertionError(f"the round kernel's SASS spills to local memory: {row['sass_local']}")
     out["round"] = row
     del graph, Xt, hess
     torch.cuda.empty_cache()
@@ -3598,7 +3634,9 @@ def train_round_phase(out: dict, X, n_rows: int, card: str) -> None:
         f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f} % of it); plain "
         f"round {row['plain_ms']:.3f} ms, CUDA graph of the plain round {row['graph_ms']:.3f} ms; one round vs the "
         f"plain round: " + _gaps_text(gaps) + f"; a rerun equal bit for bit; {row['ctas']} CTAs of "
-        f"{row['smem_bytes']} bytes of dynamic shared memory [{card}]")
+        f"{row['smem_bytes']} bytes of dynamic shared memory ({geom.slots} ring slots of {geom.stage_rows} x "
+        f"{geom.tile}, {geom.cache} kept for the residual update); SASS local loads {row['sass_local']['LDL']}, "
+        f"stores {row['sass_local']['STL']} [{card}]")
 
 
 def train_phase(report: dict, card: str, seed: int):
@@ -3636,7 +3674,32 @@ def train_phase(report: dict, card: str, seed: int):
     def one_tissue():
         return ptrain.train_expression_model(X, geneanno, expression.iloc[:, 1].values, device=DEVICE)
 
-    k1, wall = _launch_checked(one_tissue, "train_expression_model", rounds=TRAIN_ROUNDS)
+    def product_form(X_tr, y_tr, hp=None, *, evals, **kw):
+        """train_gblinear with the training set passed as a copy: its RMSE from
+        a product with X each round, as before the residual's form"""
+        return gblinear.train_gblinear(X_tr, y_tr, hp, evals=[(Xe.copy() if Xe is X_tr else Xe, ye, name)
+                                                              for Xe, ye, name in evals], **kw)
+
+    peak = {}
+    for form in ("product", "r"):  # the call's peak device memory over what the process held before it
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if form == "r":
+            k1, wall = _launch_checked(one_tissue, "train_expression_model", rounds=TRAIN_ROUNDS)
+        else:
+            ptrain.train_gblinear = product_form
+            try:
+                k1_product, wall_product = _launch_checked(one_tissue, "train_expression_model, product form",
+                                                           rounds=TRAIN_ROUNDS)
+            finally:
+                ptrain.train_gblinear = gblinear.train_gblinear
+        peak[form] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    rmse_gap = float(np.abs(np.subtract(k1.model.eval_history["train"], k1_product.model.eval_history["train"])).max())
+    if not (rmse_gap <= TRAIN_ROUND_LIMITS["rmse"] and np.array_equal(k1.model.weight, k1_product.model.weight)
+            and k1.model.eval_history["eval"] == k1_product.model.eval_history["eval"]):
+        raise AssertionError(f"train_expression_model: the training RMSE from r differs from the product form by "
+                             f"{rmse_gap} (limit {TRAIN_ROUND_LIMITS['rmse']}), or the weights or eval history differ")
     gblinear.gblinear_round = gblinear_round_plain
     try:
         k1_plain, wall_plain = _launch_checked(one_tissue, "train_expression_model, plain round", blocks=launches)
@@ -3657,16 +3720,20 @@ def train_phase(report: dict, card: str, seed: int):
     n_tr = len(k1.train_true)
     c.update(wall_s=wall, wall_plain_s=wall_plain, launches=TRAIN_ROUNDS, launches_gblinear_cd=0, train_genes=n_tr,
              test_genes=len(k1.test_true), spearman=k1.spearman, gaps_vs_plain=gaps["plain"],
-             gaps_stale_fault=gaps["stale"], round_kernel_ms=c["kernel_ms_by_kind"]["gblinear_round"] / TRAIN_ROUNDS)
+             gaps_stale_fault=gaps["stale"], round_kernel_ms=c["kernel_ms_by_kind"]["gblinear_round"] / TRAIN_ROUNDS,
+             train_rmse_from_r_vs_product=rmse_gap, wall_product_form_s=wall_product, peak_mib=peak["r"],
+             peak_mib_product_form=peak["product"])
     out["k1"] = c
     _log_train_call(f"train_expression_model (1 tissue, {n_tr} train genes, watchlist on)", c, card)
     log(f"  equal bit for bit to a second (profiled) run; the plain round swapped in (wall {wall_plain:.3f} s): "
         + _gaps_text(gaps["plain"]) + "; the plain round with a stale residual: " + _gaps_text(gaps["stale"])
-        + f"; the round kernel {c['round_kernel_ms']:.3f} ms a round on the card; chr8 spearman {k1.spearman:.4f}")
+        + f"; the round kernel {c['round_kernel_ms']:.3f} ms a round on the card; chr8 spearman {k1.spearman:.4f}; "
+        f"the training RMSE from r vs the product form: {rmse_gap:.3g} (limit {TRAIN_ROUND_LIMITS['rmse']:g}); peak "
+        f"device memory {peak['r']:.1f} MiB (product form {peak['product']:.1f} MiB, wall {wall_product:.3f} s)")
     if not (np.isfinite(k1.model.weight).all() and k1.spearman > TRAIN_MIN_SPEARMAN):
         raise AssertionError(f"one-tissue model: finite weights and a chr8 Spearman above {TRAIN_MIN_SPEARMAN} "
                              f"expected, got {k1.spearman}")
-    del k1_again, k1_plain, k1_stale
+    del k1_again, k1_plain, k1_stale, k1_product
     train_round_phase(out, X, n_tr, card)
 
     # every tissue in one sweep
@@ -3762,6 +3829,7 @@ def train_row_cap_check(out: dict, card: str, seed: int) -> None:
     hp = gblinear.GBLinearParams(num_round=rounds, block_size=b)
     res = {"block": b, "cap_rows": cap, "rounds": rounds}
     for n, plan in ((cap, "shared"), (cap + 1, "streamed")):
+        _check_round_geometry(gr.device_geometry(0, n, b), n, b)
         torch.cuda.empty_cache()
         gen = torch.Generator(device=DEVICE).manual_seed(seed + n % 1009)
         t0 = time.perf_counter()
@@ -3816,7 +3884,7 @@ def _row_cap_round_ms(X_dev, y_dev) -> dict:
 
     n, b = X_dev.shape
     hp = gblinear.GBLinearParams(block_size=b)
-    Xt = X_dev.T.contiguous().view(1, b, n)
+    Xt, _ = gblinear._pad_blocks(X_dev.T, b)
     hess = torch.linalg.vector_norm(Xt[0], dim=1).square().view(1, b)
     w, bias, r = torch.zeros((1, b), device=DEVICE), torch.zeros(1, device=DEVICE), 2.0 - y_dev
     scratch, args = round_scratch(Xt), (float(n), hp.eta, hp.reg_lambda, hp.reg_alpha)
@@ -4357,8 +4425,8 @@ def gblinear_round_entry(train: dict) -> dict:
     published shape beside its bound, the plain round's (the per-block
     loop) and a CUDA-graph replay of the plain round (``graph_ms``, a
     yardstick); ``launches`` from the one-tissue call's timed run, and the
-    card's time for the kernel a round inside that call (profiled). No
-    single PyTorch call computes a round."""
+    card's time for the kernel a round inside that call (profiled) and the
+    SASS's local loads and stores. No single PyTorch call computes a round."""
     row, k1 = train["round"], train["k1"]
     return {
         "name": "gblinear_round", "route": "cuda", "source": "expecto_tpu_torch/csrc/gblinear_round.cu",
@@ -4369,7 +4437,8 @@ def gblinear_round_entry(train: dict) -> dict:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None, "graph_ms": row["graph_ms"],
         "shape": [row["n_blocks"], row["B"], row["n"]], "r_max_abs_err": row["r_max_abs_err"],
         "in_call_ms": k1["round_kernel_ms"], "gaps_vs_plain_round": row["gaps_vs_plain"],
-        "gaps_k1_call_vs_plain": k1["gaps_vs_plain"],
+        "gaps_k1_call_vs_plain": k1["gaps_vs_plain"], "sass_local": row["sass_local"],
+        "train_rmse_from_r_vs_product": k1["train_rmse_from_r_vs_product"],
     }
 
 

@@ -42,7 +42,7 @@ from torch.profiler import record_function
 from ..ops.gblinear_block import (BlockScratch, block_layout, block_scratch, grad_update, residual_update,
                                   transposed_rows)
 from ..ops.gblinear_cd import coord_update
-from ..ops.gblinear_round import gblinear_round, round_scratch
+from ..ops.gblinear_round import feature_stride, gblinear_round, round_scratch
 from ..parallel.runner import resolve_device
 
 #: ``GBLinearParams.precision`` -> ``torch.set_float32_matmul_precision`` for
@@ -124,14 +124,39 @@ def _dev(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
 
-def _pad_blocks(Xt: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
-    """(F, n) -> (n_blocks, B, n), zero-padding the feature axis (a new
-    contiguous tensor on Xt's device; Xt may be a transposed view)."""
-    f, n = Xt.shape
+def _zero_blocks(f: int, n: int, block_size: int, device) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """A new zero (n_blocks, B, ld) fp32 tensor on ``device``, ld =
+    ``feature_stride(n)``: its (n_blocks * B, ld) rows and its (n_blocks, B,
+    n) view, and n_blocks."""
     n_blocks = -(-f // block_size)
-    out = Xt.new_zeros((n_blocks * block_size, n))
-    out[:f] = Xt
-    return out.view(n_blocks, block_size, n), n_blocks
+    out = torch.zeros((n_blocks, block_size, feature_stride(n)), dtype=torch.float32, device=device)
+    return out.view(n_blocks * block_size, -1), out[..., :n], n_blocks
+
+
+def _pad_blocks(Xt: torch.Tensor, block_size: int) -> tuple[torch.Tensor, int]:
+    """(F, n) -> (n_blocks, B, n), zero-padding the feature axis: a view of a
+    new zero (n_blocks, B, ld) tensor on Xt's device whose feature rows lie
+    ld = ``feature_stride(n)`` floats apart (a multiple of 4: the round
+    kernel's layout; Xt may be a transposed view)."""
+    f, n = Xt.shape
+    rows, view, n_blocks = _zero_blocks(f, n, block_size, Xt.device)
+    rows[:f, :n] = Xt
+    return view, n_blocks
+
+
+#: rows of the host X a training call uploads at a time into its feature blocks
+UPLOAD_ROWS = 4096
+
+
+def _upload_blocks(X: np.ndarray, block_size: int, device: torch.device) -> tuple[torch.Tensor, int]:
+    """:func:`_pad_blocks` of the host (n, F) array's transpose, uploaded
+    ``UPLOAD_ROWS`` rows at a time: the card never holds X twice."""
+    n, f = X.shape
+    rows, view, n_blocks = _zero_blocks(f, n, block_size, device)
+    for r0 in range(0, n, UPLOAD_ROWS):
+        r1 = min(r0 + UPLOAD_ROWS, n)
+        rows[:f, r0:r1] = _dev(X[r0:r1], device).T
+    return view, n_blocks
 
 
 def train_gblinear(
@@ -153,15 +178,20 @@ def train_gblinear(
     xgboost ignores it (train.py:140-146), so the reference always runs the
     full num_round — replicated by the default of None.
 
-    The eval sets stay on the device (an eval set that is ``X`` itself is
-    not uploaded twice); each round fetches one RMSE per set, and early
-    stopping keeps its best weights on the device.
+    The eval sets stay on the device; each round fetches one RMSE per set,
+    and early stopping keeps its best weights on the device. An eval set
+    that is the training set itself (``X`` itself, with ``y``'s labels)
+    takes its RMSE from the round's residual r, which is the prediction
+    minus the label by construction: ``sqrt(mean(r^2))``, the number the
+    JAX package computes from a product with X, with no second copy or read
+    of X on the card.
 
     A round is one call of :func:`gblinear_round` (the module global, so a
     test can swap in the plain version); on the card that is one launch of
     the round kernel, whose products are fp32 FFMA whatever
     ``params.precision`` says: that meets "highest" and is at least as exact
-    as "default" and "high", which still set the watchlist's products.
+    as "default" and "high", which still set the other watchlist sets'
+    products.
     """
     hp = params or GBLinearParams()
     device = resolve_device(device)
@@ -170,16 +200,20 @@ def train_gblinear(
     n, f = X.shape
 
     with _matmul_precision(hp.precision):
-        X_dev = _dev(X, device)
-        Xt, n_blocks = _pad_blocks(X_dev.T, hp.block_size)
+        Xt, n_blocks = _upload_blocks(X, hp.block_size, device)
         # column hessians: float64 sums of squares cast to fp32, as the JAX
         # trainer takes them (there on the host)
         col_hess = torch.stack([Xb.double().square().sum(1) for Xb in Xt]).float()
-        evals_dev = []
+        evals_dev, uploaded = [], {}
         for Xe, ye, name in evals or []:
-            Xe = np.asarray(Xe, dtype=np.float32)
-            evals_dev.append((X_dev if Xe is X else _dev(Xe, device), _dev(ye, device), name))
-        del X_dev
+            Xe, ye = np.asarray(Xe, dtype=np.float32), np.asarray(ye, dtype=np.float32)
+            if Xe is X and np.array_equal(ye, y):
+                evals_dev.append((None, None, name))  # the training set: its RMSE from r
+                continue
+            if id(Xe) not in uploaded:
+                uploaded[id(Xe)] = _dev(Xe, device)
+            evals_dev.append((uploaded[id(Xe)], _dev(ye, device), name))
+        del uploaded
 
         w_blocks = torch.zeros((n_blocks, hp.block_size), dtype=torch.float32, device=device)
         bias = torch.zeros(1, dtype=torch.float32, device=device)
@@ -197,7 +231,9 @@ def train_gblinear(
                 continue
             w_now = w_blocks.view(-1)[:f]
             offset = hp.base_score + bias
-            rmse = torch.stack([((offset + Xe @ w_now - ye) ** 2).mean().sqrt() for Xe, ye, _ in evals_dev]).tolist()
+            rmse = torch.stack([r.square().mean().sqrt() if Xe is None
+                                else ((offset + Xe @ w_now - ye) ** 2).mean().sqrt()
+                                for Xe, ye, _ in evals_dev]).tolist()
             for (*_unused, name), value in zip(evals_dev, rmse):
                 history[name].append(value)
                 if verbose:

@@ -1074,7 +1074,7 @@ def test_two_rank_sharded_trainer_on_the_card_matches_one_rank(cuda, train_probl
 
 def _shared_plan_cap(b: int) -> int:
     """The most rows the round kernel runs in its "shared" plan at blocks of
-    ``b`` on this card (about 3.8 million on an H100)."""
+    ``b`` on this card (8,192 rows a CTA: about 1.08 million on an H100)."""
     lo, hi = 1, 1 << 26
     while lo < hi:
         mid = (lo + hi + 1) // 2
@@ -1084,15 +1084,64 @@ def _shared_plan_cap(b: int) -> int:
 
 def test_round_plan_turns_streamed_one_row_past_the_shared_cap(cuda):
     """Past the "shared" plan's cap the kernel still plans a cooperative
-    grid of one CTA an SM, in a few hundred bytes of shared memory."""
+    grid of one CTA an SM: r's slice in shared memory up to 8,192 rows a
+    CTA, one tile of it past the cap, where the ring takes at least the
+    slots the "shared" plan leaves at its cap."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    smem = cuda_build.load("gblinear_round").gblinear_round_smem
     for b in (16, 512):
         cap = _shared_plan_cap(b)
-        assert 3_000_000 < cap < 1 << 26
+        assert cap == 8192 * sms
+        at, past = gr.device_geometry(0, cap, b), gr.device_geometry(0, cap + 1, b)
+        assert not at.streamed and at.r_floats == at.tile * at.tiles_max and at.slots - at.cache >= 2
+        assert past.streamed and past.r_floats == past.tile and past.slots - past.cache >= at.slots - at.cache
         assert (gr.round_plan(0, cap + 1, b), gr.round_plan(0, 2**31 - 1, b)) == ("streamed", "streamed")
         assert gr.round_ctas(0, cap + 1, b) == sms
-        assert smem(cap + 1, b) == 4 * (b + 33)
+        g = gr.device_geometry(0, cap + 1, b)
+        assert g.smem <= g.optin
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 100, 512, 4096])
+def test_round_plan_fits_the_card_and_covers_every_cta(cuda, b):
+    """The kernel's plan at row counts from 1 to 2^31 - 1: one CTA an SM,
+    every CTA's rows within its tiles of float4s, whole stages over the
+    block, at least two ring slots beside the cache, (C)'s groups within the
+    512 consumer threads, r's floats as the plan says, and the shared memory
+    within the card's limit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (1, 4, 132, 401, 2001, 22_296, 44_592, 1_081_344, 1_081_345, 3_799_356, 3_799_357, 2**31 - 1):
+        g = gr.device_geometry(0, n, b)
+        lo, hi = gr.row_plan(n, g.ctas)
+        assert g.ctas == sms and (hi - lo).max() <= g.rows_max <= g.tile * g.tiles_max, (n, b, g)
+        assert g.tile % 4 == 0 and 0 < g.tile <= 256 and g.stage_rows * g.stages >= b > g.stage_rows * (g.stages - 1)
+        assert 0 <= g.cache <= min(g.slots - 2, g.stages) and 1 <= g.groups and g.groups * g.tile // 4 <= 512
+        assert g.r_floats == (g.tile if g.streamed else g.tile * g.tiles_max) and g.smem <= g.optin, (n, b, g)
+
+
+def test_round_plan_at_the_published_shape(cuda):
+    """22,296 rows of 40 blocks of 512 on an H100: one 172-row tile a CTA,
+    32 stages of 16 feature rows a block, 20 slots, 16 of them cache slots
+    (the ring the other 4), the "shared" plan."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the published plan is an H100's (132 SMs)")
+    g = gr.device_geometry(0, 22_296, 512)
+    assert (g.ctas, g.rows_max, g.tile, g.tiles_max, g.stage_rows, g.stages) == (132, 172, 172, 1, 16, 32)
+    assert (g.slots, g.cache, g.groups, g.streamed) == (20, 16, 8, False) and g.smem <= g.optin
+
+
+def test_round_kernel_refuses_a_graph_capture(cuda):
+    """A CUDA graph would replay the captured tags, and the kernel would
+    read the replay before's words as its own: the wrapper raises while the
+    stream captures, and the scratch's tags go on after it."""
+    Xt, hess, w, bias, r = _round_state(2001, 40, 16, seed=7)
+    scratch = gr.round_scratch(Xt)
+    gr.gblinear_round(Xt, hess, w, bias, r, scratch, 2001.0, 0.3, 5.0, 0.0)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            gr.gblinear_round(Xt, hess, w, bias, r, scratch, 2001.0, 0.3, 5.0, 0.0)
+    gr.gblinear_round(Xt, hess, w, bias, r, scratch, 2001.0, 0.3, 5.0, 0.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(w).all() and torch.isfinite(r).all()
 
 
 @pytest.mark.parametrize("past", [0, 1], ids=["at_cap", "past_cap"])

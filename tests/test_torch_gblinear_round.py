@@ -132,7 +132,11 @@ def test_train_gblinear_with_the_plain_round_swapped_in_is_unchanged(odd_problem
 
 
 def _torch_inputs(n=401, f=100, b=32, seed=2):
-    return [torch.from_numpy(np.atleast_1d(np.asarray(a)).copy()) for a in _round_inputs(n, f, b, seed)]
+    """The round's inputs as CPU tensors, Xt in the kernel's layout (rows a
+    multiple of 4 floats apart: models/gblinear.py::_pad_blocks)."""
+    Xt, *rest = [torch.from_numpy(np.atleast_1d(np.asarray(a)).copy()) for a in _round_inputs(n, f, b, seed)]
+    n_blocks = Xt.shape[0]
+    return [tgb._pad_blocks(Xt.reshape(n_blocks * b, n), b)[0], *rest]
 
 
 def test_wrapper_on_cpu_is_the_plain_version_and_counts_no_launch():
@@ -183,12 +187,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, err, match):
 def test_row_plan_covers_every_row_once_in_order_for_n_up_to_100000(ctas):
     for start in range(1, 100_001, 20_000):
         n = np.arange(start, min(start + 20_000, 100_001), dtype=np.int64)
-        bounds = np.multiply.outer(n, np.arange(ctas + 1, dtype=np.int64)) // ctas  # row_plan for every n at once
+        quads = np.multiply.outer(-(-n // 4), np.arange(ctas + 1, dtype=np.int64)) // ctas
+        bounds = np.minimum(4 * quads, n[:, None])  # row_plan for every n at once
         lo, hi = gr.row_plan(int(n[-1]), ctas)
         np.testing.assert_array_equal(np.append(lo, hi[-1]), bounds[-1])
         assert (bounds[:, 0] == 0).all() and (bounds[:, -1] == n).all()
+        assert (bounds[:, :-1] % 4 == 0).all()  # every slice starts on 16 bytes
         sizes = np.diff(bounds, axis=1)
-        assert (sizes >= 0).all() and (sizes.max(axis=1) <= -(-n // ctas)).all()
+        assert (sizes >= 0).all() and (sizes.max(axis=1) <= 4 * -(-(-(-n // 4)) // ctas)).all()
 
 
 @pytest.mark.parametrize("n", [1, 2, 131, 132, 133, 401, 22_296, 99_999, 100_000])
@@ -197,24 +203,52 @@ def test_row_plan_covers_every_row_once_in_order_for_1_to_264_ctas(n):
         lo, hi = gr.row_plan(n, ctas)
         assert len(lo) == ctas and lo[0] == 0 and hi[-1] == n
         np.testing.assert_array_equal(lo[1:], hi[:-1])
-        assert (hi >= lo).all() and (hi - lo).max() <= -(-n // ctas)
+        assert ((lo % 4 == 0) | (lo == n)).all()  # every slice starts on 16 bytes (or is empty at n)
+        assert (hi >= lo).all() and (hi - lo).max() <= 4 * -(-(-(-n // 4)) // ctas)
         assert np.array_equal(np.concatenate([np.arange(a, z) for a, z in zip(lo, hi)]), np.arange(n))
 
 
-# the row-cap cells of the kernel's two shared-memory plans (the last row of the
-# "shared" plan at B = 512 and the first of the "streamed" one) and the most rows
-# the kernel takes: every CTA's range fits the kernel's int row indices
-@pytest.mark.parametrize("n", [3_799_356, 3_799_357, 2**31 - 1])
+# the row-cap cells of the kernel this design replaced (the last row of its
+# "shared" plan at B = 512 and the first of its "streamed" one), the "shared"
+# plan's cap at 132 CTAs and one row past it, and the most rows the kernel takes:
+# every CTA's range fits the kernel's int row indices and starts on 16 bytes
+@pytest.mark.parametrize("n", [3_799_356, 3_799_357, 1_081_344, 1_081_345, 2**31 - 1])
 def test_row_plan_at_the_streamed_plans_row_counts(n):
     for ctas in (132, 264):
         lo, hi = gr.row_plan(n, ctas)
         assert lo[0] == 0 and hi[-1] == n and np.array_equal(lo[1:], hi[:-1])
-        assert (hi - lo).min() >= n // ctas and (hi - lo).max() <= -(-n // ctas)
+        assert (lo % 4 == 0).all() and (hi - lo).max() <= 4 * -(-(-(-n // 4)) // ctas)
+        assert (hi - lo)[:-1].min() >= 4 * ((-(-n // 4)) // ctas)
         assert hi.max() < 2**31
 
 
-def test_scratch_holds_partials_bias_sums_and_updates():
-    assert gr.scratch_floats(132, 512) == 132 * 512 + 132 + 512
+def test_scratch_holds_partials_bias_sums_and_updates(monkeypatch):
+    """Each CTA's partial gradients and partial sum of r and the block's
+    updates, each an 8-byte word with its tag; a launch's tags lie above its
+    scratch's earlier ones."""
+    assert gr.scratch_floats(132, 512) == 2 * (132 * 512 + 132 + 512)
+    monkeypatch.setattr(gr, "_next_tag", {})
+    scratch = torch.zeros(gr.scratch_floats(4, 16))
+    assert [gr._tags(scratch, 40), gr._tags(scratch, 40), gr._tags(scratch, 1)] == [1, 82, 163]
+    scratch[0] = 1.0
+    gr._next_tag[("cpu", scratch.untyped_storage().data_ptr())] = 2**31 - 5
+    assert gr._tags(scratch, 2) == 1 and not scratch.any()  # zeroed before the count passes 2^31
+
+
+@pytest.mark.parametrize("view", ["slice", "reshape", "offset", "same tensor anew"])
+def test_a_view_of_a_used_scratch_takes_new_tags(monkeypatch, view):
+    """The tag count belongs to the scratch's memory, not to the tensor
+    object: a view of a used scratch (or a new tensor over its storage)
+    goes on above the tags its earlier launches used."""
+    monkeypatch.setattr(gr, "_next_tag", {})
+    scratch = torch.zeros(gr.scratch_floats(4, 16) + 8)
+    first = gr._tags(scratch, 40)
+    other = {"slice": lambda: scratch[:], "reshape": lambda: scratch.view(-1, 2),
+             "offset": lambda: scratch[8:],
+             "same tensor anew": lambda: torch.empty(0).set_(scratch.untyped_storage())}[view]()
+    assert other is not scratch
+    assert gr._tags(other, 40) == first + 81
+    assert gr._tags(scratch, 1) == first + 162
 
 
 def test_launcher_argtypes_follow_the_counts(monkeypatch):
@@ -248,7 +282,8 @@ def test_the_two_gblinear_kernels_share_the_coordinate_step_header():
     """Every kernel that applies the coordinate step includes its one
     header (the coordinate-update kernel also the TF32 split of its planes
     entry, the block-step gradient kernel its own and the wgmma headers)."""
-    want = {"gblinear_cd": ["gblinear_cd.cuh", "hopper_common.cuh"], "gblinear_round": ["gblinear_cd.cuh"],
+    want = {"gblinear_cd": ["gblinear_cd.cuh", "hopper_common.cuh"],
+            "gblinear_round": ["gblinear_cd.cuh", "hopper_common.cuh"],
             "gblinear_block_grad": ["gblinear_block.cuh", "hopper_common.cuh", "gblinear_cd.cuh"]}
     for name, headers in want.items():
         assert [p.name for p in cuda_build._sources(cuda_build.CSRC_DIR / f"{name}.cu", [])] == [f"{name}.cu",
