@@ -1,0 +1,7 @@
+"""Percent of the profiled stretch with nothing on the card in the genes flow. Layer: runner and device."""
+
+from ._common import idle_pct
+
+
+def read(run):
+    return idle_pct(run, "genes")
