@@ -3169,15 +3169,27 @@ def device_ms(fn, reps: int = 200) -> float:
 
 def profiled_events(prof, device: str = "cuda") -> list:
     """(start_us, end_us, name) of every event of a ``torch.profiler`` run on
-    ``device`` ("cuda": kernels, copies and the annotation ranges of
-    ``record_function`` spans; "cpu": host ops and spans), read from the
-    profiler's raw results: building ``prof.events()`` takes seconds for a
-    run of 100 training rounds."""
+    ``device`` ("cuda": kernels, copies and the ``gblinear_round`` ranges;
+    "cpu": host ops and spans), read from the profiler's raw results:
+    building ``prof.events()`` takes seconds for a run of 100 training
+    rounds. The card-side ranges of every other ``record_function`` span
+    (the program's stage spans among them) are left out: they are no
+    work of the card's."""
     import torch
 
-    kind = torch.autograd.DeviceType.CUDA if device == "cuda" else torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    if device != "cuda":
+        return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+                for e in events if e.device_type() != cuda]
+    host = {e.name() for e in events if e.device_type() != cuda}
+
+    def kept(e) -> bool:
+        flag = getattr(e, "is_user_annotation", None)
+        return e.name() == "gblinear_round" or not ((flag is not None and flag()) or e.name() in host)
+
     return [(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
-            for e in prof.profiler.kineto_results.events() if e.device_type() == kind]
+            for e in events if e.device_type() == cuda and kept(e)]
 
 
 def _union_us(intervals) -> float:

@@ -7,6 +7,11 @@ its own card (or a shared one), the ranks exchange the per-row scalars, and
 rank 0 writes ``--output``::
 
     torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.score ...
+
+``--trace_dir DIR`` profiles the scoring call (``utils/profiling.trace``):
+the Chrome trace shows the ``sed.*`` stage spans and the ``runner.*``
+spans beside the card's kernels and copies, and ``spans_*.jsonl`` lists
+every span with its parent, times and counts.
 """
 
 from __future__ import annotations
@@ -29,6 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fp32", action="store_true", help="full-precision parity mode (default bf16 compute, fp16 wire)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; raises if no GPU is present)")
     p.add_argument("--output", default="output.csv")
+    p.add_argument("--trace_dir", default=None,
+                   help="profile the scoring into this directory: a Chrome trace (trace_*.json: the program's "
+                        "spans, its host work and the card's kernels on one timeline) and the spans as JSON "
+                        "lines (spans_*.jsonl)")
     return p
 
 
@@ -48,6 +57,7 @@ def main(argv=None) -> int:
     from ..parallel.mesh import local_device, maybe_initialize_distributed
     from ..parallel.runner import BelugaRunner
     from ..pipeline.sed import score_sed_serving
+    from ..utils.profiling import trace
 
     # several ranks: join the process group before any CUDA work; rows then
     # shard per rank and rank 0 writes the merged output.csv
@@ -71,11 +81,12 @@ def main(argv=None) -> int:
         paths, names = [args.model_save_file], None
 
     try:
-        df = score_sed_serving(
-            vcf, gene, genome, runner, paths,
-            maxshift=args.maxshift, fixeddist=args.fixeddist,
-            model_names=names, output_csv=args.output,
-        )
+        with trace(args.trace_dir):
+            df = score_sed_serving(
+                vcf, gene, genome, runner, paths,
+                maxshift=args.maxshift, fixeddist=args.fixeddist,
+                model_names=names, output_csv=args.output,
+            )
     finally:
         genome.close()
     print(f"wrote {args.output} ({df.shape[0]} rows x {len(paths)} models)")

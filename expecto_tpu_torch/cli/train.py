@@ -12,6 +12,11 @@ trains on its slice of the training genes (gradient sums all-reduced) and
 rank 0 writes the files::
 
     torchrun --standalone --nproc_per_node 2 -m expecto_tpu_torch.cli.train ...
+
+``--trace_dir DIR`` profiles the job (``utils/profiling.trace``): the
+Chrome trace shows the sweep's ``gblinear.*`` spans (the upload of X, the
+state, the rounds, the fetch) beside the card's kernels and copies, and
+``spans_*.jsonl`` lists every span with its host and device times.
 """
 
 from __future__ import annotations
@@ -61,10 +66,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --allTissues: train all columns in one on-device sweep")
     p.add_argument("--output_dir", type=str, default="temp_expecto_model")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; raises if no GPU is present)")
+    p.add_argument("--trace_dir", default=None,
+                   help="profile the training into this directory: a Chrome trace (trace_*.json: the program's "
+                        "spans, its host work and the card's kernels on one timeline) and the spans as JSON "
+                        "lines (spans_*.jsonl)")
     return p
 
 
 def main(argv=None) -> int:
+    from ..utils.profiling import trace
+
+    args = build_parser().parse_args(argv)
+    with trace(args.trace_dir):
+        return _train(args)
+
+
+def _train(args) -> int:
     import os
 
     import numpy as np
@@ -77,7 +94,6 @@ def main(argv=None) -> int:
     from ..pipeline.train import train_all_tissues, train_bootstrap, train_expression_model
     from ..utils.keep_mask import get_keep_mask
 
-    args = build_parser().parse_args(argv)
     if args.targetIndex is None and not args.allTissues:
         print("--targetIndex is required unless --allTissues is set", file=sys.stderr)
         return 2

@@ -37,13 +37,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..ops.gblinear_block import (BlockScratch, block_layout, block_scratch, grad_update, residual_update,
                                   transposed_rows)
 from ..ops.gblinear_cd import coord_update
 from ..ops.gblinear_round import feature_stride, gblinear_round, round_scratch
 from ..parallel.runner import resolve_device
+from ..utils import profiling
 
 #: ``GBLinearParams.precision`` -> ``torch.set_float32_matmul_precision`` for
 #: the trainers' products: "highest" is true fp32 (TF32 off); JAX's "default"
@@ -224,7 +224,7 @@ def train_gblinear(
         history: dict[str, list[float]] = {name: [] for *_unused, name in evals_dev}
         best_round, best_score, stale, best = None, np.inf, 0, None
         for it in range(hp.num_round):
-            with record_function("gblinear_round"):
+            with profiling.span("gblinear_round"):
                 gblinear_round(Xt, col_hess, w_blocks, bias, r, scratch, denom, hp.eta, hp.reg_lambda, hp.reg_alpha,
                                update=coord_update)
             if not evals_dev:
@@ -329,18 +329,21 @@ def multi_state(X: np.ndarray, Y: np.ndarray, row_weights, hp: GBLinearParams, d
         row_weights = np.ones((n, k), np.float32)
     row_weights = np.asarray(row_weights, dtype=np.float32)
     with _matmul_precision(hp.precision):
-        Xt = block_layout(_dev(X, device), hp.block_size)
+        with profiling.span("gblinear.upload", device=device, rows=n, bytes_up=X.nbytes):
+            Xt = block_layout(_dev(X, device), hp.block_size)
         n_blocks = Xt.shape[0]
-        rw = transposed_rows(_dev(row_weights, device))
-        denom = reduce(_dev(row_weights.sum(axis=0), device)) + hp.reg_lambda_bias  # effective row counts
-        # per-(feature, model) hessians are loop-invariant: once, block by
-        # block to bound the X*X temporary
-        hess = reduce(torch.stack([(Xb * Xb) @ rw.T for Xb in Xt]))
-    return MultiState(Xt=Xt, rw=rw, denom=denom, hess=hess,
-                      w_blocks=torch.zeros((n_blocks, hp.block_size, k), dtype=torch.float32, device=device),
-                      bias=torch.zeros(k, dtype=torch.float32, device=device),
-                      r=transposed_rows(_dev(np.full((n, k), hp.base_score, np.float32) - Y, device)),
-                      scratch=block_scratch(Xt, k, _ranks()) if device.type == "cuda" else None)
+        with profiling.span("gblinear.state", device=device, rows=n, bytes_up=row_weights.nbytes + Y.nbytes):
+            rw = transposed_rows(_dev(row_weights, device))
+            denom = reduce(_dev(row_weights.sum(axis=0), device)) + hp.reg_lambda_bias  # effective row counts
+            # per-(feature, model) hessians are loop-invariant: once, block by
+            # block to bound the X*X temporary
+            hess = reduce(torch.stack([(Xb * Xb) @ rw.T for Xb in Xt]))
+            state = MultiState(Xt=Xt, rw=rw, denom=denom, hess=hess,
+                               w_blocks=torch.zeros((n_blocks, hp.block_size, k), dtype=torch.float32, device=device),
+                               bias=torch.zeros(k, dtype=torch.float32, device=device),
+                               r=transposed_rows(_dev(np.full((n, k), hp.base_score, np.float32) - Y, device)),
+                               scratch=block_scratch(Xt, k, _ranks()) if device.type == "cuda" else None)
+    return state
 
 
 def _ranks() -> int:
@@ -386,31 +389,38 @@ def _multi_sweep(X, Y, row_weights, hp: GBLinearParams, device: torch.device, *,
     k = Y.shape[1]
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
-    s = multi_state(X, Y, row_weights, hp, device, reduce=reduce)
-    with _matmul_precision(hp.precision):
-        evals_dev = []
-        for Xe, ye, name in evals or []:
-            ye = np.asarray(ye, dtype=np.float32)
-            evals_dev.append((_dev(Xe, device), _dev(ye[:, None] if ye.ndim == 1 else ye, device), name))
+    # spans: gblinear.train, the root; inside it gblinear.upload and
+    # gblinear.state (multi_state), gblinear.rounds (a gblinear_round a
+    # round) and gblinear.fetch
+    with profiling.span("gblinear.train", rows=X.shape[0]):
+        s = multi_state(X, Y, row_weights, hp, device, reduce=reduce)
+        with _matmul_precision(hp.precision):
+            evals_dev = []
+            for Xe, ye, name in evals or []:
+                ye = np.asarray(ye, dtype=np.float32)
+                evals_dev.append((_dev(Xe, device), _dev(ye[:, None] if ye.ndim == 1 else ye, device), name))
 
-        history: dict[str, list] = {name: [] for *_unused, name in evals_dev}
-        for it in range(hp.num_round):
-            with record_function("gblinear_round"):
-                multi_round(hp, s, reduce=reduce)
-            if evals_dev:
-                w_now = s.w_blocks.view(-1, k)[:f]
-                offset = hp.base_score + s.bias
-                rmse = torch.stack([((offset + Xe @ w_now - ye) ** 2).mean(0).sqrt() for Xe, ye, _ in evals_dev])
-                for (*_unused, name), value in zip(evals_dev, rmse.cpu().numpy()):
-                    history[name].append(float(value[0]) if k == 1 else value)
-                    if verbose and rank0:
-                        print(f"[{it}]\t{name}-rmse:" + ",".join(f"{v:.6f}" for v in value))
-            elif verbose and rank0 and it % 10 == 0:
-                print(f"[{it}] mean|r| = {float(s.r.abs().mean()):.5f}")
+            history: dict[str, list] = {name: [] for *_unused, name in evals_dev}
+            with profiling.span("gblinear.rounds", device=device):
+                for it in range(hp.num_round):
+                    with profiling.span("gblinear_round"):
+                        multi_round(hp, s, reduce=reduce)
+                    if evals_dev:
+                        w_now = s.w_blocks.view(-1, k)[:f]
+                        offset = hp.base_score + s.bias
+                        rmse = torch.stack([((offset + Xe @ w_now - ye) ** 2).mean(0).sqrt()
+                                            for Xe, ye, _ in evals_dev])
+                        for (*_unused, name), value in zip(evals_dev, rmse.cpu().numpy()):
+                            history[name].append(float(value[0]) if k == 1 else value)
+                            if verbose and rank0:
+                                print(f"[{it}]\t{name}-rmse:" + ",".join(f"{v:.6f}" for v in value))
+                    elif verbose and rank0 and it % 10 == 0:
+                        print(f"[{it}] mean|r| = {float(s.r.abs().mean()):.5f}")
 
-    weights = s.w_blocks.view(-1, k)[:f].cpu().numpy()
-    return MultiTrainResult(weights=weights, biases=s.bias.cpu().numpy(), base_score=hp.base_score,
-                            eval_history=history)
+        with profiling.span("gblinear.fetch", bytes_down=4 * (f + 1) * k):
+            weights = s.w_blocks.view(-1, k)[:f].cpu().numpy()
+            biases = s.bias.cpu().numpy()
+    return MultiTrainResult(weights=weights, biases=biases, base_score=hp.base_score, eval_history=history)
 
 
 def bootstrap_row_weights(n_train: int, seeds: list[int]) -> np.ndarray:

@@ -34,6 +34,14 @@ caller's current stream, and each result comes back on a side stream into a
 pinned buffer (``_up``, ``_fetch``); the workers wait on that copy's event and
 do numpy work only. On the CPU the chunks compute in the calling thread and the
 workers write them out.
+
+While a profiler records, the runner's spans (``utils/profiling.py``) mark
+each public method call (``runner.<method>``), its host work before the
+first chunk (``runner.plan``), each step of its chunk generator
+(``runner.produce``), each chunk from the start of its production to the
+end of its landing's wait (``runner.in_flight``), the caller blocked on the
+oldest landing (``runner.wait``) and a worker writing a chunk out
+(``runner.write``), with rows, bytes up and bytes down as counts.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from ..ops.spans import (
     fc_from_phases,
     fc_head,
 )
+from ..utils import profiling
 
 
 def pack_codes(codes: np.ndarray) -> np.ndarray:
@@ -141,6 +150,29 @@ def _torch_dtype(np_dtype) -> torch.dtype:
     return torch.float16 if np.dtype(np_dtype) == np.float16 else torch.float32
 
 
+def _spanned(method):
+    """``method`` inside a ``runner.<name>`` span."""
+    return profiling.spanned("runner." + method.__name__)(method)
+
+
+def _produced(jobs):
+    """Each job of ``jobs`` with its chunk's ``runner.in_flight`` span,
+    begun before the job is produced (one ``runner.produce`` step). The
+    span begun for the step that finds ``jobs`` done is never ended, so
+    never recorded."""
+    it = iter(jobs)
+    while True:
+        flight = profiling.begin("runner.in_flight")
+        with profiling.span("runner.produce") as produce:
+            job = next(it, None)
+        if job is None:
+            return
+        if flight:
+            flight.add(rows=job[1])
+            produce.add(rows=job[1])
+        yield (*job, flight)
+
+
 def _pinned_like(y: torch.Tensor) -> torch.Tensor:
     """A pinned host tensor of ``y``'s shape and dtype from torch's caching
     host allocator: a non-blocking copy into it records an event on its
@@ -214,6 +246,7 @@ class BelugaRunner:
         current stream; the copy records an event on the block, and the
         allocator hands the block out again only after that event."""
         src = torch.from_numpy(np.ascontiguousarray(a))
+        profiling.count(bytes_up=src.nbytes)
         if self._copy_stream is None:
             return src
         return src.pin_memory().to(self.device, non_blocking=True)
@@ -248,28 +281,36 @@ class BelugaRunner:
         submission order, after the jobs already submitted have finished.
         With one worker the writes run in this thread, in order. Either way,
         at depth 1 each write returns before the next job is produced."""
+        method = profiling.current()
 
-        def land(start, real, landing):
-            write(start, real, landing.wait())
+        def land(start, real, landing, flight, write_span):
+            host = landing.wait()
+            flight.end()
+            with write_span("runner.write", rows=real) as w:
+                if w:
+                    w.add(bytes_down=sum(a.nbytes for a in host))
+                write(start, real, host)
 
         if self.FETCH_WORKERS <= 1:
             in_flight = deque()
-            for job in jobs:
+            for job in _produced(jobs):
                 in_flight.append(job)
                 if len(in_flight) >= self.pipeline_depth:
-                    land(*in_flight.popleft())
+                    land(*in_flight.popleft(), profiling.span)
             for job in in_flight:
-                land(*job)
+                land(*job, profiling.span)
             return
 
         with ThreadPoolExecutor(max_workers=self.FETCH_WORKERS) as ex:
             pending = deque()
-            for job in jobs:
-                pending.append(ex.submit(land, *job))
+            for job in _produced(jobs):
+                pending.append(ex.submit(land, *job, method.child))
                 if len(pending) >= self.pipeline_depth:
-                    pending.popleft().result()
+                    with profiling.span("runner.wait"):
+                        pending.popleft().result()
             while pending:
-                pending.popleft().result()
+                with profiling.span("runner.wait"):
+                    pending.popleft().result()
 
     # ---- host <-> device -------------------------------------------------
 
@@ -330,38 +371,38 @@ class BelugaRunner:
                    self._up(n_rows[i0:i1] - start), self._up(n_cols[i0:i1]))
 
     def _code_chunks(self, span_codes: np.ndarray, rows: int):
-        """Yield (start, (real, L) int8 device codes) per chunk of ``rows``
-        spans: 2-bit packed with the N sideband, or 4-bit for N-dense
-        batches."""
+        """An iterator of (start, (real, L) int8 device codes) per chunk of
+        ``rows`` spans: 2-bit packed with the N sideband, or 4-bit for
+        N-dense batches. The packing is done here, before the first chunk;
+        each chunk goes up as the iterator reaches it."""
         n, span_len = span_codes.shape
         plan = self._pack2_plan(span_codes, rows)
         if plan is not None:
-            for start, _real, p, rl, cl in self._pack2_chunks(plan, rows, n):
-                yield start, unpack_codes2(p, span_len, rl, cl)
-        else:
-            packed = pack_codes(span_codes)
-            for start in range(0, n, rows):
-                yield start, unpack_codes(self._up(packed[start : start + rows]), span_len)
+            return ((start, unpack_codes2(p, span_len, rl, cl))
+                    for start, _real, p, rl, cl in self._pack2_chunks(plan, rows, n))
+        packed = pack_codes(span_codes)
+        return ((start, unpack_codes(self._up(packed[start : start + rows]), span_len)) for start in range(0, n, rows))
 
     def _pair_chunks(self, ref_spans: np.ndarray, alt_spans: np.ndarray, rows: int):
-        """Yield (start, (2 * real, L) device codes interleaved per pair,
-        [r0, a0, r1, a1, ...]) per chunk of ``rows`` pairs: both alleles run
-        through the conv stack as one batch."""
+        """An iterator of (start, (2 * real, L) device codes interleaved per
+        pair, [r0, a0, r1, a1, ...]) per chunk of ``rows`` pairs: both
+        alleles run through the conv stack as one batch. Interleaved and
+        packed here, as :meth:`_code_chunks`."""
         n, span_len = ref_spans.shape
         inter = np.empty((2 * n, span_len), dtype=np.int8)
         inter[0::2] = ref_spans
         inter[1::2] = alt_spans
-        for start2, codes in self._code_chunks(inter, 2 * rows):
-            yield start2 // 2, codes
+        return ((start2 // 2, codes) for start2, codes in self._code_chunks(inter, 2 * rows))
 
     def _pair_diff_jobs(self, ref_spans, alt_spans, offsets, with_ref: bool):
         """Jobs of (start, real, :meth:`_pair_diff_wire` on its way to the
-        host) per chunk of (ref, alt) span pairs."""
+        host) per chunk of (ref, alt) span pairs; the pairs are interleaved
+        and packed here, each chunk produced as the jobs are drawn."""
         offsets = tuple(int(o) for o in offsets)
-        ref_spans = np.asarray(ref_spans, dtype=np.int8)
-        alt_spans = np.asarray(alt_spans, dtype=np.int8)
-        for start, codes in self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets))):
-            yield start, codes.shape[0] // 2, self._fetch(self._pair_diff_wire(codes, offsets, with_ref))
+        chunks = self._pair_chunks(np.asarray(ref_spans, dtype=np.int8), np.asarray(alt_spans, dtype=np.int8),
+                                   self._pair_rows(len(offsets)))
+        return ((start, codes.shape[0] // 2, self._fetch(self._pair_diff_wire(codes, offsets, with_ref)))
+                for start, codes in chunks)
 
     def _pair_diff_wire(self, codes: torch.Tensor, offsets, with_ref: bool) -> torch.Tensor:
         """h5-contract wire of one interleaved pair chunk: ``(ref, diff)``
@@ -492,6 +533,7 @@ class BelugaRunner:
 
     # ---- public API ----------------------------------------------------------
 
+    @_spanned
     @torch.inference_mode()
     def predict_codes(self, codes: np.ndarray, *, average_rc: bool = False, out_dtype=None) -> np.ndarray:
         """Run Beluga over int8 base codes (N, 2000) -> (N, 2002).
@@ -499,9 +541,10 @@ class BelugaRunner:
         ``average_rc=True`` averages forward and reverse-complement
         predictions on the device. ``out_dtype`` overrides the runner's
         fetch dtype for this call."""
-        codes = np.asarray(codes, dtype=np.int8)
-        fetch = self.out_dtype if out_dtype is None else np.dtype(out_dtype)
-        out = np.empty((codes.shape[0], 2002), dtype=fetch)
+        with profiling.span("runner.plan", rows=len(codes)):
+            codes = np.asarray(codes, dtype=np.int8)
+            fetch = self.out_dtype if out_dtype is None else np.dtype(out_dtype)
+            out = np.empty((codes.shape[0], 2002), dtype=fetch)
 
         def jobs():
             for start in range(0, codes.shape[0], self.batch_size):
@@ -511,6 +554,7 @@ class BelugaRunner:
         self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
+    @_spanned
     def predict_codes_fwd_rc_concat(self, codes: np.ndarray) -> np.ndarray:
         """Reference-layout output: rows [0:N] forward, [N:2N] reverse
         complement (the encodeSeqs concat order of the reference's
@@ -518,6 +562,7 @@ class BelugaRunner:
         codes = np.asarray(codes, dtype=np.int8)
         return self.predict_codes(np.concatenate([codes, reverse_complement_codes(codes)], axis=0))
 
+    @_spanned
     @torch.inference_mode()
     def predict_span_codes(self, span_codes: np.ndarray, offsets, *, rc_mode: str = "none") -> np.ndarray:
         """Span-amortized forward: (N, span_len) int8 codes -> per-window
@@ -529,14 +574,16 @@ class BelugaRunner:
         [:, 1]."""
         if rc_mode not in ("none", "average", "concat"):
             raise ValueError(rc_mode)
-        span_codes = np.asarray(span_codes, dtype=np.int8)
-        offsets = tuple(int(o) for o in offsets)
-        n = span_codes.shape[0]
-        shape = (n, 2, len(offsets), 2002) if rc_mode == "concat" else (n, len(offsets), 2002)
-        out = np.empty(shape, dtype=self.out_dtype)
+        with profiling.span("runner.plan", rows=len(span_codes)):
+            span_codes = np.asarray(span_codes, dtype=np.int8)
+            offsets = tuple(int(o) for o in offsets)
+            n = span_codes.shape[0]
+            shape = (n, 2, len(offsets), 2002) if rc_mode == "concat" else (n, len(offsets), 2002)
+            out = np.empty(shape, dtype=self.out_dtype)
+            chunks = self._code_chunks(span_codes, self._span_rows(len(offsets)))
 
         def jobs():
-            for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
+            for start, codes in chunks:
                 if rc_mode == "none":
                     y = beluga_forward_spans(self.params, codes, offsets).float()
                 else:
@@ -548,6 +595,7 @@ class BelugaRunner:
         self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
+    @_spanned
     @torch.inference_mode()
     def predict_spans_project(self, span_codes: np.ndarray, offsets, pos_weights: np.ndarray) -> np.ndarray:
         """Gene path on the device: (N, span_len) int8 span codes -> shared
@@ -555,19 +603,22 @@ class BelugaRunner:
         reverse complement averaged in fp32, the (B, n_offsets) decay
         weights applied -> (N, B*2002) float32 features. Spans ship 2-bit
         packed, or 4-bit for N-dense chunks."""
-        span_codes = np.asarray(span_codes, dtype=np.int8)
-        offsets = tuple(int(o) for o in offsets)
-        pos_weights = np.asarray(pos_weights, dtype=np.float32)
-        out = np.empty((span_codes.shape[0], pos_weights.shape[0] * 2002), dtype=np.float32)
+        with profiling.span("runner.plan", rows=len(span_codes)):
+            span_codes = np.asarray(span_codes, dtype=np.int8)
+            offsets = tuple(int(o) for o in offsets)
+            pos_weights = np.asarray(pos_weights, dtype=np.float32)
+            out = np.empty((span_codes.shape[0], pos_weights.shape[0] * 2002), dtype=np.float32)
+            pw = self._up(pos_weights)
+            chunks = self._code_chunks(span_codes, self._span_rows(len(offsets)))
 
         def jobs():
-            pw = self._up(pos_weights)
-            for start, codes in self._code_chunks(span_codes, self._span_rows(len(offsets))):
+            for start, codes in chunks:
                 yield start, codes.shape[0], self._fetch(self._project(self._pair_span_preds(codes, offsets), pw))
 
         self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
+    @_spanned
     @torch.inference_mode()
     def project_spans_backbone_patch(self, backbone_span, sample_spans, starts_f, starts_r, offsets,
                                      pos_weights) -> np.ndarray:
@@ -594,24 +645,28 @@ class BelugaRunner:
         Returns (N, B*2002) float32 features, matching
         ``predict_spans_project(sample_spans, offsets, pos_weights)`` up to
         fp reduction order."""
-        backbone_span = np.asarray(backbone_span, dtype=np.int8)
-        sample_spans = np.asarray(sample_spans, dtype=np.int8)
-        offsets = tuple(int(o) for o in offsets)
-        starts_f, starts_r = np.asarray(starts_f, dtype=np.int64), np.asarray(starts_r, dtype=np.int64)
-        # K buckets in steps of 8, as the JAX runner compiles one program per
-        # bucket: an inactive slot still convolves real bases
-        k_pad = -(-max(starts_f.shape[1], starts_r.shape[1], 1) // 8) * 8
-        starts_f, starts_r = (np.pad(s, ((0, 0), (0, k_pad - s.shape[1]), (0, 0))) for s in (starts_f, starts_r))
-        pos_weights = np.asarray(pos_weights, dtype=np.float32)
-        rc_offsets = tuple(sample_spans.shape[1] - 2000 - o for o in offsets)
-        phases_f = {(o // 4) % 4 for o in offsets}
-        phases_r = {(o // 4) % 4 for o in rc_offsets}
-        out = np.empty((sample_spans.shape[0], pos_weights.shape[0] * 2002), dtype=np.float32)
+        with profiling.span("runner.plan", rows=len(sample_spans)):
+            backbone_span = np.asarray(backbone_span, dtype=np.int8)
+            sample_spans = np.asarray(sample_spans, dtype=np.int8)
+            offsets = tuple(int(o) for o in offsets)
+            starts_f, starts_r = np.asarray(starts_f, dtype=np.int64), np.asarray(starts_r, dtype=np.int64)
+            # K buckets in steps of 8, as the JAX runner compiles one program per
+            # bucket: an inactive slot still convolves real bases
+            k_pad = -(-max(starts_f.shape[1], starts_r.shape[1], 1) // 8) * 8
+            starts_f, starts_r = (np.pad(s, ((0, 0), (0, k_pad - s.shape[1]), (0, 0))) for s in (starts_f, starts_r))
+            pos_weights = np.asarray(pos_weights, dtype=np.float32)
+            rc_offsets = tuple(sample_spans.shape[1] - 2000 - o for o in offsets)
+            phases_f = {(o // 4) % 4 for o in offsets}
+            phases_r = {(o // 4) % 4 for o in rc_offsets}
+            out = np.empty((sample_spans.shape[0], pos_weights.shape[0] * 2002), dtype=np.float32)
+            pw = self._up(pos_weights)
+            # the backbone's conv stack goes on the card before the samples
+            # are packed
+            ph_f, ph_r = self._backbone_phases(self._up(backbone_span[None]), offsets)
+            chunks = self._code_chunks(sample_spans, self._span_rows(len(offsets)))
 
         def jobs():
-            pw = self._up(pos_weights)
-            ph_f, ph_r = self._backbone_phases(self._up(backbone_span[None]), offsets)
-            for start, codes in self._code_chunks(sample_spans, self._span_rows(len(offsets))):
+            for start, codes in chunks:
                 stop = start + codes.shape[0]
                 pf = conv6_phases_patch_sites(self.params, ph_f, codes, self._up(starts_f[start:stop, :, 0]), phases_f)
                 pr = conv6_phases_patch_sites(self.params, ph_r, rc_codes(codes), self._up(starts_r[start:stop, :, 0]),
@@ -623,6 +678,7 @@ class BelugaRunner:
         self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
+    @_spanned
     @torch.inference_mode()
     def predict_and_project(self, codes: np.ndarray, pos_weights: np.ndarray, n_shifts: int) -> np.ndarray:
         """Gene path per window: (G*S, 2000) window codes, S consecutive rows
@@ -632,13 +688,14 @@ class BelugaRunner:
         codes = np.asarray(codes, dtype=np.int8)
         if codes.shape[0] % n_shifts != 0:
             raise ValueError("codes rows must be a multiple of n_shifts")
-        pos_weights = np.asarray(pos_weights, dtype=np.float32)
-        genes_per_batch = max(self.batch_size // n_shifts, 1)
-        n_genes = codes.shape[0] // n_shifts
-        out = np.empty((n_genes, pos_weights.shape[0] * 2002), dtype=np.float32)
+        with profiling.span("runner.plan", rows=len(codes)):
+            pos_weights = np.asarray(pos_weights, dtype=np.float32)
+            genes_per_batch = max(self.batch_size // n_shifts, 1)
+            n_genes = codes.shape[0] // n_shifts
+            out = np.empty((n_genes, pos_weights.shape[0] * 2002), dtype=np.float32)
+            pw = self._up(pos_weights)
 
         def jobs():
-            pw = self._up(pos_weights)
             for g0 in range(0, n_genes, genes_per_batch):
                 g1 = min(g0 + genes_per_batch, n_genes)
                 y = self._forward(self._up(codes[g0 * n_shifts : g1 * n_shifts]), True, torch.float32)
@@ -647,6 +704,7 @@ class BelugaRunner:
         self._run_pipelined(jobs(), self._write_rows(out))
         return out
 
+    @_spanned
     @torch.inference_mode()
     def predict_span_pairs_diff(self, ref_spans, alt_spans, offsets, *, sink=None):
         """h5-contract pair forward: (N, span_len) ref/alt spans ->
@@ -666,8 +724,10 @@ class BelugaRunner:
         once per chunk, in any order and possibly from several threads at
         once: a sink that writes shared state takes a lock."""
         n = len(ref_spans)
-        if sink is None:
-            REF, ALT, DIFF = (np.empty((2 * n, len(offsets), 2002), dtype=np.float32) for _ in range(3))
+        with profiling.span("runner.plan", rows=n):
+            if sink is None:
+                REF, ALT, DIFF = (np.empty((2 * n, len(offsets), 2002), dtype=np.float32) for _ in range(3))
+            jobs = self._pair_diff_jobs(ref_spans, alt_spans, offsets, with_ref=True)
 
         def write(start, r, host):
             y = host[0]  # (r, 2[ref|diff], 2[fwd|rc], S, M) at the wire dtype
@@ -682,9 +742,10 @@ class BelugaRunner:
                 diff[...] = y[:, 1, orient]
                 np.add(ref, diff, out=ALT[s0 : s0 + r])
 
-        self._run_pipelined(self._pair_diff_jobs(ref_spans, alt_spans, offsets, with_ref=True), write)
+        self._run_pipelined(jobs, write)
         return None if sink is not None else (REF, ALT, DIFF)
 
+    @_spanned
     @torch.inference_mode()
     def predict_span_pair_diffs_only(self, ref_spans, alt_spans, offsets, *, sink=None):
         """Legacy-contract pair forward: only ``diff = alt - ref`` leaves the
@@ -696,8 +757,10 @@ class BelugaRunner:
         (real, 2[fwd|rc], S, M) fp32 and returns None (called as
         :meth:`predict_span_pairs_diff` calls its sink)."""
         n = len(ref_spans)
-        if sink is None:
-            DIFF = np.empty((2 * n, len(offsets), 2002), dtype=np.float32)
+        with profiling.span("runner.plan", rows=n):
+            if sink is None:
+                DIFF = np.empty((2 * n, len(offsets), 2002), dtype=np.float32)
+            jobs = self._pair_diff_jobs(ref_spans, alt_spans, offsets, with_ref=False)
 
         def write(start, r, host):
             y = host[0]  # (r, 2[fwd|rc], S, M) at the wire dtype
@@ -707,25 +770,28 @@ class BelugaRunner:
             DIFF[start : start + r] = y[:, 0]
             DIFF[n + start : n + start + r] = y[:, 1]
 
-        self._run_pipelined(self._pair_diff_jobs(ref_spans, alt_spans, offsets, with_ref=False), write)
+        self._run_pipelined(jobs, write)
         return None if sink is not None else DIFF
 
+    @_spanned
     @torch.inference_mode()
     def score_variant_spans(self, ref_spans, alt_spans, offsets, basis, W, bias):
         """Fused SED serving of explicit (ref, alt) span pairs: (N, span_len)
         spans + (S, N, B) decay basis + stacked model weights (F, K) ->
         (REF, ALT, SED), each (N, K). Both spans ship 2-bit packed,
         interleaved per variant, or 4-bit for N-dense batches."""
-        ref_spans = np.asarray(ref_spans, dtype=np.int8)
-        alt_spans = np.asarray(alt_spans, dtype=np.int8)
-        offsets = tuple(int(o) for o in offsets)
-        n, span_len = ref_spans.shape
-        REF, ALT, SED = self._outputs(n, W.shape[1])
-        basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
+        with profiling.span("runner.plan", rows=len(ref_spans)):
+            ref_spans = np.asarray(ref_spans, dtype=np.int8)
+            alt_spans = np.asarray(alt_spans, dtype=np.int8)
+            offsets = tuple(int(o) for o in offsets)
+            n, span_len = ref_spans.shape
+            REF, ALT, SED = self._outputs(n, W.shape[1])
+            basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            chunks = self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets)))
 
         def jobs():
-            W_dev, bias_dev = self._model_tensors(W, bias)
-            for start, codes in self._pair_chunks(ref_spans, alt_spans, self._pair_rows(len(offsets))):
+            for start, codes in chunks:
                 pair = codes.reshape(-1, 2, span_len)
                 basis_t = self._up(basis_wire[:, start : start + pair.shape[0]])
                 p_ref = self._pair_span_preds(pair[:, 0], offsets)
@@ -735,22 +801,25 @@ class BelugaRunner:
         self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED
 
+    @_spanned
     @torch.inference_mode()
     def score_variant_spans_packed(self, ref_spans, mutpos: int, alt_alleles, offsets, basis, W, bias):
         """Fused SED serving from one span per variant: (N, span_len) ref
         spans + (N, A) alt-allele codes spliced on the device at ``mutpos``
         (-1 keeps the reference base). Spans ship 2-bit packed, or 4-bit for
         N-dense batches."""
-        ref_spans = np.asarray(ref_spans, dtype=np.int8)
-        alt_alleles = np.asarray(alt_alleles, dtype=np.int8)
-        offsets = tuple(int(o) for o in offsets)
-        n, span_len = ref_spans.shape
-        REF, ALT, SED = self._outputs(n, W.shape[1])
-        basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
+        with profiling.span("runner.plan", rows=len(ref_spans)):
+            ref_spans = np.asarray(ref_spans, dtype=np.int8)
+            alt_alleles = np.asarray(alt_alleles, dtype=np.int8)
+            offsets = tuple(int(o) for o in offsets)
+            n, span_len = ref_spans.shape
+            REF, ALT, SED = self._outputs(n, W.shape[1])
+            basis_wire = basis.astype(self._basis_wire_dtype, copy=False)
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            chunks = self._code_chunks(ref_spans, self._span_rows(len(offsets)))
 
         def jobs():
-            W_dev, bias_dev = self._model_tensors(W, bias)
-            for start, ref in self._code_chunks(ref_spans, self._span_rows(len(offsets))):
+            for start, ref in chunks:
                 stop = start + ref.shape[0]
                 alt_a, basis_t = self._up(alt_alleles[start:stop]), self._up(basis_wire[:, start:stop])
                 yield start, stop - start, self._fetch(*self._score_spans_chunk(
@@ -759,6 +828,7 @@ class BelugaRunner:
         self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED
 
+    @_spanned
     @torch.inference_mode()
     def score_variant_spans_packed_rows(self, ref_spans_u, mutpos: int, alt_alleles_u, offsets, basis_rows,
                                         row_uidx, W, bias):
@@ -768,24 +838,26 @@ class BelugaRunner:
 
         ``basis_rows``: (S, R, B); ``row_uidx``: (R,) nondecreasing index
         into the unique spans."""
-        ref_spans_u = np.asarray(ref_spans_u, dtype=np.int8)
-        alt_alleles_u = np.asarray(alt_alleles_u, dtype=np.int8)
-        row_uidx = np.asarray(row_uidx, dtype=np.int64)
-        offsets = tuple(int(o) for o in offsets)
-        n_u, span_len = ref_spans_u.shape
-        rows = self._span_rows(len(offsets))
-        plan = self._pack2_plan(ref_spans_u, rows)
+        with profiling.span("runner.plan", rows=len(ref_spans_u)):
+            ref_spans_u = np.asarray(ref_spans_u, dtype=np.int8)
+            alt_alleles_u = np.asarray(alt_alleles_u, dtype=np.int8)
+            row_uidx = np.asarray(row_uidx, dtype=np.int64)
+            offsets = tuple(int(o) for o in offsets)
+            n_u, span_len = ref_spans_u.shape
+            rows = self._span_rows(len(offsets))
+            plan = self._pack2_plan(ref_spans_u, rows)
+            if plan is not None:
+                REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
+                basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
+                _starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
+                W_dev, bias_dev = self._model_tensors(W, bias)
         if plan is None:
             # N-dense: expand and take the per-row path
             return self.score_variant_spans_packed(
                 ref_spans_u[row_uidx], mutpos, alt_alleles_u[row_uidx], offsets, basis_rows, W, bias
             )
-        REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
-        basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
-        _starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
 
         def jobs():
-            W_dev, bias_dev = self._model_tensors(W, bias)
             for (r0, r1), (start, real_u, p, rl, cl) in zip(r_bounds, self._pack2_chunks(plan, rows, n_u)):
                 alt_a = self._up(alt_alleles_u[start : start + real_u])
                 idx, basis_t = self._up(row_uidx[r0:r1] - start), self._up(basis_wire[:, r0:r1])
@@ -796,34 +868,37 @@ class BelugaRunner:
         self._run_pipelined(jobs(), self._write_ref_sed(REF, ALT, SED))
         return REF, ALT, SED
 
+    @_spanned
     @torch.inference_mode()
     def score_variant_span_pairs_rows(self, ref_spans_u, alt_spans_u, offsets, basis_rows, row_uidx, W, bias):
         """Pair serving (indels) over (variant, gene) rows sharing variants:
         both conv stacks run once per UNIQUE (ref, alt) span pair; each row
         scores its own decay basis against a device-side gather of its
         variant's tracks. Spans ship 2-bit packed, interleaved per pair."""
-        ref_spans_u = np.asarray(ref_spans_u, dtype=np.int8)
-        alt_spans_u = np.asarray(alt_spans_u, dtype=np.int8)
-        row_uidx = np.asarray(row_uidx, dtype=np.int64)
-        offsets = tuple(int(o) for o in offsets)
-        n_u, span_len = ref_spans_u.shape
-        rows = self._pair_rows(len(offsets))
+        with profiling.span("runner.plan", rows=len(ref_spans_u)):
+            ref_spans_u = np.asarray(ref_spans_u, dtype=np.int8)
+            alt_spans_u = np.asarray(alt_spans_u, dtype=np.int8)
+            row_uidx = np.asarray(row_uidx, dtype=np.int64)
+            offsets = tuple(int(o) for o in offsets)
+            n_u, span_len = ref_spans_u.shape
+            rows = self._pair_rows(len(offsets))
 
-        inter = np.empty((2 * n_u, span_len), dtype=np.int8)
-        inter[0::2] = ref_spans_u
-        inter[1::2] = alt_spans_u
-        plan = self._pack2_plan(inter, 2 * rows)
+            inter = np.empty((2 * n_u, span_len), dtype=np.int8)
+            inter[0::2] = ref_spans_u
+            inter[1::2] = alt_spans_u
+            plan = self._pack2_plan(inter, 2 * rows)
+            if plan is not None:
+                REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
+                basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
+                starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
+                W_dev, bias_dev = self._model_tensors(W, bias)
         if plan is None:
             # N-dense: expand and take the per-row pair path
             return self.score_variant_spans(
                 ref_spans_u[row_uidx], alt_spans_u[row_uidx], offsets, basis_rows, W, bias
             )
-        REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
-        basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
-        starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
 
         def jobs():
-            W_dev, bias_dev = self._model_tensors(W, bias)
             for start, (r0, r1), (_s2, _r2, p, rl, cl) in zip(
                 starts, r_bounds, self._pack2_chunks(plan, 2 * rows, 2 * n_u)
             ):

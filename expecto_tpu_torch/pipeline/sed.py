@@ -41,6 +41,7 @@ from ..models.gblinear import GBLinearModel
 from ..ops.decay import N_BASIS, pad_legacy_20030, project_features, variant_basis
 from ..parallel import dist
 from ..parallel.runner import fp32_wire_kw
+from ..utils import profiling
 from ..utils.keep_mask import subset_features_by_mask
 from .chromatin import (
     _gather_spans,
@@ -440,6 +441,7 @@ def _stacked_models(model_paths: list[str]):
     return W, bias
 
 
+@profiling.spanned("sed.score")
 def score_sed_serving(
     vcf: pd.DataFrame,
     gene: pd.DataFrame,
@@ -472,63 +474,72 @@ def score_sed_serving(
     another reduction order for another row count: rows agree with one
     process within fp32 summation noise, not always bit for bit.
     """
-    # validate chromosomes on the full table, so every rank raises the same
-    # error (one rank dying on an unknown contig would hang the others at
-    # the exchange barrier)
-    _require_known_chromosomes(genome, vcf.iloc[:, 0].astype(str).values)
+    # the stages' spans under sed.score: sed.align, sed.basis, sed.models,
+    # sed.eligible, sed.snv_spans and sed.indel_spans (the host work before
+    # each path's runner call), sed.windows (the per-window fallback, its
+    # runner call inside) and sed.table
+    with profiling.span("sed.align", rows=len(vcf)):
+        # validate chromosomes on the full table, so every rank raises the
+        # same error (one rank dying on an unknown contig would hang the
+        # others at the exchange barrier)
+        _require_known_chromosomes(genome, vcf.iloc[:, 0].astype(str).values)
 
-    # align (variant, gene) rows exactly like the h5 path
-    dummy = {"diff": np.zeros((1, vcf.shape[0], 1), np.float32)}
-    inputs = align_variants_with_genes(vcf, gene, dummy, fixeddist)
-    distributed = distribute and dist.process_info()[1] > 1 and output_csv is not None
-    local = _host_slice_inputs(inputs) if distributed else inputs
+        # align (variant, gene) rows exactly like the h5 path
+        dummy = {"diff": np.zeros((1, vcf.shape[0], 1), np.float32)}
+        inputs = align_variants_with_genes(vcf, gene, dummy, fixeddist)
+        distributed = distribute and dist.process_info()[1] > 1 and output_csv is not None
+        local = _host_slice_inputs(inputs) if distributed else inputs
 
-    shifts = variant_shifts(maxshift)
-    offsets = tuple(sh + maxshift for sh in shifts)
-    span_len = 2 * maxshift + inputsize
-    half = int(inputsize / 2 - 1)
-    mutpos = maxshift + half
+        shifts = variant_shifts(maxshift)
+        offsets = tuple(sh + maxshift for sh in shifts)
+        span_len = 2 * maxshift + inputsize
+        half = int(inputsize / 2 - 1)
+        mutpos = maxshift + half
 
-    chroms = local.coor.iloc[:, 0].astype(str).values
-    positions = local.coor.iloc[:, 1].astype(int).values
-    row_refs = local.coor.iloc[:, 3].astype(str).values
-    row_alts = local.coor.iloc[:, 4].astype(str).values
-    n = len(positions)
+        chroms = local.coor.iloc[:, 0].astype(str).values
+        positions = local.coor.iloc[:, 1].astype(int).values
+        row_refs = local.coor.iloc[:, 3].astype(str).values
+        row_alts = local.coor.iloc[:, 4].astype(str).values
+        n = len(positions)
 
-    basis = variant_basis(local.dist, local.strand, shifts)  # (S, n, 10)
-    W, bias = _stacked_models(model_paths)
+    with profiling.span("sed.basis", rows=n):
+        basis = variant_basis(local.dist, local.strand, shifts)  # (S, n, 10)
+    with profiling.span("sed.models", rows=len(model_paths)):
+        W, bias = _stacked_models(model_paths)
     k = W.shape[1]
     REF = np.empty((n, k), dtype=np.float32)
     ALT = np.empty((n, k), dtype=np.float32)
     SED = np.empty((n, k), dtype=np.float32)
 
-    row_is_sub = (
-        np.fromiter((len(r) == len(a) for r, a in zip(row_refs, row_alts)), bool, n) if n else np.zeros(0, bool)
-    )
-    row_elig = (
-        _span_eligible(genome, chroms, positions, row_refs, row_alts, maxshift, inputsize)
-        if n else np.zeros(0, bool)
-    )
-    sub_rows = np.nonzero(row_is_sub & row_elig)[0]
-    ind_rows = np.nonzero(~row_is_sub & row_elig)[0]
-    win_rows = np.nonzero(~row_elig)[0]
+    with profiling.span("sed.eligible", rows=n):
+        row_is_sub = (
+            np.fromiter((len(r) == len(a) for r, a in zip(row_refs, row_alts)), bool, n) if n else np.zeros(0, bool)
+        )
+        row_elig = (
+            _span_eligible(genome, chroms, positions, row_refs, row_alts, maxshift, inputsize)
+            if n else np.zeros(0, bool)
+        )
+        sub_rows = np.nonzero(row_is_sub & row_elig)[0]
+        ind_rows = np.nonzero(~row_is_sub & row_elig)[0]
+        win_rows = np.nonzero(~row_elig)[0]
 
     if sub_rows.size:
         # the conv stack runs once per UNIQUE variant, rows gather on the
         # device; substitutions ship one packed span + the alt allele codes
-        s_chroms, s_pos = chroms[sub_rows], positions[sub_rows]
-        s_refs, s_alts = row_refs[sub_rows], row_alts[sub_rows]
-        row_uidx, uniq_first = _factorize_variant_rows(s_chroms, s_pos, s_refs, s_alts)
-        n_u = len(uniq_first)
-        u_rows = np.arange(n_u)
-        ref_spans = _gather_spans(genome, s_chroms[uniq_first], s_pos[uniq_first] - maxshift - half, span_len)
-        ref_codes, ref_lens = alleles_to_flat_codes(s_refs[uniq_first])
-        _scatter_alleles(ref_spans, u_rows, ref_codes, ref_lens, np.full(n_u, mutpos))
-        alt_codes, alt_lens = alleles_to_flat_codes(s_alts[uniq_first])
-        alt_alleles = np.full((n_u, int(alt_lens.max())), -1, dtype=np.int8)  # -1 keeps the ref base
-        _scatter_alleles(alt_alleles, u_rows, alt_codes, alt_lens, np.zeros(n_u, np.int64))
+        with profiling.span("sed.snv_spans", rows=sub_rows.size):
+            s_chroms, s_pos = chroms[sub_rows], positions[sub_rows]
+            s_refs, s_alts = row_refs[sub_rows], row_alts[sub_rows]
+            row_uidx, uniq_first = _factorize_variant_rows(s_chroms, s_pos, s_refs, s_alts)
+            n_u = len(uniq_first)
+            u_rows = np.arange(n_u)
+            ref_spans = _gather_spans(genome, s_chroms[uniq_first], s_pos[uniq_first] - maxshift - half, span_len)
+            ref_codes, ref_lens = alleles_to_flat_codes(s_refs[uniq_first])
+            _scatter_alleles(ref_spans, u_rows, ref_codes, ref_lens, np.full(n_u, mutpos))
+            alt_codes, alt_lens = alleles_to_flat_codes(s_alts[uniq_first])
+            alt_alleles = np.full((n_u, int(alt_lens.max())), -1, dtype=np.int8)  # -1 keeps the ref base
+            _scatter_alleles(alt_alleles, u_rows, alt_codes, alt_lens, np.zeros(n_u, np.int64))
+            s_basis = np.ascontiguousarray(basis[:, sub_rows])
 
-        s_basis = np.ascontiguousarray(basis[:, sub_rows])
         if bool(np.all(np.diff(row_uidx) >= 0)):
             R, A, S = runner.score_variant_spans_packed_rows(
                 ref_spans, mutpos, alt_alleles, offsets, s_basis, row_uidx, W, bias
@@ -543,14 +554,15 @@ def score_sed_serving(
     if ind_rows.size:
         # indels: the alt span is crop-shifted relative to ref, so both
         # spliced spans ship and ride the pair path, once per unique variant
-        i_chroms, i_pos = chroms[ind_rows], positions[ind_rows]
-        i_refs, i_alts = row_refs[ind_rows], row_alts[ind_rows]
-        row_uidx, uniq_first = _factorize_variant_rows(i_chroms, i_pos, i_refs, i_alts)
-        r_spans, a_spans = assemble_variant_spans(
-            genome, i_chroms[uniq_first], i_pos[uniq_first], i_refs[uniq_first], i_alts[uniq_first],
-            maxshift, inputsize,
-        )
-        i_basis = np.ascontiguousarray(basis[:, ind_rows])
+        with profiling.span("sed.indel_spans", rows=ind_rows.size):
+            i_chroms, i_pos = chroms[ind_rows], positions[ind_rows]
+            i_refs, i_alts = row_refs[ind_rows], row_alts[ind_rows]
+            row_uidx, uniq_first = _factorize_variant_rows(i_chroms, i_pos, i_refs, i_alts)
+            r_spans, a_spans = assemble_variant_spans(
+                genome, i_chroms[uniq_first], i_pos[uniq_first], i_refs[uniq_first], i_alts[uniq_first],
+                maxshift, inputsize,
+            )
+            i_basis = np.ascontiguousarray(basis[:, ind_rows])
         if bool(np.all(np.diff(row_uidx) >= 0)):
             R, A, S = runner.score_variant_span_pairs_rows(r_spans, a_spans, offsets, i_basis, row_uidx, W, bias)
         else:
@@ -558,30 +570,33 @@ def score_sed_serving(
         REF[ind_rows], ALT[ind_rows], SED[ind_rows] = R, A, S
 
     if win_rows.size:
-        R, A, S = _score_rows_via_windows(
-            genome, runner, chroms[win_rows], positions[win_rows], row_refs[win_rows], row_alts[win_rows],
-            shifts, np.ascontiguousarray(basis[:, win_rows]), W, bias, inputsize,
-        )
+        with profiling.span("sed.windows", rows=win_rows.size):
+            R, A, S = _score_rows_via_windows(
+                genome, runner, chroms[win_rows], positions[win_rows], row_refs[win_rows], row_alts[win_rows],
+                shifts, np.ascontiguousarray(basis[:, win_rows]), W, bias, inputsize,
+            )
         REF[win_rows], ALT[win_rows], SED[win_rows] = R, A, S
 
-    if distributed:
-        merged = dist.exchange_row_blocks(
-            {"REF": REF, "ALT": ALT, "SED": SED}, os.path.dirname(str(output_csv)) or ".", "sed_serving"
-        )
-        REF, ALT, SED = merged["REF"], merged["ALT"], merged["SED"]
+    with profiling.span("sed.table", rows=len(inputs.coor)):
+        if distributed:
+            merged = dist.exchange_row_blocks(
+                {"REF": REF, "ALT": ALT, "SED": SED}, os.path.dirname(str(output_csv)) or ".", "sed_serving"
+            )
+            REF, ALT, SED = merged["REF"], merged["ALT"], merged["SED"]
 
-    df = inputs.coor.copy()
-    df["dist"] = inputs.dist
-    df["gene"] = inputs.genename
-    df["strand"] = inputs.strand
-    names = model_names or [os.path.basename(p) for p in model_paths]
-    cols = {}
-    for j, name in enumerate(names):
-        cols[f"REF_{name}"] = REF[:, j]
-        cols[f"ALT_{name}"] = ALT[:, j]
-        # the device-computed difference, not ALT - REF re-derived on host
-        cols[name] = SED[:, j]
-    df = pd.concat([df, pd.DataFrame(cols, index=df.index)], axis=1)
-    if output_csv is not None:
-        _primary_write(distributed, "sed_serving.written", lambda: df.to_csv(output_csv, header=True, index=False))
+        df = inputs.coor.copy()
+        df["dist"] = inputs.dist
+        df["gene"] = inputs.genename
+        df["strand"] = inputs.strand
+        names = model_names or [os.path.basename(p) for p in model_paths]
+        cols = {}
+        for j, name in enumerate(names):
+            cols[f"REF_{name}"] = REF[:, j]
+            cols[f"ALT_{name}"] = ALT[:, j]
+            # the device-computed difference, not ALT - REF re-derived on host
+            cols[name] = SED[:, j]
+        df = pd.concat([df, pd.DataFrame(cols, index=df.index)], axis=1)
+        if output_csv is not None:
+            _primary_write(distributed, "sed_serving.written",
+                           lambda: df.to_csv(output_csv, header=True, index=False))
     return df

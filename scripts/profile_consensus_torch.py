@@ -45,8 +45,9 @@ def kernels_in_ranges(prof, spans) -> dict[str, dict]:
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
+    host = {e.name for e in prof.events() if e.device_type != cuda}  # the program's spans' ranges are no card work
     dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                 if e.device_type == cuda and e.name not in spans)
+                 if e.device_type == cuda and e.name not in spans and e.name not in host)
     starts = [d[0] for d in dev]
     ranges: dict[str, list] = {}
     for e in prof.events():

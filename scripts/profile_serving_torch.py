@@ -35,7 +35,8 @@ def device_summary(prof, spans) -> tuple[list, float, dict]:
     import torch
 
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    dev = [e for e in prof.events() if e.device_type == cuda and e.name not in spans]
+    host = {e.name for e in prof.events() if e.device_type == cpu}  # the program's spans' ranges are no card work
+    dev = [e for e in prof.events() if e.device_type == cuda and e.name not in spans and e.name not in host]
     by_name: dict[str, dict] = {}
     for e in dev:
         k = by_name.setdefault(e.name, {"name": e.name, "calls": 0, "device_ms": 0.0})

@@ -42,8 +42,8 @@ def test_every_port_module_imports_without_jax():
                 "expecto_tpu_torch.models.convert", "expecto_tpu_torch.cli.merge",
                 "expecto_tpu_torch.genome.closest_genes", "expecto_tpu_torch.cli.closest_genes",
                 "expecto_tpu_torch.analysis.interpret", "expecto_tpu_torch.cli.predict_by_cluster",
-                "expecto_tpu_torch.utils.timing", "expecto_tpu_torch.utils.profiling",
-                "expecto_tpu_torch.utils.manifest", "expecto_tpu_torch.bench", *ANALYSIS_MODULES]
+                "expecto_tpu_torch.utils.profiling", "expecto_tpu_torch.utils.manifest", "expecto_tpu_torch.bench",
+                *ANALYSIS_MODULES]
     assert set(required) <= set(mods)
     code = (
         "import sys, importlib\n"

@@ -1,74 +1,17 @@
-"""The port's host utilities (expecto_tpu_torch/utils/{timing,profiling,
-manifest}.py) vs the JAX package's, on the CPU: the stage timer with its
-sync callable, StageLogger's JSON lines, the shard manifest's file format
-and resume, and ``trace``'s Chrome trace (CPU activity here; the card's
-kernels are checked by chip_smoke.py)."""
+"""The port's host utilities (expecto_tpu_torch/utils/{profiling,
+manifest}.py) vs the JAX package's, on the CPU: the shard manifest's file
+format and resume, and ``trace``'s Chrome trace (CPU activity here; the
+card's kernels are checked by chip_smoke.py). The spans ``trace`` also
+writes are tested in tests/test_torch_tracing.py."""
 
-import io
 import json
-import time
 
 import pytest
 import torch
 
 from expecto_tpu.utils import manifest as jmanifest
-from expecto_tpu.utils import profiling as jprofiling
-from expecto_tpu.utils import timing as jtiming
 from expecto_tpu_torch.utils import manifest as tmanifest
 from expecto_tpu_torch.utils import profiling as tprofiling
-from expecto_tpu_torch.utils import timing as ttiming
-
-
-@pytest.mark.parametrize("mod", [ttiming, jtiming], ids=["port", "jax"])
-def test_timer_accumulates_stages_and_runs_sync_before_stopping(mod):
-    timer, calls = mod.Timer(), []
-
-    def sync():
-        time.sleep(0.02)
-        calls.append(1)
-
-    for _ in range(2):
-        with timer.stage("a", sync=sync):
-            pass
-    with timer.stage("b"):
-        time.sleep(0.01)
-    assert calls == [1, 1] and list(timer.stages) == ["a", "b"]
-    assert timer.stages["a"] >= 0.04 and timer.stages["b"] >= 0.01
-    text = timer.report()
-    assert text.startswith("a: ") and " | b: " in text and text.endswith("s")
-
-
-def test_timer_report_matches_jax():
-    timers = [ttiming.Timer(), jtiming.Timer()]
-    for t in timers:
-        t.stages = {"load": 1.23456, "score": 0.5}
-    assert timers[0].report() == timers[1].report() == "load: 1.235s | score: 0.500s"
-
-
-def _logged(mod, **kw) -> list[dict]:
-    stream = io.StringIO()
-    log = mod.StageLogger(stream=stream, **kw)
-    with log.stage("span", n_items=1000, unit="variants") as rec:
-        rec["chunks"] = 3
-    with log.stage("write"):
-        pass
-    with pytest.raises(RuntimeError):
-        with log.stage("fails", n_items=5):
-            raise RuntimeError("boom")
-    return [json.loads(line) for line in stream.getvalue().splitlines()]
-
-
-@pytest.mark.parametrize("kw", [{}, {"run_id": "r7"}], ids=["plain", "run_id"])
-def test_stage_logger_lines_match_jax(kw):
-    got, want = _logged(tprofiling, **kw), _logged(jprofiling, **kw)
-    assert len(got) == len(want) == 3
-    for g, w in zip(got, want):
-        assert list(g) == list(w)  # the same keys in the same order
-        assert {k: v for k, v in g.items() if k not in ("seconds", "per_sec")} == \
-               {k: v for k, v in w.items() if k not in ("seconds", "per_sec")}
-    assert got[0]["stage"] == "span" and got[0]["chunks"] == 3 and got[0]["unit"] == "variants"
-    assert got[2]["stage"] == "fails" and got[2]["n"] == 5  # a failing stage still logs
-    assert ("run_id" in got[1]) == bool(kw)
 
 
 @pytest.mark.parametrize("writer,reader", [(tmanifest, jmanifest), (jmanifest, tmanifest)],
