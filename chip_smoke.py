@@ -2082,9 +2082,9 @@ def entry_exit_phase(report: dict, inputs: dict, eff32: dict, sed_table, card: s
 
 def _gene_route_plan(runner, genes, genome) -> list[dict]:
     """How each strand group of compute_gene_features ships its chunks: the
-    2-bit wire with the N sideband, or 4 bits a base when a chunk of the
-    group passes the sideband's N budget (the runner decides per call, and
-    each group is one call); with each chunk's N count."""
+    2-bit wire with the N sideband, or 4 bits a base for a chunk that passes
+    the sideband's N budget (the runner decides per chunk); with each
+    chunk's N count."""
     import numpy as np
 
     from expecto_tpu_torch.genome.windows import gene_shifts
@@ -2095,8 +2095,8 @@ def _gene_route_plan(runner, genes, genome) -> list[dict]:
         spans = np.stack([gene_span_and_offsets(genome, genes[j].chrom, genes[j].tss, genes[j].strand)[0]
                           for j in idxs])
         n_per_chunk = [int((spans[i : i + GENE_ROWS] == 4).sum()) for i in range(0, len(idxs), GENE_ROWS)]
-        route = "2-bit" if runner._pack2_plan(spans, GENE_ROWS) is not None else "4-bit"
-        groups.append({"strand": "+" if offsets[0] == 0 else "-", "genes": len(idxs), "route": route,
+        routes = [f"{runner._chunk_wire(spans[i : i + GENE_ROWS])[0]}-bit" for i in range(0, len(idxs), GENE_ROWS)]
+        groups.append({"strand": "+" if offsets[0] == 0 else "-", "genes": len(idxs), "route_per_chunk": routes,
                        "n_bases_per_chunk": n_per_chunk})
     return groups
 

@@ -272,10 +272,10 @@ def ceiling_path(runner: BelugaRunner, work) -> TimedPath:
     variant when there are fewer."""
     ref_spans, mutpos, alt_alleles, offsets, span_len, basis, W, bias = work
     rows = min(runner._span_rows(len(offsets)), ref_spans.shape[0])
-    plan = runner._pack2_plan(ref_spans[:rows], rows)
-    if plan is None:
+    bits, wire = runner._chunk_wire(ref_spans[:rows])
+    if bits != 2:
         raise ValueError("the ceiling chunk is too N-dense for the 2-bit wire")
-    _start, real, p, rl, cl = next(iter(runner._pack2_chunks(plan, rows, rows)))
+    p, rl, cl = (runner._up(a) for a in wire)
     alt_a = runner._up(alt_alleles[:rows])
     basis_t = runner._up(np.ascontiguousarray(basis[:, :rows]).astype(runner._basis_wire_dtype))
     W_dev, bias_dev = runner._model_tensors(W, bias)
@@ -287,7 +287,7 @@ def ceiling_path(runner: BelugaRunner, work) -> TimedPath:
         out[0][0, 0].item()  # a scalar fetch: the chunk has finished
         return out
 
-    return TimedPath(warm=call, call=call, items=real)
+    return TimedPath(warm=call, call=call, items=rows)
 
 
 def gene_path(runner: BelugaRunner, n_genes: int) -> TimedPath:

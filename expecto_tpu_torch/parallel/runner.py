@@ -2,7 +2,7 @@
 expecto_tpu/parallel/runner.py).
 
 - the host ships compact base codes: 2 bits per base with N bases in a
-  sparse (row, col) sideband, or 4 bits per base for N-dense batches; the
+  sparse (row, col) sideband, or 4 bits per base for N-dense chunks; the
   device unpacks them to int8 codes, and conv0 gathers its weights by code
   (ops/conv0.py): no float one-hot tensor is built on any serving route;
 - the conv stack runs once per span and pool-2 phase (ops/spans.py), every
@@ -37,11 +37,13 @@ workers write them out.
 
 While a profiler records, the runner's spans (``utils/profiling.py``) mark
 each public method call (``runner.<method>``), its host work before the
-first chunk (``runner.plan``), each step of its chunk generator
-(``runner.produce``), each chunk from the start of its production to the
-end of its landing's wait (``runner.in_flight``), the caller blocked on the
-oldest landing (``runner.wait``) and a worker writing a chunk out
-(``runner.write``), with rows, bytes up and bytes down as counts.
+first chunk (``runner.plan``), each step of its chunk generator, which
+packs and sends up that chunk (``runner.produce``), each chunk from the
+start of its production to the end of its landing's wait
+(``runner.in_flight``), the caller blocked on the oldest landing
+(``runner.wait``) and a worker writing a chunk out (``runner.write``), with
+rows, bytes up, bytes down and ``pack4`` (a chunk on the 4-bit wire) as
+counts.
 """
 
 from __future__ import annotations
@@ -87,17 +89,18 @@ def unpack_codes(packed: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def pack_codes2(codes: np.ndarray):
-    """Pack four base codes per byte (2 bits/base); N bases (code 4) ride a
-    sparse (rows, cols) sideband. Returns (packed (N, ceil(L/4)) uint8,
-    rows, cols)."""
+    """Pack four base codes (0..4) per byte (2 bits/base); N bases (code 4)
+    ride a sparse (rows, cols) sideband. Returns (packed (N, ceil(L/4))
+    uint8, rows, cols)."""
     n, l = codes.shape
-    rows, cols = np.nonzero(codes == 4)
-    c = np.where(codes == 4, 0, codes).astype(np.uint8)
-    pad = (-l) % 4
-    if pad:
-        c = np.concatenate([c, np.zeros((n, pad), np.uint8)], axis=1)
-    q = c.reshape(n, (l + pad) // 4, 4)
-    packed = (q[:, :, 0] << 6) | (q[:, :, 1] << 4) | (q[:, :, 2] << 2) | q[:, :, 3]
+    # one flat scan: a 2-D np.nonzero takes several times as long
+    rows, cols = np.divmod(np.flatnonzero(codes == 4), l)
+    c = np.zeros((n, l + (-l) % 4), np.uint8)
+    np.bitwise_and(codes, 3, out=c[:, :l], casting="unsafe")  # N (4) -> 0
+    # four codes a little-endian 32-bit word, the first in its low byte:
+    # each code's two bits shifted into the low byte, the first highest
+    w = c.view("<u4")
+    packed = ((w << 6) | (w >> 4) | (w >> 14) | (w >> 24)).astype(np.uint8)
     return packed, rows.astype(np.int32), cols.astype(np.int32)
 
 
@@ -212,7 +215,7 @@ class BelugaRunner:
             result is written out (at least 1).
     """
 
-    #: per-chunk N-sideband budget of the 2-bit wire; denser batches ship
+    #: per-chunk N-sideband budget of the 2-bit wire; a denser chunk ships
     #: 4 bits per base instead (N-padded contig-edge spans hit this)
     PACK2_SIDE_BUDGET = 16384
 
@@ -349,50 +352,44 @@ class BelugaRunner:
         """Pairs per call for the two-span paths: each pair is two spans."""
         return max(self._span_rows(n_offsets) // 2, 1)
 
-    def _pack2_plan(self, span_codes: np.ndarray, rows: int):
-        """2-bit packing plan for chunks of ``rows`` spans, or None when a
-        chunk is too N-dense for the sparse sideband."""
-        n = span_codes.shape[0]
-        packed, n_rows, n_cols = pack_codes2(span_codes)
-        starts = list(range(0, n, rows))
-        bounds = [
-            (int(np.searchsorted(n_rows, s)), int(np.searchsorted(n_rows, min(s + rows, n)))) for s in starts
-        ]
-        if max((b - a for a, b in bounds), default=0) > self.PACK2_SIDE_BUDGET:
-            return None
-        return packed, n_rows, n_cols, starts, bounds
+    def _chunk_wire(self, codes: np.ndarray):
+        """One chunk's host wire and its bits a base: 2, (packed, n_rows,
+        n_cols) with the chunk's own N sideband, or 4, (packed,), when the
+        chunk holds more N bases than ``PACK2_SIDE_BUDGET``."""
+        packed, n_rows, n_cols = pack_codes2(codes)
+        if n_rows.size > self.PACK2_SIDE_BUDGET:
+            return 4, (pack_codes(codes),)
+        return 2, (packed, n_rows, n_cols)
 
-    def _pack2_chunks(self, plan, rows: int, n: int):
-        """Yield (start, real, packed, n_rows, n_cols) device tensors per chunk."""
-        packed, n_rows, n_cols, starts, bounds = plan
-        for start, (i0, i1) in zip(starts, bounds):
-            end = min(start + rows, n)
-            yield (start, end - start, self._up(packed[start:end]),
-                   self._up(n_rows[i0:i1] - start), self._up(n_cols[i0:i1]))
+    def _chunk_codes(self, codes: np.ndarray) -> torch.Tensor:
+        """One chunk's (N, L) int8 device codes, packed here on the wire
+        :meth:`_chunk_wire` chooses; a 4-bit chunk counts ``pack4``. Both
+        wires give the device the same codes."""
+        bits, wire = self._chunk_wire(codes)
+        if bits == 4:
+            profiling.count(pack4=1)
+            return unpack_codes(self._up(wire[0]), codes.shape[1])
+        packed, n_rows, n_cols = (self._up(a) for a in wire)
+        return unpack_codes2(packed, codes.shape[1], n_rows, n_cols)
 
     def _code_chunks(self, span_codes: np.ndarray, rows: int):
-        """An iterator of (start, (real, L) int8 device codes) per chunk of
-        ``rows`` spans: 2-bit packed with the N sideband, or 4-bit for
-        N-dense batches. The packing is done here, before the first chunk;
-        each chunk goes up as the iterator reaches it."""
-        n, span_len = span_codes.shape
-        plan = self._pack2_plan(span_codes, rows)
-        if plan is not None:
-            return ((start, unpack_codes2(p, span_len, rl, cl))
-                    for start, _real, p, rl, cl in self._pack2_chunks(plan, rows, n))
-        packed = pack_codes(span_codes)
-        return ((start, unpack_codes(self._up(packed[start : start + rows]), span_len)) for start in range(0, n, rows))
+        """Yield (start, (real, L) int8 device codes) per chunk of ``rows``
+        spans, each chunk packed and sent up as the generator reaches it."""
+        for start in range(0, span_codes.shape[0], rows):
+            yield start, self._chunk_codes(span_codes[start : start + rows])
 
     def _pair_chunks(self, ref_spans: np.ndarray, alt_spans: np.ndarray, rows: int):
-        """An iterator of (start, (2 * real, L) device codes interleaved per
-        pair, [r0, a0, r1, a1, ...]) per chunk of ``rows`` pairs: both
-        alleles run through the conv stack as one batch. Interleaved and
-        packed here, as :meth:`_code_chunks`."""
+        """Yield (start, (2 * real, L) device codes interleaved per pair,
+        [r0, a0, r1, a1, ...]) per chunk of ``rows`` pairs: both alleles run
+        through the conv stack as one batch. Each chunk's pairs are
+        interleaved and packed as the generator reaches them."""
         n, span_len = ref_spans.shape
-        inter = np.empty((2 * n, span_len), dtype=np.int8)
-        inter[0::2] = ref_spans
-        inter[1::2] = alt_spans
-        return ((start2 // 2, codes) for start2, codes in self._code_chunks(inter, 2 * rows))
+        for start in range(0, n, rows):
+            stop = min(start + rows, n)
+            inter = np.empty((2 * (stop - start), span_len), dtype=np.int8)
+            inter[0::2] = ref_spans[start:stop]
+            inter[1::2] = alt_spans[start:stop]
+            yield start, self._chunk_codes(inter)
 
     def _pair_diff_jobs(self, ref_spans, alt_spans, offsets, with_ref: bool):
         """Jobs of (start, real, :meth:`_pair_diff_wire` on its way to the
@@ -416,15 +413,12 @@ class BelugaRunner:
         return y.to(self._wire)
 
     @staticmethod
-    def _row_chunk_plan(row_uidx: np.ndarray, n_u: int, rows: int):
-        """Chunks of ``rows`` unique variants for (variant, gene) rows whose
-        nondecreasing ``row_uidx`` maps them onto unique variants:
-        (chunk starts, per-chunk row bounds)."""
-        starts = list(range(0, n_u, rows))
-        r_bounds = [
-            (int(np.searchsorted(row_uidx, s)), int(np.searchsorted(row_uidx, min(s + rows, n_u)))) for s in starts
-        ]
-        return starts, r_bounds
+    def _row_chunk_bounds(row_uidx: np.ndarray, n_u: int, rows: int):
+        """Row bounds (r0, r1) of each chunk of ``rows`` unique variants, for
+        (variant, gene) rows whose nondecreasing ``row_uidx`` maps them onto
+        unique variants."""
+        return [(int(np.searchsorted(row_uidx, s)), int(np.searchsorted(row_uidx, min(s + rows, n_u))))
+                for s in range(0, n_u, rows)]
 
     def _model_tensors(self, W: np.ndarray, bias: np.ndarray):
         return self._up(np.asarray(W, dtype=np.float32)), self._up(np.asarray(bias, dtype=np.float32))
@@ -779,7 +773,7 @@ class BelugaRunner:
         """Fused SED serving of explicit (ref, alt) span pairs: (N, span_len)
         spans + (S, N, B) decay basis + stacked model weights (F, K) ->
         (REF, ALT, SED), each (N, K). Both spans ship 2-bit packed,
-        interleaved per variant, or 4-bit for N-dense batches."""
+        interleaved per variant, or 4-bit for N-dense chunks."""
         with profiling.span("runner.plan", rows=len(ref_spans)):
             ref_spans = np.asarray(ref_spans, dtype=np.int8)
             alt_spans = np.asarray(alt_spans, dtype=np.int8)
@@ -807,7 +801,7 @@ class BelugaRunner:
         """Fused SED serving from one span per variant: (N, span_len) ref
         spans + (N, A) alt-allele codes spliced on the device at ``mutpos``
         (-1 keeps the reference base). Spans ship 2-bit packed, or 4-bit for
-        N-dense batches."""
+        N-dense chunks."""
         with profiling.span("runner.plan", rows=len(ref_spans)):
             ref_spans = np.asarray(ref_spans, dtype=np.int8)
             alt_alleles = np.asarray(alt_alleles, dtype=np.int8)
@@ -845,23 +839,16 @@ class BelugaRunner:
             offsets = tuple(int(o) for o in offsets)
             n_u, span_len = ref_spans_u.shape
             rows = self._span_rows(len(offsets))
-            plan = self._pack2_plan(ref_spans_u, rows)
-            if plan is not None:
-                REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
-                basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
-                _starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
-                W_dev, bias_dev = self._model_tensors(W, bias)
-        if plan is None:
-            # N-dense: expand and take the per-row path
-            return self.score_variant_spans_packed(
-                ref_spans_u[row_uidx], mutpos, alt_alleles_u[row_uidx], offsets, basis_rows, W, bias
-            )
+            REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
+            basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
+            r_bounds = self._row_chunk_bounds(row_uidx, n_u, rows)
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            chunks = self._code_chunks(ref_spans_u, rows)
 
         def jobs():
-            for (r0, r1), (start, real_u, p, rl, cl) in zip(r_bounds, self._pack2_chunks(plan, rows, n_u)):
-                alt_a = self._up(alt_alleles_u[start : start + real_u])
+            for (r0, r1), (start, ref) in zip(r_bounds, chunks):
+                alt_a = self._up(alt_alleles_u[start : start + ref.shape[0]])
                 idx, basis_t = self._up(row_uidx[r0:r1] - start), self._up(basis_wire[:, r0:r1])
-                ref = unpack_codes2(p, span_len, rl, cl)
                 p_ref, p_alt = self._preds_from_ref(ref, alt_a, offsets, span_len, int(mutpos))
                 yield r0, r1 - r0, self._fetch(*self._ref_sed(p_ref[idx], p_alt[idx], basis_t, W_dev, bias_dev))
 
@@ -874,7 +861,8 @@ class BelugaRunner:
         """Pair serving (indels) over (variant, gene) rows sharing variants:
         both conv stacks run once per UNIQUE (ref, alt) span pair; each row
         scores its own decay basis against a device-side gather of its
-        variant's tracks. Spans ship 2-bit packed, interleaved per pair."""
+        variant's tracks. Spans ship 2-bit packed, interleaved per pair, or
+        4-bit for N-dense chunks."""
         with profiling.span("runner.plan", rows=len(ref_spans_u)):
             ref_spans_u = np.asarray(ref_spans_u, dtype=np.int8)
             alt_spans_u = np.asarray(alt_spans_u, dtype=np.int8)
@@ -882,28 +870,16 @@ class BelugaRunner:
             offsets = tuple(int(o) for o in offsets)
             n_u, span_len = ref_spans_u.shape
             rows = self._pair_rows(len(offsets))
-
-            inter = np.empty((2 * n_u, span_len), dtype=np.int8)
-            inter[0::2] = ref_spans_u
-            inter[1::2] = alt_spans_u
-            plan = self._pack2_plan(inter, 2 * rows)
-            if plan is not None:
-                REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
-                basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
-                starts, r_bounds = self._row_chunk_plan(row_uidx, n_u, rows)
-                W_dev, bias_dev = self._model_tensors(W, bias)
-        if plan is None:
-            # N-dense: expand and take the per-row pair path
-            return self.score_variant_spans(
-                ref_spans_u[row_uidx], alt_spans_u[row_uidx], offsets, basis_rows, W, bias
-            )
+            REF, ALT, SED = self._outputs(row_uidx.shape[0], W.shape[1])
+            basis_wire = basis_rows.astype(self._basis_wire_dtype, copy=False)
+            r_bounds = self._row_chunk_bounds(row_uidx, n_u, rows)
+            W_dev, bias_dev = self._model_tensors(W, bias)
+            chunks = self._pair_chunks(ref_spans_u, alt_spans_u, rows)
 
         def jobs():
-            for start, (r0, r1), (_s2, _r2, p, rl, cl) in zip(
-                starts, r_bounds, self._pack2_chunks(plan, 2 * rows, 2 * n_u)
-            ):
+            for (r0, r1), (start, codes) in zip(r_bounds, chunks):
                 idx, basis_t = self._up(row_uidx[r0:r1] - start), self._up(basis_wire[:, r0:r1])
-                pair = unpack_codes2(p, span_len, rl, cl).reshape(-1, 2, span_len)
+                pair = codes.reshape(-1, 2, span_len)
                 p_ref = self._pair_span_preds(pair[:, 0], offsets)
                 p_alt = self._pair_span_preds(pair[:, 1], offsets)
                 yield r0, r1 - r0, self._fetch(*self._ref_sed(p_ref[idx], p_alt[idx], basis_t, W_dev, bias_dev))

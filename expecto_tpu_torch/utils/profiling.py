@@ -11,9 +11,10 @@ profiler's timeline beside the card's kernels and copies:
   the same name and keeps a :class:`Span`: name, start and end on
   ``time.time_ns()`` (the clock of the profiler's host events), its id, its
   parent's and its root's, the thread and its counts (rows, bytes up, bytes
-  down). ``device``, a CUDA device, adds two timing events on its current
-  stream, whose elapsed time is resolved when the span is read: no
-  synchronise is added (a CPU device adds none). With no profiler
+  down, ``pack4``: a runner chunk sent 4 bits a base). ``device``, a CUDA
+  device, adds two timing events on its current stream, whose elapsed time
+  is resolved when the span is read: no synchronise is added (a CPU device
+  adds none). With no profiler
   recording, ``span`` returns the shared no-op :data:`OFF` after one check.
   ``spanned(name)`` puts each call of a function in such a span.
 - ``begin(name, **counts)``: a span ended by its ``end()``, from any

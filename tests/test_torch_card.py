@@ -512,7 +512,8 @@ def _h5_pairs(n, seed):
 @pytest.mark.parametrize("budget", [None, 0], ids=["pack2", "dense"])
 def test_h5_runner_methods_fp32_on_card_match_cpu(cuda, budget):
     """fp32 on the card against fp32 on the CPU, rtol 1e-4 atol 1e-5 (as the
-    serving runner); budget 0 sends every chunk down the N-dense route."""
+    serving runner); budget 0 sends every chunk that holds an N down the
+    N-dense route."""
     params = narrow_params(7)
     card = BelugaRunner(params, batch_size=16, device="cuda")
     cpu = BelugaRunner(params, batch_size=16, device="cpu")
@@ -663,9 +664,10 @@ def test_gene_features_n_dense_chunk_on_the_4bit_route(cuda):
     spans = _gene_spans(2, seed=18)
     spans[0, :19_000] = 4
     offsets = GENE_OFFSETS["plus"]
-    assert card._pack2_plan(spans, card._span_rows(200)) is None
+    assert card._span_rows(200) == 2 and card._chunk_wire(spans)[0] == 4  # one chunk of both spans
     dense = card.predict_spans_project(spans, offsets, GENE_POS_WEIGHTS)
     card.PACK2_SIDE_BUDGET = 10**6
+    assert card._chunk_wire(spans)[0] == 2
     np.testing.assert_array_equal(card.predict_spans_project(spans, offsets, GENE_POS_WEIGHTS), dense)
     cpu = BelugaRunner(params, batch_size=400, device="cpu").predict_spans_project(spans, offsets, GENE_POS_WEIGHTS)
     np.testing.assert_allclose(dense, cpu, rtol=0, atol=_feat_tol(cpu))

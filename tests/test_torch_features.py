@@ -140,14 +140,15 @@ def test_predict_spans_project_matches_jax(tiny_genome, runners, budget, monkeyp
 
 def test_wire_routes_give_the_same_features(tiny_genome, runners, monkeypatch):
     """The N-dense edge gene G4 (19,000 N) ships 4 bits a base by itself;
-    with the budget raised it ships 2 bits and an N sideband. Same device
-    codes, so the same features."""
+    with the budget raised its chunk ships 2 bits and an N sideband. Same
+    device codes, so the same features."""
     fa, _ = tiny_genome
     _jr, tr = runners
     span, offsets = _span(fa, "G4")
-    assert tr._pack2_plan(span[None], tr._span_rows(200)) is None
+    assert tr._chunk_wire(span[None])[0] == 4
     dense = tr.predict_spans_project(span[None], offsets, POS_WEIGHTS)
     monkeypatch.setattr(tr, "PACK2_SIDE_BUDGET", 10**6)
+    assert tr._chunk_wire(span[None])[0] == 2
     np.testing.assert_array_equal(tr.predict_spans_project(span[None], offsets, POS_WEIGHTS), dense)
 
 

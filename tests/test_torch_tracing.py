@@ -206,6 +206,35 @@ def test_runner_chunks_write_under_their_method_span(params, workers):
         assert m.start_ns <= s.start_ns <= s.end_ns <= m.end_ns, s.name
 
 
+@pytest.mark.parametrize("method", ["score_variant_spans_packed_rows", "score_variant_span_pairs_rows"])
+def test_produce_spans_count_pack4_for_the_n_dense_chunks(params, method):
+    """Five unique variants, one a chunk, the second and fourth spans
+    N-dense (2,000 N, past a budget of 1,000): their ``runner.produce``
+    steps, and only theirs, carry ``pack4`` 1; the plan packs nothing."""
+    rng = np.random.default_rng(6)
+    span_len, offsets = 2800, (0, 200, 400, 600, 800)
+    spans = random_codes(rng, 5, span_len)
+    spans[[1, 3], :2000] = 4
+    row_uidx = np.array([0, 1, 1, 2, 3, 4])
+    basis = rng.random((len(offsets), len(row_uidx), 10)).astype(np.float32)
+    W, bias = (rng.standard_normal((10 * 2002, 2)) * 0.05).astype(np.float32), np.zeros(2, np.float32)
+    pairs = method == "score_variant_span_pairs_rows"
+    runner = BelugaRunner(params, batch_size=len(offsets) * (2 if pairs else 1), device="cpu")
+    runner.PACK2_SIDE_BUDGET = 1000
+    if pairs:
+        call = lambda: runner.score_variant_span_pairs_rows(spans, random_codes(rng, 5, span_len), offsets, basis,
+                                                            row_uidx, W, bias)
+    else:
+        alt = np.full((5, 1), -1, np.int8)
+        call = lambda: runner.score_variant_spans_packed_rows(spans, 1399, alt, offsets, basis, row_uidx, W, bias)
+    _out, spans_, _prof = _profiled(call)
+    produced = [s for s in spans_ if s.name == "runner.produce"]
+    assert [s.counts.get("pack4") for s in produced] == [None, 1, None, 1, None, None]  # the sixth finds it done
+    plan = next(s for s in spans_ if s.name == "runner.plan")
+    assert "pack4" not in plan.counts
+    assert plan.counts["bytes_up"] == W.nbytes + bias.nbytes
+
+
 def test_score_sed_serving_spans(tiny_genome, params, tables, model_paths):
     """A scoring call: one ``sed.score`` root over every stage span, the
     three runner methods of the fixture's routes, and one
